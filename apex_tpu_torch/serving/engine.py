@@ -52,8 +52,9 @@ DEFAULT_BUCKETS: Tuple[int, ...] = (32, 128, 512)
 class StepOutput(NamedTuple):
     """One engine step's host-visible result, in the JAX engines' form
     (``tokens`` ``(max_slots, width)``, ``counts[i]`` real tokens of row
-    i).  The dense engine's ``step`` returns the plain
-    ``(tokens, finished)`` pair; the scheduler takes either."""
+    i).  Nothing in this package builds it yet: the dense engine's
+    ``step`` returns a plain ``(tokens, finished)`` pair, which is all
+    the scheduler reads.  The paged engine (ROADMAP A-3) will return it."""
 
     tokens: np.ndarray
     finished: np.ndarray

@@ -39,6 +39,9 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
+# H100 SXM INT32: 64 lanes per SM x 132 SMs x 1.98 GHz, counted as the
+# fp32 rate is (a multiply-add as two operations)
+INT32_OPS_PER_S = 33.5e12
 VOCAB = 32000
 
 KERNELS = {
@@ -92,9 +95,12 @@ def _device_us(event):
                    getattr(event, "self_cuda_time_total", 0))
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, int_ops=0):
+    """Least time (ms) for the work, and what bounds it: ``nbytes`` over
+    the memory rate against ``ops`` fp32 operations and ``int_ops``
+    int32 operations over their peak rates."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = max(ops / FP32_OPS_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -124,10 +130,10 @@ def phase_kernels(torch, rows_out):
     ok = True
 
     def record(kernel, shape, dtype, err, passed, kern, plain, nbytes,
-               ops, lib, tol):
+               ops, lib, tol, int_ops=0):
         """``kern`` / ``plain`` / ``lib``: functions to time (lib may be
         None); times are device ms per call, call ms beside them."""
-        bms, by = bound(nbytes, ops)
+        bms, by = bound(nbytes, ops, int_ops)
         iters = 20 if kernel == "fused_sampling" else 50
         t_k, t_p = timed(torch, kern, iters), timed(torch, plain, iters)
         t_l = None if lib is None else timed(torch, lib, iters)
@@ -137,7 +143,7 @@ def phase_kernels(torch, rows_out):
                    library_ms=None if t_l is None else t_l[0],
                    library_call_ms=None if t_l is None else t_l[1],
                    bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops,
-                   tolerance=tol)
+                   int_ops=int_ops, tolerance=tol)
         rows_out.append(row)
         lib_txt = "-" if t_l is None else f"{t_l[0]:.5f}/{t_l[1]:.4f}"
         log(f"  {kernel:15s} {str(shape):18s} {str(dtype)[6:]:9s} "
@@ -217,22 +223,27 @@ def phase_kernels(torch, rows_out):
                              shape, dt, err, passed, kern, plain, nbytes,
                              ops, None, tol)
 
-    # fused sampling over a grid of row kinds
-    grids = {
-        (4, 32000): [
-            # (temperature, top_k, top_p)
-            [(0.0, 0, 0.0), (0.8, 0, 0.0), (1.0, 40, 0.0), (0.9, 0, 0.9)],
-            [(0.7, 50, 0.8), (1.2, 5, 0.5), (1.0, 0, 0.0), (0.0, 0, 0.0)],
-        ],
-        (8, 128256): [
+    # fused sampling over a grid of row kinds: fp32 at the served and
+    # the 128k-vocab shapes, and bf16 at the served shape, which is what
+    # the Llama-2-7B bf16 head hands the engine
+    grid_4 = [
+        # (temperature, top_k, top_p)
+        [(0.0, 0, 0.0), (0.8, 0, 0.0), (1.0, 40, 0.0), (0.9, 0, 0.9)],
+        [(0.7, 50, 0.8), (1.2, 5, 0.5), (1.0, 0, 0.0), (0.0, 0, 0.0)],
+    ]
+    grids = [
+        ((4, 32000), torch.float32, grid_4),
+        ((4, 32000), torch.bfloat16, grid_4),
+        ((8, 128256), torch.float32, [
             [(0.0, 0, 0.0), (0.0, 0, 0.0), (1.0, 0, 0.0), (0.6, 0, 0.0),
              (1.0, 100, 0.0), (0.8, 0, 0.95), (0.7, 40, 0.9),
              (1.1, 1000, 0.5)],
-        ],
-    }
-    for (rows, vocab), configs in grids.items():
+        ]),
+    ]
+    for (rows, vocab), dt, configs in grids:
         for gi, cfgs in enumerate(configs):
-            logits = 2.0 * torch.randn(rows, vocab, generator=g, device=dev)
+            logits = (2.0 * torch.randn(rows, vocab, generator=g,
+                                        device=dev)).to(dt)
             t = torch.tensor([c[0] for c in cfgs], device=dev)
             k = torch.tensor([c[1] for c in cfgs], dtype=torch.int32,
                              device=dev)
@@ -252,30 +263,37 @@ def phase_kernels(torch, rows_out):
             passed = len(mism) == len(ties)
             err = float((y.long() - r.long()).abs().max())
             nbytes = fs.sampling_cost_bytes(rows, vocab, logits.dtype)
-            ops = sum(_sampling_ops(vocab, c) for c in cfgs)
-            log(f"  sampling grid {gi}: kernel {y.tolist()} plain "
-                f"{r.tolist()} nucleus ties {ties}")
+            fp_ops = sum(_sampling_ops(vocab, c)[0] for c in cfgs)
+            int_ops = sum(_sampling_ops(vocab, c)[1] for c in cfgs)
+            log(f"  sampling {str(dt)[6:]} grid {gi}: kernel {y.tolist()} "
+                f"plain {r.tolist()} nucleus ties {ties}")
             ok &= record("fused_sampling", (rows, vocab), logits.dtype,
-                         err, passed, kern, plain, nbytes, ops, None,
-                         "tokens equal (nucleus-boundary ties excepted)")
+                         err, passed, kern, plain, nbytes, fp_ops, None,
+                         "tokens equal (nucleus-boundary ties excepted)",
+                         int_ops=int_ops)
     return ok
 
 
 def _sampling_ops(vocab, cfg):
-    """Scalar operations the kernel does on one row with ``cfg``:
-    greedy rows sweep once (compare); sampled rows divide and take the
-    max (2), run 32 count sweeps for top-k (5 each), the Z sweep and 32
-    mass sweeps for top-p (8 each), and the Gumbel sweep (threefry's
-    20 rounds of add/rotate/xor plus key injection and two logs: ~130)."""
+    """``(fp32, int32)`` operations that any implementation of sampling
+    must do on one row with ``cfg`` — not this kernel's own passes.
+
+    A greedy row compares each element once.  A sampled row, per
+    element: the temperature scale, the noise (threefry-2x32: 2 key
+    adds, 20 rounds of add/rotate/xor, 5 key injections of 2 adds, then
+    xor/shift/or of the lanes = 75 int32 operations; the float from the
+    bits, the floor, two logs and two negations = 8 fp32), the add to
+    the logit and the argmax compare; one compare more for top-k, and an
+    exp, an add (the mass Z) and a compare for top-p."""
     temp, top_k, top_p = cfg
     if temp <= 0:
-        return vocab
-    ops = 2 + 130
+        return vocab, 0
+    fp = 1 + 8 + 2
     if 0 < top_k < vocab:
-        ops += 32 * 5
+        fp += 1
     if 0 < top_p < 1:
-        ops += 8 + 32 * 8
-    return vocab * ops
+        fp += 3
+    return vocab * fp, vocab * 75
 
 
 def _nucleus_tie(torch, row, cfg, tok_a, tok_b):
@@ -395,27 +413,32 @@ def phase_serve(torch, profile=False):
     ok &= finite
     peak = torch.cuda.max_memory_allocated()
     # steady decode: all four slots live near the 512-token bucket, one
-    # engine step (batched forward + fused sampling + the host sync)
+    # engine step (batched forward + fused sampling + the host sync) is
+    # one token per slot; every step of three 16-step windows is timed
     eng = srv.engine
     for slot in range(eng.max_slots):
         eng.admit(slot, prompts[-1 - slot], max_new_tokens=64)
     eng.step()
-    windows = []                    # three windows of 16 steps: spread
+    step_ms, windows = [], []
     for _ in range(3):
-        t0 = time.monotonic()
+        t_w = time.monotonic()
         for _ in range(16):
+            t0 = time.monotonic()
             eng.step()
-        windows.append((time.monotonic() - t0) / 16 * 1e3)
-    step_s = sorted(windows)[1] / 1e3
+            step_ms.append((time.monotonic() - t0) * 1e3)
+        windows.append((time.monotonic() - t_w) / 16 * 1e3)
+    decode_s = sum(step_ms) / 1e3
     prof = _profile_steps(torch, eng) if profile else None
     for slot in range(eng.max_slots):
         eng.release(slot)
     stats = dict(requests=len(results), tokens=ntok, steps=steps,
                  wall_s=wall, warmup_s=warm_s,
-                 tokens_per_s=ntok / wall, launches=launches,
-                 decode_step_ms=step_s * 1e3,
+                 serve_tokens_per_s=ntok / wall, launches=launches,
+                 decode_steps=len(step_ms), decode_s=decode_s,
+                 decode_tokens_per_s=len(step_ms) * eng.max_slots / decode_s,
                  decode_step_ms_windows=windows,
-                 decode_tokens_per_s=eng.max_slots / step_s,
+                 decode_step_ms_min=min(step_ms),
+                 decode_step_ms_max=max(step_ms),
                  peak_bytes=peak, logits_finite=finite, **lat)
     log(f"  {json.dumps(stats)}")
     if prof is not None:
@@ -508,7 +531,7 @@ def main(argv=None):
     pick = {"layer_norm": ("rms_norm", (4, 4096), "torch.bfloat16"),
             "rope": ("rope/per_row", (4, 1, 32, 128), "torch.bfloat16"),
             "fused_sampling": ("fused_sampling", (4, 32000),
-                               "torch.float32")}
+                               "torch.bfloat16")}
     kernels = []
     for name, (kname, shape, dt) in pick.items():
         match = [r for r in rows if r["kernel"] == kname
