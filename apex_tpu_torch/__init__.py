@@ -7,10 +7,14 @@ the JAX package has a Pallas TPU kernel, a CUDA kernel written by hand
 for ``sm_90a`` (``apex_tpu_torch/csrc``) that is held against that
 composition on the card.
 
-This slice ports dense continuous-batching serving: the Llama/GPT
-decoder (``models``), the slotted engine, scheduler and threaded
-server (``serving``), and the three kernels that path launches —
-RMSNorm/LayerNorm forward, RoPE and fused decode-step sampling.
+Slice 1 ports dense continuous-batching serving: the Llama/GPT decoder
+(``models``), the slotted engine, scheduler and threaded server
+(``serving``), and the kernels that path launches — RMSNorm/LayerNorm
+forward, RoPE and fused decode-step sampling.  Slice 2 ports BERT-Large
+amp O2 training: ``amp`` and ``core`` (precision policy, loss scaling,
+train state), ``optim.fused_adam``, the cross-entropy, the
+full-sequence transformer and ``models.bert``, with kernels for the
+LayerNorm backward and flash attention (forward, dq, dk/dv).
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise
 when CUDA is unavailable unless the caller passes ``device="cpu"``.

@@ -11,8 +11,9 @@ one is reused.  A failed build raises with the compiler's output.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception.  The wrappers
-count their launches in :data:`launches` — one per kernel launch, and
-nowhere else — so a run can show which kernels its path went through.
+count their launches in :data:`launches`, keyed by kernel entry (one
+library may hold several kernels) — one per kernel launch, and nowhere
+else — so a run can show which kernels its path went through.
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ from typing import Dict
 
 import torch
 
-__all__ = ["SOURCES", "DTYPE_CODES", "build_dir", "build_all", "function",
-           "check", "launches", "reset_launches"]
+__all__ = ["SOURCES", "ENTRIES", "DTYPE_CODES", "build_dir", "build_all",
+           "function", "check", "launches", "reset_launches"]
 
 _PKG = Path(__file__).resolve().parent
 #: kernel library name -> source file under csrc/
@@ -37,15 +38,21 @@ SOURCES: Dict[str, str] = {
     "layer_norm": "layer_norm.cu",
     "rope": "rope.cu",
     "fused_sampling": "fused_sampling.cu",
+    "flash_attention": "flash_attention.cu",
 }
+#: kernel entries, the keys of :data:`launches` (the library of SOURCES
+#: each lives in is the name's prefix)
+ENTRIES = ("layer_norm", "layer_norm_bwd", "rope", "fused_sampling",
+           "flash_attention_fwd", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 #: dtype codes shared by every C entry point (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-#: launches per kernel since the last :func:`reset_launches`
-launches: Dict[str, int] = {name: 0 for name in SOURCES}
+#: launches per kernel entry since the last :func:`reset_launches`
+launches: Dict[str, int] = {name: 0 for name in ENTRIES}
 
 _lock = threading.Lock()
 _paths: Dict[str, Path] = {}

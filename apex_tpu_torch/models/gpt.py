@@ -1,11 +1,13 @@
-"""GPT — decoder-only language model, dense KV-cached decode.
+"""GPT — decoder-only language model.
 
 Counterpart of ``apex_tpu/models/gpt.py``: token embedding (plus learned
 absolute positions for GPT-2-style configs), the stacked transformer,
-the final norm and a tied or untied vocabulary head.  The forward is
-the decode-mode one (``decode=True`` in the JAX module): it runs
-``input_ids`` against a KV cache, writes their K/V, advances the cache
-index and returns logits ``(batch, seq, vocab)`` in ``cfg.dtype``.
+the final norm and a tied or untied vocabulary head.  Without a cache
+the forward runs the full sequence with causal flash attention (the JAX
+module's ``decode=False``, the training forward); with one it is the
+decode-mode forward: it runs ``input_ids`` against the KV cache, writes
+their K/V and advances the cache index.  Logits ``(batch, seq, vocab)``
+in ``cfg.dtype`` either way.
 """
 
 from __future__ import annotations
@@ -21,15 +23,18 @@ from apex_tpu_torch.models.transformer import (
     Norm,
     ParallelTransformer,
     TransformerConfig,
+    dropout_seeds,
+    init_module_weights,
 )
 from apex_tpu_torch.ops._dispatch import resolve_device
+from apex_tpu_torch.ops.xentropy import mean_cross_entropy
 from apex_tpu_torch.ops.rope import rope_cos_sin
 from apex_tpu_torch.transformer.layers import (
     ColumnParallelLinear,
     VocabParallelEmbedding,
 )
 
-__all__ = ["GPTConfig", "GPTModel"]
+__all__ = ["GPTConfig", "GPTModel", "gpt_loss_fn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,31 +100,29 @@ class GPTModel(nn.Module):
     def device(self) -> torch.device:
         return self.embedding.weight.device
 
-    @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None):
         """Random weights from ``generator`` (on the model's device):
         normal embeddings (std 0.02), fan-in-scaled linears, unit
         norms with zero bias."""
-        for mod in self.modules():
-            if hasattr(mod, "init_weights") and mod is not self:
-                mod.init_weights(generator)
-            elif isinstance(mod, Norm):
-                mod.weight.fill_(1.0)
-                if mod.bias is not None:
-                    mod.bias.zero_()
+        init_module_weights(self, generator)
         if self.position_embedding is not None:
-            self.position_embedding.normal_(0.0, 0.02, generator=generator)
+            with torch.no_grad():
+                self.position_embedding.normal_(0.0, 0.02,
+                                                generator=generator)
 
-    def forward(self, input_ids, *, cache=None, kv_len: Optional[int] = None):
-        """Decode-mode forward of ``input_ids`` (b, s) against ``cache``
-        (from :func:`~apex_tpu_torch.models.generate.init_cache`), each
-        row at its own cache index.  ``kv_len`` bounds the cache slots
-        any row can see after this call (``max(index) + s``; default the
-        whole cache)."""
+    def forward(self, input_ids, *, cache=None, kv_len: Optional[int] = None,
+                deterministic: bool = True,
+                dropout_seed: Optional[int] = None):
+        """Logits of ``input_ids`` (b, s).
+
+        Without ``cache``: the full sequence, causal (``deterministic=
+        False`` with an integer ``dropout_seed`` turns the config's
+        dropouts on).  With ``cache`` (from :func:`~apex_tpu_torch.
+        models.generate.init_cache`): decode, each row at its own cache
+        index; ``kv_len`` bounds the cache slots any row can see after
+        this call (``max(index) + s``; default the whole cache)."""
         if cache is None:
-            raise NotImplementedError(
-                "the full-sequence (decode=False) forward comes with "
-                "ROADMAP.md A-2, the training slice")
+            return self._full(input_ids, deterministic, dropout_seed)
         cfg = self.cfg
         b, s = input_ids.shape
         index = cache["index"]
@@ -137,7 +140,32 @@ class GPTModel(nn.Module):
         x = x.to(cfg.dtype)
         x = self.transformer(x, cache, step)
         index += s
-        x = self.final_norm(x).to(cfg.dtype)
+        return self._head(x)
+
+    def _head(self, x):
+        x = self.final_norm(x).to(self.cfg.dtype)
         if self.lm_head is None:
             return self.embedding.attend(x)
         return self.lm_head(x)
+
+    def _full(self, input_ids, deterministic, dropout_seed):
+        cfg = self.cfg
+        s = input_ids.shape[1]
+        if s > cfg.max_seq_len:
+            raise ValueError(
+                f"sequence length {s} exceeds max_seq_len {cfg.max_seq_len}")
+        x = self.embedding(input_ids)
+        if self.position_embedding is not None:
+            x = x + self.position_embedding[None, :s].to(x.dtype)
+        x = x.to(cfg.dtype)
+        rope = None
+        if cfg.position_embedding == "rope":
+            rope = (self.rope_cos[:s], self.rope_sin[:s])
+        x = self.transformer(x, rope=rope, seeds=dropout_seeds(
+            cfg, deterministic, dropout_seed))
+        return self._head(x)
+
+
+def gpt_loss_fn(logits, labels, *, ignore_index: int = -100):
+    """Next-token CE averaged over valid tokens (fp32)."""
+    return mean_cross_entropy(logits, labels, ignore_index=ignore_index)

@@ -1,9 +1,9 @@
 """Load the JAX package's parameters into the port's models.
 
 :func:`params_from_jax` turns the flax parameter tree of an
-``apex_tpu.models.GPTModel`` / ``LlamaModel`` — numpy leaves, as
-``jax.device_get`` gives them — into a ``state_dict`` for
-:class:`apex_tpu_torch.models.GPTModel` under the same config.  Both
+``apex_tpu.models.GPTModel`` / ``LlamaModel`` / ``BertModel`` — numpy
+leaves, as ``jax.device_get`` gives them — into a ``state_dict`` for
+the port's model of the same class under the same config.  Both
 layer layouts load: the scanned stack (``scan_layers=True``: one
 ``transformer/layers/layer`` subtree whose leaves carry a leading layer
 axis) and the unrolled one (``transformer/layer_<i>`` subtrees).  Dense
@@ -60,7 +60,8 @@ def _linear(out: Dict[str, Any], prefix: str, tree: Mapping) -> None:
 
 
 def params_from_jax(params_np: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """State dict for ``GPTModel(cfg)`` from the JAX model's params.
+    """State dict for ``GPTModel(cfg)`` or ``BertModel(cfg)`` (a tree
+    with ``emb_norm_scale``) from the JAX model's params.
 
     ``params_np``: the ``params`` collection (or a dict holding it under
     ``"params"``) with array leaves.  Returns CPU tensors in the JAX
@@ -81,7 +82,16 @@ def params_from_jax(params_np: Mapping, cfg) -> Dict[str, torch.Tensor]:
                 if name in layer[block]:
                     _linear(out, f"{pre}.{block}.{name}",
                             layer[block][name])
-    _norm(out, "final_norm", p["final_norm"])
+    if "emb_norm_scale" in p:                   # BERT
+        for name in ("token_type_embedding", "emb_norm_scale",
+                     "emb_norm_bias", "mlm_bias"):
+            if name in p:
+                out[name] = _arr(p[name])
+        _linear(out, "mlm_dense", p["mlm_dense"])
+        _norm(out, "mlm_norm", p["mlm_norm"])
+        _linear(out, "pooler", p["pooler"])
+    else:
+        _norm(out, "final_norm", p["final_norm"])
     if "lm_head" in p:
         _linear(out, "lm_head", p["lm_head"])
     # numpy has no native bfloat16: such leaves load through fp32

@@ -1,14 +1,23 @@
-"""Decoder transformer core — the dense KV-cached decode path.
+"""Transformer core — the full-sequence (training) path and the dense
+KV-cached decode path.
 
-Counterpart of ``apex_tpu/models/transformer.py`` for the path the
-dense serving engine runs: pre-norm layers of qkv projection → RoPE →
-cache write → attention over the cache → output projection → residual
-→ norm → MLP → residual.  The norms and RoPE go through the port's CUDA
-kernels; the products are ``torch.nn.functional.linear`` and the cache
-attention is plain PyTorch, as the JAX package leaves it to XLA.
+Counterpart of ``apex_tpu/models/transformer.py``: pre-norm layers of
+qkv projection → RoPE → attention → output projection → residual →
+norm → MLP → residual.  The norms, RoPE and the full-sequence attention
+go through the port's CUDA kernels (flash attention forward and
+backward, LayerNorm forward and backward); the products are
+``torch.nn.functional.linear``, as the JAX package leaves them to XLA.
 
-The cache index is per row: every row of a batch sits at its own
-position, which the JAX serving engine gets from its ``vmap`` over
+Full sequence (``decode=False`` in JAX): every layer attends over the
+whole input with ``fused_attention`` — causal or not, with an optional
+additive ``mask_bias`` and attention/hidden dropout.  ``remat=True``
+recomputes each layer in the backward (``torch.utils.checkpoint``,
+non-reentrant: the ``nothing_saveable`` policy).  Dropout masks come
+from integer seeds drawn once per step outside the checkpointed layer,
+so the recomputed forward draws the same masks.
+
+Decode: the cache index is per row — every row of a batch sits at its
+own position, which the JAX serving engine gets from its ``vmap`` over
 slots.  The cache is a dict of tensors (``apex_tpu_torch.models.
 generate.init_cache``): ``key`` / ``value`` of ``(layers, batch,
 max_seq_len, kv_heads, head_dim)`` and ``index`` ``(batch,)`` — tokens
@@ -16,19 +25,21 @@ already cached per row.  A forward writes its tokens' K/V at
 ``index + i`` in place and advances ``index``.
 
 Not in this slice (each raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings it): the full-sequence training forward
-(A-2), the paged KV cache (A-3), sliding-window attention and
-mixture-of-experts layers (A-4).
+``ROADMAP.md`` item that brings it): the paged KV cache (A-3),
+sliding-window attention and mixture-of-experts layers (A-4), remat
+policies other than ``nothing_saveable`` (A-6).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
+from apex_tpu_torch.ops.attention import fused_attention
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm, fused_rms_norm
 from apex_tpu_torch.ops.mlp import resolve_activation
 from apex_tpu_torch.ops.rope import fused_rope
@@ -38,13 +49,15 @@ from apex_tpu_torch.transformer.layers import (
 )
 
 __all__ = ["TransformerConfig", "DecodeStep", "ParallelAttention",
-           "ParallelMLP", "ParallelTransformerLayer", "ParallelTransformer"]
+           "ParallelMLP", "ParallelTransformerLayer", "ParallelTransformer",
+           "dropout_seeds", "init_module_weights"]
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Architecture knobs shared by the model zoo (the JAX config's
-    fields for the dense decode path, with torch dtypes)."""
+    fields for the full-sequence and dense decode paths, with torch
+    dtypes)."""
 
     vocab_size: int = 50304
     hidden_size: int = 1024
@@ -60,11 +73,19 @@ class TransformerConfig:
     norm: str = "layernorm"                 # or "rmsnorm"
     layernorm_eps: float = 1e-5
     causal: bool = True
+    hidden_dropout: float = 0.0
+    attention_dropout: float = 0.0
     activation: str = "gelu"
     add_bias_linear: bool = True
     sliding_window: Optional[int] = None
     gated_mlp: bool = False
     num_moe_experts: Optional[int] = None
+    # recompute each layer in the backward (full-sequence path)
+    remat: bool = False
+    remat_policy: str = "nothing_saveable"
+    # flash-attention tiles; None = the kernels' tile (64, the only one)
+    attention_block_q: Optional[int] = None
+    attention_block_k: Optional[int] = None
     # steady-decode attention: "einsum" (one masked product over the
     # cache), "blocked" (online softmax over key blocks) or "auto"
     # (blocked from 2048 cache slots up, as in the JAX package)
@@ -114,10 +135,11 @@ class TransformerConfig:
         if self.kv_cache not in ("dense", "paged"):
             raise ValueError(
                 f"kv_cache={self.kv_cache!r} not in ('dense', 'paged')")
-        if not self.causal:
+        if self.remat_policy != "nothing_saveable":
             raise NotImplementedError(
-                "non-causal (encoder) models come with ROADMAP.md A-2, "
-                "the training slice")
+                f"remat_policy={self.remat_policy!r}: only "
+                "'nothing_saveable' is ported; the others come with "
+                "ROADMAP.md A-6")
         if self.kv_cache == "paged":
             raise NotImplementedError(
                 "kv_cache='paged' comes with ROADMAP.md A-3, the paged "
@@ -222,8 +244,10 @@ def _cache_attention_blocked(q, keys, values, idx, scale, block=1024):
 
 
 class ParallelAttention(nn.Module):
-    """qkv projection → RoPE → cache write → cache attention → output
-    projection (the JAX module's dense ``decode=True`` path)."""
+    """qkv projection → RoPE → attention → output projection: over the
+    full sequence with ``fused_attention`` (the JAX module's
+    ``decode=False``), or the dense decode path (cache write, attention
+    over the cache) when given a :class:`DecodeStep`."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
@@ -235,7 +259,7 @@ class ParallelAttention(nn.Module):
             cfg.hidden_size, (h + 2 * hk) * d, **kw)
         self.out_proj = RowParallelLinear(h * d, cfg.hidden_size, **kw)
 
-    def forward(self, x, cache_k, cache_v, step: DecodeStep):
+    def _qkv(self, x):
         cfg = self.cfg
         b, s, _ = x.shape
         h, hk, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
@@ -250,6 +274,41 @@ class ParallelAttention(nn.Module):
             q = qkv[..., :h * d].reshape(b, s, h, d)
             k = qkv[..., h * d:(h + hk) * d].reshape(b, s, hk, d)
             v = qkv[..., (h + hk) * d:].reshape(b, s, hk, d)
+        return q, k, v
+
+    def forward(self, x, cache_k=None, cache_v=None,
+                step: Optional[DecodeStep] = None, *, mask_bias=None,
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                attn_seed: Optional[int] = None):
+        """Full sequence when ``step`` is None: ``mask_bias`` an
+        additive bias broadcastable to ``(b, h, s, s)``, ``rope`` the
+        ``(s, rot/2)`` cos/sin tables, ``attn_seed`` the dropout seed
+        (None: no attention dropout).  Decode otherwise."""
+        if step is not None:
+            return self._decode(x, cache_k, cache_v, step)
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x)
+        if rope is not None:
+            q = fused_rope(q, *rope)
+            k = fused_rope(k, *rope)
+        drop = cfg.attention_dropout if attn_seed is not None else 0.0
+        o = fused_attention(
+            q, k, v, causal=cfg.causal, bias=mask_bias,
+            window=cfg.sliding_window, dropout_rate=drop,
+            dropout_seed=attn_seed if drop > 0.0 else None,
+            block_q=cfg.attention_block_q, block_k=cfg.attention_block_k)
+        return self.out_proj(o.reshape(b, s, cfg.num_heads * cfg.head_dim))
+
+    def _decode(self, x, cache_k, cache_v, step: DecodeStep):
+        cfg = self.cfg
+        if not cfg.causal:
+            raise ValueError(
+                "decode=True requires a causal model (the cache attends "
+                "over the generated prefix)")
+        b, s, _ = x.shape
+        h, d = cfg.num_heads, cfg.head_dim
+        q, k, v = self._qkv(x)
         if step.cos is not None:
             q = fused_rope(q, step.cos, step.sin)
             k = fused_rope(k, step.cos, step.sin)
@@ -296,33 +355,102 @@ class ParallelMLP(nn.Module):
         return self.dense_4h_to_h(y)
 
 
+def _dropout(x, rate: float, seed: int):
+    """Inverted dropout with a mask drawn from a generator seeded by
+    ``seed`` on ``x``'s device, so a recomputation draws it again."""
+    g = torch.Generator(device=x.device)
+    g.manual_seed(seed)
+    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def dropout_seeds(cfg: TransformerConfig, deterministic: bool,
+                  dropout_seed: Optional[int]
+                  ) -> Optional[List[Tuple[int, ...]]]:
+    """Per layer, the seeds of its attention dropout and its two hidden
+    dropouts, drawn on the host from ``dropout_seed`` (no device read):
+    one draw per step, outside any recomputed region.  None when no
+    dropout runs."""
+    if deterministic or (cfg.hidden_dropout <= 0.0
+                         and cfg.attention_dropout <= 0.0):
+        return None
+    if dropout_seed is None:
+        raise ValueError(
+            "deterministic=False with dropout needs an integer "
+            "dropout_seed (draw one per step, e.g. from a torch.Generator)")
+    g = torch.Generator().manual_seed(int(dropout_seed))
+    draw = torch.randint(0, 2 ** 31 - 1, (cfg.num_layers, 3), generator=g)
+    return [tuple(int(v) for v in row) for row in draw.tolist()]
+
+
 class ParallelTransformerLayer(nn.Module):
     """Pre-norm block: x + attn(norm(x)), then x + mlp(norm(x))."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
+        self.cfg = cfg
         self.input_norm = Norm(cfg, device)
         self.attention = ParallelAttention(cfg, device)
         self.post_attention_norm = Norm(cfg, device)
         self.mlp = ParallelMLP(cfg, device)
 
-    def forward(self, x, cache_k, cache_v, step: DecodeStep):
-        a = self.attention(self.input_norm(x), cache_k, cache_v, step)
+    def forward(self, x, cache_k=None, cache_v=None,
+                step: Optional[DecodeStep] = None, *, mask_bias=None,
+                rope=None, seeds: Optional[Sequence[int]] = None):
+        """``seeds``: this layer's (attention, hidden, hidden) dropout
+        seeds, or None without dropout."""
+        rate = self.cfg.hidden_dropout
+        a = self.attention(self.input_norm(x), cache_k, cache_v, step,
+                           mask_bias=mask_bias, rope=rope,
+                           attn_seed=None if seeds is None else seeds[0])
+        if seeds is not None and rate > 0.0:
+            a = _dropout(a, rate, seeds[1])
         x = x + a.to(x.dtype)
         m = self.mlp(self.post_attention_norm(x))
+        if seeds is not None and rate > 0.0:
+            m = _dropout(m, rate, seeds[2])
         return x + m.to(x.dtype)
 
 
 class ParallelTransformer(nn.Module):
-    """``num_layers`` stacked layers over a stacked KV cache."""
+    """``num_layers`` stacked layers: over the full sequence (each layer
+    recomputed in the backward under ``remat``), or over a stacked KV
+    cache in decode."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
+        self.cfg = cfg
         self.layers = nn.ModuleList(
             ParallelTransformerLayer(cfg, device)
             for _ in range(cfg.num_layers))
 
-    def forward(self, x, cache, step: DecodeStep):
+    def forward(self, x, cache=None, step: Optional[DecodeStep] = None, *,
+                mask_bias=None, rope=None, seeds=None):
+        if step is not None:
+            for i, layer in enumerate(self.layers):
+                x = layer(x, cache["key"][i], cache["value"][i], step)
+            return x
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, cache["key"][i], cache["value"][i], step)
+            kw = dict(mask_bias=mask_bias, rope=rope,
+                      seeds=None if seeds is None else seeds[i])
+            if remat:
+                x = checkpoint(layer, x, use_reentrant=False, **kw)
+            else:
+                x = layer(x, **kw)
         return x
+
+
+def init_module_weights(model: nn.Module,
+                        generator: Optional[torch.Generator] = None):
+    """Random weights from ``generator`` (on the model's device):
+    normal embeddings and learned tables (std 0.02), fan-in-scaled
+    linears, unit norms with zero bias."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if hasattr(mod, "init_weights") and mod is not model:
+                mod.init_weights(generator)
+            elif isinstance(mod, Norm):
+                mod.weight.fill_(1.0)
+                if mod.bias is not None:
+                    mod.bias.zero_()

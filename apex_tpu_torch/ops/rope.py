@@ -4,7 +4,8 @@ Counterpart of ``apex_tpu/ops/rope.py``.  The kernel (``csrc/rope.cu``)
 replaces the Pallas ``_rope_kernel``: the first ``rot_dim`` channels of
 every head are rotated as ``[x1, x2] -> [x1*cos - x2*sin,
 x2*cos + x1*sin]`` in fp32, and the tail of a partial rotary span passes
-through.  Forward only in this slice.
+through.  The gradient is the same rotation by ``-theta``: the backward
+launches the same kernel with ``-sin``, as ``_rope_pallas_bwd`` does.
 
 Beside the shared ``(seq, rot_dim/2)`` tables of the JAX function, the
 port takes per-row tables ``(batch, seq, rot_dim/2)``: the batched
@@ -111,12 +112,30 @@ def _rope_kernel(x, cos, sin):
     return y.reshape(x.shape)
 
 
+class _RopeFn(torch.autograd.Function):
+    """Rotation forward; rotation by ``-theta`` backward (the tables
+    are constants)."""
+
+    @staticmethod
+    def forward(ctx, x, cos, sin, kernel):
+        ctx.save_for_backward(cos, sin)
+        ctx.kernel = kernel
+        return (_rope_kernel if kernel else rope_reference)(x, cos, sin)
+
+    @staticmethod
+    def backward(ctx, dy):
+        cos, sin = ctx.saved_tensors
+        fn = _rope_kernel if ctx.kernel else rope_reference
+        return fn(dy.contiguous(), cos, -sin), None, None, None
+
+
 def fused_rope(x, cos, sin, *, implementation: Optional[str] = None):
-    """Apply rotary position embedding.
+    """Apply rotary position embedding; differentiable in ``x``.
 
     Shapes as in :func:`rope_reference`; output in ``x.dtype``.
     ``implementation`` as in :mod:`._dispatch`.
     """
-    if resolve_impl(implementation, x) == "torch":
-        return rope_reference(x, cos, sin)
-    return _rope_kernel(x, cos, sin)
+    kernel = resolve_impl(implementation, x) == "kernel"
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _RopeFn.apply(x, cos.detach(), sin.detach(), kernel)
+    return (_rope_kernel if kernel else rope_reference)(x, cos, sin)

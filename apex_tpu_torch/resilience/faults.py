@@ -8,7 +8,7 @@ fires at which site on which step; whether a spec fires is a pure
 function of ``(plan.seed, spec index, site, step)``, so a failing run
 replays exactly.  Plans are scoped with :func:`active`.  The training
 sites, the other fault kinds (I/O, NaN, slow, preempt) and the
-environment entry point come with the training slice (ROADMAP.md A-2).
+environment entry point come with ROADMAP.md A-6.
 """
 
 from __future__ import annotations
@@ -56,8 +56,14 @@ class FaultSpec:
     slots: Optional[Tuple[int, ...]] = None
 
     KINDS = ("transient",)
+    #: the JAX package's training-side sites, not ported yet
+    DEFERRED_SITES = ("train.step", "train.compute", "checkpoint.save",
+                      "data.next")
 
     def __post_init__(self):
+        if self.site in self.DEFERRED_SITES:
+            raise NotImplementedError(
+                f"fault site {self.site!r} comes with ROADMAP.md A-6")
         if self.kind not in self.KINDS:
             raise ValueError(
                 f"unknown fault kind {self.kind!r}; one of {self.KINDS}")

@@ -7,8 +7,9 @@ collectives; the names stay so that a tensor-parallel slice can shard
 them without renaming a parameter.
 
 Numerics follow the JAX layers: the product runs in the compute
-``dtype`` with fp32 accumulation (``torch.nn.functional.linear``), a
-bias is added in fp32, and the result is cast to ``dtype``.  Weights
+``dtype`` with fp32 accumulation (``torch.nn.functional.linear``), the
+bias (in the compute dtype) is added to the fp32 accumulator by the
+product itself, and the result is rounded once to ``dtype``.  Weights
 use PyTorch's ``(out_features, in_features)`` layout; the JAX kernels'
 ``(in, out)`` layout is transposed by
 :func:`apex_tpu_torch.models.jax_import.params_from_jax`.
@@ -53,10 +54,8 @@ class _Linear(nn.Module):
 
     def forward(self, x):
         dtype = self.dtype or x.dtype
-        y = F.linear(x.to(dtype), self.weight.to(dtype))
-        if self.bias is not None:
-            y = y.float() + self.bias.float()
-        return y.to(dtype)
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
 
 
 class ColumnParallelLinear(_Linear):

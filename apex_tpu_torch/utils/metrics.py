@@ -1,9 +1,10 @@
 """Lightweight metrics: event counters, ordered scalar rows, percentiles.
 
 Counterpart of the parts of ``apex_tpu/utils/metrics.py`` the serving
-path uses.  PyTorch has no in-jit callbacks, so rows are emitted from
-the host; :class:`MetricsWriter` still stages them by step and drains
-them to its sink in step order, merging a step's rows key-wise.
+and training paths use.  PyTorch has no in-jit callbacks, so rows are
+emitted from the host; :class:`MetricsWriter` still stages them by step
+and drains them to its sink in step order, merging a step's rows
+key-wise.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["Counters", "counters", "MetricsWriter", "percentile_summary"]
+__all__ = ["Counters", "counters", "MetricsWriter", "percentile_summary",
+           "loss_scale_tallies"]
 
 _logger = logging.getLogger("apex_tpu_torch.metrics")
 
@@ -105,3 +107,13 @@ def percentile_summary(values, p50_key: str, p99_key: str, *,
     arr = np.asarray(values, np.float64) * scale
     return {p50_key: float(np.percentile(arr, 50)),
             p99_key: float(np.percentile(arr, 99))}
+
+
+def loss_scale_tallies(loss_scale_state) -> Dict[str, int]:
+    """The loss scaler's device-side event tallies as counter names:
+    ``amp.loss_scale.growth`` (steps that grew the scale) and
+    ``amp.loss_scale.backoff`` (skipped, non-finite steps).  Reads the
+    device, so call it outside the step, when the numbers are wanted."""
+    growth, backoff = (int(v) for v in loss_scale_state.events.tolist())
+    return {"amp.loss_scale.growth": growth,
+            "amp.loss_scale.backoff": backoff}

@@ -184,10 +184,12 @@ def test_generate_validation(llama):
 
 def test_slice_boundaries_raise_not_implemented(llama):
     _, _, model = llama
-    with pytest.raises(NotImplementedError, match="A-2"):
-        model(torch.zeros((1, 3), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="A-2"):
-        GPTConfig.tiny(causal=False)
+    with pytest.raises(NotImplementedError, match="A-6"):
+        GPTConfig.tiny(remat=True, remat_policy="dots_saveable")
+    with pytest.raises(ValueError, match="causal"):
+        enc = GPTModel(GPTConfig.tiny(causal=False), device="cpu")
+        enc(torch.zeros((1, 3), dtype=torch.int32),
+            cache=init_cache(enc, 1))
     with pytest.raises(NotImplementedError, match="A-3"):
         LlamaConfig.tiny(kv_cache="paged")
     with pytest.raises(NotImplementedError, match="A-4"):

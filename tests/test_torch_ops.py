@@ -113,9 +113,23 @@ class TestDispatch:
         assert out.returncode == 0, out.stderr
         assert int(out.stdout.split()[-1]) >= 15
 
+    def test_chip_smoke_imports_no_jax(self):
+        import ast
+
+        with open(os.path.join(REPO, "chip_smoke.py")) as f:
+            tree = ast.parse(f.read())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names]
+        names += [n.module for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.module]
+        bad = [m for m in names if m.split(".")[0] in ("jax", "apex_tpu")]
+        assert not bad, bad
+        assert "apex_tpu_torch" in {m.split(".")[0] for m in names}
+
     def test_every_kernel_source_names_the_tpu_kernel_it_replaces(self):
-        notes = {"layer_norm": "_ln_fwd_kernel", "rope": "_rope_kernel",
-                 "fused_sampling": "_sampling_kernel"}
+        notes = {"layer_norm": "_ln_bwd_dx_kernel", "rope": "_rope_kernel",
+                 "fused_sampling": "_sampling_kernel",
+                 "flash_attention": "_fa_bwd_dkv_kernel"}
         for name, src in _build.SOURCES.items():
             path = os.path.join(REPO, "apex_tpu_torch", "csrc", src)
             with open(path) as f:
