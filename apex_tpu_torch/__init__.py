@@ -14,7 +14,12 @@ forward, RoPE and fused decode-step sampling.  Slice 2 ports BERT-Large
 amp O2 training: ``amp`` and ``core`` (precision policy, loss scaling,
 train state), ``optim.fused_adam``, the cross-entropy, the
 full-sequence transformer and ``models.bert``, with kernels for the
-LayerNorm backward and flash attention (forward, dq, dk/dv).
+LayerNorm backward and flash attention (forward, dq, dk/dv).  Slice 3
+ports paged serving: the ``PagedEngine`` behind
+``InferenceServer(kv_cache="paged")`` (block allocator, prefix trie,
+chunked prefill, preemption, speculative decoding, int8/fp8 pages) and
+the paged decode path of the models, with kernels for paged attention
+and the fused paged decode step.
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise
 when CUDA is unavailable unless the caller passes ``device="cpu"``.

@@ -29,7 +29,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["SOURCES", "ENTRIES", "DTYPE_CODES", "build_dir", "build_all",
+__all__ = ["SOURCES", "ENTRIES", "FLOAT_CODES", "DTYPE_CODES", "build_dir", "build_all",
            "function", "check", "launches", "reset_launches"]
 
 _PKG = Path(__file__).resolve().parent
@@ -39,17 +39,22 @@ SOURCES: Dict[str, str] = {
     "rope": "rope.cu",
     "fused_sampling": "fused_sampling.cu",
     "flash_attention": "flash_attention.cu",
+    "paged_attention": "paged_attention.cu",
 }
 #: kernel entries, the keys of :data:`launches` (the library of SOURCES
 #: each lives in is the name's prefix)
 ENTRIES = ("layer_norm", "layer_norm_bwd", "rope", "fused_sampling",
            "flash_attention_fwd", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dkv")
+           "flash_attention_bwd_dkv", "paged_attention",
+           "paged_decode_fused")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-#: dtype codes shared by every C entry point (csrc/common.cuh)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: dtype codes of the floating types every kernel computes in
+FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: dtype codes shared by every C entry point (csrc/common.cuh): the float
+#: types, and the 1-byte codes of a quantized paged KV pool
+DTYPE_CODES = {**FLOAT_CODES, torch.int8: 3, torch.float8_e4m3fn: 4}
 
 #: launches per kernel entry since the last :func:`reset_launches`
 launches: Dict[str, int] = {name: 0 for name in ENTRIES}

@@ -1,22 +1,26 @@
 // Shared helpers for the port's kernels: element loads/stores in fp32,
-// dtype codes matching apex_tpu_torch/ops (0 = float32, 1 = bfloat16,
-// 2 = float16) and deterministic block reductions (fixed shuffle tree,
+// dtype codes matching apex_tpu_torch/_build.py (0 = float32, 1 =
+// bfloat16, 2 = float16, 3 = int8 and 4 = float8_e4m3fn, the last two
+// the codes of a quantized paged KV pool) and deterministic block reductions (fixed shuffle tree,
 // then warp partials in warp order — the same sum on every run).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace apex {
 
-enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+enum DType { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3, kF8 = 4 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 v) { return (float)v; }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }

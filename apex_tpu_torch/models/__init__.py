@@ -1,11 +1,12 @@
-"""Models of the port: GPT/Llama decoders (full sequence and dense
-KV-cached decode) and the BERT encoder."""
+"""Models of the port: GPT/Llama decoders (full sequence, dense and
+paged KV-cached decode) and the BERT encoder."""
 
 from apex_tpu_torch.models.bert import BertConfig, BertModel, bert_mlm_loss_fn
 from apex_tpu_torch.models.generate import (
     apply_decode,
     generate,
     init_cache,
+    init_paged_cache,
     prefill_tokens,
     sample_logits,
 )
@@ -21,7 +22,7 @@ from apex_tpu_torch.models.transformer import (
 )
 
 __all__ = [
-    "apply_decode", "generate", "init_cache", "prefill_tokens",
+    "apply_decode", "generate", "init_cache", "init_paged_cache", "prefill_tokens",
     "sample_logits",
     "BertConfig", "BertModel", "bert_mlm_loss_fn",
     "GPTConfig", "GPTModel", "gpt_loss_fn", "LlamaConfig", "LlamaModel",

@@ -22,8 +22,8 @@ import torch
 
 from apex_tpu_torch.ops.fused_sampling import gumbel, prng_key, split
 
-__all__ = ["init_cache", "apply_decode", "prefill_tokens",
-           "sample_logits", "generate"]
+__all__ = ["init_cache", "init_paged_cache", "apply_decode",
+           "prefill_tokens", "sample_logits", "generate"]
 
 _NEG_INF = -1e30
 
@@ -42,6 +42,53 @@ def init_cache(model, batch_size: int) -> Dict[str, torch.Tensor]:
         "index": torch.zeros((int(batch_size),), dtype=torch.int32,
                              device=dev),
     }
+
+
+def init_paged_cache(model, batch_size: int, *,
+                     block_size: Optional[int] = None,
+                     num_blocks: Optional[int] = None,
+                     kv_dtype: Optional[str] = "config"
+                     ) -> Dict[str, torch.Tensor]:
+    """The paged pool of ``model`` on its device (the counterpart of the
+    JAX ``cache_shapes`` under the paged layout), sized by the config's
+    ``kv_block_size`` / ``kv_pool_blocks`` / ``kv_dtype`` unless the
+    arguments say otherwise (the serving engine passes its own):
+    ``key`` / ``value`` ``(layers, kv_heads, kv_pool_blocks,
+    kv_block_size, head_dim)`` in ``cfg.dtype`` or the ``kv_dtype``
+    codes, plus ``key_scales`` / ``value_scales`` ``(layers, kv_heads,
+    kv_pool_blocks)`` fp32 when quantized; and per row ``block_tables``
+    ``(batch, ceil(max_seq_len / kv_block_size))``, ``cursors`` and
+    ``chunk_lens`` (every lane real: ``max_seq_len``), int32.  Block 0
+    of every pool is the null page; all-zero tables point at it."""
+    from apex_tpu_torch.ops.paged_attention import kv_quant_spec
+
+    cfg = model.cfg
+    bs = int(cfg.kv_block_size if block_size is None else block_size)
+    nb = int(cfg.kv_pool_blocks if num_blocks is None else num_blocks)
+    if bs < 1 or nb < 2:
+        raise ValueError(
+            f"a paged pool needs block_size >= 1 and num_blocks >= 2 (block "
+            f"0 is the null page), got {bs} and {nb}")
+    store_dt, _ = kv_quant_spec(cfg.kv_dtype if kv_dtype == "config"
+                                else kv_dtype)
+    dev = model.device
+    b = int(batch_size)
+    pool = (cfg.num_layers, cfg.kv_heads, nb, bs, cfg.head_dim)
+    dt = cfg.dtype if store_dt is None else store_dt
+    out = {
+        "key": torch.zeros(pool, dtype=dt, device=dev),
+        "value": torch.zeros(pool, dtype=dt, device=dev),
+        "block_tables": torch.zeros(
+            (b, -(-cfg.max_seq_len // bs)),
+            dtype=torch.int32, device=dev),
+        "cursors": torch.zeros((b,), dtype=torch.int32, device=dev),
+        "chunk_lens": torch.full((b,), cfg.max_seq_len, dtype=torch.int32,
+                                 device=dev),
+    }
+    if store_dt is not None:
+        out["key_scales"] = torch.zeros(pool[:3], device=dev)
+        out["value_scales"] = torch.zeros(pool[:3], device=dev)
+    return out
 
 
 @torch.no_grad()
@@ -131,6 +178,12 @@ def generate(model, prompt_ids, *, max_new_tokens: int,
     ``prefill_chunk=None`` is single-call prefill up to 8k prompts and
     2048-token chunks above."""
     cfg = model.cfg
+    if cfg.kv_cache == "paged":
+        raise ValueError(
+            "generate() drives the dense KV cache; a kv_cache='paged' "
+            "model needs the block tables the serving engine owns — serve "
+            "it through apex_tpu_torch.serving.PagedEngine, or build the "
+            "dense twin with dataclasses.replace(cfg, kv_cache='dense')")
     dev = model.device
     prompt_ids = torch.as_tensor(prompt_ids, dtype=torch.int32).to(dev)
     b, prompt_len = prompt_ids.shape

@@ -21,6 +21,7 @@ import torch.nn as nn
 from apex_tpu_torch.models.transformer import (
     DecodeStep,
     Norm,
+    PagedStep,
     ParallelTransformer,
     TransformerConfig,
     dropout_seeds,
@@ -112,7 +113,8 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids, *, cache=None, kv_len: Optional[int] = None,
                 deterministic: bool = True,
-                dropout_seed: Optional[int] = None):
+                dropout_seed: Optional[int] = None,
+                last_index: Optional[torch.Tensor] = None):
         """Logits of ``input_ids`` (b, s).
 
         Without ``cache``: the full sequence, causal (``deterministic=
@@ -120,9 +122,18 @@ class GPTModel(nn.Module):
         dropouts on).  With ``cache`` (from :func:`~apex_tpu_torch.
         models.generate.init_cache`): decode, each row at its own cache
         index; ``kv_len`` bounds the cache slots any row can see after
-        this call (``max(index) + s``; default the whole cache)."""
+        this call (``max(index) + s``; default the whole cache).  A
+        paged pool (:func:`~apex_tpu_torch.models.generate.
+        init_paged_cache`, told apart by its ``block_tables``) runs the
+        paged decode: the caller sets ``block_tables`` / ``cursors`` /
+        ``chunk_lens`` before the call, and the model never advances
+        them.  ``last_index``
+        (b,) picks one position per row before the head: logits are then
+        ``(b, 1, vocab)``."""
         if cache is None:
             return self._full(input_ids, deterministic, dropout_seed)
+        if "block_tables" in cache:
+            return self._paged(input_ids, cache, last_index)
         cfg = self.cfg
         b, s = input_ids.shape
         index = cache["index"]
@@ -140,9 +151,31 @@ class GPTModel(nn.Module):
         x = x.to(cfg.dtype)
         x = self.transformer(x, cache, step)
         index += s
-        return self._head(x)
+        return self._head(x, last_index)
 
-    def _head(self, x):
+    def _paged(self, input_ids, cache, last_index):
+        cfg = self.cfg
+        b, s = input_ids.shape
+        cursors = cache["cursors"]
+        positions = cursors[:, None].long() + torch.arange(
+            s, device=input_ids.device)
+        # pad positions clamp into the tables: their K/V is unreachable
+        clamped = positions.clamp(max=cfg.max_seq_len - 1)
+        step = PagedStep(tables=cache["block_tables"], cursors=cursors,
+                         chunk_lens=cache["chunk_lens"], positions=positions)
+        if cfg.position_embedding == "rope":
+            step.cos = self.rope_cos[clamped]
+            step.sin = self.rope_sin[clamped]
+        x = self.embedding(input_ids)
+        if self.position_embedding is not None:
+            x = x + self.position_embedding[clamped].to(x.dtype)
+        x = self.transformer(x.to(cfg.dtype), cache, step)
+        return self._head(x, last_index)
+
+    def _head(self, x, last_index=None):
+        if last_index is not None:
+            rows = torch.arange(x.shape[0], device=x.device)
+            x = x[rows, last_index.long()][:, None]
         x = self.final_norm(x).to(self.cfg.dtype)
         if self.lm_head is None:
             return self.embedding.attend(x)

@@ -24,10 +24,22 @@ max_seq_len, kv_heads, head_dim)`` and ``index`` ``(batch,)`` — tokens
 already cached per row.  A forward writes its tokens' K/V at
 ``index + i`` in place and advances ``index``.
 
+Paged decode (a cache from ``init_paged_cache``, the serving engine's
+layout; ``cfg.kv_cache == "paged"`` marks a model configured for it):
+every layer owns a page pool ``(kv_heads, kv_pool_blocks,
+kv_block_size, head_dim)`` — in the compute dtype, or int8 / e4m3 codes
+with per-(kv head, page) fp32 scales under ``kv_dtype`` — and a
+:class:`PagedStep` carries the engine's block tables, cursors and real
+lane counts to every layer.  A width-1 step goes through the fused
+decode kernel (RoPE, the quantize-and-write of the new row, the attend);
+a wider step (chunked prefill, the speculative verify) rotates with the
+per-row RoPE kernel, scatters its K/V into the pool and attends with the
+paged attention kernel.  The pool is updated in place.
+
 Not in this slice (each raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings it): the paged KV cache (A-3),
-sliding-window attention and mixture-of-experts layers (A-4), remat
-policies other than ``nothing_saveable`` (A-6).
+``ROADMAP.md`` item that brings it): sliding-window attention and
+mixture-of-experts layers (A-4), remat policies other than
+``nothing_saveable`` (A-6); a tensor-parallel paged pool is A-5.
 """
 
 from __future__ import annotations
@@ -42,13 +54,21 @@ from torch.utils.checkpoint import checkpoint
 from apex_tpu_torch.ops.attention import fused_attention
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm, fused_rms_norm
 from apex_tpu_torch.ops.mlp import resolve_activation
+from apex_tpu_torch.ops.paged_attention import (
+    kv_quant_spec,
+    paged_attention,
+    paged_decode_fused,
+    pool_qmax,
+    quantize_kv,
+)
 from apex_tpu_torch.ops.rope import fused_rope
 from apex_tpu_torch.transformer.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
 )
 
-__all__ = ["TransformerConfig", "DecodeStep", "ParallelAttention",
+__all__ = ["TransformerConfig", "DecodeStep", "PagedStep",
+           "ParallelAttention",
            "ParallelMLP", "ParallelTransformerLayer", "ParallelTransformer",
            "dropout_seeds", "init_module_weights"]
 
@@ -91,6 +111,12 @@ class TransformerConfig:
     # (blocked from 2048 cache slots up, as in the JAX package)
     decode_attn: str = "auto"
     kv_cache: str = "dense"
+    # the paged pool (kv_cache="paged"): tokens per page, pages per
+    # layer including the null page 0, and the storage ("int8", "fp8";
+    # None stores the compute dtype)
+    kv_block_size: int = 16
+    kv_pool_blocks: int = 0
+    kv_dtype: Optional[str] = None
     # Megatron per-kv-head grouped qkv layout: [q_g*rep..., k_g, v_g]
     qkv_grouped: bool = True
     dtype: Any = torch.float32
@@ -135,15 +161,34 @@ class TransformerConfig:
         if self.kv_cache not in ("dense", "paged"):
             raise ValueError(
                 f"kv_cache={self.kv_cache!r} not in ('dense', 'paged')")
+        if self.kv_cache == "paged":
+            if not self.causal:
+                raise ValueError("kv_cache='paged' requires causal=True "
+                                 "(it is a decode-cache layout)")
+            if self.sliding_window is not None:
+                raise ValueError(
+                    "kv_cache='paged' does not support sliding_window "
+                    "— the paged pool already bounds decode memory to "
+                    "live tokens; serve with sliding_window=None")
+            if self.kv_block_size < 1:
+                raise ValueError(
+                    f"kv_block_size must be >= 1, got {self.kv_block_size}")
+            if self.kv_pool_blocks < 2:
+                raise ValueError(
+                    "kv_pool_blocks must be >= 2 (block 0 is the "
+                    f"reserved null page), got {self.kv_pool_blocks}")
+        if self.kv_dtype is not None:
+            if self.kv_cache != "paged":
+                raise ValueError(
+                    "kv_dtype requires kv_cache='paged' — quantized KV "
+                    "pages live in the paged pool; the dense slab stores "
+                    "K/V in the compute dtype")
+            kv_quant_spec(self.kv_dtype)
         if self.remat_policy != "nothing_saveable":
             raise NotImplementedError(
                 f"remat_policy={self.remat_policy!r}: only "
                 "'nothing_saveable' is ported; the others come with "
                 "ROADMAP.md A-6")
-        if self.kv_cache == "paged":
-            raise NotImplementedError(
-                "kv_cache='paged' comes with ROADMAP.md A-3, the paged "
-                "serving slice")
         if self.sliding_window is not None:
             raise NotImplementedError(
                 "sliding_window comes with ROADMAP.md A-4")
@@ -167,6 +212,27 @@ class DecodeStep:
     index: torch.Tensor
     positions: torch.Tensor
     kv_len: int
+    cos: Optional[torch.Tensor] = None
+    sin: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class PagedStep:
+    """What every layer of one paged forward shares (the engine owns the
+    tables and cursors; the model never advances them).
+
+    ``tables`` ``(b, pages_per_seq)`` int32 block tables; ``cursors``
+    ``(b,)`` int32 tokens already cached per row; ``chunk_lens`` ``(b,)``
+    int32 real lanes of this call per row (pad lanes of a quantized pool
+    are written to the null page); ``positions`` ``(b, s)`` absolute
+    positions; ``cos`` / ``sin`` per-row RoPE tables ``(b, s, rot/2)``
+    at the positions clamped to ``max_seq_len - 1``, or ``None``.
+    """
+
+    tables: torch.Tensor
+    cursors: torch.Tensor
+    chunk_lens: torch.Tensor
+    positions: torch.Tensor
     cos: Optional[torch.Tensor] = None
     sin: Optional[torch.Tensor] = None
 
@@ -279,11 +345,16 @@ class ParallelAttention(nn.Module):
     def forward(self, x, cache_k=None, cache_v=None,
                 step: Optional[DecodeStep] = None, *, mask_bias=None,
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                attn_seed: Optional[int] = None):
+                attn_seed: Optional[int] = None, scales=None):
         """Full sequence when ``step`` is None: ``mask_bias`` an
         additive bias broadcastable to ``(b, h, s, s)``, ``rope`` the
         ``(s, rot/2)`` cos/sin tables, ``attn_seed`` the dropout seed
-        (None: no attention dropout).  Decode otherwise."""
+        (None: no attention dropout).  Dense decode for a
+        :class:`DecodeStep`; paged decode for a :class:`PagedStep`, with
+        ``cache_k`` / ``cache_v`` this layer's page pools and ``scales``
+        its ``(k_scales, v_scales)`` when the pool is quantized."""
+        if isinstance(step, PagedStep):
+            return self._paged_decode(x, cache_k, cache_v, scales, step)
         if step is not None:
             return self._decode(x, cache_k, cache_v, step)
         cfg = self.cfg
@@ -328,6 +399,81 @@ class ParallelAttention(nn.Module):
                 o = _cache_attention(q, keys, values, step.index, scale)
         else:
             o = _cache_attention_blocked(q, keys, values, step.index, scale)
+        return self.out_proj(o.reshape(b, s, h * d))
+
+    def _paged_decode(self, x, kp, vp, scales, step: PagedStep):
+        """Write-then-attend over the paged pool (updated in place).
+
+        Width 1: the fused decode kernel rotates q and the new key,
+        writes the (coded) row into its page and attends.  Wider: rotate
+        per row, scatter the chunk into the pool — positions at or past
+        ``max_seq_len`` go to the null page, and under a quantized pool
+        so do pad lanes (past ``chunk_lens``), whose amax must never
+        reach a live page's scale — then attend over the pool.  The
+        quantized scatter keeps the running-amax discipline of the JAX
+        model: a page's scale is reset at its first write (offset 0),
+        each token contributes the running amax of its row (a cummax
+        over the chunk seeded from the previous page's scale), and the
+        page takes the max (a scatter-max, so duplicate indices are
+        order-free)."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h, d = cfg.num_heads, cfg.head_dim
+        S, BS, MB = cfg.max_seq_len, kp.shape[2], step.tables.shape[1]
+        # the pool's own dtype says whether it holds codes
+        qmax = pool_qmax(kp.dtype)
+        ks, vs = scales if qmax is not None else (None, None)
+        q, k, v = self._qkv(x)
+        scale = d ** -0.5
+        if s == 1:
+            rope = {}
+            if step.cos is not None:
+                rope = dict(cos_b=step.cos[:, :, None, :],
+                            sin_b=step.sin[:, :, None, :])
+            o = paged_decode_fused(
+                q, k, v, kp, vp, step.tables, step.cursors, max_seq_len=S,
+                scale=scale, k_scales=ks, v_scales=vs,
+                chunk_lens=None if qmax is None else step.chunk_lens,
+                **rope)[0]
+            return self.out_proj(o.reshape(b, 1, h * d))
+        if step.cos is not None:
+            q = fused_rope(q, step.cos, step.sin)
+            k = fused_rope(k, step.cos, step.sin)
+        pos = step.positions
+        tables = step.tables.long()
+        phys = tables.gather(1, torch.clamp(pos // BS, max=MB - 1))
+        phys = torch.where(pos < S, phys, torch.zeros_like(phys))
+        off = pos % BS
+        kT = k.permute(2, 0, 1, 3)                        # (hk, b, s, d)
+        vT = v.permute(2, 0, 1, 3)
+        if qmax is None:
+            kp[:, phys, off] = kT.to(kp.dtype)
+            vp[:, phys, off] = vT.to(vp.dtype)
+            o = paged_attention(q, kp, vp, step.tables, step.cursors,
+                                scale=scale)
+            return self.out_proj(o.reshape(b, s, h * d))
+        hk = kT.shape[0]
+        real = (torch.arange(s, device=x.device)[None, :]
+                < step.chunk_lens[:, None])               # (b, s)
+        phys = torch.where(real, phys, torch.zeros_like(phys))
+        cur = step.cursors.long()
+        base = tables.gather(1, torch.clamp(
+            torch.div(cur - 1, BS, rounding_mode="floor"), 0, MB - 1)[:, None])
+        has_prefix = (cur > 0)[None, :, None]
+        fresh = torch.where(off == 0, phys, torch.zeros_like(phys))
+        idx = phys.reshape(1, -1).expand(hk, -1)
+        for sc, xT in ((ks, kT), (vs, vT)):
+            amax = xT.float().abs().amax(dim=-1)          # (hk, b, s)
+            amax = torch.where(real[None], amax, torch.zeros_like(amax))
+            seed = torch.where(has_prefix, sc[:, base], torch.zeros(
+                (), device=x.device))                     # (hk, b, 1)
+            run = torch.maximum(torch.cummax(amax, dim=2).values, seed)
+            sc[:, fresh] = 0.0
+            sc.scatter_reduce_(1, idx, run.reshape(hk, -1), "amax")
+        kp[:, phys, off] = quantize_kv(kT, ks[:, phys], qmax, kp.dtype)
+        vp[:, phys, off] = quantize_kv(vT, vs[:, phys], qmax, vp.dtype)
+        o = paged_attention(q, kp, vp, step.tables, step.cursors,
+                            scale=scale, k_scales=ks, v_scales=vs)
         return self.out_proj(o.reshape(b, s, h * d))
 
 
@@ -396,13 +542,16 @@ class ParallelTransformerLayer(nn.Module):
 
     def forward(self, x, cache_k=None, cache_v=None,
                 step: Optional[DecodeStep] = None, *, mask_bias=None,
-                rope=None, seeds: Optional[Sequence[int]] = None):
+                rope=None, seeds: Optional[Sequence[int]] = None,
+                scales=None):
         """``seeds``: this layer's (attention, hidden, hidden) dropout
-        seeds, or None without dropout."""
+        seeds, or None without dropout; ``scales``: the layer's paged
+        pool scales (quantized pools)."""
         rate = self.cfg.hidden_dropout
         a = self.attention(self.input_norm(x), cache_k, cache_v, step,
                            mask_bias=mask_bias, rope=rope,
-                           attn_seed=None if seeds is None else seeds[0])
+                           attn_seed=None if seeds is None else seeds[0],
+                           scales=scales)
         if seeds is not None and rate > 0.0:
             a = _dropout(a, rate, seeds[1])
         x = x + a.to(x.dtype)
@@ -427,8 +576,12 @@ class ParallelTransformer(nn.Module):
     def forward(self, x, cache=None, step: Optional[DecodeStep] = None, *,
                 mask_bias=None, rope=None, seeds=None):
         if step is not None:
+            quantized = "key_scales" in cache
             for i, layer in enumerate(self.layers):
-                x = layer(x, cache["key"][i], cache["value"][i], step)
+                x = layer(x, cache["key"][i], cache["value"][i], step,
+                          scales=(cache["key_scales"][i],
+                                  cache["value_scales"][i])
+                          if quantized else None)
             return x
         remat = self.cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):

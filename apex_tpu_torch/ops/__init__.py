@@ -21,6 +21,12 @@ from apex_tpu_torch.ops.layer_norm import (
     rms_norm_reference,
 )
 from apex_tpu_torch.ops.mlp import resolve_activation
+from apex_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_attention_reference,
+    paged_decode_fused,
+    paged_decode_fused_reference,
+)
 from apex_tpu_torch.ops.rope import fused_rope, rope_cos_sin, rope_reference
 from apex_tpu_torch.ops.xentropy import (
     mean_cross_entropy,
@@ -37,6 +43,8 @@ __all__ = [
     "fused_layer_norm", "fused_rms_norm", "layer_norm_reference",
     "rms_norm_reference",
     "resolve_activation",
+    "paged_attention", "paged_attention_reference", "paged_decode_fused",
+    "paged_decode_fused_reference",
     "fused_rope", "rope_cos_sin", "rope_reference",
     "mean_cross_entropy", "softmax_cross_entropy",
     "softmax_cross_entropy_reference",

@@ -265,10 +265,10 @@ def _common_args(q, k, v, bias, scale, causal, window, rate, seed):
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must be CUDA tensors on one device")
     if not (q.dtype == k.dtype == v.dtype) \
-            or q.dtype not in _build.DTYPE_CODES:
+            or q.dtype not in _build.FLOAT_CODES:
         raise TypeError(
             f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype}: one of "
-            f"{tuple(_build.DTYPE_CODES)} is needed")
+            f"{tuple(_build.FLOAT_CODES)} is needed")
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     if d > 128 or d % 8:

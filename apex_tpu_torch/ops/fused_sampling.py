@@ -125,19 +125,55 @@ def sampling_cost_bytes(rows: int, vocab: int, dtype) -> int:
 # --------------------------------------------------------------------- #
 # plain composition (golden semantics; the CPU path)
 # --------------------------------------------------------------------- #
+def _flatten_width(logits, keys, temperature, top_k, top_p):
+    """``(rows, width, vocab)`` logits with ``(rows, width, 2)`` keys —
+    the speculative verify's 1 + K draws per row — as ``rows * width``
+    rows, the per-row parameters repeated over the width, as the JAX
+    function does.  Returns the flattened arguments and the width (None
+    for 2-D logits)."""
+    if logits.ndim == 2:
+        return logits, keys, temperature, top_k, top_p, None
+    if logits.ndim != 3:
+        raise ValueError(
+            f"logits must be (rows, vocab) or (rows, width, vocab), got "
+            f"{tuple(logits.shape)}")
+    rows, width, vocab = logits.shape
+    if tuple(keys.shape) != (rows, width, 2):
+        raise ValueError(
+            f"keys shape {tuple(keys.shape)} != (rows, width, 2) = "
+            f"{(rows, width, 2)}")
+    for name, t in (("temperature", temperature), ("top_k", top_k),
+                    ("top_p", top_p)):
+        if tuple(t.shape) != (rows,):
+            raise ValueError(
+                f"{name} shape {tuple(t.shape)} != (rows,) = {(rows,)}")
+    return (logits.reshape(rows * width, vocab), keys.reshape(rows * width, 2),
+            temperature.repeat_interleave(width),
+            top_k.repeat_interleave(width), top_p.repeat_interleave(width),
+            width)
+
+
 def fused_sample_reference(logits, keys, temperature, top_k, top_p,
                            vocab_size: int):
     """Per-row sampling with tensor parameters — the JAX engines'
     ``sample_dynamic`` composition, verbatim.
 
     ``logits`` (rows, vocab); ``keys`` (rows, 2) int64 uint32 words;
-    ``temperature`` / ``top_k`` / ``top_p`` (rows,).  Per row: fp32
+    ``temperature`` / ``top_k`` / ``top_p`` (rows,); or ``(rows, width,
+    vocab)`` logits with ``(rows, width, 2)`` keys and per-row
+    parameters, returning ``(rows, width)``.  Per row: fp32
     argmax when ``temperature <= 0``, else top-k- and/or
     nucleus-truncated categorical at ``logits / temperature``
     (``top_k == 0`` and ``top_p <= 0`` / ``>= 1`` disable their filters
     exactly).  The sort + softmax + cumsum tail runs only when some row
     enables a filter; with none enabled it is an exact no-op.
     """
+    rows = logits.shape[0]
+    logits, keys, temperature, top_k, top_p, width = _flatten_width(
+        logits, keys, temperature, top_k, top_p)
+    if width is not None:
+        return fused_sample_reference(logits, keys, temperature, top_k,
+                                      top_p, vocab_size).reshape(rows, width)
     logits = logits.float()
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     safe_t = torch.clamp(temperature.float(), min=1e-6)[:, None]
@@ -168,7 +204,7 @@ def fused_sample_reference(logits, keys, temperature, top_k, top_p,
 
 
 def _sample_kernel(logits, keys, temperature, top_k, top_p):
-    if logits.dtype not in _build.DTYPE_CODES:
+    if logits.dtype not in _build.FLOAT_CODES:
         raise TypeError(f"unsupported logits dtype {logits.dtype}")
     dev = logits.device
     for name, t in (("keys", keys), ("temperature", temperature),
@@ -203,12 +239,19 @@ def fused_sample(logits, keys, temperature, top_k, top_p, *,
 
     ``keys`` ``(rows, 2)`` int64 uint32 words (:func:`split` products);
     ``temperature`` / ``top_k`` / ``top_p`` ``(rows,)`` tensors with the
-    semantics of :func:`fused_sample_reference`.  ``implementation`` as
-    in :mod:`._dispatch`.
+    semantics of :func:`fused_sample_reference`.  ``(rows, width,
+    vocab)`` logits with ``(rows, width, 2)`` keys (the speculative
+    verify) run as ``rows * width`` rows of the same kernel, the per-row
+    parameters repeated over the width, and return ``(rows, width)``.
+    ``implementation`` as in :mod:`._dispatch`.
     """
-    if logits.ndim != 2:
-        raise ValueError(
-            f"logits must be (rows, vocab), got {tuple(logits.shape)}")
+    n0 = logits.shape[0]
+    logits, keys, temperature, top_k, top_p, width = _flatten_width(
+        logits, keys, temperature, top_k, top_p)
+    if width is not None:
+        return fused_sample(logits, keys, temperature, top_k, top_p,
+                            vocab_size=vocab_size,
+                            implementation=implementation).reshape(n0, width)
     rows, vocab = logits.shape
     if tuple(keys.shape) != (rows, 2):
         raise ValueError(

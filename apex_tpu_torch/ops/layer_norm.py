@@ -82,14 +82,14 @@ def _check_params(x, weight, bias):
             raise ValueError(
                 f"{name} must be ({h},) on {x.device}, got "
                 f"{tuple(t.shape)} on {t.device}")
-    if x.dtype not in _build.DTYPE_CODES:
+    if x.dtype not in _build.FLOAT_CODES:
         raise TypeError(f"unsupported dtype {x.dtype}")
     if weight is not None and bias is not None \
             and weight.dtype != bias.dtype:
         raise TypeError("weight and bias must share a dtype")
     w_dtype = (weight if weight is not None else
                bias if bias is not None else x).dtype
-    if w_dtype not in _build.DTYPE_CODES:
+    if w_dtype not in _build.FLOAT_CODES:
         raise TypeError(f"unsupported parameter dtype {w_dtype}")
     return w_dtype
 

@@ -86,7 +86,7 @@ def rope_reference(x, cos, sin):
 
 
 def _rope_kernel(x, cos, sin):
-    if x.dtype not in _build.DTYPE_CODES:
+    if x.dtype not in _build.FLOAT_CODES:
         raise TypeError(f"unsupported dtype {x.dtype}")
     x4 = _as_4d(x, cos)
     _check_tables(x4, cos, sin)

@@ -1,7 +1,8 @@
-"""Continuous-batching serving over the dense KV cache.
+"""Continuous-batching serving over the dense KV cache or the paged pool.
 
-The slotted engine (:mod:`~apex_tpu_torch.serving.engine`), its slot
-pool (:mod:`~apex_tpu_torch.serving.cache`), the bounded FIFO scheduler
+The slotted and paged engines (:mod:`~apex_tpu_torch.serving.engine`),
+the slot pool and the page allocator, digests and prefix trie
+(:mod:`~apex_tpu_torch.serving.cache`), the bounded FIFO scheduler
 (:mod:`~apex_tpu_torch.serving.scheduler`) and the threaded front end
 (:mod:`~apex_tpu_torch.serving.api`).  Greedy decoding through the
 engine is token-identical to :func:`apex_tpu_torch.models.generate`.
@@ -13,10 +14,18 @@ from apex_tpu_torch.serving.api import (
     RequestHandle,
     ServerClosed,
 )
+from apex_tpu_torch.serving.cache import (
+    BlockAllocator,
+    BlockExhausted,
+    PrefixTrie,
+    chain_digests,
+)
 from apex_tpu_torch.serving.engine import (
     DEFAULT_BUCKETS,
     Engine,
+    PagedEngine,
     StepOutput,
+    prompt_lookup_draft,
     sample_dynamic,
 )
 from apex_tpu_torch.serving.scheduler import (
@@ -28,6 +37,8 @@ from apex_tpu_torch.serving.scheduler import (
 
 __all__ = [
     "InferenceServer", "RequestFailed", "RequestHandle", "ServerClosed",
-    "DEFAULT_BUCKETS", "Engine", "StepOutput", "sample_dynamic",
+    "BlockAllocator", "BlockExhausted", "PrefixTrie", "chain_digests",
+    "DEFAULT_BUCKETS", "Engine", "PagedEngine", "StepOutput",
+    "prompt_lookup_draft", "sample_dynamic",
     "QueueFull", "Request", "Scheduler", "StepEvent",
 ]

@@ -1,6 +1,8 @@
 """Threaded front end: submit → handle, streaming tokens, metrics.
 
-Counterpart of ``apex_tpu/serving/api.py`` for the dense KV cache.
+Counterpart of ``apex_tpu/serving/api.py``, over the dense KV cache
+(``kv_cache="dense"``) or the paged pool (``kv_cache="paged"``, the
+:class:`~apex_tpu_torch.serving.engine.PagedEngine`).
 :class:`InferenceServer` owns one worker thread that runs the
 engine/scheduler loop (all device work on that thread); client threads
 talk to it only through the bounded queue and per-request
@@ -18,11 +20,14 @@ Usage::
             ...
         full = h.result()
 
+    server = InferenceServer(model, kv_cache="paged", max_slots=8,
+                             prefill_chunk=128, share_prefixes=True,
+                             spec_tokens=3, kv_dtype="int8")
+
 The model carries its weights (a ``torch.nn.Module`` on the serving
-device), so there is no separate ``params`` argument.  The paged KV
-cache, tensor parallelism, prefix sharing, speculative decoding,
-graceful drain and the fleet router come with later slices (ROADMAP.md
-A-3 and A-5).
+device), so there is no separate ``params`` argument.  Tensor
+parallelism, graceful drain and the fleet router come with a later
+slice (ROADMAP.md A-5).
 """
 
 from __future__ import annotations
@@ -36,7 +41,11 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from apex_tpu_torch.resilience import faults
-from apex_tpu_torch.serving.engine import DEFAULT_BUCKETS, Engine
+from apex_tpu_torch.serving.engine import (
+    DEFAULT_BUCKETS,
+    Engine,
+    PagedEngine,
+)
 from apex_tpu_torch.serving.scheduler import QueueFull, Request, Scheduler
 from apex_tpu_torch.utils.metrics import (
     MetricsWriter,
@@ -145,19 +154,48 @@ class InferenceServer:
                  prompt_buckets: Optional[Sequence[int]] = None,
                  prefill_chunk: int = 0, queue_capacity: int = 64,
                  metrics: Optional[MetricsWriter] = None,
-                 metrics_interval: int = 32, kv_cache: str = "dense"):
-        if kv_cache == "paged":
+                 metrics_interval: int = 32, kv_cache: str = "dense",
+                 block_size: int = 0, pool_tokens: Optional[int] = None,
+                 admit_headroom: Optional[int] = None,
+                 share_prefixes: bool = False, spec_tokens: int = 0,
+                 spec_ngram: int = 3, kv_dtype: Optional[str] = None,
+                 tp: int = 0, mesh: Optional[Any] = None):
+        if (tp and tp > 1) or mesh is not None:
             raise NotImplementedError(
-                "kv_cache='paged' comes with ROADMAP.md A-3, the paged "
-                "serving slice")
-        if kv_cache != "dense":
+                "tensor-parallel serving (tp= / mesh=) comes with "
+                "ROADMAP.md A-5")
+        if kv_cache == "paged":
+            if prompt_buckets is not None:
+                raise ValueError(
+                    "prompt_buckets only applies to kv_cache='dense' — "
+                    "chunked prefill admits any prompt length; tune "
+                    "prefill_chunk and pool_tokens instead")
+            # chunked prefill needs a width; 0 maps to the default
+            self.engine: Any = PagedEngine(
+                model, max_slots=max_slots, block_size=block_size,
+                pool_tokens=pool_tokens, prefill_chunk=prefill_chunk or 32,
+                admit_headroom=admit_headroom,
+                share_prefixes=share_prefixes, spec_tokens=spec_tokens,
+                spec_ngram=spec_ngram, kv_dtype=kv_dtype)
+        elif kv_cache == "dense":
+            if share_prefixes or spec_tokens:
+                raise ValueError(
+                    "share_prefixes / spec_tokens require kv_cache='paged' "
+                    "— the dense slab has no page pool to share and no "
+                    "multi-token step to verify drafts in")
+            if kv_dtype is not None:
+                raise ValueError(
+                    "kv_dtype requires kv_cache='paged' — quantized KV "
+                    "pages live in the paged pool; the dense slab stores "
+                    "K/V in the model's compute dtype")
+            self.engine = Engine(
+                model, max_slots=max_slots,
+                prompt_buckets=(DEFAULT_BUCKETS if prompt_buckets is None
+                                else prompt_buckets),
+                prefill_chunk=prefill_chunk)
+        else:
             raise ValueError(
                 f"kv_cache={kv_cache!r} not in ('dense', 'paged')")
-        self.engine = Engine(
-            model, max_slots=max_slots,
-            prompt_buckets=(DEFAULT_BUCKETS if prompt_buckets is None
-                            else prompt_buckets),
-            prefill_chunk=prefill_chunk)
         self.scheduler = Scheduler(self.engine,
                                    queue_capacity=queue_capacity)
         self.metrics = metrics
@@ -412,8 +450,10 @@ class InferenceServer:
             "requeues": self._requeues,
             "failed_requests": self._failed_requests,
             "deadline_expired": self._deadline_expired,
+            "preempts": self.scheduler.preempts,
         }
         payload.update(self.latency_summary())
+        payload.update(self._pool_gauges(numeric=True))
         self.metrics(self._steps, payload)
         self.metrics.drain()
         self._last_emit_step = self._steps
@@ -447,8 +487,39 @@ class InferenceServer:
             "requeues": self._requeues,
             "failed_requests": self._failed_requests,
             "deadline_expired": self._deadline_expired,
+            "preempts": self.scheduler.preempts,
             "error": None if error is None else repr(error),
+            **self._pool_gauges(numeric=False),
         }
+
+    def _pool_gauges(self, numeric: bool) -> Dict[str, Any]:
+        """The paged pool's gauges (empty for the dense engine): pages in
+        use and total, live tokens, shared pages, copy-on-write forks,
+        the storage width in bits (and its name, ``kv_dtype``, for
+        :meth:`health`), and the draft accept rate when speculation is
+        configured."""
+        eng = self.engine
+        if not getattr(eng, "paged", False):
+            return {}
+        out: Dict[str, Any] = {
+            "blocks_in_use": eng.blocks_in_use,
+            "blocks_total": eng.blocks_total,
+            "live_tokens": eng.live_tokens,
+            "shared_blocks": eng.shared_blocks,
+            "cow_forks": eng.cow_forks,
+            "kv_bits": eng.kv_bits,
+        }
+        if not numeric:
+            out["kv_dtype"] = eng.kv_dtype
+        if eng.spec_tokens:
+            out["spec_accept_rate"] = eng.spec_accept_rate
+        return out
+
+    def prefix_hit_blocks(self, prompt) -> int:
+        """Pages of ``prompt``'s prefix resident in this server's trie
+        (0 for the dense engine or with sharing off)."""
+        fn = getattr(self.engine, "prefix_hit_blocks", None)
+        return 0 if fn is None else int(fn(prompt))
 
     @property
     def steps(self) -> int:

@@ -2,8 +2,12 @@
 
 Counterpart of ``apex_tpu/serving/scheduler.py``.  At every step
 boundary the scheduler (1) refills free slots from the queue in FIFO
-order, then (2) runs one engine decode step and routes each produced
-token to its request, evicting tenants that finished (eos or budget).
+order — gated on the engine's ``can_admit`` (the paged engine's free
+pages) — then (2) runs one engine step and routes each produced token
+to its request, evicting tenants that finished (eos or budget).  A paged
+engine's :class:`~apex_tpu_torch.serving.engine.StepOutput` may carry
+several tokens per slot (speculative decoding) and slots it preempted,
+which are requeued at the front.
 A long generation and a short one share the batch, and the short one's
 slot is reused the step after it finishes.
 
@@ -25,6 +29,7 @@ from typing import Deque, List, Optional, Tuple
 import numpy as np
 
 from apex_tpu_torch.resilience import faults
+from apex_tpu_torch.serving.engine import StepOutput
 from apex_tpu_torch.utils.metrics import counters
 
 __all__ = ["Request", "Scheduler", "QueueFull", "StepEvent"]
@@ -87,6 +92,8 @@ class Scheduler:
         # host shadow of slot occupancy: item writes by the worker only
         self._slots: List[Optional[Request]] = [None] * engine.max_slots
         self._admit_failures: List[Tuple[Request, BaseException]] = []
+        #: tenants the engine preempted for pages (requeued, no retry spent)
+        self.preempts = 0
 
     # ------------------------------------------------------------ intake
     def submit(self, request: Request) -> Request:
@@ -161,7 +168,10 @@ class Scheduler:
 
     # ------------------------------------------------------------- steps
     def _admit_from_queue(self) -> int:
-        """Fill free slots FIFO; returns the number admitted.  A
+        """Fill free slots FIFO; returns the number admitted.  The queue
+        head must also pass the engine's token gate (``can_admit``); a
+        head that does not blocks the queue rather than being overtaken
+        (counter ``serving.admit_blocked``).  A
         :class:`~apex_tpu_torch.resilience.faults.TransientError` during
         one admission is retried from the queue's front once, then
         recorded on :meth:`take_admit_failures`."""
@@ -171,6 +181,12 @@ class Scheduler:
                 continue
             with self._lock:
                 if not self._queue:
+                    break
+                head = self._queue[0]
+                if not self.engine.can_admit(head.prompt.shape[0],
+                                             head.max_new_tokens,
+                                             prompt=head.prompt):
+                    counters.inc("serving.admit_blocked")
                     break
                 req = self._queue.popleft()
             try:
@@ -212,17 +228,38 @@ class Scheduler:
         self._admit_from_queue()
         if self.active_count == 0:
             return []
-        tokens, finished = self.engine.step()
+        out = self.engine.step()
+        if isinstance(out, StepOutput):
+            tokens, finished, _emitted, preempted, counts = out
+        else:
+            (tokens, finished), counts, preempted = out, None, ()
+        for slot in preempted:
+            req = self._slots[slot]
+            if req is None:
+                continue
+            # the engine already freed the slot; preemption is
+            # scheduling, not failure, so no retry is spent
+            self._slots[slot] = None
+            self.preempts += 1
+            counters.inc("serving.preempt")
+            try:
+                self.requeue(req)
+            except ValueError as exc:        # unresumable continuation
+                self._admit_failures.append((req, exc))
         events: List[StepEvent] = []
         for slot, req in enumerate(self._slots):
             if req is None:
                 continue
-            tok, fin = int(tokens[slot]), bool(finished[slot])
-            req.tokens.append(tok)
-            events.append(StepEvent(req, tok, fin))
-            if fin:
-                self.engine.release(slot)
-                self._slots[slot] = None
+            n_emit = 1 if counts is None else int(counts[slot])
+            row = tokens[slot]
+            for j in range(n_emit):
+                tok = int(row[j]) if np.ndim(row) else int(row)
+                fin = bool(finished[slot]) and j == n_emit - 1
+                req.tokens.append(tok)
+                events.append(StepEvent(req, tok, fin))
+                if fin:
+                    self.engine.release(slot)
+                    self._slots[slot] = None
         return events
 
     def drain(self) -> List[StepEvent]:

@@ -8,22 +8,36 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card:
     python3 chip_smoke.py --profile      # + device-time breakdowns
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (``nvcc``,
-``sm_90a``) and then runs five phases; any failure exits non-zero.
+``sm_90a``) and then runs seven phases, in the order 1, 2, 3, 6, 7, 4,
+5 (Llama-2-7B is built once for 3, 6 and 7); any failure exits non-zero.
 
 1. Kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (Llama-2-7B width) and the training path's
    (BERT-Large: LayerNorm forward with statistics and backward, flash
    attention forward, dq and dk/dv; a causal GQA window case at d=128;
-   the RoPE backward), with times: the kernel, its plain version, the one
+   the RoPE backward), and the paged kernels at the paged path's (decode,
+   chunked prefill, speculative verify; int8/fp8 pools, GQA, garbage in
+   dead pages; the fused decode step's written pages, codes and scales
+   bitwise), with times: the kernel, its plain version, the one
    PyTorch call computing the same function where there is one (a
    yardstick only), and the bound — the larger of bytes over 3.35 TB/s
    and operations over the card's peak rate for their type.
 2. Engine identity at full width and depth 2 (fp32, TF32 off): greedy
    ``InferenceServer`` results equal ``generate()``; sampled requests
-   equal themselves on a rerun with the same seeds.
+   equal themselves on a rerun with the same seeds; the paged server's
+   greedy results equal ``generate()`` across page and chunk boundaries,
+   with speculation, a shared prefix and a pool small enough to preempt,
+   and its sampled requests equal the dense server's.
 3. Serving: Llama-2-7B at full depth in bf16 with random weights from a
    seeded generator, served by ``InferenceServer`` (4 slots, buckets
    32/128/512) for 8 requests; every kernel of the path must launch.
+6. Paged serving: the same model from a paged pool of 16384 tokens (8
+   slots, pages of 16, chunks of 128) for 16 requests of 20-1000 prompt
+   tokens, then steady decode at 4 and 8 slots; both paged kernels must
+   launch and every page come back.
+7. The same on int8 pages with prefix sharing and 3 lookup drafts: 8
+   requests, 4 behind one 256-token system prompt, run twice; greedy
+   results must repeat; then steady decode at 4 slots.
 4. Training: BERT-Large amp O2 (bf16, fp32 masters, FusedAdam with fp32
    moments, remat), b=16, s=512, 80 masked positions — ``bench.py``'s
    step — 3 warm-up and 10 timed steps on one batch, with the
@@ -46,9 +60,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -59,6 +76,7 @@ INT32_OPS_PER_S = 33.5e12
 VOCAB = 32000
 
 _FA = "apex_tpu_torch/csrc/flash_attention.cu"
+_PA = "apex_tpu_torch/csrc/paged_attention.cu"
 KERNELS = {
     "layer_norm": dict(source="apex_tpu_torch/csrc/layer_norm.cu",
                        replaces="apex_tpu/ops/layer_norm.py:74"),
@@ -74,8 +92,13 @@ KERNELS = {
                                    replaces="apex_tpu/ops/attention.py:577"),
     "flash_attention_bwd_dkv": dict(
         source=_FA, replaces="apex_tpu/ops/attention.py:649"),
+    "paged_attention": dict(source=_PA,
+                            replaces="apex_tpu/ops/paged_attention.py:376"),
+    "paged_decode_fused": dict(
+        source=_PA, replaces="apex_tpu/ops/paged_attention.py:639"),
 }
 SERVING_KERNELS = ("layer_norm", "rope", "fused_sampling")
+PAGED_KERNELS = ("paged_attention", "paged_decode_fused")
 # BERT-Large O2, remat: launches per training step of each kernel entry —
 # LayerNorm forward 50 (2 per layer, embedding, MLM head) plus 48
 # recomputed, its backward 50; flash forward 24 plus 24 recomputed, dq
@@ -316,6 +339,158 @@ def phase_kernels(torch, rows_out):
     ok &= _layer_norm_training_rows(torch, g, record)
     ok &= _flash_rows(torch, g, record)
     ok &= _flash_edge_checks(torch, g)
+    ok &= _paged_rows(torch, g, record, rows_out)
+    return ok
+
+
+def _paged_pool(torch, g, dev, *, b, hk, d, bs, lengths, s, dtype,
+                spare=64):
+    """A pool holding each row's ``lengths[i] + s`` tokens on shuffled
+    pages, with ``spare`` dead pages and the null page full of large
+    garbage (1e4 x the live scale) that the mask must keep out."""
+    need = [-(-(n + s) // bs) for n in lengths]
+    nb = 1 + sum(need) + spare
+    mb = max(need)
+    kp = torch.randn(hk, nb, bs, d, generator=g, device=dev)
+    vp = torch.randn(hk, nb, bs, d, generator=g, device=dev)
+    perm = torch.randperm(nb - 1, generator=g, device=dev) + 1
+    tables = torch.zeros(b, mb, dtype=torch.int32, device=dev)
+    live, at = [], 0
+    for i, n in enumerate(need):
+        tables[i, :n] = perm[at:at + n].int()
+        live.append(perm[at:at + n])
+        at += n
+    live = torch.cat(live)
+    dead = torch.ones(nb, dtype=torch.bool, device=dev)
+    dead[live] = False
+    kp[:, dead] *= 1e4
+    vp[:, dead] *= 1e4
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return kp.to(dtype), vp.to(dtype), tables, lens, live
+
+
+def _paged_rows(torch, g, record, rows_out):
+    """The paged kernels against their plain versions: B-9 at the decode
+    shape (4 rows of 510/480/333/250 tokens, Llama-2-7B heads), the
+    chunked-prefill shape (8 rows, chunk 128, contexts to 1000) and the
+    speculative verify (s = 4); B-10 at the decode shape with RoPE; int8
+    and fp8 pools, GQA (32/8 heads), fp32, dead pages of garbage.
+    B-10's written pages, codes and scales must equal the plain
+    version's bitwise on live pages.  There is no PyTorch call for
+    attention over a paged pool (library "none");
+    ``F.scaled_dot_product_attention`` over the same live K/V laid out
+    densely is timed beside it as a yardstick ("sdpa_dense_ms")."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops.rope import rope_cos_sin
+
+    # the module (the ops namespace exports the function of its name)
+    PA = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    dec = [510, 480, 333, 250]
+    chunk = [0, 120, 250, 400, 560, 700, 812, 872]
+    cases = [  # tag, b, s, h, hk, lengths, dtype, kv_dtype
+        ("decode", 4, 1, 32, 32, dec, bf16, None),
+        ("decode", 4, 1, 32, 32, dec, torch.float32, None),
+        ("decode/int8", 4, 1, 32, 32, dec, bf16, "int8"),
+        ("decode/fp8", 4, 1, 32, 32, dec, bf16, "fp8"),
+        ("decode/gqa", 4, 1, 32, 8, dec, bf16, None),
+        ("decode/gqa-int8", 4, 1, 32, 8, dec, bf16, "int8"),
+        ("chunk", 8, 128, 32, 32, chunk, bf16, None),
+        ("chunk/int8", 8, 128, 32, 32, chunk, bf16, "int8"),
+        ("chunk/gqa", 8, 128, 32, 8, chunk, bf16, None),
+        ("verify", 4, 4, 32, 32, dec, bf16, None),
+        ("verify/fp8", 4, 4, 32, 32, dec, bf16, "fp8"),
+    ]
+    ok = True
+    cos_t, sin_t = rope_cos_sin(4096, 128, device=dev)
+    for tag, b, s, h, hk, lengths, dt, kv in cases:
+        d, bs = 128, 16
+        kp, vp, tables, lens, live = _paged_pool(
+            torch, g, dev, b=b, hk=hk, d=d, bs=bs, lengths=lengths, s=s,
+            dtype=dt)
+        kw = {}
+        if kv:
+            kp, vp, ks, vs = PA.quantize_kv_pages(kp, vp, kv)
+            kw = dict(k_scales=ks, v_scales=vs)
+        q = torch.randn(b, s, h, d, generator=g, device=dev).to(dt)
+        rel = 1e-5 if dt == torch.float32 else 2 ** -7
+        tol = f"o: max |err| <= {rel:g} x max |ref|"
+        shape = (b, s, h, hk, d)
+        nbytes = PA.paged_cost_bytes(q, kp, lengths)
+        pairs = sum(n + i + 1 for n in lengths for i in range(s)) * h
+        flops = 4 * pairs * d
+        # the products' peak for q's type: bf16 on the tensor cores
+        peak = FP32_OPS_PER_S if dt == torch.float32 else BF16_OPS_PER_S
+
+        # the dense yardstick over the same live keys (one SDPA per row
+        # would be the fair call; one padded batch is what a caller has)
+        kmax = max(lengths) + s
+        kd = torch.randn(b, h, kmax, d, generator=g, device=dev).to(
+            torch.float32 if dt == torch.float32 else bf16)
+        qd = q.transpose(1, 2).to(kd.dtype).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qd, kd, kd,
+                                                  enable_gqa=False)
+        t_sd = timed(torch, sdpa, 20)
+        args = (q, kp, vp, tables, lens)
+        got = PA.paged_attention(*args, **kw)
+        ref = PA.paged_attention(*args, implementation="torch", **kw)
+        torch.cuda.synchronize()
+        err, passed = _close_rel(torch, got, ref, rel)
+        passed &= bool(torch.isfinite(got).all())
+        ok &= record(f"paged_attn/{tag}", shape, dt, err, passed,
+                     lambda: PA.paged_attention(*args, **kw),
+                     lambda: PA.paged_attention(*args, implementation="torch",
+                                                **kw),
+                     nbytes, flops, None, tol, ops_per_s=peak, iters=20)
+        rows_out[-1]["sdpa_dense_ms"] = t_sd[0]
+        if s != 1:
+            continue
+        # B-10 at the same decode shape: the new row at lengths[i]
+        pos = lens.long()
+        cos_b = cos_t[pos][:, None, None, :]
+        sin_b = sin_t[pos][:, None, None, :]
+        nk = torch.randn(b, 1, hk, d, generator=g, device=dev).to(dt)
+        nv = torch.randn(b, 1, hk, d, generator=g, device=dev).to(dt)
+        fkw = dict(max_seq_len=4096, cos_b=cos_b, sin_b=sin_b)
+        if kv:
+            fkw["chunk_lens"] = torch.ones(b, dtype=torch.int32, device=dev)
+
+        def fused(impl, pools):
+            kp_, vp_, *sc = pools
+            extra = dict(k_scales=sc[0], v_scales=sc[1]) if sc else {}
+            return PA.paged_decode_fused(q, nk, nv, kp_, vp_, tables, lens,
+                                         implementation=impl, **fkw, **extra)
+
+        base = [kp, vp] + ([kw["k_scales"], kw["v_scales"]] if kv else [])
+        pk = [t.clone() for t in base]
+        pt = [t.clone() for t in base]
+        out_k = fused("kernel", pk)
+        out_t = fused("torch", pt)
+        torch.cuda.synchronize()
+        err, passed = _close_rel(torch, out_k[0], out_t[0], rel)
+        written = all(
+            torch.equal(a[:, live].contiguous().view(torch.uint8),
+                        r[:, live].contiguous().view(torch.uint8))
+            for a, r in zip(out_k[1:], out_t[1:]))
+        passed &= written and bool(torch.isfinite(out_k[0]).all())
+        log(f"  paged_decode_fused/{tag}: written pages"
+            f"{' and scales' if kv else ''} bitwise: {written}")
+        ok &= record(f"paged_decode_fused/{tag}", shape, dt, err, passed,
+                     lambda: fused("kernel", pk), lambda: fused("torch", pt),
+                     PA.paged_cost_bytes(q, kp, lengths, written_rows=True),
+                     flops + 12 * (h + hk) * b * d, None,
+                     tol + "; written pages, codes, scales bitwise",
+                     ops_per_s=peak, iters=20)
+        rows_out[-1]["sdpa_dense_ms"] = t_sd[0]
+        del pk, pt, out_k, out_t
+    torch.cuda.empty_cache()
     return ok
 
 
@@ -684,21 +859,94 @@ def phase_identity(torch):
     same = first[4:] == again[4:]
     ok &= same
     log(f"  sampled requests equal on rerun: {same}")
+    ok &= _paged_identity(torch, model, prompts, sampled, first[4:])
     del model
     torch.cuda.empty_cache()
+    return ok
+
+
+def _paged_identity(torch, model, prompts, sampled, dense_sampled):
+    """The paged server on the same model: greedy equals generate() at
+    prompt lengths straddling pages of 16 and chunks of 32; the sampled
+    requests equal the dense server's; with speculation (3 drafts),
+    with a shared 48-token prefix, and with a 256-token pool that forces
+    preemption, greedy still equals generate() and every page comes
+    back."""
+    from apex_tpu_torch.models import generate
+    from apex_tpu_torch.serving import InferenceServer
+
+    gen = torch.Generator().manual_seed(5)
+
+    def rand(n):
+        return torch.randint(0, VOCAB, (n,), generator=gen).numpy()
+
+    def serve(reqs, lead=0, **kw):
+        with InferenceServer(model, kv_cache="paged", max_slots=4,
+                             block_size=16, prefill_chunk=32, **kw) as srv:
+            out, _wall, _launches, shared = _serve_run(
+                torch, srv, reqs, lead=lead,
+                poll=lambda: srv.engine.shared_blocks)
+            health = srv.health()
+            health["peak_shared_blocks"] = shared
+            preempts = srv.scheduler.preempts
+        return out, health, preempts
+
+    def greedy_ok(tag, ps, out, n):
+        good = True
+        for p, got in zip(ps, out):
+            ref = generate(model, torch.from_numpy(p)[None],
+                           max_new_tokens=n)[0, len(p):].tolist()
+            good &= ref == got
+        log(f"  paged {tag}: greedy == generate() for lengths "
+            f"{[len(p) for p in ps]}: {good}")
+        return good
+
+    ok = True
+    straddle = [rand(n) for n in (15, 16, 17, 31, 32, 33, 47, 64)]
+    reqs = [(p, dict(max_new_tokens=12)) for p in straddle]
+    reqs += [(p, dict(max_new_tokens=16, **k))
+             for p, k in zip(prompts, sampled)]
+    out, health, _ = serve(reqs)
+    ok &= greedy_ok("boundaries", straddle, out[:8], 12)
+    same = out[8:] == dense_sampled
+    ok &= same and health["blocks_in_use"] == 0
+    log(f"  paged sampled requests == dense server's: {same}")
+    # lookup-friendly prompts: a repeated 6-token phrase
+    rep = [np.tile(rand(6), 5), np.concatenate([rand(9), np.tile(rand(4),
+                                                                 6)])]
+    out, health, _ = serve([(p, dict(max_new_tokens=16)) for p in rep],
+                           spec_tokens=3)
+    ok &= greedy_ok(f"spec (accept {health['spec_accept_rate']:.3f})",
+                    rep, out, 16) and health["blocks_in_use"] == 0
+    pref = rand(48)
+    shared = [np.concatenate([pref, rand(n)]) for n in (5, 11, 0, 20)]
+    out, health, _ = serve([(p, dict(max_new_tokens=10)) for p in shared],
+                           lead=1, share_prefixes=True)
+    ok &= greedy_ok(f"shared prefix (peak shared pages "
+                    f"{health['peak_shared_blocks']}, cow_forks "
+                    f"{health['cow_forks']})", shared, out, 10)
+    ok &= (health["blocks_in_use"] == 0 and health["cow_forks"] > 0
+           and health["peak_shared_blocks"] > 0)
+    long = [rand(n) for n in (60, 70, 80, 90)]
+    out, health, preempts = serve(
+        [(p, dict(max_new_tokens=40)) for p in long], pool_tokens=256,
+        admit_headroom=0)
+    ok &= greedy_ok(f"pool of 256 tokens ({preempts} preemptions)", long,
+                    out, 40)
+    ok &= preempts > 0 and health["blocks_in_use"] == 0
+    log(f"  paged blocks_in_use at the end: {health['blocks_in_use']}")
     return ok
 
 
 # ------------------------------------------------------------------ #
 # phase 3: the slice — Llama-2-7B bf16 served end to end
 # ------------------------------------------------------------------ #
-def phase_serve(torch, profile=False):
-    from apex_tpu_torch import _build
-    from apex_tpu_torch.models import (
-        LlamaConfig, LlamaModel, init_cache, prefill_tokens)
-    from apex_tpu_torch.serving import InferenceServer
+def llama2_7b(torch):
+    """Llama-2-7B at its published widths and depth, bf16, with random
+    weights from a seeded generator — built once, served by phases 3, 6
+    and 7."""
+    from apex_tpu_torch.models import LlamaConfig, LlamaModel
 
-    log("phase 3: Llama-2-7B bf16, InferenceServer, 8 requests")
     dev = torch.device("cuda")
     cfg = LlamaConfig.llama2_7b(dtype=torch.bfloat16,
                                 param_dtype=torch.bfloat16)
@@ -706,12 +954,57 @@ def phase_serve(torch, profile=False):
     model = LlamaModel(cfg, device=dev)
     model.init_weights(torch.Generator(device=dev).manual_seed(3))
     torch.cuda.synchronize()
-    log(f"  weights: {sum(p.numel() for p in model.parameters())} params "
-        f"in {time.monotonic() - t0:.1f}s")
+    log(f"  Llama-2-7B weights: {sum(p.numel() for p in model.parameters())}"
+        f" params in {time.monotonic() - t0:.1f}s")
+    return model
+
+
+def serve_prompts(torch):
+    """Phase 3's eight prompts (20-500 tokens); the last four are the
+    ~500-token contexts of steady decode in phases 3 and 6."""
     gen = torch.Generator().manual_seed(4)
     lens = (20, 57, 130, 250, 333, 410, 480, 500)
-    prompts = [torch.randint(0, VOCAB, (n,), generator=gen).numpy()
-               for n in lens]
+    return [torch.randint(0, VOCAB, (n,), generator=gen).numpy()
+            for n in lens]
+
+
+def _steady_decode(eng, prompts, n_windows=3, window=16):
+    """Admit ``prompts`` into the engine's slots, run them past their
+    prefill, then time ``n_windows`` windows of ``window`` steps; a step
+    emits one token per slot, or up to ``1 + spec_tokens`` with drafts
+    (the budgets leave room for every step to emit its most).  Returns
+    ``(step_ms, window_ms, tokens)``, ``tokens`` emitted by the timed
+    steps."""
+    per_step = 1 + getattr(eng, "spec_tokens", 0)
+    for slot, p in enumerate(prompts):
+        eng.admit(slot, p, max_new_tokens=n_windows * window * per_step + 64)
+    busy = getattr(eng, "_tenants", None)
+    while busy and any(t is not None and t.fed < t.prompt.size
+                       for t in busy):
+        eng.step()
+    eng.step()
+    step_ms, windows, tokens = [], [], 0
+    for _ in range(n_windows):
+        t_w = time.monotonic()
+        for _ in range(window):
+            t0 = time.monotonic()
+            out = eng.step()
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            # the dense engine's (tokens, finished) pair: one per slot
+            counts = getattr(out, "counts", None)
+            tokens += len(prompts) if counts is None else int(counts.sum())
+        windows.append((time.monotonic() - t_w) / window * 1e3)
+    return step_ms, windows, tokens
+
+
+def phase_serve(torch, model, profile=False):
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.models import init_cache, prefill_tokens
+    from apex_tpu_torch.serving import InferenceServer
+
+    log("phase 3: Llama-2-7B bf16, InferenceServer, 8 requests")
+    dev = torch.device("cuda")
+    prompts = serve_prompts(torch)
     params = [dict(), dict(temperature=0.8, top_k=50, seed=1), dict(),
               dict(temperature=1.0, top_p=0.9, seed=2), dict(),
               dict(temperature=0.7, top_k=40, top_p=0.95, seed=3), dict(),
@@ -748,17 +1041,8 @@ def phase_serve(torch, profile=False):
     # engine step (batched forward + fused sampling + the host sync) is
     # one token per slot; every step of three 16-step windows is timed
     eng = srv.engine
-    for slot in range(eng.max_slots):
-        eng.admit(slot, prompts[-1 - slot], max_new_tokens=64)
-    eng.step()
-    step_ms, windows = [], []
-    for _ in range(3):
-        t_w = time.monotonic()
-        for _ in range(16):
-            t0 = time.monotonic()
-            eng.step()
-            step_ms.append((time.monotonic() - t0) * 1e3)
-        windows.append((time.monotonic() - t_w) / 16 * 1e3)
+    step_ms, windows, dec_tok = _steady_decode(
+        eng, [prompts[-1 - slot] for slot in range(eng.max_slots)])
     decode_s = sum(step_ms) / 1e3
     prof = _profile_steps(torch, eng) if profile else None
     for slot in range(eng.max_slots):
@@ -767,7 +1051,7 @@ def phase_serve(torch, profile=False):
                  wall_s=wall, warmup_s=warm_s,
                  serve_tokens_per_s=ntok / wall, launches=launches,
                  decode_steps=len(step_ms), decode_s=decode_s,
-                 decode_tokens_per_s=len(step_ms) * eng.max_slots / decode_s,
+                 decode_tokens_per_s=dec_tok / decode_s,
                  decode_step_ms_windows=windows,
                  decode_step_ms_min=min(step_ms),
                  decode_step_ms_max=max(step_ms),
@@ -777,8 +1061,187 @@ def phase_serve(torch, profile=False):
         stats["profile"] = prof
         log(f"  profile: {json.dumps(prof)}")
     ok &= all(launches[n] > 0 for n in SERVING_KERNELS)
-    del model, one, eng, srv
+    del one, eng, srv
     torch.cuda.empty_cache()
+    return ok, stats
+
+
+# ------------------------------------------------------------------ #
+# phases 6 and 7: the paged slice — Llama-2-7B bf16 on the paged pool
+# ------------------------------------------------------------------ #
+def _serve_run(torch, srv, reqs, poll=None, lead=0):
+    """Submit ``reqs`` to a started server and wait; returns the results,
+    the wall seconds, the launches and the largest ``poll()`` seen.  The
+    first ``lead`` requests go first, and the rest only once those have
+    streamed a token (their prompt pages are then in the prefix trie)."""
+    from apex_tpu_torch import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.monotonic()
+    hs = [srv.submit(p, **kw) for p, kw in reqs[:lead]]
+    for h in hs:
+        next(h.stream(timeout=600))
+    hs += [srv.submit(p, **kw) for p, kw in reqs[lead:]]
+    peak = 0
+    while not all(h.done for h in hs):
+        if poll is not None:
+            peak = max(peak, poll())
+        time.sleep(0.01)
+    results = [h.result(timeout=900) for h in hs]
+    torch.cuda.synchronize()
+    return results, time.monotonic() - t0, dict(_build.launches), peak
+
+
+def phase_paged(torch, model, profile=False):
+    """Phase 6: Llama-2-7B bf16 served from a paged pool of 16384
+    tokens — the bytes of phase 3's 4 × 4096 slab — at 8 slots, chunk
+    128: 16 requests of 20-1000 prompt and 64 new tokens, half greedy,
+    half sampled; then steady decode at 4 slots of ~500 tokens (phase
+    3's contexts) and at 8 slots."""
+    from apex_tpu_torch.serving import InferenceServer
+
+    log("phase 6: Llama-2-7B bf16, InferenceServer(kv_cache='paged'), "
+        "16 requests")
+    gen = torch.Generator().manual_seed(6)
+    lens = torch.randint(20, 1001, (16,), generator=gen).tolist()
+    prompts = [torch.randint(0, VOCAB, (n,), generator=gen).numpy()
+               for n in lens]
+    reqs = [(p, dict(max_new_tokens=64) if i % 2 == 0 else dict(
+        max_new_tokens=64, temperature=0.8, top_k=50, top_p=0.95, seed=i))
+        for i, p in enumerate(prompts)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    srv = InferenceServer(model, kv_cache="paged", max_slots=8,
+                          block_size=16, prefill_chunk=128, pool_tokens=16384)
+    t0 = time.monotonic()
+    srv.start()
+    warm_s = time.monotonic() - t0
+    results, wall, launches, peak_blocks = _serve_run(
+        torch, srv, reqs, poll=lambda: srv.engine.blocks_in_use)
+    steps = srv.steps
+    lat = srv.latency_summary()
+    srv.shutdown()
+    eng = srv.engine
+    ntok = sum(len(r) for r in results)
+    ok = (srv.error is None and all(len(r) == 64 for r in results)
+          and all(0 <= t < VOCAB for r in results for t in r)
+          and eng.blocks_in_use == 0)
+    peak = torch.cuda.max_memory_allocated()
+    four = serve_prompts(torch)[-4:][::-1]
+    s4, w4, t4 = _steady_decode(eng, four)
+    prof = {}
+    if profile:
+        prof["slots_4"] = _profile_steps(torch, eng)
+    for slot in range(4):
+        eng.release(slot)
+    s8, w8, t8 = _steady_decode(eng, serve_prompts(torch))
+    if profile:
+        prof["slots_8"] = _profile_steps(torch, eng)
+    for slot in range(8):
+        eng.release(slot)
+    ok &= eng.blocks_in_use == 0
+    stats = dict(requests=len(results), prompt_lens=lens, tokens=ntok,
+                 steps=steps, wall_s=wall, warmup_s=warm_s,
+                 serve_tokens_per_s=ntok / wall, launches=launches,
+                 peak_bytes=peak, peak_blocks_in_use=peak_blocks,
+                 blocks_total=eng.blocks_total, pool_tokens=eng.pool_tokens,
+                 blocks_in_use_end=eng.blocks_in_use,
+                 decode4_tokens_per_s=t4 / (sum(s4) / 1e3),
+                 decode4_step_ms_windows=w4, decode4_step_ms_min=min(s4),
+                 decode4_step_ms_max=max(s4),
+                 decode8_tokens_per_s=t8 / (sum(s8) / 1e3),
+                 decode8_step_ms_windows=w8, decode8_step_ms_min=min(s8),
+                 decode8_step_ms_max=max(s8), **lat)
+    log(f"  {json.dumps(stats)}")
+    if prof:
+        stats["profile"] = prof
+        log(f"  profile: {json.dumps(prof)}")
+    ok &= all(launches[n] > 0 for n in PAGED_KERNELS)
+    del eng, srv
+    torch.cuda.empty_cache()
+    return ok, stats
+
+
+def phase_paged_int8(torch, model, profile=False):
+    """Phase 7: the same model on an int8 pool with prefix sharing and
+    speculation (3 drafts): 8 requests, 4 behind one 256-token system
+    prompt, every prompt repeating phrases so lookup drafts hit; run
+    twice, greedy results must repeat.  Then steady decode at phase 6's
+    four ~500-token contexts, counting the tokens the drafts add."""
+    from apex_tpu_torch.serving import InferenceServer
+
+    log("phase 7: Llama-2-7B bf16, int8 pages, shared prefixes, "
+        "spec_tokens=3, 8 requests")
+    gen = torch.Generator().manual_seed(7)
+
+    def rand(n):
+        return torch.randint(0, VOCAB, (n,), generator=gen).numpy()
+
+    system = np.tile(rand(32), 8)                       # 256 tokens
+    # request 0 goes first; 1 is the bare system prompt (a whole-prompt
+    # hit: its last page is forked), 2 and 3 share it, 4-7 do not
+    prompts = [system if i == 1 else np.concatenate(
+        [system, np.tile(rand(12), 4 + i)]) if i < 4
+        else np.tile(rand(12), 4 + i) for i in range(8)]
+    reqs = [(p, dict(max_new_tokens=48) if i % 2 == 0 else dict(
+        max_new_tokens=48, temperature=0.7, top_k=40, seed=100 + i))
+        for i, p in enumerate(prompts)]
+    runs, eng = [], None
+    for _ in range(2):
+        eng = None
+        torch.cuda.empty_cache()
+        srv = InferenceServer(model, kv_cache="paged", max_slots=8,
+                              block_size=16, prefill_chunk=128,
+                              kv_dtype="int8", share_prefixes=True,
+                              spec_tokens=3)
+        srv.start()
+        results, wall, launches, peak_shared = _serve_run(
+            torch, srv, reqs, poll=lambda: srv.engine.shared_blocks, lead=1)
+        health = srv.health()
+        srv.shutdown()
+        runs.append((results, wall, launches, peak_shared, health,
+                     srv.error))
+        eng = srv.engine
+        del srv
+    (results, wall, launches, peak_shared, health, err), rerun = runs[0], \
+        runs[1]
+    # steady decode on the rerun's engine at phase 6's four ~500-token
+    # contexts (drafts on: a step emits 1-4 tokens per slot)
+    proposed, accepted = eng.spec_proposed, eng.spec_accepted
+    s4, w4, t4 = _steady_decode(eng, serve_prompts(torch)[-4:][::-1])
+    prof = _profile_steps(torch, eng) if profile else None
+    for slot in range(4):
+        eng.release(slot)
+    proposed = eng.spec_proposed - proposed
+    accept4 = (eng.spec_accepted - accepted) / proposed if proposed else 0.0
+    ntok = sum(len(r) for r in results)
+    greedy_same = [results[i] == rerun[0][i] for i in range(0, 8, 2)]
+    stats = dict(requests=len(results), tokens=ntok, wall_s=wall,
+                 serve_tokens_per_s=ntok / wall, launches=launches,
+                 peak_shared_blocks=peak_shared,
+                 cow_forks=health["cow_forks"],
+                 spec_accept_rate=health["spec_accept_rate"],
+                 kv_dtype=health["kv_dtype"], kv_bits=health["kv_bits"],
+                 blocks_total=health["blocks_total"],
+                 blocks_in_use_end=health["blocks_in_use"],
+                 greedy_equal_on_rerun=greedy_same,
+                 decode4_tokens_per_s=t4 / (sum(s4) / 1e3),
+                 decode4_tokens_per_slot_step=t4 / (4 * len(s4)),
+                 decode4_step_ms_windows=w4,
+                 decode4_spec_accept_rate=accept4)
+    log(f"  {json.dumps(stats)}")
+    if prof is not None:
+        stats["profile"] = prof
+        log(f"  profile: {json.dumps(prof)}")
+    ok = (err is None and rerun[5] is None and all(greedy_same)
+          and eng.blocks_in_use == 0
+          and all(len(r) == 48 for r in results)
+          and all(0 <= t < VOCAB for r in results for t in r)
+          and health["blocks_in_use"] == 0
+          and rerun[4]["blocks_in_use"] == 0 and peak_shared > 0
+          and health["cow_forks"] > 0
+          and all(launches[n] > 0 for n in PAGED_KERNELS))
     return ok, stats
 
 
@@ -1025,8 +1488,8 @@ def main(argv=None):
     ap.add_argument("--kernels-only", action="store_true",
                     help="build the kernels and run phase 1 only")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile steady decode steps in phase 3 and "
-                         "training steps in phase 4")
+                    help="also profile steady decode steps in phases 3, 6 "
+                         "and 7 and training steps in phase 4")
     ap.add_argument("--out", default=os.path.join("build", "chip_smoke"),
                     help="directory for the detailed JSON record")
     args = ap.parse_args(argv)
@@ -1045,20 +1508,42 @@ def main(argv=None):
     t0 = time.monotonic()
     build_logs = _build.build_all(ptxas_info=True)
     log(f"built {sorted(build_logs)} in {time.monotonic() - t0:.1f}s")
-    for name, text in build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    for name, text in sorted(build_logs.items()):
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(m) for m in re.findall(
+            r"(\d+) bytes spill stores", text))
+        smem = [int(m) for m in re.findall(r"(\d+) bytes smem", text)]
+        log(f"  {name}: {len(regs)} kernels, registers <= "
+            f"{max(regs, default=0)}, smem <= {max(smem, default=0)} "
+            f"bytes, spill stores {spills} bytes")
 
     rows = []
     t0 = time.monotonic()
     ok = phase_kernels(torch, rows)
     log(f"phase 1 {'passed' if ok else 'FAILED'} "
         f"({time.monotonic() - t0:.0f}s)")
-    serve = train = ident = None
+    shared = {}
+
+    def with_model(run):
+        # Llama-2-7B is built once for phases 3, 6 and 7
+        if "model" not in shared:
+            shared["model"] = llama2_7b(torch)
+        return run(shared["model"])
+
+    def drop_model():
+        shared.clear()
+        torch.cuda.empty_cache()
+        return True, None
+
     phases = [] if args.kernels_only else [
         ("2", lambda: (phase_identity(torch), None)),
-        ("3", lambda: phase_serve(torch, args.profile)),
+        ("3", lambda: with_model(lambda m: phase_serve(torch, m,
+                                                       args.profile))),
+        ("6", lambda: with_model(lambda m: phase_paged(torch, m,
+                                                       args.profile))),
+        ("7", lambda: with_model(lambda m: phase_paged_int8(torch, m,
+                                                            args.profile))),
+        ("", drop_model),
         ("4", lambda: phase_train(torch, args.profile)),
         ("5", lambda: phase_train_identity(torch)),
     ]
@@ -1068,9 +1553,11 @@ def main(argv=None):
             break
         t0 = time.monotonic()
         ok, results[name] = run()
-        log(f"phase {name} {'passed' if ok else 'FAILED'} "
-            f"({time.monotonic() - t0:.0f}s)")
-    serve, train, ident = (results.get(n) for n in ("3", "4", "5"))
+        if name:
+            log(f"phase {name} {'passed' if ok else 'FAILED'} "
+                f"({time.monotonic() - t0:.0f}s)")
+    serve, paged, paged8, train, ident = (
+        results.get(n) for n in ("3", "6", "7", "4", "5"))
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1079,7 +1566,8 @@ def main(argv=None):
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernel_rows=rows, serve=serve,
-                       train=train, train_identity=ident), f, indent=1)
+                       paged=paged, paged_int8=paged8, train=train,
+                       train_identity=ident), f, indent=1)
     if not ok:
         log("chip_smoke: FAILED")
         return 1
@@ -1101,6 +1589,11 @@ def main(argv=None):
                                    (16, 512, 16, 16, 64), "torch.bfloat16"),
         "flash_attention_bwd_dkv": ("flash_bwd_dkv/bert",
                                     (16, 512, 16, 16, 64), "torch.bfloat16"),
+        # chunked prefill runs B-9 on the paged path; decode runs B-10
+        "paged_attention": ("paged_attn/chunk", (8, 128, 32, 32, 128),
+                            "torch.bfloat16"),
+        "paged_decode_fused": ("paged_decode_fused/decode",
+                               (4, 1, 32, 32, 128), "torch.bfloat16"),
     }
     family = {"layer_norm": ("rms_norm", "layer_norm", "layer_norm/stats"),
               "layer_norm_bwd": ("layer_norm_bwd",),
@@ -1108,7 +1601,9 @@ def main(argv=None):
               "fused_sampling": ("fused_sampling",),
               "flash_attention_fwd": ("flash_fwd",),
               "flash_attention_bwd_dq": ("flash_bwd_dq",),
-              "flash_attention_bwd_dkv": ("flash_bwd_dkv",)}
+              "flash_attention_bwd_dkv": ("flash_bwd_dkv",),
+              "paged_attention": ("paged_attn",),
+              "paged_decode_fused": ("paged_decode_fused",)}
     kernels = []
     for name, (kname, shape, dt) in pick.items():
         match = [r for r in rows if r["kernel"] == kname
@@ -1118,7 +1613,7 @@ def main(argv=None):
                 or r["kernel"].split("/")[0] in family[name]]
         r = match[0]
         n = sum((st or {}).get("launches", {}).get(name, 0)
-                for st in (serve, train))
+                for st in (serve, paged, paged8, train))
         kernels.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"], launches=n,

@@ -190,8 +190,10 @@ def test_slice_boundaries_raise_not_implemented(llama):
         enc = GPTModel(GPTConfig.tiny(causal=False), device="cpu")
         enc(torch.zeros((1, 3), dtype=torch.int32),
             cache=init_cache(enc, 1))
-    with pytest.raises(NotImplementedError, match="A-3"):
+    with pytest.raises(ValueError, match="kv_pool_blocks"):
         LlamaConfig.tiny(kv_cache="paged")
+    with pytest.raises(ValueError, match="kv_cache='paged'"):
+        LlamaConfig.tiny(kv_dtype="int8")
     with pytest.raises(NotImplementedError, match="A-4"):
         LlamaConfig.tiny(sliding_window=16)
     with pytest.raises(NotImplementedError, match="A-4"):

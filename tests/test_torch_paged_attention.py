@@ -1,0 +1,439 @@
+"""The port's paged attention held against the JAX package's.
+
+The same numpy-made pools, tables and queries go through
+``apex_tpu.ops.paged_attention`` (its XLA reference and its Pallas
+kernels in interpret mode, as the JAX package's own tests run them on
+the CPU) and through ``apex_tpu_torch.ops.paged_attention``'s plain
+versions.  Written pages, codes and scales must be bitwise equal on live
+pages; attention outputs agree within 1e-5 of each output's largest
+entry in fp32 (the sums run in another order: XLA's einsum, the Pallas
+online softmax over pages and PyTorch's einsum each add the keys in
+their own order, and nothing else differs).  ``cuda``-marked tests hold
+the CUDA kernels against the plain versions and skip without a card.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+# the modules (both packages' ops namespaces export the functions)
+J = importlib.import_module("apex_tpu.ops.paged_attention")
+P = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+
+REL = 1e-5
+KV_DTYPES = ["int8", "fp8"]
+
+
+def to_torch(x):
+    a = np.asarray(x)
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    if a.dtype == jnp.float8_e4m3fn:
+        return torch.from_numpy(a.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
+    return torch.from_numpy(a.copy())
+
+
+def bits(x):
+    """Raw bytes of a jax array or torch tensor, for bitwise checks."""
+    if isinstance(x, torch.Tensor):
+        return x.contiguous().view(torch.uint8).numpy()
+    return np.ascontiguousarray(np.asarray(x)).view(np.uint8)
+
+
+def bits_t(t):
+    return t.contiguous().view(torch.uint8)
+
+
+def close(got, ref, rel=REL):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got, np.float32)
+    ref = np.asarray(ref, np.float32)
+    err = float(np.abs(got - ref).max())
+    assert err <= rel * max(float(np.abs(ref).max()), 1e-30), err
+
+
+def pool(rng, *, b, hk, d, NB, BS, MB, lengths, s, garbage=0.0):
+    """Pool + disjoint per-row tables covering ``lengths[i] + s`` tokens
+    (block 0 is the null page); pages no table maps, and the null page,
+    hold ``garbage``-scaled noise when it is set."""
+    kp = rng.normal(size=(hk, NB, BS, d)).astype(np.float32)
+    vp = rng.normal(size=(hk, NB, BS, d)).astype(np.float32)
+    tables = np.zeros((b, MB), np.int32)
+    free = list(range(1, NB))
+    for i, L in enumerate(lengths):
+        for j in range(-(-(L + s) // BS)):
+            tables[i, j] = free.pop()
+    if garbage:
+        dead = np.setdiff1d(np.arange(NB), tables[tables > 0])
+        kp[:, dead] *= garbage
+        vp[:, dead] *= garbage
+    return kp, vp, tables
+
+
+class TestHelpers:
+    def test_kv_quant_spec_and_bytes(self):
+        assert P.kv_quant_spec(None) == (None, None)
+        assert P.kv_quant_spec("int8") == (torch.int8, 127.0)
+        assert P.kv_quant_spec("fp8") == (torch.float8_e4m3fn, 448.0)
+        with pytest.raises(ValueError, match="kv_dtype"):
+            P.kv_quant_spec("int4")
+        for kv in (None, "int8", "fp8"):
+            for bs in (8, 16):
+                assert P.kv_store_bytes_per_token(
+                    128, bs, kv, dtype=torch.bfloat16) == \
+                    J.kv_store_bytes_per_token(128, bs, kv,
+                                               dtype=jnp.bfloat16)
+        with pytest.raises(ValueError, match="dtype is required"):
+            P.kv_store_bytes_per_token(128, 16)
+        assert P._TINY_SCALE == J._TINY_SCALE
+
+    def test_tp_head_shards(self):
+        for h, hk, tp in ((32, 8, 2), (32, 32, 4), (8, 2, 1)):
+            assert P.tp_head_shards(h, hk, tp) == J.tp_head_shards(h, hk, tp)
+        with pytest.raises(ValueError, match="divisible"):
+            P.tp_head_shards(8, 2, 3)
+
+    @pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+    def test_quantize_kv_and_pages_bitwise(self, kv_dtype):
+        rng = np.random.default_rng(0)
+        kp = rng.normal(size=(2, 6, 8, 64)).astype(np.float32)
+        vp = 3 * rng.normal(size=(2, 6, 8, 64)).astype(np.float32)
+        kp[:, 2] = 0.0                              # an all-zero page
+        vp[:, 3, :, :5] = 1e-40                     # below the tiny guard
+        got = P.quantize_kv_pages(torch.from_numpy(kp),
+                                  torch.from_numpy(vp), kv_dtype)
+        ref = J.quantize_kv_pages(jnp.asarray(kp), jnp.asarray(vp), kv_dtype)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(bits(g), bits(r))
+        # row scales, one of them stale-small (the clamp engages)
+        x = rng.normal(size=(5, 64)).astype(np.float32)
+        sc = np.abs(x).max(-1) * np.array([1, 1, 0.5, 0, 2], np.float32)
+        store, qmax = P.kv_quant_spec(kv_dtype)
+        g = P.quantize_kv(torch.from_numpy(x), torch.from_numpy(sc), qmax,
+                          store)
+        r = J.quantize_kv(jnp.asarray(x), jnp.asarray(sc), qmax,
+                          J.kv_quant_spec(kv_dtype)[0])
+        np.testing.assert_array_equal(bits(g), bits(r))
+
+
+class TestPagedAttention:
+    @pytest.mark.parametrize("s,h,hk", [
+        (1, 4, 4),        # decode, MHA
+        (1, 8, 2),        # decode, GQA 4:1
+        (4, 4, 4),        # speculative verify, 1 + 3 drafts
+        (8, 8, 2),        # chunk, GQA
+    ])
+    @pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+    def test_plain_matches_jax(self, s, h, hk, impl):
+        rng = np.random.default_rng(1)
+        b, d, NB, BS, MB = 3, 64, 24, 8, 6
+        lengths = [9, 0, 31]                # mid-page, empty, page end
+        kp, vp, tables = pool(rng, b=b, hk=hk, d=d, NB=NB, BS=BS, MB=MB,
+                              lengths=lengths, s=s, garbage=1e4)
+        q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+        lens = np.asarray(lengths, np.int32)
+        ref = J.paged_attention(jnp.asarray(q), jnp.asarray(kp),
+                                jnp.asarray(vp), jnp.asarray(tables),
+                                jnp.asarray(lens), implementation=impl)
+        got = P.paged_attention(*(torch.from_numpy(a) for a in (
+            q, kp, vp, tables, lens)))
+        close(got, ref)
+
+    @pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+    @pytest.mark.parametrize("s,h,hk", [(1, 4, 4), (1, 8, 2), (5, 4, 2)])
+    def test_quantized_matches_jax(self, kv_dtype, s, h, hk):
+        rng = np.random.default_rng(2)
+        b, d, NB, BS, MB = 3, 64, 24, 8, 6
+        lengths = [15, 16, 0]
+        kp, vp, tables = pool(rng, b=b, hk=hk, d=d, NB=NB, BS=BS, MB=MB,
+                              lengths=lengths, s=s)
+        kq, vq, ks, vs = J.quantize_kv_pages(jnp.asarray(kp),
+                                             jnp.asarray(vp), kv_dtype)
+        q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+        lens = np.asarray(lengths, np.int32)
+        for impl in ("xla", "pallas_interpret"):
+            ref = J.paged_attention(jnp.asarray(q), kq, vq,
+                                    jnp.asarray(tables), jnp.asarray(lens),
+                                    k_scales=ks, v_scales=vs,
+                                    implementation=impl)
+            got = P.paged_attention(
+                torch.from_numpy(q), to_torch(kq), to_torch(vq),
+                torch.from_numpy(tables), torch.from_numpy(lens),
+                k_scales=to_torch(ks), v_scales=to_torch(vs))
+            close(got, ref)
+
+    def test_bf16_matches_jax(self):
+        rng = np.random.default_rng(3)
+        b, s, h, hk, d, NB, BS, MB = 2, 4, 4, 2, 64, 16, 8, 4
+        kp, vp, tables = pool(rng, b=b, hk=hk, d=d, NB=NB, BS=BS, MB=MB,
+                              lengths=[7, 20], s=s)
+        args = [jnp.asarray(a, jnp.bfloat16) for a in (
+            rng.normal(size=(b, s, h, d)), kp, vp)]
+        lens = np.asarray([7, 20], np.int32)
+        ref = J.paged_attention(*args, jnp.asarray(tables),
+                                jnp.asarray(lens), implementation="xla")
+        got = P.paged_attention(*(to_torch(a) for a in args),
+                                torch.from_numpy(tables),
+                                torch.from_numpy(lens))
+        assert got.dtype == torch.bfloat16
+        # both round the same fp32 result to bf16: within one bf16 ulp
+        close(got, ref, rel=2 ** -7)
+
+    def test_garbage_and_placement_never_reach_the_output(self):
+        rng = np.random.default_rng(4)
+        b, s, h, hk, d, NB, BS, MB = 2, 3, 4, 2, 64, 30, 8, 5
+        kp, vp, tables = pool(rng, b=b, hk=hk, d=d, NB=NB, BS=BS, MB=MB,
+                              lengths=[10, 3], s=s)
+        q = torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(
+            np.float32))
+        lens = torch.tensor([10, 3], dtype=torch.int32)
+        base = P.paged_attention(q, torch.from_numpy(kp),
+                                 torch.from_numpy(vp),
+                                 torch.from_numpy(tables), lens)
+        live = sorted({int(t) for t in tables.ravel() if t})
+        dest = {blk: i + 1 for i, blk in enumerate(live)}
+        kp2 = rng.normal(size=kp.shape).astype(np.float32) * 1e30
+        vp2 = rng.normal(size=vp.shape).astype(np.float32) * 1e30
+        for src, dst in dest.items():
+            kp2[:, dst], vp2[:, dst] = kp[:, src], vp[:, src]
+        tables2 = np.vectorize(lambda t: dest.get(t, 0))(tables).astype(
+            np.int32)
+        moved = P.paged_attention(q, torch.from_numpy(kp2),
+                                  torch.from_numpy(vp2),
+                                  torch.from_numpy(tables2), lens)
+        assert torch.equal(base, moved)
+
+    def test_validation(self):
+        q = torch.zeros(2, 1, 4, 64)
+        kp = torch.zeros(2, 5, 8, 64)
+        tables = torch.zeros(2, 3, dtype=torch.int32)
+        lens = torch.zeros(2, dtype=torch.int32)
+        with pytest.raises(ValueError, match="head_dim"):
+            P.paged_attention(q, kp[..., :32], kp[..., :32], tables, lens)
+        with pytest.raises(ValueError, match="do not match"):
+            P.paged_attention(q, kp, kp, tables[:1], lens)
+        with pytest.raises(ValueError, match="need k_scales"):
+            P.paged_attention(q, kp.to(torch.int8), kp.to(torch.int8),
+                              tables, lens)
+        with pytest.raises(ValueError, match="only apply"):
+            P.paged_attention(q, kp, kp, tables, lens,
+                              k_scales=torch.zeros(2, 5),
+                              v_scales=torch.zeros(2, 5))
+        with pytest.raises(NotImplementedError, match="A-5"):
+            P.paged_attention(q, kp, kp, tables, lens, shard_axis="tensor")
+        with pytest.raises(ValueError, match="needs a CUDA tensor"):
+            P.paged_attention(q, kp, kp, tables, lens,
+                              implementation="kernel")
+
+
+def fused_case(rng, *, b=5, h=8, hk=4, d=64, BS=8, S=64, kv_dtype=None,
+               lengths=(5, 8, 23, 0, 64), rope=True, pad_rows=()):
+    """Pool, tables and the new rows of one decode step: a mid-page
+    append, a fresh page at offset 0, a page-end append, an empty row
+    and a row at max_seq_len; ``pad_rows`` get chunk_lens 0."""
+    MB = S // BS
+    NB = b * MB + 3
+    kp = rng.normal(size=(hk, NB, BS, d)).astype(np.float32)
+    vp = rng.normal(size=(hk, NB, BS, d)).astype(np.float32)
+    lengths = np.asarray(lengths, np.int32)[:b]
+    tables = np.zeros((b, MB), np.int32)
+    used = rng.permutation(np.arange(1, NB))[: b * MB].reshape(b, MB)
+    for r in range(b):
+        n = min(MB, -(-int(min(lengths[r], S - 1) + 1) // BS))
+        tables[r, :n] = used[r, :n]
+    jx = dict(k_pages=jnp.asarray(kp), v_pages=jnp.asarray(vp))
+    if kv_dtype is not None:
+        kq, vq, ks, vs = J.quantize_kv_pages(jx["k_pages"], jx["v_pages"],
+                                             kv_dtype)
+        cl = np.ones((b,), np.int32)
+        cl[list(pad_rows)] = 0
+        jx = dict(k_pages=kq, v_pages=vq, k_scales=ks, v_scales=vs,
+                  chunk_lens=jnp.asarray(cl))
+    q = rng.normal(size=(b, 1, h, d)).astype(np.float32)
+    nk = rng.normal(size=(b, 1, hk, d)).astype(np.float32)
+    nv = rng.normal(size=(b, 1, hk, d)).astype(np.float32)
+    if rope:
+        inv = 1.0 / (10000.0 ** (np.arange(0, d, 2, dtype=np.float32) / d))
+        pos = np.minimum(lengths, S - 1).astype(np.float32)
+        ang = np.outer(pos, inv).astype(np.float32)
+        jx["cos_b"] = jnp.asarray(np.cos(ang)[:, None, None, :])
+        jx["sin_b"] = jnp.asarray(np.sin(ang)[:, None, None, :])
+    live = tables.ravel()
+    return (q, nk, nv, tables, lengths, jx, S, np.unique(live[live > 0]))
+
+
+def run_fused(case, impl):
+    q, nk, nv, tables, lengths, jx, S, _live = case
+    if impl == "torch":
+        kw = {k: to_torch(v) for k, v in jx.items()}
+        kp, vp = kw.pop("k_pages"), kw.pop("v_pages")
+        return P.paged_decode_fused(
+            torch.from_numpy(q), torch.from_numpy(nk), torch.from_numpy(nv),
+            kp, vp, torch.from_numpy(tables), torch.from_numpy(lengths),
+            max_seq_len=S, **kw)
+    # eager, op by op: under jit XLA's CPU compiler contracts the
+    # rotation's x1*cos - x2*sin into one fma, where the port (and its
+    # CUDA kernel) round each product and the difference on their own
+    kw = dict(jx)
+    kp, vp = kw.pop("k_pages"), kw.pop("v_pages")
+    return J.paged_decode_fused(
+        jnp.asarray(q), jnp.asarray(nk), jnp.asarray(nv), kp, vp,
+        jnp.asarray(tables), jnp.asarray(lengths), max_seq_len=S,
+        implementation=impl, **kw)
+
+
+class TestPagedDecodeFused:
+    @pytest.mark.parametrize("kv_dtype", [None] + KV_DTYPES)
+    @pytest.mark.parametrize("rope", [True, False])
+    @pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+    def test_plain_matches_jax(self, kv_dtype, rope, impl):
+        rng = np.random.default_rng(5)
+        case = fused_case(rng, kv_dtype=kv_dtype, rope=rope,
+                          pad_rows=(2,) if kv_dtype else ())
+        live = case[-1]
+        ref = run_fused(case, impl)
+        got = run_fused(case, "torch")
+        assert len(got) == len(ref) == (3 if kv_dtype is None else 5)
+        close(got[0], ref[0])
+        # pages, codes and scales bitwise on live pages — but the Pallas
+        # kernel's own rotation is contracted into an fma even in
+        # interpret mode, so its unquantized rotated keys may differ by
+        # the rounding of one product (an fp32 ulp of values below 8, so
+        # 2^-20; the codes round that away)
+        for i, (g, r) in enumerate(zip(got[1:], ref[1:])):
+            g, r = g[:, live], np.asarray(r[:, live])
+            if impl == "pallas_interpret" and rope and kv_dtype is None \
+                    and i == 0:
+                np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                           atol=2.0 ** -20)
+                continue
+            np.testing.assert_array_equal(bits(g), bits(r))
+
+    def test_gqa_bf16_pages_bitwise(self):
+        rng = np.random.default_rng(6)
+        q, nk, nv, tables, lengths, jx, S, live = fused_case(
+            rng, b=3, h=8, hk=2, lengths=(9, 16, 0))
+        jx = {k: (v.astype(jnp.bfloat16) if k.endswith("pages") else v)
+              for k, v in jx.items()}
+        qb, nkb, nvb = (np.asarray(jnp.asarray(a, jnp.bfloat16))
+                        for a in (q, nk, nv))
+        case = (qb, nkb, nvb, tables, lengths, jx, S, live)
+        ref = run_fused(case, "xla")
+        kw = {k: to_torch(v) for k, v in jx.items()}
+        got = P.paged_decode_fused(
+            to_torch(qb), to_torch(nkb), to_torch(nvb), kw.pop("k_pages"),
+            kw.pop("v_pages"), torch.from_numpy(tables),
+            torch.from_numpy(lengths), max_seq_len=S, **kw)
+        close(got[0], ref[0], rel=2 ** -7)
+        for g, r in zip(got[1:], ref[1:]):
+            np.testing.assert_array_equal(bits(g[:, live]),
+                                          bits(r[:, live]))
+
+    def test_pad_rows_never_touch_a_live_scale(self):
+        rng = np.random.default_rng(7)
+        case = fused_case(rng, kv_dtype="int8", pad_rows=(0, 1, 2))
+        got = run_fused(case, "torch")
+        jx = case[5]
+        pages = case[3][:3].ravel()
+        pages = pages[pages > 0]                 # the pad rows' own pages
+        for name, out in (("k_pages", got[1]), ("k_scales", got[3]),
+                          ("v_scales", got[4])):
+            assert torch.equal(bits_t(out[:, pages]),
+                               bits_t(to_torch(jx[name])[:, pages]))
+
+    def test_updates_the_pool_in_place(self):
+        rng = np.random.default_rng(8)
+        q, nk, nv, tables, lengths, jx, S, _ = fused_case(rng)
+        kp, vp = to_torch(jx["k_pages"]), to_torch(jx["v_pages"])
+        o, kp2, vp2 = P.paged_decode_fused(
+            torch.from_numpy(q), torch.from_numpy(nk), torch.from_numpy(nv),
+            kp, vp, torch.from_numpy(tables), torch.from_numpy(lengths),
+            max_seq_len=S)
+        assert kp2 is kp and vp2 is vp
+        r = 0
+        phys, off = tables[r, lengths[r] // 8], lengths[r] % 8
+        assert not torch.equal(kp[:, phys, off],
+                               to_torch(jx["k_pages"])[:, phys, off])
+
+    def test_validation(self):
+        rng = np.random.default_rng(9)
+        q, nk, nv, tables, lengths, jx, S, _ = fused_case(rng)
+        t = [torch.from_numpy(a) for a in (q, nk, nv)]
+        kp, vp = to_torch(jx["k_pages"]), to_torch(jx["v_pages"])
+        tl = (torch.from_numpy(tables), torch.from_numpy(lengths))
+        with pytest.raises(ValueError, match="width-1"):
+            P.paged_decode_fused(torch.cat([t[0], t[0]], 1), *t[1:], kp, vp,
+                                 *tl, max_seq_len=S)
+        with pytest.raises(ValueError, match="need k_scales"):
+            P.paged_decode_fused(*t, kp.to(torch.int8), vp.to(torch.int8),
+                                 *tl, max_seq_len=S)
+        with pytest.raises(ValueError, match="only apply"):
+            P.paged_decode_fused(*t, kp, vp, *tl, max_seq_len=S,
+                                 chunk_lens=torch.ones(5, dtype=torch.int32))
+        with pytest.raises(ValueError, match="come together"):
+            P.paged_decode_fused(*t, kp, vp, *tl, max_seq_len=S,
+                                 cos_b=torch.zeros(5, 1, 1, 32))
+        with pytest.raises(NotImplementedError, match="A-5"):
+            P.paged_decode_fused(*t, kp, vp, *tl, max_seq_len=S,
+                                 mesh=object(), shard_axis="tensor")
+
+
+# --------------------------------------------------------------------- #
+# the CUDA kernels against the plain versions (on a card only)
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+class TestKernels:
+    @pytest.mark.parametrize("kv_dtype", [None] + KV_DTYPES)
+    @pytest.mark.parametrize("s,h,hk,d", [(1, 32, 32, 128), (1, 32, 8, 128),
+                                          (4, 8, 8, 64), (20, 8, 2, 128)])
+    def test_paged_attention(self, cuda_device, kv_dtype, s, h, hk, d):
+        rng = np.random.default_rng(10)
+        b, NB, BS, MB = 3, 40, 16, 8
+        kp, vp, tables = pool(rng, b=b, hk=hk, d=d, NB=NB, BS=BS, MB=MB,
+                              lengths=[40, 0, 81], s=s, garbage=1e30)
+        dev = cuda_device
+        kpt, vpt = torch.from_numpy(kp).to(dev), torch.from_numpy(vp).to(dev)
+        kw = {}
+        if kv_dtype:
+            kpt, vpt, ks, vs = P.quantize_kv_pages(kpt, vpt, kv_dtype)
+            kw = dict(k_scales=ks, v_scales=vs)
+        q = torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(
+            np.float32)).to(dev)
+        args = (q, kpt, vpt, torch.from_numpy(tables).to(dev),
+                torch.tensor([40, 0, 81], dtype=torch.int32, device=dev))
+        got = P.paged_attention(*args, **kw)
+        ref = P.paged_attention(*args, implementation="torch", **kw)
+        close(got.cpu(), ref.cpu().numpy())
+
+    @pytest.mark.parametrize("kv_dtype", [None] + KV_DTYPES)
+    @pytest.mark.parametrize("rope", [True, False])
+    def test_paged_decode_fused(self, cuda_device, kv_dtype, rope):
+        rng = np.random.default_rng(11)
+        q, nk, nv, tables, lengths, jx, S, live = fused_case(
+            rng, kv_dtype=kv_dtype, rope=rope, d=128,
+            pad_rows=(3,) if kv_dtype else ())
+        outs = []
+        for impl in ("kernel", "torch"):
+            kw = {k: to_torch(v).to(cuda_device) for k, v in jx.items()}
+            outs.append(P.paged_decode_fused(
+                *(torch.from_numpy(a).to(cuda_device) for a in (q, nk, nv)),
+                kw.pop("k_pages"), kw.pop("v_pages"),
+                torch.from_numpy(tables).to(cuda_device),
+                torch.from_numpy(lengths).to(cuda_device), max_seq_len=S,
+                implementation=impl, **kw))
+        got, ref = outs
+        close(got[0].cpu(), ref[0].cpu().numpy())
+        for g, r in zip(got[1:], ref[1:]):
+            np.testing.assert_array_equal(bits(g[:, live].cpu()),
+                                          bits(r[:, live].cpu()))

@@ -177,8 +177,10 @@ class TestSlotPool:
             eng.validate_request(4, 4, 1.0, top_k=5000)
         with pytest.raises(ValueError, match="top_p"):
             eng.validate_request(4, 4, 1.0, top_p=1.5)
-        with pytest.raises(NotImplementedError, match="A-3"):
-            InferenceServer(model, kv_cache="paged")
+        with pytest.raises(ValueError, match="prompt_buckets"):
+            InferenceServer(model, kv_cache="paged", prompt_buckets=BUCKETS)
+        with pytest.raises(NotImplementedError, match="A-5"):
+            InferenceServer(model, kv_cache="paged", tp=2)
 
 
 class TestSchedulerAndServer:
