@@ -19,7 +19,11 @@ ports paged serving: the ``PagedEngine`` behind
 ``InferenceServer(kv_cache="paged")`` (block allocator, prefix trie,
 chunked prefill, preemption, speculative decoding, int8/fp8 pages) and
 the paged decode path of the models, with kernels for paged attention
-and the fused paged decode step.
+and the fused paged decode step.  Slice 4 ports ResNet-50 amp O2
+training: ``models.resnet`` (fused BN, space-to-depth stem),
+``parallel.SyncBatchNorm`` on one card, ``optim.fused_sgd`` and
+``ops.batch_norm``, with kernels for the four fused BatchNorm(+add+ReLU)
+passes.
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise
 when CUDA is unavailable unless the caller passes ``device="cpu"``.

@@ -40,13 +40,15 @@ SOURCES: Dict[str, str] = {
     "fused_sampling": "fused_sampling.cu",
     "flash_attention": "flash_attention.cu",
     "paged_attention": "paged_attention.cu",
+    "batch_norm": "batch_norm.cu",
 }
-#: kernel entries, the keys of :data:`launches` (the library of SOURCES
-#: each lives in is the name's prefix)
+#: kernel entries, the keys of :data:`launches` (each lives in the
+#: library of SOURCES its name begins with; ``bn_*`` in batch_norm)
 ENTRIES = ("layer_norm", "layer_norm_bwd", "rope", "fused_sampling",
            "flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "paged_attention",
-           "paged_decode_fused")
+           "paged_decode_fused", "bn_reduce", "bn_apply", "bn_bwd_reduce",
+           "bn_bwd_dx")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

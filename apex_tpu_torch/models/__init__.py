@@ -1,5 +1,5 @@
 """Models of the port: GPT/Llama decoders (full sequence, dense and
-paged KV-cached decode) and the BERT encoder."""
+paged KV-cached decode), the BERT encoder and ResNet."""
 
 from apex_tpu_torch.models.bert import BertConfig, BertModel, bert_mlm_loss_fn
 from apex_tpu_torch.models.generate import (
@@ -11,8 +11,20 @@ from apex_tpu_torch.models.generate import (
     sample_logits,
 )
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel, gpt_loss_fn
-from apex_tpu_torch.models.jax_import import params_from_jax
+from apex_tpu_torch.models.jax_import import (
+    params_from_jax,
+    resnet_params_from_jax,
+)
 from apex_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from apex_tpu_torch.models.resnet import (
+    ResNet,
+    ResNetConfig,
+    convert_stem_to_s2d,
+    resnet18,
+    resnet50,
+    space_to_depth,
+    stem_conv_to_s2d,
+)
 from apex_tpu_torch.models.transformer import (
     ParallelAttention,
     ParallelMLP,
@@ -26,7 +38,9 @@ __all__ = [
     "sample_logits",
     "BertConfig", "BertModel", "bert_mlm_loss_fn",
     "GPTConfig", "GPTModel", "gpt_loss_fn", "LlamaConfig", "LlamaModel",
-    "params_from_jax",
+    "params_from_jax", "resnet_params_from_jax",
+    "ResNet", "ResNetConfig", "convert_stem_to_s2d", "resnet18", "resnet50",
+    "space_to_depth", "stem_conv_to_s2d",
     "ParallelAttention", "ParallelMLP", "ParallelTransformer",
     "ParallelTransformerLayer", "TransformerConfig",
 ]

@@ -8,7 +8,9 @@ layer layouts load: the scanned stack (``scan_layers=True``: one
 ``transformer/layers/layer`` subtree whose leaves carry a leading layer
 axis) and the unrolled one (``transformer/layer_<i>`` subtrees).  Dense
 kernels are stored ``(in, out)`` by flax and ``(out, in)`` by PyTorch,
-so they are transposed.  No JAX import is needed: the tree is plain
+so they are transposed.  :func:`resnet_params_from_jax` does the same
+for ``apex_tpu.models.ResNet`` (params and ``batch_stats``; conv
+kernels go from HWIO to OIHW).  No JAX import is needed: the tree is plain
 nested mappings of arrays (boxed leaves with an ``unbox`` method, as
 flax's partitioning metadata, are unboxed).
 """
@@ -20,7 +22,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "resnet_params_from_jax"]
 
 _LINEARS = {
     "attention": ("qkv_proj", "out_proj"),
@@ -95,6 +97,54 @@ def params_from_jax(params_np: Mapping, cfg) -> Dict[str, torch.Tensor]:
     if "lm_head" in p:
         _linear(out, "lm_head", p["lm_head"])
     # numpy has no native bfloat16: such leaves load through fp32
+    return {k: torch.from_numpy(np.array(
+        v, dtype=np.float32 if v.dtype.name == "bfloat16" else v.dtype))
+        for k, v in out.items()}
+
+
+_BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "mean",
+              "var": "var"}
+
+
+def _flat(tree: Mapping, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), _arr(v)
+
+
+def resnet_params_from_jax(params_np: Mapping, batch_stats_np: Mapping,
+                           cfg) -> Dict[str, torch.Tensor]:
+    """State dict for ``ResNet(cfg)`` from the JAX ResNet's ``params``
+    and ``batch_stats`` collections (either may be wrapped in a dict
+    under its collection name; ``batch_stats`` may be empty, as for a
+    gradient tree).
+
+    Conv ``kernel`` (HWIO) → ``weight`` (OIHW); ``*/SyncBatchNorm_0/
+    {scale, bias}`` → ``weight`` / ``bias`` and ``{mean, var}`` → the
+    running-statistics buffers; ``fc/kernel`` transposed, ``fc/bias``.
+    Raises when the tree's blocks are not ``cfg.stage_sizes``'.
+    """
+    p = params_np.get("params", params_np)
+    bs = batch_stats_np.get("batch_stats", batch_stats_np)
+    want = {f"stage{i}_block{j}" for i, n in enumerate(cfg.stage_sizes)
+            for j in range(n)}
+    have = {k for k in p if k.startswith("stage")}
+    if have != want:
+        raise ValueError(
+            f"the JAX tree's blocks {sorted(have)} are not those of "
+            f"stage_sizes={cfg.stage_sizes}")
+    out: Dict[str, Any] = {}
+    for path, v in list(_flat(p)) + list(_flat(bs)):
+        if "SyncBatchNorm_0" in path:
+            name = ".".join(q for q in path[:-1] if q != "SyncBatchNorm_0")
+            out[f"{name}.{_BN_LEAVES[path[-1]]}"] = v
+        elif path[-1] == "kernel":
+            out[".".join(path[:-1]) + ".weight"] = (
+                v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T)
+        else:
+            out[".".join(path)] = v
     return {k: torch.from_numpy(np.array(
         v, dtype=np.float32 if v.dtype.name == "bfloat16" else v.dtype))
         for k, v in out.items()}

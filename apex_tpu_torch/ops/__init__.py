@@ -7,6 +7,11 @@ from apex_tpu_torch.ops.attention import (
     fused_attention,
     mask_to_bias,
 )
+from apex_tpu_torch.ops.batch_norm import (
+    batch_norm_inference,
+    batch_norm_reference,
+    batch_norm_train,
+)
 from apex_tpu_torch.ops.fused_sampling import (
     fused_sample,
     fused_sample_reference,
@@ -38,6 +43,7 @@ __all__ = [
     "resolve_device", "resolve_impl",
     "attention_reference", "dropout_keep_mask", "fused_attention",
     "mask_to_bias",
+    "batch_norm_inference", "batch_norm_reference", "batch_norm_train",
     "fused_sample", "fused_sample_reference", "prng_key", "random_bits",
     "split",
     "fused_layer_norm", "fused_rms_norm", "layer_norm_reference",

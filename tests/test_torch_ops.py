@@ -130,7 +130,8 @@ class TestDispatch:
         notes = {"layer_norm": "_ln_bwd_dx_kernel", "rope": "_rope_kernel",
                  "fused_sampling": "_sampling_kernel",
                  "flash_attention": "_fa_bwd_dkv_kernel",
-                 "paged_attention": "_paged_fused_kernel"}
+                 "paged_attention": "_paged_fused_kernel",
+                 "batch_norm": "_bn_bwd_dx_kernel"}
         for name, src in _build.SOURCES.items():
             path = os.path.join(REPO, "apex_tpu_torch", "csrc", src)
             with open(path) as f:
