@@ -12,10 +12,13 @@ from apex_tpu_torch.core.precision import (
     cast_floating,
     norm_param_filter,
 )
-from apex_tpu_torch.core.train_state import MixedPrecisionTrainState
+from apex_tpu_torch.core.train_state import (
+    MixedPrecisionTrainState,
+    parameter_leaves,
+)
 
 __all__ = [
     "DynamicLossScale", "LossScaleState", "NoOpLossScale",
     "StaticLossScale", "all_finite", "PrecisionPolicy", "cast_floating",
-    "norm_param_filter", "MixedPrecisionTrainState",
+    "norm_param_filter", "MixedPrecisionTrainState", "parameter_leaves",
 ]

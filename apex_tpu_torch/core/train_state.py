@@ -12,7 +12,11 @@ holds
 The stored parameters live in one flat buffer per dtype (the module's
 parameters are views into it when there are no masters), so unscaling,
 the overflow check and the optimizer update each run once over every
-parameter, as apex's multi-tensor kernels do.
+parameter, as apex's multi-tensor kernels do.  An optimizer whose state
+is laid out per parameter (FusedAdam with fp8 moments, ``per_leaf``)
+is also given each buffer's parameters in order — their sizes, and the
+shape of each linear layer's weight, whose JAX kernel is its
+transpose (:meth:`MixedPrecisionTrainState.leaves`).
 
 :meth:`apply_gradients` follows the JAX order: upcast the grads to the
 stored dtype, unscale, check finiteness, update, keep the old values on
@@ -23,7 +27,7 @@ module.  Nothing in it reads the device from the host: the returned
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -34,8 +38,24 @@ from apex_tpu_torch.core.loss_scale import (
     all_finite,
 )
 from apex_tpu_torch.core.precision import PrecisionPolicy
+from apex_tpu_torch.optim.fused_adam import Leaf, adam_state_from_jax
 
-__all__ = ["MixedPrecisionTrainState"]
+__all__ = ["MixedPrecisionTrainState", "parameter_leaves"]
+
+
+def parameter_leaves(model: nn.Module) -> List[Tuple[str, Leaf]]:
+    """The floating parameters of ``model`` in ``named_parameters()``
+    order as ``(name, Leaf)``: the size, and for the 2-D weight of a
+    linear layer — ``(out, in)`` here, the transpose of the JAX
+    package's ``(in, out)`` kernel — its shape."""
+    from apex_tpu_torch.transformer.layers import (
+        ColumnParallelLinear, RowParallelLinear)
+    linear = (nn.Linear, ColumnParallelLinear, RowParallelLinear)
+    weights = {f"{m}.weight" if m else "weight"
+               for m, mod in model.named_modules() if isinstance(mod, linear)}
+    return [(n, Leaf(p.numel(), tuple(p.shape)
+                     if n in weights and p.ndim == 2 else None))
+            for n, p in model.named_parameters() if torch.is_floating_point(p)]
 
 
 class _Group:
@@ -88,7 +108,13 @@ class MixedPrecisionTrainState:
             for g in self.groups:
                 for i, view in zip(g.indices, g.views):
                     self.module_params[i].data = view
-        self.opt_state = optimizer.init([g.flat for g in self.groups])
+        self._leaves = parameter_leaves(model)
+        flats = [g.flat for g in self.groups]
+        if getattr(optimizer, "per_leaf", False):
+            self.opt_state = optimizer.init(
+                flats, [[lf for _, lf in b] for b in self.leaves()])
+        else:
+            self.opt_state = optimizer.init(flats)
         self.loss_scale_state: LossScaleState = loss_scaler.init(device)
         self.step = torch.zeros((), dtype=torch.int32, device=device)
 
@@ -116,6 +142,21 @@ class MixedPrecisionTrainState:
             for i, view in zip(g.indices, g.views):
                 out[self.names[i]] = view
         return out
+
+    def leaves(self) -> List[List[Tuple[str, Leaf]]]:
+        """Per flat buffer, its parameters in order as ``(name, Leaf)``
+        (see :func:`parameter_leaves`)."""
+        return [[self._leaves[i] for i in g.indices] for g in self.groups]
+
+    def load_jax_opt_state(self, count, exp_avg, exp_avg_sq
+                           ) -> "MixedPrecisionTrainState":
+        """Resume the optimizer from a JAX ``FusedAdamState`` (numpy
+        leaves keyed by the port's parameter names; see
+        :func:`apex_tpu_torch.optim.fused_adam.adam_state_from_jax`)."""
+        self.opt_state = adam_state_from_jax(
+            self.tx, count, exp_avg, exp_avg_sq, self.leaves(),
+            [g.flat for g in self.groups])
+        return self
 
     def scale_loss(self, loss: torch.Tensor) -> torch.Tensor:
         """``with amp.scale_loss(loss, opt)``: the loss to differentiate."""

@@ -12,6 +12,7 @@ from apex_tpu_torch.models.generate import (
 )
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel, gpt_loss_fn
 from apex_tpu_torch.models.jax_import import (
+    named_leaves_from_jax,
     params_from_jax,
     resnet_params_from_jax,
 )
@@ -38,7 +39,7 @@ __all__ = [
     "sample_logits",
     "BertConfig", "BertModel", "bert_mlm_loss_fn",
     "GPTConfig", "GPTModel", "gpt_loss_fn", "LlamaConfig", "LlamaModel",
-    "params_from_jax", "resnet_params_from_jax",
+    "named_leaves_from_jax", "params_from_jax", "resnet_params_from_jax",
     "ResNet", "ResNetConfig", "convert_stem_to_s2d", "resnet18", "resnet50",
     "space_to_depth", "stem_conv_to_s2d",
     "ParallelAttention", "ParallelMLP", "ParallelTransformer",

@@ -22,7 +22,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "resnet_params_from_jax"]
+__all__ = ["params_from_jax", "resnet_params_from_jax",
+           "named_leaves_from_jax"]
 
 _LINEARS = {
     "attention": ("qkv_proj", "out_proj"),
@@ -100,6 +101,32 @@ def params_from_jax(params_np: Mapping, cfg) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(
         v, dtype=np.float32 if v.dtype.name == "bfloat16" else v.dtype))
         for k, v in out.items()}
+
+
+def _is_fp8_leaf(v) -> bool:
+    return isinstance(v, Mapping) and set(v) == {"q", "scale"}
+
+
+def named_leaves_from_jax(tree: Mapping, cfg) -> Dict[str, Any]:
+    """The leaves of a tree shaped like a ``GPTModel`` / ``BertModel``'s
+    params — an optimizer moment, say — keyed by the port's parameter
+    names, as they are: no transpose, no cast.  An fp8 moment's
+    ``{"q", "scale"}`` is one leaf.  The unrolled layout only: a scanned
+    stack keeps one leaf (one fp8 buffer) for all its layers."""
+    p = tree.get("params", tree)
+    if "layers" in p.get("transformer", {}):
+        raise ValueError(
+            "a scanned layer stack holds one leaf for all layers; take "
+            "the state of a model built with scan_layers=False")
+    leaves = []
+
+    def mark(t):
+        if _is_fp8_leaf(t) or not isinstance(t, Mapping):
+            leaves.append(t)
+            return np.asarray(len(leaves) - 1, np.int64)
+        return {k: mark(v) for k, v in t.items()}
+    names = params_from_jax(mark(p), cfg)
+    return {n: leaves[int(i)] for n, i in names.items()}
 
 
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "mean",

@@ -33,6 +33,10 @@ from apex_tpu_torch.ops.paged_attention import (
     paged_decode_fused_reference,
 )
 from apex_tpu_torch.ops.rope import fused_rope, rope_cos_sin, rope_reference
+from apex_tpu_torch.ops.softmax import (
+    fused_scale_mask_softmax,
+    scale_mask_softmax_reference,
+)
 from apex_tpu_torch.ops.xentropy import (
     mean_cross_entropy,
     softmax_cross_entropy,
@@ -52,6 +56,7 @@ __all__ = [
     "paged_attention", "paged_attention_reference", "paged_decode_fused",
     "paged_decode_fused_reference",
     "fused_rope", "rope_cos_sin", "rope_reference",
+    "fused_scale_mask_softmax", "scale_mask_softmax_reference",
     "mean_cross_entropy", "softmax_cross_entropy",
     "softmax_cross_entropy_reference",
 ]

@@ -8,9 +8,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card:
     python3 chip_smoke.py --profile      # + device-time breakdowns
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (``nvcc``,
-``sm_90a``) and then runs nine phases, in the order 1, 2, 3, 6, 7, 4,
-5, 8, 9 (Llama-2-7B is built once for 3, 6 and 7 and dropped before 4);
-any failure exits non-zero.
+``sm_90a``) and then runs twelve phases, in the order 1, 2, 3, 6, 7, 4,
+5, 10, 12, 11, 8, 9 (Llama-2-7B is built once for 3, 6 and 7 and
+dropped before 4); any failure exits non-zero.
 
 1. Kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (Llama-2-7B width) and the training path's
@@ -22,7 +22,13 @@ any failure exits non-zero.
    bitwise), and the four BatchNorm passes at the ResNet path's (the
    stem's and stage 0's last BN, bf16 and fp32; the maps bitwise, the
    reductions within 1e-5 of the summed magnitudes, bf16 reruns
-   bitwise), with times: the kernel, its plain version, the one
+   bitwise), the fp8 Adam step at BERT-Large's per-leaf layout and on
+   small and transposed leaves (params, codes and scales bitwise over
+   three steps, a non-finite step writes nothing, ties and subnormals
+   of the conversion), and the scale-mask softmax forward and backward
+   at BERT-Large's padded and GPT's causal scores (fp32 within 2e-6,
+   half types within one ulp; sq < sk, ragged sk, a fully masked row, a
+   2000-wide row), with times: the kernel, its plain version, the one
    PyTorch call computing the same function where there is one (a
    yardstick only), and the bound — the larger of bytes over 3.35 TB/s
    and operations over the card's peak rate for their type.
@@ -62,6 +68,21 @@ any failure exits non-zero.
 9. ResNet identity: a tiny ResNet (stages (1, 1), width 64, 10 classes,
    fp32, TF32 off, b=4, 64×64, both stems): logits, running statistics
    and every gradient on the card equal the plain path on the CPU.
+10. Training with fp8 Adam moments: phase 4's step with
+   ``fused_adam(1e-4, moment_format="fp8_block_scaled")`` (``bench.py``'s
+   ``BENCH_MOMENT_DTYPE=fp8``; no O0 baseline), with phase 4's figures,
+   peak memory beside phase 4's and one ``fp8_adam`` launch per step;
+   then a step with an inf planted in a gradient changes no master,
+   code, scale or count.
+11. ``FusedScaleMaskSoftmax`` as Megatron calls it (scores ``q @ k^T``,
+   probs, ``probs @ v``, forward and backward) at BERT-Large's padded
+   and GPT's causal scores: q, k, v gradients equal the plain chain's
+   within 1e-2 of their largest entry, one launch of each softmax
+   kernel per call.
+12. fp8 optimizer identity: a 2-layer BERT-Large-width model, 3 amp O2
+   steps with fp8 moments on the card and on the CPU fed the same
+   gradients: codes and scales within one e4m3 quantum (the count that
+   differ reported), masters within 1e-6.
 
 The last lines of standard output are the card's name and power limit,
 the ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
@@ -73,6 +94,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import subprocess
@@ -92,6 +114,7 @@ VOCAB = 32000
 _FA = "apex_tpu_torch/csrc/flash_attention.cu"
 _PA = "apex_tpu_torch/csrc/paged_attention.cu"
 _BN = "apex_tpu_torch/csrc/batch_norm.cu"
+_SM = "apex_tpu_torch/csrc/softmax.cu"
 KERNELS = {
     "layer_norm": dict(source="apex_tpu_torch/csrc/layer_norm.cu",
                        replaces="apex_tpu/ops/layer_norm.py:74"),
@@ -116,6 +139,10 @@ KERNELS = {
     "bn_bwd_reduce": dict(source=_BN,
                           replaces="apex_tpu/ops/batch_norm.py:188"),
     "bn_bwd_dx": dict(source=_BN, replaces="apex_tpu/ops/batch_norm.py:211"),
+    "fp8_adam": dict(source="apex_tpu_torch/csrc/fp8_adam.cu",
+                     replaces="apex_tpu/optim/fused_adam.py:112"),
+    "softmax_fwd": dict(source=_SM, replaces="apex_tpu/ops/softmax.py:66"),
+    "softmax_bwd": dict(source=_SM, replaces="apex_tpu/ops/softmax.py:85"),
 }
 SERVING_KERNELS = ("layer_norm", "rope", "fused_sampling")
 PAGED_KERNELS = ("paged_attention", "paged_decode_fused")
@@ -370,6 +397,8 @@ def phase_kernels(torch, rows_out):
     ok &= _flash_edge_checks(torch, g)
     ok &= _paged_rows(torch, g, record, rows_out)
     ok &= _batch_norm_rows(torch, g, record)
+    ok &= _fp8_adam_rows(torch, g, record)
+    ok &= _softmax_rows(torch, g, record)
     return ok
 
 
@@ -770,6 +799,245 @@ def _batch_norm_rows(torch, g, record):
                      "forward + backward (pair 14+15)", iters=20)
         del x, res, dy, y, y_ref, dx, dx2, dx_ref, dres, dres2, dres_ref
         del x4, dy4, ys, args, dargs
+        torch.cuda.empty_cache()
+    return ok
+
+
+def _fp8_bytes(lay):
+    """Bytes one fp8 Adam step must move over ``lay`` (fp32 g and p):
+    g read, p read and written (4 B each) for every element; both
+    moments' codes read and written (1 B each) and their fp32 scales
+    read and written, over the padded state."""
+    return 12 * lay.numel + 4 * lay.total + 16 * (lay.total // 256)
+
+
+def _fp8_state_bytes(st, p):
+    """Every tensor of a one-buffer fp8 state and its params, as raw
+    bytes: what a skipped step must leave unchanged, and what the kernel
+    and the plain version must agree on."""
+    import torch
+    return [t.reshape(-1).view(torch.uint8) for t in (
+        p, st.exp_avg[0].q, st.exp_avg[0].scale, st.exp_avg_sq[0].q,
+        st.exp_avg_sq[0].scale, st.count)]
+
+
+def _fp8_adam_rows(torch, g, record):
+    """B-18 against its plain version on the card: three steps through
+    ``FusedAdam.step`` on the kernel and the plain path, params, codes
+    and scales compared bitwise after each step, at BERT-Large's layout
+    (every parameter a leaf, the linear weights transposed, 3.36e8
+    elements; the main path's one launch per step) and on leaves of 7,
+    300 and 16384 + 300 elements beside transposed ones, wd 0 / 0.01 x
+    AdamW / L2; a non-finite step changes no byte; a block of ties and
+    subnormals (b1 = 0, absmax 448: codes are e4m3 of the gradient) and
+    one with a NaN gradient.  Timed on the kernel wrapper itself (one
+    launch) against the plain version; no PyTorch call computes it."""
+    import importlib
+
+    from apex_tpu_torch.core import parameter_leaves
+    from apex_tpu_torch.models import BertConfig, BertModel
+    fa = importlib.import_module("apex_tpu_torch.optim.fused_adam")
+
+    dev = torch.device("cuda")
+    ok = True
+    meta = BertModel(BertConfig.bert_large(dtype=torch.bfloat16, remat=True),
+                     device="meta")
+    bert = [lf for _, lf in parameter_leaves(meta)]
+    small = [fa.Leaf(7), fa.Leaf(300), fa.Leaf(16384 + 300),
+             fa.Leaf(300 * 5, (300, 5)), fa.Leaf(512 * 64, (512, 64)),
+             fa.Leaf(1024 * 4096, (1024, 4096))]
+    cases = [("bert_large", bert, 0.0, True)] + [
+        ("small", small, wd, aw) for wd, aw in
+        ((0.0, True), (0.01, True), (0.0, False), (0.01, False))]
+
+    def state_pair(leaves, opt, p0):
+        out = []
+        for _ in range(2):
+            p = p0.clone()
+            out.append((p, opt.init([p], [leaves])))
+        return out
+
+    for tag, leaves, wd, aw in cases:
+        lay = fa.Fp8Layout(leaves)
+        opt = fa.fused_adam(1e-3, weight_decay=wd, adam_w_mode=aw,
+                            moment_format="fp8_block_scaled")
+        p0 = torch.randn(lay.numel, generator=g, device=dev)
+        (pk, sk), (pt, st) = state_pair(leaves, opt, p0)
+        same, diffs = True, []
+        for i in range(3):
+            gr = 1e-3 * torch.randn(lay.numel, generator=g, device=dev)
+            opt.step([gr], sk, [pk], implementation="kernel")
+            opt.step([gr], st, [pt], implementation="torch")
+            torch.cuda.synchronize()
+            d = [int((a != b).sum()) for a, b in zip(
+                _fp8_state_bytes(sk, pk), _fp8_state_bytes(st, pt))]
+            diffs.append(d)
+            same &= not any(d)
+        # a non-finite step writes nothing
+        before = [t.clone() for t in _fp8_state_bytes(sk, pk)]
+        opt.step([gr], sk, [pk], finite=torch.tensor(False, device=dev),
+                 implementation="kernel")
+        torch.cuda.synchronize()
+        skipped = all(torch.equal(a, b) for a, b in
+                      zip(before, _fp8_state_bytes(sk, pk)))
+        del before
+        log(f"  fp8_adam {tag} wd={wd} adamw={aw}: differing bytes of "
+            f"(p, m codes, m scales, v codes, v scales, count) per step "
+            f"{diffs}; non-finite step unchanged {skipped}")
+        passed = same and skipped
+        err = float((pk - pt).abs().max())
+        if tag == "bert_large":
+            sc = torch.tensor([1e-3, 0.1, 0.001], device=dev)
+            gr = 1e-3 * torch.randn(lay.numel, generator=g, device=dev)
+            m, v = sk.exp_avg[0], sk.exp_avg_sq[0]
+            hp = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=wd,
+                      adam_w_mode=aw)
+            ok &= record(
+                "fp8_adam/bert_large", (lay.numel,), torch.float32, err,
+                passed,
+                lambda: fa.fp8_adam_kernel(gr, pk, m, v, lay, sc, None, **hp),
+                lambda: fa.fp8_adam_reference(gr, pt, st.exp_avg[0],
+                                              st.exp_avg_sq[0], lay, sc,
+                                              None, **hp),
+                _fp8_bytes(lay), 25 * lay.numel, None,
+                "bitwise (params, codes, scales, count); library: none "
+                "(no PyTorch call computes an fp8 block-scaled Adam step)",
+                iters=10)
+        else:
+            ok &= passed
+        del pk, pt, sk, st, p0
+        torch.cuda.empty_cache()
+
+    # the conversion at its edges, through the kernel: b1 = 0 makes the
+    # new first moment the gradient itself, and a 448 in the block makes
+    # its scale 1, so the codes are e4m3 of the gradient's values
+    edge = torch.tensor([448.0, 1.0625, 1.1875, -1.0625, 2.0 ** -10,
+                         2.0 ** -11, 0.75 * 2.0 ** -9, 3 * 2.0 ** -10,
+                         -0.0, 432.0, 440.0, 1e-3, 2.0 ** -9 * 1.5,
+                         -448.0, 0.0, 17.0], device=dev)
+    leaves = [fa.Leaf(256), fa.Leaf(256)]
+    gr = torch.zeros(512, device=dev)
+    gr[:16] = edge
+    gr[256:] = 1e-3 * torch.randn(256, generator=g, device=dev)
+    gr[300] = float("nan")
+    opt = fa.fused_adam(1e-3, b1=0.0, moment_format="fp8_block_scaled")
+    (pk, sk), (pt, st) = state_pair(leaves, opt, torch.zeros(512, device=dev))
+    opt.step([gr], sk, [pk], implementation="kernel")
+    opt.step([gr], st, [pt], implementation="torch")
+    torch.cuda.synchronize()
+    d = [int((a != b).sum()) for a, b in zip(_fp8_state_bytes(sk, pk),
+                                             _fp8_state_bytes(st, pt))]
+    want = edge.to(torch.float8_e4m3fn).view(torch.uint8)
+    codes = sk.exp_avg[0].q.view(torch.uint8)[:16]
+    log(f"  fp8_adam edge codes {codes.tolist()} (torch's "
+        f"{want.tolist()}); differing bytes {d}")
+    ok &= not any(d) and torch.equal(codes[:8], want[:8]) and torch.equal(
+        codes[9:], want[9:])        # -0.0 enters the moment as +0
+    return ok
+
+
+def _softmax_rows(torch, g, record):
+    """B-4 / B-5 against their plain versions on the card at the two
+    main-path shapes — BERT-Large scores (16, 16, 512, 512) bf16 with a
+    key-padding mask (16, 1, 1, 512), and Megatron GPT's causal
+    (4, 16, 1024, 1024) bf16, scale 0.125 — then fp32 and fp16, ``sq <
+    sk`` causal, a ragged ``sk`` (77) with a (sq, sk) mask, a fully
+    masked row and a 2000-wide row (the streamed path).  fp32 within
+    2e-6, half types within one ulp; the backward from the same saved y,
+    plus what the other order of its row sum moves dx by (where ``dy -
+    sum(dy*y)`` cancels, that outweighs an ulp of dx).
+    Yardsticks: ``torch.softmax`` and its backward
+    (``_softmax_backward_data``) on the same tensor — no scale, no mask,
+    so they cover part of the function only."""
+    from apex_tpu_torch.ops import softmax as S
+
+    dev = torch.device("cuda")
+    mant = {torch.float32: 23, torch.bfloat16: 7, torch.float16: 10}
+    sub = {torch.float32: 2.0 ** -149, torch.bfloat16: 2.0 ** -133,
+           torch.float16: 2.0 ** -24}
+
+    def close(got, ref, dt, extra=0.0):
+        """fp32 within 2e-6, half types within one ulp, plus ``extra``."""
+        if dt == torch.float32:
+            return bool(((got - ref).abs() <= 2e-6 + extra).all())
+        r = ref.float().abs().clamp_min(1e-38)
+        ulp = torch.exp2(torch.floor(torch.log2(r)) - mant[dt]).clamp_min(
+            sub[dt])
+        return bool(((got.float() - ref.float()).abs() <= ulp + extra).all())
+
+    def sum_order(dy, y, scale):
+        """What summing ``dy * y`` in another order moves ``dx`` by: a
+        tree of sk terms errs by at most log2(sk) roundings of the sum of
+        their magnitudes, twice for two trees, carried through ``* y *
+        scale`` — it outweighs an ulp of dx where ``dy - sum`` cancels."""
+        sk = dy.shape[-1]
+        mag = (dy.float() * y.float()).abs().sum(-1, keepdim=True)
+        return (2 * math.ceil(math.log2(sk)) * 2.0 ** -24 * mag
+                * y.float().abs() * scale)
+
+    cases = [  # tag, shape, mask shape, causal, dtype, recorded
+        ("bert", (16, 16, 512, 512), (16, 1, 1, 512), False,
+         torch.bfloat16, True),
+        ("gpt_causal", (4, 16, 1024, 1024), None, True, torch.bfloat16,
+         True),
+        ("bert", (16, 16, 512, 512), (16, 1, 1, 512), False,
+         torch.float32, False),
+        ("sq<sk", (2, 8, 64, 320), None, True, torch.float16, False),
+        ("sq<sk", (2, 8, 64, 320), None, True, torch.float32, False),
+        ("ragged", (3, 2, 16, 77), (16, 77), False, torch.bfloat16, False),
+        ("full_row", (2, 4, 16, 128), (2, 1, 16, 128), False,
+         torch.float16, False),
+        ("long", (1, 4, 8, 2000), (1, 1, 8, 2000), True, torch.bfloat16,
+         False),
+    ]
+    ok = True
+    for tag, shape, ms, causal, dt, main in cases:
+        x = (3 * torch.randn(shape, generator=g, device=dev)).to(dt)
+        dy = torch.randn(shape, generator=g, device=dev).to(dt)
+        m = None if ms is None else torch.rand(
+            ms, generator=g, device=dev) < 0.3
+        if tag == "full_row":
+            m[0, 0, 3] = True
+        y = S.softmax_fwd_kernel(x, m, 0.125, causal)
+        yp = S.scale_mask_softmax_reference(x, m, 0.125, causal)
+        dx = S.softmax_bwd_kernel(dy, yp, 0.125)
+        dxp = S.softmax_bwd_reference(dy, yp, 0.125)
+        torch.cuda.synchronize()
+        ef = float((y.float() - yp.float()).abs().max())
+        eb = float((dx.float() - dxp.float()).abs().max())
+        pf = close(y, yp, dt)
+        pb = close(dx, dxp, dt, sum_order(dy, yp, 0.125))
+        if tag == "full_row":
+            pf &= bool(torch.allclose(y[0, 0, 3].float(), torch.full(
+                (128,), 1 / 128, device=dev), rtol=0, atol=1e-3))
+        tol = "2e-6" if dt == torch.float32 else "1 ulp"
+        if not main:
+            log(f"  softmax {tag} {shape} {str(dt)[6:]}: fwd err {ef:.3g} "
+                f"{'ok' if pf else 'FAIL'}, bwd err {eb:.3g} "
+                f"{'ok' if pb else 'FAIL'} ({tol})")
+            ok &= pf and pb
+            continue
+        n, isz = x.numel(), x.element_size()
+        mbytes = 0 if m is None else m.numel()
+        ok &= record(f"softmax_fwd/{tag}", shape, dt, ef, pf,
+                     lambda: S.softmax_fwd_kernel(x, m, 0.125, causal),
+                     lambda: S.scale_mask_softmax_reference(x, m, 0.125,
+                                                            causal),
+                     2 * n * isz + mbytes, 6 * n,
+                     lambda: torch.softmax(x, -1),
+                     tol + "; library: torch.softmax (no scale, no mask)",
+                     iters=20)
+        ok &= record(f"softmax_bwd/{tag}", shape, dt, eb, pb,
+                     lambda: S.softmax_bwd_kernel(dy, yp, 0.125),
+                     lambda: S.softmax_bwd_reference(dy, yp, 0.125),
+                     3 * n * isz, 4 * n,
+                     lambda: torch.ops.aten._softmax_backward_data(
+                         dy, yp, -1, dt),
+                     tol + " + the row sum's order bound, from the same y; "
+                     "library: torch's softmax backward "
+                     "(_softmax_backward_data, no scale)",
+                     iters=20)
+        del x, dy, y, yp, dx, dxp
         torch.cuda.empty_cache()
     return ok
 
@@ -1644,6 +1912,268 @@ def phase_train_identity(torch):
 
 
 # ------------------------------------------------------------------ #
+# phase 10: BERT-Large amp O2 training with fp8 Adam moments
+# ------------------------------------------------------------------ #
+def phase_train_fp8(torch, profile=False, steps=10, warmup=3,
+                    dense_peak=None):
+    """``bench.py``'s ``BENCH_MOMENT_DTYPE=fp8`` step: phase 4's model
+    and batch with ``fused_adam(1e-4, moment_format="fp8_block_scaled")``
+    (no O0 baseline: phase 4 has it).  Then one step with an inf planted
+    in a gradient must change no master, code, scale or count, and the
+    loss scale must follow its scaler (a dynamic one backs off; bf16 O2
+    runs none)."""
+    from apex_tpu_torch import _build, amp
+    from apex_tpu_torch.models import BertConfig, BertModel, bert_mlm_loss_fn
+    from apex_tpu_torch.optim import fused_adam
+
+    log("phase 10: BERT-Large amp O2 training with fp8 Adam moments, "
+        "b=16 s=512 P=80")
+    dev = torch.device("cuda")
+    b, s, p = 16, 512, 80
+    cfg = BertConfig.bert_large(dtype=torch.bfloat16, remat=True)
+    model = BertModel(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(5))
+    state = amp.initialize(model, fused_adam(
+        1e-4, moment_format="fp8_block_scaled"), "O2",
+        half_dtype=torch.bfloat16)
+    ids, pos, labels = _bert_batch(torch, cfg, b, s, p, 6, dev)
+
+    def loss_of():
+        logits, _ = model(ids, mlm_positions=pos)
+        return bert_mlm_loss_fn(logits.float(), labels)
+
+    def train_step():
+        loss = loss_of()
+        state.scale_loss(loss).backward()
+        finite = state.apply_gradients()
+        return loss.detach(), finite
+
+    def fwd_only():
+        with torch.no_grad():
+            return loss_of()
+
+    def fwd_bwd():
+        loss = loss_of()
+        state.scale_loss(loss).backward()
+        for q in model.parameters():
+            q.grad = None
+        return loss.detach()
+
+    for _ in range(warmup):
+        train_step()
+    torch.cuda.synchronize()
+    t_fwd = sorted(_event_times(torch, fwd_only, 5)[0])[2]
+    t_fb = sorted(_event_times(torch, fwd_bwd, 5)[0])[2]
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    step_ms, outs, host_ms = _event_times(torch, train_step, steps)
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(o[0]) for o in outs]
+    finite = [bool(o[1]) for o in outs]
+    t_step = sum(step_ms) / len(step_ms)
+    prof = _profile_train(torch, train_step) if profile else None
+    per_step = {k: v / steps for k, v in launches.items()}
+    # the skip step: an inf in one gradient of the scaled loss
+    loss = loss_of()
+    state.scale_loss(loss).backward()
+    model.transformer.layers[0].attention.qkv_proj.weight.grad[0, 0] = \
+        float("inf")
+    st = state.opt_state
+    before = [t.clone() for t in _fp8_state_bytes(st, state.groups[0].flat)]
+    scale0 = float(state.loss_scale_state.loss_scale)
+    skipped = not bool(state.apply_gradients())
+    unchanged = all(torch.equal(a, b) for a, b in zip(
+        before, _fp8_state_bytes(st, state.groups[0].flat)))
+    # bf16 O2 runs no loss scale (NoOpLossScale, as in the JAX package):
+    # the skip step backs a dynamic scale off and leaves any other as is
+    from apex_tpu_torch.core import StaticLossScale
+    scale1 = float(state.loss_scale_state.loss_scale)
+    backed_off = (scale1 == scale0 if isinstance(state.loss_scaler,
+                                                 StaticLossScale)
+                  else scale1 < scale0)
+    state_bytes = sum(t.numel() * t.element_size() for t in (
+        st.exp_avg[0].q, st.exp_avg[0].scale, st.exp_avg_sq[0].q,
+        st.exp_avg_sq[0].scale))
+    n_params = state.groups[0].flat.numel()
+    del before
+    stats = dict(
+        samples_per_s=b * steps / (sum(step_ms) / 1e3),
+        step_ms=step_ms, step_ms_min=min(step_ms), step_ms_max=max(step_ms),
+        host_ms_per_step=sum(host_ms) / len(host_ms),
+        fwd_ms=t_fwd, bwd_ms=max(t_fb - t_fwd, 0.0),
+        opt_ms=max(t_step - t_fb, 0.0), peak_bytes=peak,
+        phase4_peak_bytes=dense_peak, moment_state_bytes=state_bytes,
+        masters=n_params, loss_first=losses[0], loss_last=losses[-1],
+        losses=losses, finite=finite, launches_per_step=per_step,
+        launches=launches, skip_step_skipped=skipped,
+        skip_step_state_unchanged=unchanged,
+        loss_scaler=type(state.loss_scaler).__name__,
+        skip_step_scale=(scale0, scale1), skip_step_scale_rule=backed_off)
+    log(f"  {json.dumps(stats)}")
+    if prof is not None:
+        stats["profile"] = prof
+        log(f"  profile: {json.dumps(prof)}")
+    ok = (all(finite) and losses[-1] < losses[0] and skipped and unchanged
+          and backed_off)
+    for name, want in dict(TRAIN_LAUNCHES, fp8_adam=1).items():
+        if per_step[name] != want:
+            log(f"  launches of {name}: {per_step[name]} per step, "
+                f"expected {want}")
+            ok = False
+    del model, state, outs, st
+    torch.cuda.empty_cache()
+    return ok, stats
+
+
+# ------------------------------------------------------------------ #
+# phase 11: FusedScaleMaskSoftmax as Megatron calls it
+# ------------------------------------------------------------------ #
+def phase_softmax_chain(torch, reps=5):
+    """Scores ``q @ k^T``, probs from ``FusedScaleMaskSoftmax``, context
+    ``probs @ v``, forward and backward, at BERT-Large's scores (padding
+    mask) and Megatron GPT's (causal); q, k and v gradients against the
+    same chain with fusion off (the plain composition) on the card,
+    within 1e-2 of each gradient's largest entry (bf16 probabilities one
+    ulp apart, through two bf16 products).  One launch of each kernel
+    per call."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.transformer import AttnMaskType, FusedScaleMaskSoftmax
+
+    log("phase 11: FusedScaleMaskSoftmax in the Megatron attention chain")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    rel = 1e-2
+    ok, stats = True, {"launches": dict.fromkeys(
+        ("softmax_fwd", "softmax_bwd"), 0)}
+    for tag, (b, h, sq, sk), mtype in (
+            ("bert_padding", (16, 16, 512, 512), AttnMaskType.padding),
+            ("gpt_causal", (4, 16, 1024, 1024), AttnMaskType.causal)):
+        d = 64
+        q, k, v = (torch.randn(b, h, n, d, generator=g, device=dev).to(
+            torch.bfloat16) for n in (sq, sk, sk))
+        dctx = torch.randn(b, h, sq, d, generator=g, device=dev).to(
+            torch.bfloat16)
+        mask = None
+        if mtype == AttnMaskType.padding:
+            lens = torch.randint(sk // 2, sk + 1, (b,), generator=g,
+                                 device=dev)
+            mask = (torch.arange(sk, device=dev)[None, :]
+                    >= lens[:, None]).view(b, 1, 1, sk)
+
+        def chain(fusion):
+            sm = FusedScaleMaskSoftmax(mtype, scale=0.125,
+                                       scaled_masked_softmax_fusion=fusion)
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            scores = torch.matmul(qq, kk.transpose(-1, -2))
+            ctx = torch.matmul(sm(scores, mask), vv)
+            return torch.autograd.grad(ctx, (qq, kk, vv), dctx)
+
+        _build.reset_launches()
+        got = chain(True)
+        counts = {n: _build.launches[n] for n in stats["launches"]}
+        ref = chain(False)
+        torch.cuda.synchronize()
+        errs = {n: float((a.float() - r.float()).abs().max()
+                         / r.float().abs().max())
+                for n, a, r in zip("qkv", got, ref)}
+        good = counts == {"softmax_fwd": 1, "softmax_bwd": 1} and all(
+            e <= rel for e in errs.values())
+        _build.reset_launches()
+        t_k = _event_times(torch, lambda: chain(True), reps)[0]
+        for n in stats["launches"]:
+            stats["launches"][n] += counts[n] + _build.launches[n]
+        t_p = _event_times(torch, lambda: chain(False), reps)[0]
+        stats[tag] = dict(shape=(b, h, sq, sk), grad_rel_err=errs,
+                          launches_per_call=counts, tolerance=rel,
+                          chain_ms_kernel=sorted(t_k)[reps // 2],
+                          chain_ms_plain=sorted(t_p)[reps // 2])
+        log(f"  {tag}: {json.dumps(stats[tag])}")
+        ok &= good
+        del q, k, v, dctx, got, ref
+        torch.cuda.empty_cache()
+    return ok, stats
+
+
+# ------------------------------------------------------------------ #
+# phase 12: the fp8 optimizer, card against CPU
+# ------------------------------------------------------------------ #
+def phase_fp8_identity(torch, steps=3):
+    """A 2-layer BERT-Large-width model takes 3 amp O2 steps with fp8
+    moments on the card (kernel B-18) and on the CPU (the plain
+    version) from the same weights, fed the same gradients (the card's,
+    of the same batch): codes and scales equal or within one e4m3
+    quantum of the block scale (the count that differ is reported),
+    masters within 1e-6 of each other relative to their size."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import BertConfig, BertModel, bert_mlm_loss_fn
+    from apex_tpu_torch.optim import fused_adam
+
+    log("phase 12: fp8 optimizer identity (BERT-Large width, 2 layers, "
+        "amp O2 bf16, 3 steps, card against CPU)")
+    dev = torch.device("cuda")
+    cfg = BertConfig.bert_large(num_layers=2, dtype=torch.bfloat16)
+    gpu = BertModel(cfg, device=dev)
+    gpu.init_weights(torch.Generator(device=dev).manual_seed(14))
+    cpu = BertModel(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    states = {name: amp.initialize(m, fused_adam(
+        1e-3, moment_format="fp8_block_scaled"), "O2",
+        half_dtype=torch.bfloat16) for name, m in (("cuda", gpu),
+                                                   ("cpu", cpu))}
+    ids, pos, labels = _bert_batch(torch, cfg, 4, 128, 20, 15, dev)
+    finite = []
+    for _ in range(steps):
+        sg = states["cuda"]
+        logits, _ = gpu(ids, mlm_positions=pos)
+        sg.scale_loss(bert_mlm_loss_fn(logits.float(), labels)).backward()
+        grads = [q.grad for q in sg.module_params]
+        for q in sg.module_params:
+            q.grad = None
+        finite.append(bool(sg.apply_gradients(grads)))
+        finite.append(bool(states["cpu"].apply_gradients(
+            [None if gr is None else gr.cpu() for gr in grads])))
+    torch.cuda.synchronize()
+    sg, sc = states["cuda"], states["cpu"]
+    lay = sg.opt_state.layouts[0]
+    out = dict(masters=lay.numel, padded=lay.total, finite=finite)
+    good = all(finite) and lay.leaves == sc.opt_state.layouts[0].leaves
+    for field in ("exp_avg", "exp_avg_sq"):
+        mg, mc = getattr(sg.opt_state, field)[0], getattr(sc.opt_state,
+                                                          field)[0]
+        qg, qc = mg.q.cpu(), mc.q
+        sgc = mg.scale.cpu()
+        differ = int((qg.view(torch.uint8) != qc.view(torch.uint8)).sum())
+        s_rel = float(((sgc - mc.scale).abs() / mc.scale).max())
+        # one quantum: the e4m3 spacing at the larger code, in the scale
+        a = (qg.float().view(-1, 256) * sgc[:, None]).reshape(-1)
+        c = (qc.float().view(-1, 256) * mc.scale[:, None]).reshape(-1)
+        s = torch.maximum(sgc, mc.scale).repeat_interleave(256)
+        mag = torch.maximum(a.abs(), c.abs()) / s
+        quantum = torch.where(mag >= 2.0 ** -6, torch.exp2(torch.floor(
+            torch.log2(mag.clamp_min(1e-30))) - 3), torch.full_like(
+                mag, 2.0 ** -9)) * s
+        within = bool(((a - c).abs() <= quantum * (1 + 1e-6)
+                       + 448 * (sgc - mc.scale).abs().repeat_interleave(
+                           256)).all())
+        out[field] = dict(codes_differ=differ, codes=qg.numel(),
+                          scales_differ=int((sgc != mc.scale).sum()),
+                          scale_max_rel_diff=s_rel,
+                          within_one_quantum=within)
+        good &= within and s_rel <= 1e-6
+    pg, pc = sg.groups[0].flat.cpu(), sc.groups[0].flat
+    m_err = float(((pg - pc).abs() / pc.abs().clamp_min(1e-3)).max())
+    out.update(master_max_rel_diff=m_err,
+               masters_differ=int((pg != pc).sum()),
+               count=(int(sg.opt_state.count), int(sc.opt_state.count)))
+    good &= m_err <= 1e-6 and out["count"] == (steps, steps)
+    log(f"  {json.dumps(out)}")
+    del gpu, cpu, states
+    torch.cuda.empty_cache()
+    return good, out
+
+
+# ------------------------------------------------------------------ #
 # phase 8: ResNet-50 amp O2 training with the fused BatchNorm
 # ------------------------------------------------------------------ #
 # device-time groups of a ResNet step under --profile (kernel names;
@@ -1886,11 +2416,15 @@ def main(argv=None):
     t0 = time.monotonic()
     build_logs = _build.build_all(ptxas_info=True)
     log(f"built {sorted(build_logs)} in {time.monotonic() - t0:.1f}s")
+    build = {}
     for name, text in sorted(build_logs.items()):
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
         spills = sum(int(m) for m in re.findall(
             r"(\d+) bytes spill stores", text))
         smem = [int(m) for m in re.findall(r"(\d+) bytes smem", text)]
+        build[name] = dict(kernels=len(regs), registers=regs,
+                           smem_max=max(smem, default=0),
+                           spill_store_bytes=spills)
         log(f"  {name}: {len(regs)} kernels, registers <= "
             f"{max(regs, default=0)}, smem <= {max(smem, default=0)} "
             f"bytes, spill stores {spills} bytes")
@@ -1924,6 +2458,11 @@ def main(argv=None):
         ("", drop_model),
         ("4", lambda: phase_train(torch, args.profile)),
         ("5", lambda: phase_train_identity(torch)),
+        ("10", lambda: phase_train_fp8(
+            torch, args.profile,
+            dense_peak=(results.get("4") or {}).get("peak_bytes"))),
+        ("12", lambda: phase_fp8_identity(torch)),
+        ("11", lambda: phase_softmax_chain(torch)),
         ("8", lambda: phase_resnet(torch, args.profile)),
         ("9", lambda: phase_resnet_identity(torch)),
     ]
@@ -1932,12 +2471,18 @@ def main(argv=None):
         if not ok:
             break
         t0 = time.monotonic()
-        ok, results[name] = run()
+        try:
+            ok, results[name] = run()
+        except Exception:       # the phase failed: record it, then exit 1
+            import traceback
+            traceback.print_exc()
+            ok, results[name] = False, None
         if name:
             log(f"phase {name} {'passed' if ok else 'FAILED'} "
                 f"({time.monotonic() - t0:.0f}s)")
-    serve, paged, paged8, train, ident, resnet, resnet_ident = (
-        results.get(n) for n in ("3", "6", "7", "4", "5", "8", "9"))
+    (serve, paged, paged8, train, ident, resnet, resnet_ident, train_fp8,
+     chain, fp8_ident) = (results.get(n) for n in (
+         "3", "6", "7", "4", "5", "8", "9", "10", "11", "12"))
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1945,19 +2490,22 @@ def main(argv=None):
         check=True).stdout.strip().splitlines()[0]
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, kernel_rows=rows, serve=serve,
+        json.dump(dict(card=card, build=build, kernel_rows=rows, serve=serve,
                        paged=paged, paged_int8=paged8, train=train,
                        train_identity=ident, resnet=resnet,
-                       resnet_identity=resnet_ident), f, indent=1)
+                       resnet_identity=resnet_ident, train_fp8=train_fp8,
+                       softmax_chain=chain, fp8_identity=fp8_ident), f,
+                  indent=1)
     if not ok:
         log("chip_smoke: FAILED")
         return 1
 
     # one row per kernel entry at its main-path shape: decode for the
     # serving kernels, BERT-Large bf16 for the training ones, ResNet-50's
-    # stage-0 bn3 (residual and ReLU) bf16 for the BatchNorm passes;
-    # launches are the counts of the main-path runs (phases 3, 6, 7, 4
-    # and 8)
+    # stage-0 bn3 (residual and ReLU) bf16 for the BatchNorm passes,
+    # BERT-Large's masters for the fp8 Adam step and its scores for the
+    # softmax; launches are the counts of the main-path runs (phases 3,
+    # 6, 7, 4, 8, 10 and 11)
     pick = {
         "layer_norm": ("layer_norm/stats", (8192, 1024), "torch.bfloat16"),
         "layer_norm_bwd": ("layer_norm_bwd", (8192, 1024),
@@ -1977,6 +2525,11 @@ def main(argv=None):
         "paged_decode_fused": ("paged_decode_fused/decode",
                                (4, 1, 32, 32, 128), "torch.bfloat16"),
         **{k: (k, (401408, 256), "torch.bfloat16") for k in BN_KERNELS},
+        "fp8_adam": ("fp8_adam/bert_large", None, "torch.float32"),
+        "softmax_fwd": ("softmax_fwd/bert", (16, 16, 512, 512),
+                        "torch.bfloat16"),
+        "softmax_bwd": ("softmax_bwd/bert", (16, 16, 512, 512),
+                        "torch.bfloat16"),
     }
     family = {"layer_norm": ("rms_norm", "layer_norm", "layer_norm/stats"),
               "layer_norm_bwd": ("layer_norm_bwd",),
@@ -1987,17 +2540,20 @@ def main(argv=None):
               "flash_attention_bwd_dkv": ("flash_bwd_dkv",),
               "paged_attention": ("paged_attn",),
               "paged_decode_fused": ("paged_decode_fused",),
-              **{k: (k,) for k in BN_KERNELS}}
+              **{k: (k,) for k in BN_KERNELS},
+              "fp8_adam": ("fp8_adam",), "softmax_fwd": ("softmax_fwd",),
+              "softmax_bwd": ("softmax_bwd",)}
     kernels = []
     for name, (kname, shape, dt) in pick.items():
-        match = [r for r in rows if r["kernel"] == kname
-                 and tuple(r["shape"]) == shape and r["dtype"] == dt]
+        match = [r for r in rows if r["kernel"] == kname and r["dtype"] == dt
+                 and (shape is None or tuple(r["shape"]) == shape)]
         errs = [r["err"] for r in rows
                 if r["kernel"] in family[name]
                 or r["kernel"].split("/")[0] in family[name]]
         r = match[0]
         n = sum((st or {}).get("launches", {}).get(name, 0)
-                for st in (serve, paged, paged8, train, resnet))
+                for st in (serve, paged, paged8, train, resnet, train_fp8,
+                           chain))
         kernels.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"], launches=n,
