@@ -23,13 +23,34 @@ and the fused paged decode step.  Slice 4 ports ResNet-50 amp O2
 training: ``models.resnet`` (fused BN, space-to-depth stem),
 ``parallel.SyncBatchNorm`` on one card, ``optim.fused_sgd`` and
 ``ops.batch_norm``, with kernels for the four fused BatchNorm(+add+ReLU)
-passes.
+passes.  Slice 5 ports fp8 block-scaled Adam moments
+(``optim.fused_adam(moment_format="fp8_block_scaled")``, one kernel a
+step over every leaf) and Megatron's attention-score softmax
+(``ops.fused_scale_mask_softmax``, ``transformer.FusedScaleMaskSoftmax``),
+with kernels for the fp8 Adam step and the softmax forward and backward.
+Slice 6 ports the rest of ``ops``: the fused GroupNorm(+SiLU)
+(``ops.group_norm``, ``GroupNorm``) with kernels for its forward and
+backward, the multi-head-attention modules over the flash kernels
+(``SelfMultiheadAttn``, ``EncdecMultiheadAttn``), the fused dense and
+MLP modules, and the ``contrib`` aliases that resolve onto ported ops.
+With it every Pallas kernel of the JAX package has a Hopper
+counterpart.
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise
 when CUDA is unavailable unless the caller passes ``device="cpu"``.
 The package imports ``torch`` and numpy only, never ``jax``.
 """
 
+from apex_tpu_torch.core.loss_scale import (
+    DynamicLossScale,
+    LossScaleState,
+    NoOpLossScale,
+    StaticLossScale,
+    all_finite,
+)
+from apex_tpu_torch.core.precision import PrecisionPolicy
 from apex_tpu_torch.ops._dispatch import resolve_device, resolve_impl
 
-__all__ = ["resolve_device", "resolve_impl"]
+__all__ = ["PrecisionPolicy", "LossScaleState", "DynamicLossScale",
+           "StaticLossScale", "NoOpLossScale", "all_finite",
+           "resolve_device", "resolve_impl"]

@@ -43,6 +43,7 @@ SOURCES: Dict[str, str] = {
     "batch_norm": "batch_norm.cu",
     "fp8_adam": "fp8_adam.cu",
     "softmax": "softmax.cu",
+    "group_norm": "group_norm.cu",
 }
 #: kernel entries, the keys of :data:`launches` (each lives in the
 #: library of SOURCES its name begins with; ``bn_*`` in batch_norm)
@@ -50,7 +51,8 @@ ENTRIES = ("layer_norm", "layer_norm_bwd", "rope", "fused_sampling",
            "flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "paged_attention",
            "paged_decode_fused", "bn_reduce", "bn_apply", "bn_bwd_reduce",
-           "bn_bwd_dx", "fp8_adam", "softmax_fwd", "softmax_bwd")
+           "bn_bwd_dx", "fp8_adam", "softmax_fwd", "softmax_bwd",
+           "group_norm_fwd", "group_norm_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

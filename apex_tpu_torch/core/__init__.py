@@ -11,6 +11,7 @@ from apex_tpu_torch.core.precision import (
     PrecisionPolicy,
     cast_floating,
     norm_param_filter,
+    tree_cast,
 )
 from apex_tpu_torch.core.train_state import (
     MixedPrecisionTrainState,
@@ -20,5 +21,6 @@ from apex_tpu_torch.core.train_state import (
 __all__ = [
     "DynamicLossScale", "LossScaleState", "NoOpLossScale",
     "StaticLossScale", "all_finite", "PrecisionPolicy", "cast_floating",
-    "norm_param_filter", "MixedPrecisionTrainState", "parameter_leaves",
+    "norm_param_filter", "tree_cast", "MixedPrecisionTrainState",
+    "parameter_leaves",
 ]

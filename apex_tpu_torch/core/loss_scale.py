@@ -12,7 +12,7 @@ metrics` reads when asked.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, List, Optional
+from typing import Iterable, List, Mapping, Optional
 
 import torch
 
@@ -113,6 +113,28 @@ class DynamicLossScale:
         return LossScaleState(loss_scale=new_scale.float(),
                               growth_tracker=tracker.to(torch.int32),
                               events=events)
+
+
+    def select_step(self, grads_finite: torch.Tensor, new_tree, old_tree):
+        """``where(finite, new, old)`` over matching nested containers of
+        tensors: apex's "skip optimizer.step() on overflow" without a
+        host sync."""
+        if isinstance(new_tree, Mapping):
+            return {k: self.select_step(grads_finite, v, old_tree[k])
+                    for k, v in new_tree.items()}
+        if isinstance(new_tree, (list, tuple)):
+            out = [self.select_step(grads_finite, n, o)
+                   for n, o in zip(new_tree, old_tree)]
+            return out if isinstance(new_tree, list) else tuple(out)
+        return torch.where(grads_finite, new_tree, old_tree)
+
+    def backoff_exhausted(self, state: LossScaleState) -> torch.Tensor:
+        """Device-side flag: the scale is pinned at ``min_scale``, so
+        further non-finite steps are the model's or the data's, not a
+        loss-scaling artifact."""
+        return state.loss_scale <= torch.tensor(
+            self.min_scale, dtype=torch.float32,
+            device=state.loss_scale.device)
 
 
 class StaticLossScale(DynamicLossScale):

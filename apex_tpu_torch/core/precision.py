@@ -19,12 +19,13 @@ O3      half                half                 none            1.0
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Callable, Mapping, Optional, Union
 
 import torch
 import torch.nn as nn
 
-__all__ = ["PrecisionPolicy", "norm_param_filter", "cast_floating"]
+__all__ = ["PrecisionPolicy", "norm_param_filter", "cast_floating",
+           "tree_cast"]
 
 LossScaleSpec = Union[str, float, None]
 _OPT_LEVELS = ("O0", "O1", "O2", "O3")
@@ -49,6 +50,35 @@ def cast_floating(t: torch.Tensor, dtype) -> torch.Tensor:
     if dtype is None or not torch.is_floating_point(t):
         return t
     return t.to(dtype)
+
+
+def tree_cast(tree: Any, dtype, *,
+              keep_fp32_filter: Optional[Callable[[tuple, Any], bool]] = None
+              ) -> Any:
+    """Cast every floating tensor of ``tree`` (nested dicts, lists and
+    tuples of tensors; anything else passes through) to ``dtype``.
+
+    ``keep_fp32_filter(path, leaf) -> bool`` exempts leaves, kept in
+    fp32 (``keep_batchnorm_fp32``); ``path`` is the tuple of keys and
+    indices from the root, as the JAX package's key path.
+    """
+    if dtype is None:
+        return tree
+
+    def cast(path, leaf):
+        if isinstance(leaf, Mapping):
+            return {k: cast(path + (k,), v) for k, v in leaf.items()}
+        if isinstance(leaf, (list, tuple)):
+            out = [cast(path + (i,), v) for i, v in enumerate(leaf)]
+            return type(leaf)(out) if isinstance(leaf, list) else tuple(out)
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        if (keep_fp32_filter is not None and torch.is_floating_point(leaf)
+                and keep_fp32_filter(path, leaf)):
+            return leaf.to(torch.float32)
+        return cast_floating(leaf, dtype)
+
+    return cast((), tree)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +150,10 @@ class PrecisionPolicy:
     def O3(cls, **kw: Any) -> "PrecisionPolicy":
         return cls.from_opt_level("O3", **kw)
 
+    def with_overrides(self, **overrides: Any) -> "PrecisionPolicy":
+        """A copy with the given fields replaced."""
+        return dataclasses.replace(self, **overrides)
+
     # ------------------------------------------------------------------ #
     def dtype_for(self, name: str, dtype) -> Any:
         """The dtype parameter ``name`` is cast to from ``dtype``: fp32
@@ -146,6 +180,11 @@ class PrecisionPolicy:
     def cast_to_compute(self, target):
         """The same cast to the compute dtype (the forward's copy)."""
         return self._cast(target, self.compute_dtype)
+
+    def cast_to_output(self, tree):
+        """``tree`` (a tensor or nested containers of them) with its
+        floating tensors in the output dtype."""
+        return tree_cast(tree, self.output_dtype)
 
     def master_params(self, target):
         """fp32 copy of a ``state_dict`` or of a module's parameters

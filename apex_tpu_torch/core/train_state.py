@@ -143,6 +143,11 @@ class MixedPrecisionTrainState:
                 out[self.names[i]] = view
         return out
 
+    def compute_params(self) -> Dict[str, torch.Tensor]:
+        """The stored params cast for the forward pass (the "model copy"
+        of apex O2: half, norm params fp32 under the filter)."""
+        return self.policy.cast_to_compute(self.params)
+
     def leaves(self) -> List[List[Tuple[str, Leaf]]]:
         """Per flat buffer, its parameters in order as ``(name, Leaf)``
         (see :func:`parameter_leaves`)."""

@@ -35,33 +35,15 @@
 //   (__fmul_rn / __fadd_rn, no contraction into FMA), which is the plain
 //   PyTorch version's rounding: on the same per-channel vectors, y, dx and
 //   dres equal it bit for bit.
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Pack {
-  T v[V];
-};
-
-template <typename T, int V>
-__device__ __forceinline__ void load_f(const T* p, float (&o)[V]) {
-  const Pack<T, V> k = *reinterpret_cast<const Pack<T, V>*>(p);
-#pragma unroll
-  for (int i = 0; i < V; ++i) o[i] = apex::to_f(k.v[i]);
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void store_f(T* p, const float (&o)[V]) {
-  Pack<T, V> k;
-#pragma unroll
-  for (int i = 0; i < V; ++i) k.v[i] = apex::from_f<T>(o[i]);
-  *reinterpret_cast<Pack<T, V>*>(p) = k;
-}
+constexpr int kThreads = apex::kRowThreads;
+using apex::load_f;
+using apex::store_f;
+using apex::Tile;
+using apex::tile_of;
 
 // per-channel fp32 vectors: loaded once per thread, element by element
 // (a (C,) view need not be 16-byte aligned)
@@ -69,32 +51,6 @@ template <int V>
 __device__ __forceinline__ void load_ch(const float* p, int c0, float (&o)[V]) {
 #pragma unroll
   for (int i = 0; i < V; ++i) o[i] = p[c0 + i];
-}
-
-// The tile a thread works on: thread (lane_r, lane_c) of a block with tx
-// column vectors by ty rows owns column vector cvi and the rows r0 +
-// lane_r, r0 + lane_r + ty, ... below r1.
-struct Tile {
-  int tx, ty, lane_c, lane_r, cvi, c0;
-  bool live;
-  long long r0, r1;
-};
-
-template <int V>
-__device__ __forceinline__ Tile tile_of(long long rows, int c, int chunks) {
-  Tile t;
-  const int cv = c / V;
-  t.tx = cv < 32 ? cv : 32;
-  t.ty = kThreads / t.tx;
-  t.lane_c = threadIdx.x % t.tx;
-  t.lane_r = threadIdx.x / t.tx;
-  t.cvi = blockIdx.y * t.tx + t.lane_c;
-  t.c0 = t.cvi * V;
-  t.live = t.lane_r < t.ty && t.cvi < cv;
-  const long long per = (rows + chunks - 1) / chunks;
-  t.r0 = (long long)blockIdx.x * per;
-  t.r1 = t.r0 + per < rows ? t.r0 + per : rows;
-  return t;
 }
 
 // dz = dy * mask: the mask from the saved output y (residual) or from the
@@ -281,34 +237,6 @@ bn_bwd_dx_kernel(const T* __restrict__ dy, const T* __restrict__ x,
   }
 }
 
-// Calls f((T*)nullptr, std::integral_constant<int, V>{}) for dtype code xt
-// and vector width vec: 16 bytes (8 half or 4 fp32 channels) or 1.
-template <typename F>
-bool dispatch(int xt, int vec, F&& f) {
-  using V1 = std::integral_constant<int, 1>;
-  using V4 = std::integral_constant<int, 4>;
-  using V8 = std::integral_constant<int, 8>;
-  switch (xt) {
-    case apex::kF32:
-      if (vec == 4) f((float*)nullptr, V4{});
-      else if (vec == 1) f((float*)nullptr, V1{});
-      else return false;
-      return true;
-    case apex::kBF16:
-      if (vec == 8) f((__nv_bfloat16*)nullptr, V8{});
-      else if (vec == 1) f((__nv_bfloat16*)nullptr, V1{});
-      else return false;
-      return true;
-    case apex::kF16:
-      if (vec == 8) f((__half*)nullptr, V8{});
-      else if (vec == 1) f((__half*)nullptr, V1{});
-      else return false;
-      return true;
-    default:
-      return false;
-  }
-}
-
 // grid (chunks, column tiles) of the shared layout, or false when the
 // arguments cannot be launched
 bool grid_of(int c, int vec, int chunks, dim3* grid) {
@@ -327,7 +255,7 @@ int reduce(const void* x, const void* dy, const void* y, const void* scale,
            int xt, bool bwd, cudaStream_t st) {
   dim3 grid;
   if (!grid_of(c, vec, chunks, &grid)) return (int)cudaErrorInvalidValue;
-  const bool ok = dispatch(xt, vec, [&](auto tag, auto v) {
+  const bool ok = apex::dispatch_vec(xt, vec, [&](auto tag, auto v) {
     using T = std::remove_pointer_t<decltype(tag)>;
     constexpr int V = decltype(v)::value;
     auto args = [&](auto kernel) {
@@ -371,7 +299,7 @@ extern "C" int apex_bn_apply(const void* x, const void* res, const void* scale,
   dim3 grid;
   if (!grid_of(c, vec, chunks, &grid)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool ok = dispatch(xt, vec, [&](auto tag, auto v) {
+  const bool ok = apex::dispatch_vec(xt, vec, [&](auto tag, auto v) {
     using T = std::remove_pointer_t<decltype(tag)>;
     constexpr int V = decltype(v)::value;
     bn_apply_kernel<T, V><<<grid, kThreads, 0, st>>>(
@@ -408,7 +336,7 @@ extern "C" int apex_bn_bwd_dx(const void* dy, const void* x, const void* y,
   dim3 grid;
   if (!grid_of(c, vec, chunks, &grid)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool ok = dispatch(xt, vec, [&](auto tag, auto v) {
+  const bool ok = apex::dispatch_vec(xt, vec, [&](auto tag, auto v) {
     using T = std::remove_pointer_t<decltype(tag)>;
     constexpr int V = decltype(v)::value;
     bn_bwd_dx_kernel<T, V><<<grid, kThreads, 0, st>>>(

@@ -12,6 +12,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace apex {
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3, kF8 = 4 };
@@ -124,6 +126,92 @@ __device__ __forceinline__ int block_argmax(float v, int i, float* sv, int* si) 
   const int r = si[32];
   __syncthreads();
   return r;
+}
+
+// ---- the row-tile layout of csrc/batch_norm.cu and csrc/group_norm.cu ----
+// A block of kRowThreads threads owns up to 32 column vectors of V
+// channels across a chunk of the rows of a channels-last (rows, C)
+// matrix; V is 16 bytes of channels (8 half or 4 fp32) or 1.
+constexpr int kRowThreads = 256;
+
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ void load_f(const T* p, float (&o)[V]) {
+  const Pack<T, V> k = *reinterpret_cast<const Pack<T, V>*>(p);
+#pragma unroll
+  for (int i = 0; i < V; ++i) o[i] = to_f(k.v[i]);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_f(T* p, const float (&o)[V]) {
+  Pack<T, V> k;
+#pragma unroll
+  for (int i = 0; i < V; ++i) k.v[i] = from_f<T>(o[i]);
+  *reinterpret_cast<Pack<T, V>*>(p) = k;
+}
+
+// The tile a thread works on: thread (lane_r, lane_c) of a block with tx
+// column vectors by ty rows owns column vector cvi (grid column
+// blockIdx.y) and the rows r0 + lane_r, r0 + lane_r + ty, ... below r1 of
+// row chunk blockIdx.x.
+struct Tile {
+  int tx, ty, lane_c, lane_r, cvi, c0;
+  bool live;
+  long long r0, r1;
+};
+
+__device__ __forceinline__ long long chunk_rows(long long rows, int chunks) {
+  return (rows + chunks - 1) / chunks;
+}
+
+template <int V>
+__device__ __forceinline__ Tile tile_of(long long rows, int c, int chunks) {
+  Tile t;
+  const int cv = c / V;
+  t.tx = cv < 32 ? cv : 32;
+  t.ty = kRowThreads / t.tx;
+  t.lane_c = threadIdx.x % t.tx;
+  t.lane_r = threadIdx.x / t.tx;
+  t.cvi = blockIdx.y * t.tx + t.lane_c;
+  t.c0 = t.cvi * V;
+  t.live = t.lane_r < t.ty && t.cvi < cv;
+  const long long per = chunk_rows(rows, chunks);
+  t.r0 = (long long)blockIdx.x * per;
+  t.r1 = t.r0 + per < rows ? t.r0 + per : rows;
+  return t;
+}
+
+// Calls f((T*)nullptr, std::integral_constant<int, V>{}) for dtype code xt
+// and vector width vec: 16 bytes (8 half or 4 fp32 channels) or 1; false
+// for any other pair.
+template <typename F>
+bool dispatch_vec(int xt, int vec, F&& f) {
+  using V1 = std::integral_constant<int, 1>;
+  using V4 = std::integral_constant<int, 4>;
+  using V8 = std::integral_constant<int, 8>;
+  switch (xt) {
+    case kF32:
+      if (vec == 4) f((float*)nullptr, V4{});
+      else if (vec == 1) f((float*)nullptr, V1{});
+      else return false;
+      return true;
+    case kBF16:
+      if (vec == 8) f((__nv_bfloat16*)nullptr, V8{});
+      else if (vec == 1) f((__nv_bfloat16*)nullptr, V1{});
+      else return false;
+      return true;
+    case kF16:
+      if (vec == 8) f((__half*)nullptr, V8{});
+      else if (vec == 1) f((__half*)nullptr, V1{});
+      else return false;
+      return true;
+    default:
+      return false;
+  }
 }
 
 }  // namespace apex

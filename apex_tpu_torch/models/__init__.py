@@ -12,6 +12,9 @@ from apex_tpu_torch.models.generate import (
 )
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel, gpt_loss_fn
 from apex_tpu_torch.models.jax_import import (
+    group_norm_params_from_jax,
+    mha_params_from_jax,
+    mlp_params_from_jax,
     named_leaves_from_jax,
     params_from_jax,
     resnet_params_from_jax,
@@ -40,6 +43,8 @@ __all__ = [
     "BertConfig", "BertModel", "bert_mlm_loss_fn",
     "GPTConfig", "GPTModel", "gpt_loss_fn", "LlamaConfig", "LlamaModel",
     "named_leaves_from_jax", "params_from_jax", "resnet_params_from_jax",
+    "group_norm_params_from_jax", "mha_params_from_jax",
+    "mlp_params_from_jax",
     "ResNet", "ResNetConfig", "convert_stem_to_s2d", "resnet18", "resnet50",
     "space_to_depth", "stem_conv_to_s2d",
     "ParallelAttention", "ParallelMLP", "ParallelTransformer",

@@ -10,7 +10,12 @@ axis) and the unrolled one (``transformer/layer_<i>`` subtrees).  Dense
 kernels are stored ``(in, out)`` by flax and ``(out, in)`` by PyTorch,
 so they are transposed.  :func:`resnet_params_from_jax` does the same
 for ``apex_tpu.models.ResNet`` (params and ``batch_stats``; conv
-kernels go from HWIO to OIHW).  No JAX import is needed: the tree is plain
+kernels go from HWIO to OIHW).  :func:`group_norm_params_from_jax`,
+:func:`mha_params_from_jax` and :func:`mlp_params_from_jax` do it for the
+``ops`` modules (``GroupNorm``; ``SelfMultiheadAttn`` /
+``EncdecMultiheadAttn``, whose DenseGeneral kernels ``(E, 3, H, d)``,
+``(E, 2, H, d)`` and ``(E, H, d)`` become Linear weights with rows in
+that order; ``FusedDense``, ``FusedDenseGeluDense`` and ``MLP``).  No JAX import is needed: the tree is plain
 nested mappings of arrays (boxed leaves with an ``unbox`` method, as
 flax's partitioning metadata, are unboxed).
 """
@@ -23,7 +28,8 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "resnet_params_from_jax",
-           "named_leaves_from_jax"]
+           "named_leaves_from_jax", "group_norm_params_from_jax",
+           "mha_params_from_jax", "mlp_params_from_jax"]
 
 _LINEARS = {
     "attention": ("qkv_proj", "out_proj"),
@@ -97,10 +103,7 @@ def params_from_jax(params_np: Mapping, cfg) -> Dict[str, torch.Tensor]:
         _norm(out, "final_norm", p["final_norm"])
     if "lm_head" in p:
         _linear(out, "lm_head", p["lm_head"])
-    # numpy has no native bfloat16: such leaves load through fp32
-    return {k: torch.from_numpy(np.array(
-        v, dtype=np.float32 if v.dtype.name == "bfloat16" else v.dtype))
-        for k, v in out.items()}
+    return _tensors(out)
 
 
 def _is_fp8_leaf(v) -> bool:
@@ -172,6 +175,50 @@ def resnet_params_from_jax(params_np: Mapping, batch_stats_np: Mapping,
                 v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T)
         else:
             out[".".join(path)] = v
+    return _tensors(out)
+
+
+def _tensors(out: Mapping) -> Dict[str, torch.Tensor]:
+    # numpy has no native bfloat16: such leaves load through fp32
     return {k: torch.from_numpy(np.array(
         v, dtype=np.float32 if v.dtype.name == "bfloat16" else v.dtype))
         for k, v in out.items()}
+
+
+def group_norm_params_from_jax(params_np: Mapping
+                               ) -> Dict[str, torch.Tensor]:
+    """State dict for ``ops.GroupNorm`` from the JAX ``GroupNorm``'s
+    params: ``scale`` and ``bias`` as they are."""
+    p = params_np.get("params", params_np)
+    return _tensors({k: _arr(p[k]) for k in ("scale", "bias") if k in p})
+
+
+def mha_params_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for ``ops.SelfMultiheadAttn`` / ``EncdecMultiheadAttn``
+    from the JAX module's params.  A DenseGeneral kernel ``(E, *feat)``
+    becomes a Linear weight ``(prod(feat), E)`` with its rows in the
+    order of ``feat`` — ``(3, H, d)`` for ``qkv_proj``, ``(2, H, d)`` for
+    ``kv_proj``, ``(H, d)`` for ``q_proj`` — and its bias is flattened
+    the same way."""
+    p = params_np.get("params", params_np)
+    out: Dict[str, Any] = {}
+    for name in ("qkv_proj", "q_proj", "kv_proj", "out_proj"):
+        if name not in p:
+            continue
+        kernel = _arr(p[name]["kernel"])
+        out[f"{name}.weight"] = kernel.reshape(kernel.shape[0], -1).T
+        if "bias" in p[name]:
+            out[f"{name}.bias"] = _arr(p[name]["bias"]).reshape(-1)
+    for name in ("ln_scale", "ln_bias"):
+        if name in p:
+            out[name] = _arr(p[name])
+    return _tensors(out)
+
+
+def mlp_params_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for ``ops.FusedDense`` / ``FusedDenseGeluDense`` /
+    ``MLP`` from the JAX module's params: the same names, every
+    ``(in, out)`` kernel transposed to ``(out, in)``."""
+    p = params_np.get("params", params_np)
+    return _tensors({k: (_arr(v).T if k.startswith("kernel") else _arr(v))
+                     for k, v in p.items()})

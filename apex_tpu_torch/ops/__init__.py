@@ -12,6 +12,11 @@ from apex_tpu_torch.ops.batch_norm import (
     batch_norm_reference,
     batch_norm_train,
 )
+from apex_tpu_torch.ops.group_norm import (
+    GroupNorm,
+    group_norm,
+    group_norm_reference,
+)
 from apex_tpu_torch.ops.fused_sampling import (
     fused_sample,
     fused_sample_reference,
@@ -25,7 +30,17 @@ from apex_tpu_torch.ops.layer_norm import (
     layer_norm_reference,
     rms_norm_reference,
 )
-from apex_tpu_torch.ops.mlp import resolve_activation
+from apex_tpu_torch.ops.mlp import (
+    MLP,
+    FusedDense,
+    FusedDenseGeluDense,
+    fused_dense,
+    resolve_activation,
+)
+from apex_tpu_torch.ops.multihead_attn import (
+    EncdecMultiheadAttn,
+    SelfMultiheadAttn,
+)
 from apex_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_reference,
@@ -52,7 +67,10 @@ __all__ = [
     "split",
     "fused_layer_norm", "fused_rms_norm", "layer_norm_reference",
     "rms_norm_reference",
+    "FusedDense", "FusedDenseGeluDense", "MLP", "fused_dense",
     "resolve_activation",
+    "group_norm", "group_norm_reference", "GroupNorm",
+    "SelfMultiheadAttn", "EncdecMultiheadAttn",
     "paged_attention", "paged_attention_reference", "paged_decode_fused",
     "paged_decode_fused_reference",
     "fused_rope", "rope_cos_sin", "rope_reference",

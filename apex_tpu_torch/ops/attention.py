@@ -426,8 +426,10 @@ def fused_attention(q, k, v, *, causal: bool = False,
     (requires ``causal``).  ``dropout_rate`` with an integer
     ``dropout_seed`` (the caller draws it, e.g. from a
     ``torch.Generator``) drops probabilities with the counter hash.
-    ``block_q`` / ``block_k``: the kernels' tile is fixed at 64; other
-    values raise.  ``implementation`` as in :mod:`._dispatch`.
+    ``block_q`` / ``block_k``: tile hints, as in the JAX package; any
+    positive value is taken and ignored — the kernels tile by 64 and the
+    outputs do not depend on the tile.  ``implementation`` as in
+    :mod:`._dispatch`.
     """
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
@@ -435,9 +437,9 @@ def fused_attention(q, k, v, *, causal: bool = False,
         raise ValueError(
             f"num_kv_heads ({hk}) must divide num_heads ({h})")
     for name, blk in (("block_q", block_q), ("block_k", block_k)):
-        if blk is not None and blk != BLOCK:
-            raise ValueError(
-                f"{name}={blk}: the port's kernels tile by {BLOCK}")
+        if blk is not None and int(blk) < 1:
+            raise ValueError(f"{name} must be a positive tile hint, got "
+                             f"{blk}")
     if window is not None:
         window = int(window)
         if window < 1:

@@ -1,0 +1,354 @@
+"""Fused GroupNorm (+ optional SiLU) over channels-last tensors — CUDA
+kernels plus plain PyTorch.
+
+Counterpart of ``apex_tpu/ops/group_norm.py`` (apex's
+``contrib.group_norm``, built for diffusion UNets), with its API and
+layout: an ``(N, ..., C)`` tensor, ``num_groups`` groups of ``C /
+num_groups`` neighbouring channels, statistics per sample and group in
+fp32, then the affine and the optional SiLU, cast once to ``x.dtype``.
+
+- :func:`group_norm_reference` is the JAX package's composition
+  (two-pass ``jnp.var``), the golden semantics and the CPU path; torch
+  autograd differentiates it there, as JAX differentiates its default
+  XLA path.
+- On a CUDA tensor ``"auto"`` launches the kernels of
+  ``csrc/group_norm.cu``, which replace the Pallas ``_gn_fwd_kernel``
+  (y plus the saved mean and rstd per sample and group) and
+  ``_gn_bwd_kernel`` (dx, and dγ/dβ over the whole batch), through
+  :class:`_GroupNormFn`.  Beside each kernel is its plain version with
+  the kernel's formulas (:func:`group_norm_fwd_reference`,
+  :func:`group_norm_bwd_reference`), which the kernels are held against
+  on the card.
+
+The JAX kernels' envelope (``C % 128 == 0``, ``C <= 1024``, an 8-aligned
+divisor of the spatial extent) is a TPU tiling rule: the port's kernels
+take any C divisible by the groups (SD-1.5's 320 channels, more than
+1024), any spatial extent and the 2-D ``(N, C)`` case.  The input must be
+laid out densely in the order of its shape (``x.permute(0, 2, 3, 1)`` of
+a ``torch.channels_last`` NCHW tensor), else ValueError.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from apex_tpu_torch import _build
+from apex_tpu_torch.ops._dispatch import resolve_device, resolve_impl
+
+__all__ = ["group_norm", "group_norm_reference", "GroupNorm",
+           "group_norm_fwd_reference", "group_norm_bwd_reference",
+           "group_norm_fwd_kernel", "group_norm_bwd_kernel"]
+
+_ACTS = (None, "silu")
+_THREADS = 256
+# blocks per SM the grids aim for: the statistics passes write one
+# partial row per block, so they take fewer
+_REDUCE_BLOCKS_PER_SM = 4
+_MAP_BLOCKS_PER_SM = 8
+
+
+def _check(c: int, num_groups: int, act) -> None:
+    if c % num_groups != 0:
+        raise ValueError(
+            f"channels {c} not divisible by groups {num_groups}")
+    if act not in _ACTS:
+        raise ValueError(f"unknown act {act!r}")
+
+
+def _stats(xf4, eps: float):
+    """``(mean, rstd)`` of ``(N, R, G, cg)`` fp32 over axes (1, 3), kept
+    as ``(N, 1, G, 1)``: the mean, then the two-pass variance of
+    ``jnp.var``."""
+    mean = xf4.mean(dim=(1, 3), keepdim=True)
+    var = torch.square(xf4 - mean).mean(dim=(1, 3), keepdim=True)
+    return mean, torch.rsqrt(var + eps)
+
+
+# --------------------------------------------------------------------- #
+# plain compositions
+# --------------------------------------------------------------------- #
+def group_norm_reference(x, num_groups: int, weight=None, bias=None, *,
+                         eps: float = 1e-5, act: Optional[str] = None):
+    """GroupNorm as the JAX reference composition computes it: fp32
+    statistics, ``(x - mean)·rsqrt(var + eps)``, then the affine, then
+    SiLU, cast once to ``x.dtype``."""
+    c = x.shape[-1]
+    _check(c, num_groups, act)
+    n = x.shape[0]
+    xf = x.float().reshape(n, -1, num_groups, c // num_groups)
+    mean, rstd = _stats(xf, eps)
+    y = ((xf - mean) * rstd).reshape(x.shape)
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    if act == "silu":
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype)
+
+
+def _affine(c, w, b, device):
+    w = torch.ones(c, device=device) if w is None else w.float()
+    b = torch.zeros(c, device=device) if b is None else b.float()
+    return w, b
+
+
+def group_norm_fwd_reference(x3, weight, bias, num_groups: int,
+                             eps: float = 1e-5, silu: bool = False):
+    """Plain B-16 on ``(N, R, C)``: ``(y, mean, rstd)``, y in
+    ``x.dtype``, the statistics ``(N, G)`` fp32 (a missing weight or bias
+    is ones or zeros)."""
+    n, _, c = x3.shape
+    w, b = _affine(c, weight, bias, x3.device)
+    xf = x3.float().reshape(n, -1, num_groups, c // num_groups)
+    mean, rstd = _stats(xf, eps)
+    z = ((xf - mean) * rstd).reshape(x3.shape) * w + b
+    if silu:
+        z = z * torch.sigmoid(z)
+    return z.to(x3.dtype), mean.reshape(n, num_groups), \
+        rstd.reshape(n, num_groups)
+
+
+def _per_channel(stat, c):
+    """``(N, G)`` group statistics broadcast to ``(N, 1, C)``."""
+    n, g = stat.shape
+    return stat.reshape(n, 1, g, 1).expand(n, 1, g, c // g).reshape(n, 1, c)
+
+
+def group_norm_bwd_reference(dy3, x3, weight, bias, mean, rstd,
+                             num_groups: int, silu: bool = False):
+    """Plain B-17: ``(dx, dγ, dβ)`` from the saved ``(N, G)`` statistics
+    — ``dy' = dy·silu'(z)`` under SiLU, ``c1 = Σ_g w·dy' / cnt``, ``c2 =
+    Σ_g w·dy'·x̂ / cnt``, ``dx = (w·dy' - c1 - x̂·c2)·rstd`` in
+    ``x.dtype``; ``dγ = Σ dy'·x̂``, ``dβ = Σ dy'`` over the batch, fp32."""
+    n, r, c = x3.shape
+    w, b = _affine(c, weight, bias, x3.device)
+    mu, rs = _per_channel(mean, c), _per_channel(rstd, c)
+    xhat = (x3.float() - mu) * rs
+    d = dy3.float()
+    if silu:
+        z = xhat * w + b
+        s = torch.sigmoid(z)
+        d = d * (s * (1.0 + z * (1.0 - s)))
+    wdy = d * w
+    inv = 1.0 / float(r * (c // num_groups))
+    fold = (n, num_groups, c // num_groups)
+    c1 = wdy.sum(1).reshape(fold).sum(-1) * inv
+    c2 = (wdy * xhat).sum(1).reshape(fold).sum(-1) * inv
+    dx = (wdy - _per_channel(c1, c) - xhat * _per_channel(c2, c)) * rs
+    return dx.to(x3.dtype), (d * xhat).sum((0, 1)), d.sum((0, 1))
+
+
+# --------------------------------------------------------------------- #
+# the CUDA kernels
+# --------------------------------------------------------------------- #
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _geometry(x3, *others):
+    """``(vec, chunks, map_chunks)`` of csrc/group_norm.cu's layout:
+    16-byte vectors of channels when C and every pointer allow it, and
+    enough row chunks per sample for the statistics and the map passes to
+    fill every SM."""
+    n, rows, c = x3.shape
+    vec = 16 // x3.element_size()
+    if c % vec or any(t.data_ptr() % 16 for t in (x3,) + others):
+        vec = 1
+    cv = c // vec
+    tx = min(cv, 32)
+    ty = _THREADS // tx
+    tiles = -(-cv // tx)
+    sms = _sm_count(x3.device.index or 0)
+
+    def chunks(per_sm):
+        want = -(-per_sm * sms // (tiles * n))
+        return max(1, min(-(-rows // ty), want))
+    return vec, chunks(_REDUCE_BLOCKS_PER_SM), chunks(_MAP_BLOCKS_PER_SM)
+
+
+def _check_kernel_operands(name, x3, num_groups, *same):
+    if not x3.is_cuda:
+        raise ValueError(f"{name}: needs a CUDA tensor, got one on "
+                         f"{x3.device}")
+    if x3.dim() != 3 or not x3.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous (N, R, C) tensor")
+    if x3.dtype not in _build.FLOAT_CODES:
+        raise TypeError(f"{name}: unsupported dtype {x3.dtype}")
+    if x3.shape[2] % num_groups:
+        raise ValueError(f"{name}: channels {x3.shape[2]} not divisible by "
+                         f"groups {num_groups}")
+    for t in same:
+        if (t.shape != x3.shape or t.dtype != x3.dtype
+                or not t.is_contiguous() or t.device != x3.device):
+            raise ValueError(
+                f"{name}: every (N, R, C) operand must match x "
+                f"{tuple(x3.shape)} {x3.dtype} and be contiguous, got "
+                f"{tuple(t.shape)} {t.dtype}")
+
+
+def _vecs(x3, *vs):
+    """The (C,) affine as contiguous fp32 on x's device (ones / zeros
+    for a missing weight / bias): cast once here, not per element."""
+    c = x3.shape[2]
+    for v in vs[:2]:
+        if v is not None and (v.numel() != c or v.device != x3.device):
+            raise ValueError(f"per-channel operand of {tuple(v.shape)} on "
+                             f"{v.device} for C={c} on {x3.device}")
+    w, b = _affine(c, *vs, x3.device)
+    return w.reshape(c).contiguous(), b.reshape(c).contiguous()
+
+
+def _stat_operand(s, n, num_groups, device):
+    if s.shape != (n, num_groups) or s.device != device:
+        raise ValueError(f"statistics must be ({n}, {num_groups}) on "
+                         f"{device}, got {tuple(s.shape)} on {s.device}")
+    return s.float().contiguous()
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_I64, _I32, _F32, _PTR = (ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_void_p)
+
+
+def group_norm_fwd_kernel(x3, weight, bias, num_groups: int,
+                          eps: float = 1e-5, silu: bool = False):
+    """B-16 on a CUDA ``(N, R, C)`` tensor: ``(y, mean, rstd)`` as the
+    plain version's."""
+    _check_kernel_operands("group_norm_fwd", x3, num_groups)
+    n, rows, c = x3.shape
+    w, b = _vecs(x3, weight, bias)
+    y = torch.empty_like(x3)
+    vec, chunks, map_chunks = _geometry(x3, y)
+    part = torch.empty(n, chunks, 2, c, dtype=torch.float32,
+                       device=x3.device)
+    mean = torch.empty(n, num_groups, dtype=torch.float32, device=x3.device)
+    rstd = torch.empty_like(mean)
+    fn = _build.function("group_norm", "apex_gn_fwd",
+                         [_PTR] * 7 + [_I64, _I64, _I32, _I32, _I32, _I32,
+                                       _I32, _F32, _I32, _I32, _PTR])
+    code = fn(x3.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+              mean.data_ptr(), rstd.data_ptr(), part.data_ptr(), n, rows, c,
+              num_groups, vec, chunks, map_chunks, float(eps), int(silu),
+              _build.FLOAT_CODES[x3.dtype], _stream(x3))
+    _build.check(code, "group_norm_fwd")
+    return y, mean, rstd
+
+
+def group_norm_bwd_kernel(dy3, x3, weight, bias, mean, rstd,
+                          num_groups: int, silu: bool = False):
+    """B-17: ``(dx, dγ, dβ)`` as the plain version's (dγ, dβ fp32)."""
+    dy3 = dy3.to(x3.dtype).contiguous()
+    _check_kernel_operands("group_norm_bwd", x3, num_groups, dy3)
+    n, rows, c = x3.shape
+    w, b = _vecs(x3, weight, bias)
+    mean = _stat_operand(mean, n, num_groups, x3.device)
+    rstd = _stat_operand(rstd, n, num_groups, x3.device)
+    dx = torch.empty_like(x3)
+    vec, chunks, map_chunks = _geometry(x3, dy3, dx)
+    part = torch.empty(n, chunks, 2, c, dtype=torch.float32,
+                       device=x3.device)
+    coef = torch.empty(n, num_groups, 2, dtype=torch.float32,
+                       device=x3.device)
+    dw = torch.empty(c, dtype=torch.float32, device=x3.device)
+    db = torch.empty_like(dw)
+    inv = 1.0 / float(rows * (c // num_groups))
+    fn = _build.function("group_norm", "apex_gn_bwd",
+                         [_PTR] * 11 + [_I64, _I64, _I32, _I32, _I32, _I32,
+                                        _I32, _F32, _I32, _I32, _PTR])
+    code = fn(dy3.data_ptr(), x3.data_ptr(), w.data_ptr(), b.data_ptr(),
+              mean.data_ptr(), rstd.data_ptr(), part.data_ptr(),
+              coef.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+              n, rows, c, num_groups, vec, chunks, map_chunks, inv,
+              int(silu), _build.FLOAT_CODES[x3.dtype], _stream(x3))
+    _build.check(code, "group_norm_bwd")
+    return dx, dw, db
+
+
+# --------------------------------------------------------------------- #
+# the autograd core (``_gn_pallas`` with its custom_vjp)
+# --------------------------------------------------------------------- #
+class _GroupNormFn(torch.autograd.Function):
+    """The forward kernel, saving the ``(N, G)`` statistics; the backward
+    kernel from them, dγ and dβ cast to the parameters' dtypes."""
+
+    @staticmethod
+    def forward(ctx, x3, weight, bias, num_groups, eps, silu):
+        y, mean, rstd = group_norm_fwd_kernel(x3, weight, bias, num_groups,
+                                              eps, silu)
+        ctx.save_for_backward(x3, weight, bias, mean, rstd)
+        ctx.num_groups, ctx.silu = num_groups, silu
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x3, weight, bias, mean, rstd = ctx.saved_tensors
+        dx, dw, db = group_norm_bwd_kernel(dy, x3, weight, bias, mean, rstd,
+                                           ctx.num_groups, ctx.silu)
+        dw = dw.to(weight.dtype) if ctx.needs_input_grad[1] else None
+        db = db.to(bias.dtype) if ctx.needs_input_grad[2] else None
+        return dx, dw, db, None, None, None
+
+
+def group_norm(x, num_groups: int, weight=None, bias=None, *,
+               eps: float = 1e-5, act: Optional[str] = None,
+               implementation: Optional[str] = None):
+    """GroupNorm over an ``(N, ..., C)`` channels-last tensor, optional
+    fused SiLU (``act``: None or ``"silu"``).
+
+    Differentiable in ``x``, ``weight`` and ``bias`` (gradients of the
+    parameters in their own dtypes).  ``implementation`` as in
+    :mod:`._dispatch`: the kernels for a CUDA tensor, the reference
+    composition for a CPU one.
+    """
+    c = x.shape[-1]
+    _check(c, num_groups, act)
+    kernel = resolve_impl(implementation, x) == "kernel"
+    if not kernel:
+        return group_norm_reference(x, num_groups, weight, bias, eps=eps,
+                                    act=act)
+    if not x.is_contiguous():
+        raise ValueError(
+            f"group_norm: x of shape {tuple(x.shape)} has strides "
+            f"{x.stride()}; it must be channels-last and dense (hand it "
+            "x.permute(0, 2, 3, 1) of a torch.channels_last NCHW tensor)")
+    x3 = x.view(x.shape[0], -1, c)
+    y = _GroupNormFn.apply(x3, weight, bias, int(num_groups), float(eps),
+                           act == "silu")
+    return y.view(x.shape)
+
+
+class GroupNorm(nn.Module):
+    """Module form (``apex.contrib.group_norm.GroupNorm``, channels last):
+    parameters ``scale`` (ones) and ``bias`` (zeros) of ``num_channels``
+    in ``dtype``, as the JAX module's ``scale`` / ``bias``."""
+
+    def __init__(self, num_groups: int, num_channels: int, *,
+                 epsilon: float = 1e-5, use_scale: bool = True,
+                 use_bias: bool = True, act: Optional[str] = None,
+                 dtype=torch.float32, device=None,
+                 implementation: Optional[str] = None):
+        super().__init__()
+        _check(num_channels, num_groups, act)
+        dev = resolve_device(device)
+        self.num_groups, self.num_channels = int(num_groups), int(num_channels)
+        self.epsilon, self.act = float(epsilon), act
+        self.implementation = implementation
+        for name, init, use in (("scale", torch.ones, use_scale),
+                                ("bias", torch.zeros, use_bias)):
+            self.register_parameter(name, nn.Parameter(init(
+                num_channels, dtype=dtype, device=dev)) if use else None)
+
+    def forward(self, x):
+        return group_norm(x, self.num_groups, self.scale, self.bias,
+                          eps=self.epsilon, act=self.act,
+                          implementation=self.implementation)

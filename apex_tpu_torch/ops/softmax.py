@@ -11,6 +11,15 @@ masked row comes out uniform ``1 / sk``.  The mask is boolean (True =
 masked out) and broadcastable to ``x``; the kernel reads it through its
 broadcast strides.  Any ``sk`` works (the JAX package's ``sk % 128``
 envelope is a TPU tiling rule).
+
+The gradient follows the path the JAX package's dispatch takes at each
+width (``apex_tpu/ops/softmax.py:190``): where ``sk % 128 == 0`` it runs
+the Pallas kernels, whose backward is the formula above — nonzero on a
+fully masked row; elsewhere it differentiates the reference composition
+through ``where``, which gives ``dx = 0`` at every masked position.  The
+port's backward (kernel and plain alike) takes the mask and the causal
+flag and writes those zeros at the widths where JAX would; on a partly
+masked row that changes nothing, since ``y`` is 0 at its masked places.
 """
 
 from __future__ import annotations
@@ -48,12 +57,38 @@ def scale_mask_softmax_reference(x, mask=None, scale: float = 1.0,
     return (e / e.sum(-1, keepdim=True)).to(x.dtype)
 
 
-def softmax_bwd_reference(dy, y, scale: float = 1.0):
+def softmax_bwd_reference(dy, y, scale: float = 1.0, mask=None,
+                          causal: bool = False):
     """Plain composition of the backward: ``(dy - sum(dy*y)) * y *
-    scale`` in fp32, in ``dy.dtype``."""
+    scale`` in fp32, in ``dy.dtype``; with a ``mask`` or ``causal``, 0
+    at every masked position (the ``where`` gradient of the reference
+    composition)."""
     dyf, yf = dy.float(), y.float()
     inner = (dyf * yf).sum(-1, keepdim=True)
-    return ((dyf - inner) * yf * scale).to(dy.dtype)
+    dx = (dyf - inner) * yf * scale
+    dead = _masked(dy.shape, mask, causal, dy.device)
+    if dead is not None:
+        dx = torch.where(dead, 0.0, dx)
+    return dx.to(dy.dtype)
+
+
+def _masked(shape, mask, causal, device):
+    """Boolean positions masked out by ``mask`` or the causal fill,
+    broadcastable to ``shape``; None when neither is given."""
+    dead = None if mask is None else mask.to(torch.bool)
+    if causal:
+        sq, sk = shape[-2], shape[-1]
+        q = torch.arange(sq, device=device)[:, None]
+        k = torch.arange(sk, device=device)[None, :]
+        c = k > q + (sk - sq)
+        dead = c if dead is None else dead | c
+    return dead
+
+
+def _zero_masked(sk: int) -> bool:
+    """Whether the backward zeroes masked positions at width ``sk``: where
+    the JAX dispatch takes the reference composition, ``sk % 128 != 0``."""
+    return sk % 128 != 0
 
 
 def _dims(shape):
@@ -72,6 +107,18 @@ def _vec(sk, *tensors):
                and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
+def _mask_view(mask, x):
+    """The mask (or None) as a ``(B, heads, sq, sk)`` broadcast view of
+    bytes and its element strides."""
+    if mask is None:
+        return None, (0, 0, 0, 0)
+    if mask.device != x.device:
+        raise ValueError("mask must be on the input's device")
+    b, heads, sq, sk = _dims(tuple(x.shape))
+    m4 = mask.to(torch.bool).expand(x.shape).reshape(b, heads, sq, sk)
+    return m4, m4.stride()
+
+
 def softmax_fwd_kernel(x, mask=None, scale: float = 1.0,
                        causal: bool = False):
     """The forward kernel on a CUDA tensor: ``y`` in ``x.dtype``."""
@@ -85,13 +132,7 @@ def softmax_fwd_kernel(x, mask=None, scale: float = 1.0,
     rows = x.numel() // max(sk, 1)
     if x.numel() == 0:
         return y
-    m4, strides = None, (0, 0, 0, 0)
-    if mask is not None:
-        if mask.device != x.device:
-            raise ValueError("mask must be on the input's device")
-        m = mask.to(torch.bool).expand(x.shape)
-        m4 = m.reshape(b, heads, sq, sk)
-        strides = m4.stride()
+    m4, strides = _mask_view(mask, x)
     fn = _build.function("softmax", "apex_softmax_fwd", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
@@ -106,25 +147,35 @@ def softmax_fwd_kernel(x, mask=None, scale: float = 1.0,
     return y
 
 
-def softmax_bwd_kernel(dy, y, scale: float = 1.0):
+def softmax_bwd_kernel(dy, y, scale: float = 1.0, mask=None,
+                       causal: bool = False):
     """The backward kernel on CUDA tensors: ``dx`` in ``dy.dtype`` from
-    the saved ``y``."""
+    the saved ``y``; with a ``mask`` or ``causal``, 0 at every masked
+    position (the kernel writes the zeros)."""
     if dy.shape != y.shape:
         raise ValueError(f"dy {tuple(dy.shape)} != y {tuple(y.shape)}")
     if dy.dtype not in _build.FLOAT_CODES:
         raise TypeError(f"unsupported dtype {dy.dtype}")
+    if not dy.is_cuda:
+        raise ValueError(
+            f"softmax kernel needs a CUDA tensor, got {dy.device}")
     dy = dy.contiguous()
     y = y.to(dy.dtype).contiguous()
     dx = torch.empty_like(dy)
     if dy.numel() == 0:
         return dx
-    sk = dy.shape[-1]
+    b, heads, sq, sk = _dims(tuple(dy.shape))
+    m4, strides = _mask_view(mask, dy)
     fn = _build.function("softmax", "apex_softmax_bwd", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
-    code = fn(dy.data_ptr(), y.data_ptr(), dx.data_ptr(), dy.numel() // sk,
-              sk, float(scale), _build.DTYPE_CODES[dy.dtype],
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p])
+    code = fn(dy.data_ptr(), y.data_ptr(),
+              None if m4 is None else m4.data_ptr(), dx.data_ptr(),
+              dy.numel() // sk, sk, sq, heads, *strides, int(causal),
+              float(scale), _build.DTYPE_CODES[dy.dtype],
               _vec(sk, dy, y, dx),
               torch.cuda.current_stream(dy.device).cuda_stream)
     _build.check(code, "softmax_bwd")
@@ -133,8 +184,9 @@ def softmax_bwd_kernel(dy, y, scale: float = 1.0):
 
 class _SoftmaxFn(torch.autograd.Function):
     """Forward kernel; backward kernel from the saved ``y`` (in
-    ``x.dtype``, as ``_softmax_pallas_fwd`` saves it); the mask gets no
-    gradient."""
+    ``x.dtype``, as ``_softmax_pallas_fwd`` saves it), with the mask and
+    the causal flag where the JAX dispatch differentiates ``where``
+    (``sk % 128 != 0``); the mask gets no gradient."""
 
     @staticmethod
     def forward(ctx, x, mask, scale, causal, kernel):
@@ -142,15 +194,18 @@ class _SoftmaxFn(torch.autograd.Function):
             y = softmax_fwd_kernel(x, mask, scale, causal)
         else:
             y = scale_mask_softmax_reference(x, mask, scale, causal)
-        ctx.save_for_backward(y)
+        zero = _zero_masked(x.shape[-1])
+        ctx.save_for_backward(y, mask if zero else None)
         ctx.scale, ctx.kernel = scale, kernel
+        ctx.causal = causal and zero
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        (y,) = ctx.saved_tensors
+        y, mask = ctx.saved_tensors
         fn = softmax_bwd_kernel if ctx.kernel else softmax_bwd_reference
-        return fn(dy, y, ctx.scale), None, None, None, None
+        return (fn(dy, y, ctx.scale, mask, ctx.causal), None, None, None,
+                None)
 
 
 def fused_scale_mask_softmax(x, mask=None, *, scale: float = 1.0,

@@ -8,9 +8,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card:
     python3 chip_smoke.py --profile      # + device-time breakdowns
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (``nvcc``,
-``sm_90a``) and then runs twelve phases, in the order 1, 2, 3, 6, 7, 4,
-5, 10, 12, 11, 8, 9 (Llama-2-7B is built once for 3, 6 and 7 and
-dropped before 4); any failure exits non-zero.
+``sm_90a``) and then runs fourteen phases, in the order 1, 2, 3, 6, 7,
+4, 5, 10, 12, 11, 8, 9, 13, 14 (Llama-2-7B is built once for 3, 6 and 7
+and dropped before 4); any failure exits non-zero.
 
 1. Kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (Llama-2-7B width) and the training path's
@@ -28,7 +28,11 @@ dropped before 4); any failure exits non-zero.
    of the conversion), and the scale-mask softmax forward and backward
    at BERT-Large's padded and GPT's causal scores (fp32 within 2e-6,
    half types within one ulp; sq < sk, ragged sk, a fully masked row, a
-   2000-wide row), with times: the kernel, its plain version, the one
+   2000-wide row; at sk % 128 != 0 the backward's zeros at every masked
+   position), and the GroupNorm(+SiLU) forward and backward at the
+   (8, 64x64, 512) cell in bf16 and fp32 (C = 320, odd spatial, no
+   affine, 2-D, a mean offset of 100; fp32 within 2e-5, bf16 reruns
+   bitwise), with times: the kernel, its plain version, the one
    PyTorch call computing the same function where there is one (a
    yardstick only), and the bound — the larger of bytes over 3.35 TB/s
    and operations over the card's peak rate for their type.
@@ -83,6 +87,18 @@ dropped before 4); any failure exits non-zero.
    steps with fp8 moments on the card and on the CPU fed the same
    gradients: codes and scales within one e4m3 quantum (the count that
    differ reported), masters within 1e-6.
+13. GroupNorm and the attention block at full width: the
+   ``GroupNorm(32, 512, act="silu")`` module at (8, 64, 64, 512) bf16
+   forward and backward (ms per call, one launch of each GroupNorm
+   kernel per call); ``SelfMultiheadAttn`` at BERT-Large width (b=16,
+   s=512, bias, norm-add, key padding; then causal), and
+   ``EncdecMultiheadAttn`` and ``FusedDenseGeluDense(4096, 1024)`` on
+   the same activations: gradients against the plain path on the card
+   within a stated share of their largest entry, kernel launches counted.
+14. Spatial block identity: GroupNorm+SiLU, self-attention with
+   norm-add over the 16x16 tokens, dense-GELU-dense at C = 512, b = 2,
+   fp32, TF32 off: output and every gradient on the card equal the CPU's
+   plain path within 1e-4 of their largest entry.
 
 The last lines of standard output are the card's name and power limit,
 the ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
@@ -115,6 +131,7 @@ _FA = "apex_tpu_torch/csrc/flash_attention.cu"
 _PA = "apex_tpu_torch/csrc/paged_attention.cu"
 _BN = "apex_tpu_torch/csrc/batch_norm.cu"
 _SM = "apex_tpu_torch/csrc/softmax.cu"
+_GN = "apex_tpu_torch/csrc/group_norm.cu"
 KERNELS = {
     "layer_norm": dict(source="apex_tpu_torch/csrc/layer_norm.cu",
                        replaces="apex_tpu/ops/layer_norm.py:74"),
@@ -143,6 +160,10 @@ KERNELS = {
                      replaces="apex_tpu/optim/fused_adam.py:112"),
     "softmax_fwd": dict(source=_SM, replaces="apex_tpu/ops/softmax.py:66"),
     "softmax_bwd": dict(source=_SM, replaces="apex_tpu/ops/softmax.py:85"),
+    "group_norm_fwd": dict(source=_GN,
+                           replaces="apex_tpu/ops/group_norm.py:95"),
+    "group_norm_bwd": dict(source=_GN,
+                           replaces="apex_tpu/ops/group_norm.py:142"),
 }
 SERVING_KERNELS = ("layer_norm", "rope", "fused_sampling")
 PAGED_KERNELS = ("paged_attention", "paged_decode_fused")
@@ -399,6 +420,7 @@ def phase_kernels(torch, rows_out):
     ok &= _batch_norm_rows(torch, g, record)
     ok &= _fp8_adam_rows(torch, g, record)
     ok &= _softmax_rows(torch, g, record)
+    ok &= _group_norm_rows(torch, g, record)
     return ok
 
 
@@ -942,7 +964,11 @@ def _softmax_rows(torch, g, record):
     key-padding mask (16, 1, 1, 512), and Megatron GPT's causal
     (4, 16, 1024, 1024) bf16, scale 0.125 — then fp32 and fp16, ``sq <
     sk`` causal, a ragged ``sk`` (77) with a (sq, sk) mask, a fully
-    masked row and a 2000-wide row (the streamed path).  fp32 within
+    masked row and a 2000-wide row (the streamed path).  Where ``sk % 128
+    != 0`` the backward takes the mask and the causal flag and must give
+    dx = 0 at every masked position, on a fully masked row at sk = 77
+    too (the ``where`` gradient the JAX dispatch takes there); at sk =
+    128 the fully masked row keeps the kernel formula.  fp32 within
     2e-6, half types within one ulp; the backward from the same saved y,
     plus what the other order of its row sum moves dx by (where ``dy -
     sum(dy*y)`` cancels, that outweighs an ulp of dx).
@@ -987,6 +1013,10 @@ def _softmax_rows(torch, g, record):
         ("ragged", (3, 2, 16, 77), (16, 77), False, torch.bfloat16, False),
         ("full_row", (2, 4, 16, 128), (2, 1, 16, 128), False,
          torch.float16, False),
+        ("ragged_full_row", (2, 4, 16, 77), (2, 1, 16, 77), False,
+         torch.float32, False),
+        ("ragged_full_row", (2, 4, 16, 77), (2, 1, 16, 77), False,
+         torch.bfloat16, False),
         ("long", (1, 4, 8, 2000), (1, 1, 8, 2000), True, torch.bfloat16,
          False),
     ]
@@ -996,12 +1026,16 @@ def _softmax_rows(torch, g, record):
         dy = torch.randn(shape, generator=g, device=dev).to(dt)
         m = None if ms is None else torch.rand(
             ms, generator=g, device=dev) < 0.3
-        if tag == "full_row":
+        if tag in ("full_row", "ragged_full_row"):
             m[0, 0, 3] = True
+        # the where() gradient (zeros at masked positions) at the widths
+        # where the JAX dispatch differentiates the reference composition
+        zero = shape[-1] % 128 != 0
+        bm, bc = (m, causal) if zero else (None, False)
         y = S.softmax_fwd_kernel(x, m, 0.125, causal)
         yp = S.scale_mask_softmax_reference(x, m, 0.125, causal)
-        dx = S.softmax_bwd_kernel(dy, yp, 0.125)
-        dxp = S.softmax_bwd_reference(dy, yp, 0.125)
+        dx = S.softmax_bwd_kernel(dy, yp, 0.125, bm, bc)
+        dxp = S.softmax_bwd_reference(dy, yp, 0.125, bm, bc)
         torch.cuda.synchronize()
         ef = float((y.float() - yp.float()).abs().max())
         eb = float((dx.float() - dxp.float()).abs().max())
@@ -1010,6 +1044,11 @@ def _softmax_rows(torch, g, record):
         if tag == "full_row":
             pf &= bool(torch.allclose(y[0, 0, 3].float(), torch.full(
                 (128,), 1 / 128, device=dev), rtol=0, atol=1e-3))
+        if zero and (bm is not None or bc):
+            dead = S._masked(shape, bm, bc, dev).expand(shape)
+            pb &= bool((dx[dead] == 0).all()) and bool((dxp[dead] == 0).all())
+        if tag == "ragged_full_row":
+            pb &= bool((dx[0, 0, 3] == 0).all())
         tol = "2e-6" if dt == torch.float32 else "1 ulp"
         if not main:
             log(f"  softmax {tag} {shape} {str(dt)[6:]}: fwd err {ef:.3g} "
@@ -1039,6 +1078,126 @@ def _softmax_rows(torch, g, record):
                      iters=20)
         del x, dy, y, yp, dx, dxp
         torch.cuda.empty_cache()
+    return ok
+
+
+def _group_norm_rows(torch, g, record):
+    """B-16 / B-17 against their plain versions on the card: the main
+    shape (8, 64x64, 512), 32 groups, SiLU, fp32 affine, in bf16 and fp32;
+    SD-1.5's C = 320 (cg = 10); odd spatial (3, 7, 9, 96) with 3 groups;
+    no affine and no activation; the 2-D (N, C) case; a mean offset of
+    100 in fp32.  The backward runs from the plain version's statistics.
+    Tolerances: fp32 y and dx within 2e-5; half types within one ulp plus
+    2^-16 of the largest magnitude (near zero the fp32 values' last bits
+    outweigh an ulp of the tiny result); mean within 1e-6 of max(|mean|,
+    1), rstd within 1e-5 relative; dγ, dβ within 2e-5 of their largest
+    entry (sums over the batch in another order).  The bf16 main row is
+    run twice: y, the statistics, dx, dγ and dβ bitwise equal.
+    Yardstick: ``F.silu(F.group_norm(x, 32, w, b))`` on an NCHW-contiguous
+    copy of the same data (the copy untimed) — forward, and forward +
+    backward for B-17's row; the port never calls it."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops.group_norm import (
+        group_norm_bwd_kernel, group_norm_bwd_reference,
+        group_norm_fwd_kernel, group_norm_fwd_reference)
+
+    dev = torch.device("cuda")
+    cases = [  # tag, shape, groups, silu, affine, dtype, offset, recorded
+        ("main", (8, 64, 64, 512), 32, True, True, torch.bfloat16, 0.0, True),
+        ("main", (8, 64, 64, 512), 32, True, True, torch.float32, 0.0, True),
+        ("c320", (8, 32, 32, 320), 32, True, True, torch.bfloat16, 0.0,
+         False),
+        ("odd", (3, 7, 9, 96), 3, True, True, torch.float32, 0.0, False),
+        ("plain_norm", (8, 32, 32, 512), 32, False, False, torch.bfloat16,
+         0.0, False),
+        ("2d", (64, 512), 32, True, True, torch.float32, 0.0, False),
+        ("offset100", (8, 64, 64, 512), 32, True, True, torch.float32, 100.0,
+         False),
+    ]
+    ok = True
+    for tag, shape, grp, silu, affine, dt, off, main in cases:
+        c = shape[-1]
+        x = (off + torch.randn(shape, generator=g, device=dev)).to(dt)
+        dy = torch.randn(shape, generator=g, device=dev).to(dt)
+        w = b = None
+        if affine:
+            w = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
+            b = 0.1 * torch.randn(c, generator=g, device=dev)
+        x3 = x.view(shape[0], -1, c)
+        dy3 = dy.view(x3.shape)
+        fargs = (x3, w, b, grp, 1e-5, silu)
+        y, mean, rstd = group_norm_fwd_kernel(*fargs)
+        y_p, mean_p, rstd_p = group_norm_fwd_reference(*fargs)
+        bargs = (dy3, x3, w, b, mean_p, rstd_p, grp, silu)
+        dx, dw, db = group_norm_bwd_kernel(*bargs)
+        dx_p, dw_p, db_p = group_norm_bwd_reference(*bargs)
+        rerun = True
+        if main and dt != torch.float32:
+            again = group_norm_fwd_kernel(*fargs) + group_norm_bwd_kernel(
+                *bargs)
+            rerun = all(torch.equal(a, r) for a, r in zip(
+                again, (y, mean, rstd, dx, dw, db)))
+        torch.cuda.synchronize()
+
+        def close(got, ref):
+            if dt == torch.float32:
+                return bool(((got - ref).abs() <= 2e-5).all())
+            return bf16_ulp_ok(torch, got, ref, floor=2 ** -16 * float(
+                ref.float().abs().max()))
+        stats_ok = (bool(((mean - mean_p).abs() <= 1e-6 * torch.clamp_min(
+            mean_p.abs(), 1.0)).all())
+            and bool(((rstd - rstd_p).abs() <= 1e-5 * rstd_p).all()))
+        pf = close(y, y_p) and stats_ok and rerun
+        red = all(float((a - r).abs().max()) <= 2e-5 * float(r.abs().max())
+                  for a, r in ((dw, dw_p), (db, db_p)))
+        pb = close(dx, dx_p) and red and rerun
+        ef = max(float((y.float() - y_p.float()).abs().max()),
+                 float((mean - mean_p).abs().max()))
+        eb = max(float((dx.float() - dx_p.float()).abs().max()),
+                 float((dw - dw_p).abs().max()),
+                 float((db - db_p).abs().max()))
+        half = "1 ulp + 2^-16 of max|.|"
+        tol = ("2e-5" if dt == torch.float32 else half) + (
+            "; mean 1e-6 of max(|mean|, 1), rstd 1e-5 relative; dγ, dβ "
+            "2e-5 of the largest entry")
+        log(f"  group_norm {tag} {shape} {str(dt)[6:]}: fwd err {ef:.3g} "
+            f"{'ok' if pf else 'FAIL'}, bwd err {eb:.3g} "
+            f"{'ok' if pb else 'FAIL'}" + (f", rerun bitwise {rerun}"
+                                           if main else ""))
+        if not main:
+            ok &= pf and pb
+            continue
+        n, isz = x.numel(), x.element_size()
+        stat_bytes = 2 * shape[0] * grp * 4
+        wl = w.to(dt)
+        bl = b.to(dt)
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        dy_nchw = dy.permute(0, 3, 1, 2).contiguous()
+
+        def lib_fwd():
+            return F.silu(F.group_norm(x_nchw, grp, wl, bl, 1e-5))
+
+        def lib_fwd_bwd():
+            xr, wr, br = (t.detach().requires_grad_()
+                          for t in (x_nchw, wl, bl))
+            out = F.silu(F.group_norm(xr, grp, wr, br, 1e-5))
+            return torch.autograd.grad(out, (xr, wr, br), dy_nchw)
+        ok &= record("group_norm_fwd/main", tuple(x3.shape), dt, ef, pf,
+                     lambda: group_norm_fwd_kernel(*fargs),
+                     lambda: group_norm_fwd_reference(*fargs),
+                     2 * n * isz + 2 * c * 4 + stat_bytes, 12 * n, lib_fwd,
+                     tol + "; library: F.silu(F.group_norm) forward, NCHW",
+                     iters=20)
+        ok &= record("group_norm_bwd/main", tuple(x3.shape), dt, eb, pb,
+                     lambda: group_norm_bwd_kernel(*bargs),
+                     lambda: group_norm_bwd_reference(*bargs),
+                     3 * n * isz + 4 * c * 4 + stat_bytes, 20 * n,
+                     lib_fwd_bwd,
+                     tol + "; library: F.silu(F.group_norm) forward + "
+                     "backward, NCHW", iters=20)
+        del x_nchw, dy_nchw
+    torch.cuda.empty_cache()
     return ok
 
 
@@ -2174,6 +2333,233 @@ def phase_fp8_identity(torch, steps=3):
 
 
 # ------------------------------------------------------------------ #
+# phase 13: GroupNorm and the attention block at full width
+# ------------------------------------------------------------------ #
+GN_KERNELS = ("group_norm_fwd", "group_norm_bwd")
+MHA_KERNELS = ("layer_norm", "layer_norm_bwd", "flash_attention_fwd",
+               "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def _fwd_bwd(torch, module, inputs, dy, **kw):
+    """Output and the gradients of ``inputs`` and of every parameter of
+    one forward and backward of ``module``."""
+    ins = [t.detach().requires_grad_() for t in inputs]
+    out = module(*ins, **kw)
+    params = [p for _, p in module.named_parameters()]
+    grads = torch.autograd.grad(out, ins + params, dy)
+    return out.detach(), grads
+
+
+def _grad_rel(torch, got, ref):
+    """Largest difference of each gradient over its largest entry."""
+    return [float((a.float() - r.float()).abs().max()
+                  / max(float(r.float().abs().max()), 1e-30))
+            for a, r in zip(got, ref)]
+
+
+def _plain_twin(module, cls, *args, **kw):
+    """The same module on the plain path (``implementation="torch"``),
+    with the same parameters."""
+    twin = cls(*args, implementation="torch", **kw)
+    twin.load_state_dict(module.state_dict())
+    return twin
+
+
+def phase_group_norm_block(torch, reps=10, warmup=3):
+    """(a) ``GroupNorm(32, 512, act="silu")`` at (8, 64, 64, 512) bf16,
+    forward and backward: ms per call over 10 timed calls after 3 warm-up
+    ones, launches of each GroupNorm kernel per call (one each).  (b)
+    ``SelfMultiheadAttn`` at BERT-Large width (E = 1024, 16 heads, d = 64),
+    bias, ``include_norm_add``, a boolean key-padding mask, b = 16, s =
+    512, bf16, forward and backward; then one causal call.  (c)
+    ``EncdecMultiheadAttn`` (q 512, kv 512) and ``FusedDenseGeluDense(4096,
+    1024)`` on the same activations.  Gradients of the inputs and of every
+    parameter against the plain path on the card (the same modules with
+    ``implementation="torch"``; the dense block, which has no kernel,
+    against its fp32 computation of the same bf16 values): within 2e-2 of
+    each gradient's largest entry for the attention (bf16 probabilities
+    and dS rounded at other points than in the plain composition, through
+    bf16 products) and the dense block (its bf16 products round the
+    hidden activation and each gradient, the fp32 twin rounds none), 1e-2
+    for GroupNorm (one bf16 rounding of an fp32 result).  Launches per call: each GroupNorm kernel
+    once in (a); LayerNorm forward and backward and the three flash
+    kernels once each in (b) and (c)'s self/encdec calls (no LayerNorm
+    without ``include_norm_add``)."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.ops import (
+        EncdecMultiheadAttn, FusedDenseGeluDense, GroupNorm,
+        SelfMultiheadAttn)
+
+    log("phase 13: GroupNorm(+SiLU) and the attention block at full width")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    bf = torch.bfloat16
+    ok, stats = True, {"launches": dict.fromkeys(GN_KERNELS + MHA_KERNELS,
+                                                 0)}
+
+    def timed_calls(fn):
+        for _ in range(warmup):
+            fn()
+        _build.reset_launches()
+        t, _, host = _event_times(torch, fn, reps)
+        counts = {k: _build.launches[k] for k in stats["launches"]}
+        for k, v in counts.items():
+            stats["launches"][k] += v
+        return sorted(t)[reps // 2], sum(host) / reps, {
+            k: v / reps for k, v in counts.items() if v}
+
+    def check(tag, module, twin, inputs, dy, rel, expect, twin_dtype=bf,
+              **kw):
+        nonlocal ok
+        _build.reset_launches()
+        out, got = _fwd_bwd(torch, module, inputs, dy, **kw)
+        counts = {k: _build.launches[k] for k in stats["launches"]}
+        for k, v in counts.items():
+            stats["launches"][k] += v
+        ref_out, ref = _fwd_bwd(torch, twin, [t.to(twin_dtype)
+                                              for t in inputs],
+                                dy.to(twin_dtype), **kw)
+        torch.cuda.synchronize()
+        errs = _grad_rel(torch, got, ref)
+        out_err = _grad_rel(torch, [out], [ref_out])[0]
+        finite = all(bool(torch.isfinite(t).all()) for t in (out, *got))
+        fired = {k: v for k, v in counts.items() if v}
+        good = (finite and max(errs) <= rel and out_err <= rel
+                and fired == expect)
+        stats[tag] = dict(out_rel_err=out_err, worst_grad_rel_err=max(errs),
+                          grads=len(errs), tolerance=rel,
+                          launches_per_call=fired, expected=expect)
+        log(f"  {tag}: {json.dumps(stats[tag])}")
+        ok &= good
+
+    # (a) the GroupNorm module at the repo's GN cell
+    gn = GroupNorm(32, 512, act="silu", device=dev)
+    with torch.no_grad():
+        gn.scale.copy_(1 + 0.2 * torch.randn(512, generator=g, device=dev))
+        gn.bias.copy_(0.1 * torch.randn(512, generator=g, device=dev))
+    x = torch.randn(8, 64, 64, 512, generator=g, device=dev).to(bf)
+    dy = torch.randn(x.shape, generator=g, device=dev).to(bf)
+    check("group_norm", gn, _plain_twin(gn, GroupNorm, 32, 512, act="silu",
+                                        device=dev),
+          [x], dy, 1e-2, {"group_norm_fwd": 1, "group_norm_bwd": 1})
+    ms, host, per = timed_calls(lambda: _fwd_bwd(torch, gn, [x], dy))
+    stats["group_norm"].update(ms_per_call=ms, host_ms_per_call=host,
+                               launches_timed=per, shape=list(x.shape))
+    log(f"  group_norm fwd+bwd: {ms:.4f} ms per call (host {host:.4f}), "
+        f"launches per call {per}")
+    del x, dy
+
+    # (b) self-attention at BERT-Large width
+    b, s, e, h = 16, 512, 1024, 16
+    x = torch.randn(b, s, e, generator=g, device=dev).to(bf)
+    dy = torch.randn(b, s, e, generator=g, device=dev).to(bf)
+    lens = torch.randint(s // 2, s + 1, (b,), generator=g, device=dev)
+    kp = torch.arange(s, device=dev)[None, :] >= lens[:, None]
+    attn = SelfMultiheadAttn(e, h, bias=True, include_norm_add=True,
+                             device=dev)
+    with torch.no_grad():
+        for p in (attn.ln_scale, attn.ln_bias, attn.qkv_proj.bias,
+                  attn.out_proj.bias):
+            p.add_(0.1 * torch.randn(p.shape, generator=g, device=dev))
+    attn_plain = _plain_twin(attn, SelfMultiheadAttn, e, h, bias=True,
+                             include_norm_add=True, device=dev)
+    three = {k: 1 for k in MHA_KERNELS}
+    check("self_attn", attn, attn_plain, [x], dy, 2e-2, three,
+          key_padding_mask=kp)
+    ms, host, per = timed_calls(lambda: _fwd_bwd(
+        torch, attn, [x], dy, key_padding_mask=kp))
+    stats["self_attn"].update(ms_per_call=ms, host_ms_per_call=host,
+                              launches_timed=per)
+    causal = SelfMultiheadAttn(e, h, bias=True, include_norm_add=True,
+                               causal=True, device=dev)
+    causal.load_state_dict(attn.state_dict())
+    check("self_attn_causal", causal, _plain_twin(
+        causal, SelfMultiheadAttn, e, h, bias=True, include_norm_add=True,
+        causal=True, device=dev), [x], dy, 2e-2, three)
+    log(f"  self_attn fwd+bwd: {ms:.4f} ms per call (host {host:.4f})")
+
+    # (c) encoder-decoder attention and the dense-GELU-dense block
+    kv = torch.randn(b, s, e, generator=g, device=dev).to(bf)
+    enc = EncdecMultiheadAttn(e, h, bias=True, device=dev)
+    no_ln = {k: 1 for k in MHA_KERNELS if not k.startswith("layer_norm")}
+    check("encdec_attn", enc, _plain_twin(enc, EncdecMultiheadAttn, e, h,
+                                          bias=True, device=dev),
+          [x, kv], dy, 2e-2, no_ln, key_padding_mask=kp)
+    ms, host, _ = timed_calls(lambda: _fwd_bwd(
+        torch, enc, [x, kv], dy, key_padding_mask=kp))
+    stats["encdec_attn"].update(ms_per_call=ms, host_ms_per_call=host)
+    mlp = FusedDenseGeluDense(4096, 1024, device=dev)
+    mlp32 = FusedDenseGeluDense(4096, 1024, device=dev)
+    mlp32.load_state_dict(mlp.state_dict())
+    check("dense_gelu_dense", mlp, mlp32, [x], dy, 2e-2, {},
+          twin_dtype=torch.float32)
+    ms, host, _ = timed_calls(lambda: _fwd_bwd(torch, mlp, [x], dy))
+    stats["dense_gelu_dense"].update(ms_per_call=ms, host_ms_per_call=host)
+    log(f"  encdec / dense block fwd+bwd: "
+        f"{stats['encdec_attn']['ms_per_call']:.4f} / {ms:.4f} ms per call")
+    del x, dy, kv
+    torch.cuda.empty_cache()
+    return ok, stats
+
+
+# ------------------------------------------------------------------ #
+# phase 14: a diffusion-style spatial block, card against CPU
+# ------------------------------------------------------------------ #
+def phase_block_identity(torch):
+    """GroupNorm(32)+SiLU, then ``SelfMultiheadAttn(include_norm_add)``
+    over the H·W tokens, then ``FusedDenseGeluDense``, at C = 512, 8
+    heads, 16x16 spatial, b = 2, fp32 with TF32 off: the output and every
+    gradient (input and parameters) on the card — the GroupNorm,
+    LayerNorm and flash kernels — equal the CPU's plain path within 1e-4
+    of each one's largest entry (fp32 sums in another order, through
+    three layers)."""
+    from apex_tpu_torch.ops import (
+        FusedDenseGeluDense, GroupNorm, SelfMultiheadAttn)
+
+    log("phase 14: spatial block identity (GroupNorm+SiLU, self-attention "
+        "with norm-add, dense-GELU-dense; C=512, 16x16, b=2, fp32)")
+    dev = torch.device("cuda")
+    c, heads, groups, b, hw = 512, 8, 32, 2, 16
+
+    class Block(torch.nn.Module):
+        def __init__(self, device):
+            super().__init__()
+            self.gn = GroupNorm(groups, c, act="silu", device=device)
+            self.attn = SelfMultiheadAttn(c, heads, bias=True,
+                                          include_norm_add=True,
+                                          device=device)
+            self.mlp = FusedDenseGeluDense(4 * c, c, device=device)
+
+        def forward(self, x):
+            t = self.gn(x).reshape(x.shape[0], -1, c)
+            return self.mlp(self.attn(t)).reshape(x.shape)
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    gpu = Block(dev)
+    with torch.no_grad():
+        for p in gpu.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=g, device=dev))
+    cpu = Block("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    x = torch.randn(b, hw, hw, c, generator=g, device=dev)
+    dy = torch.randn(x.shape, generator=g, device=dev)
+    out_g, grads_g = _fwd_bwd(torch, gpu, [x], dy)
+    out_c, grads_c = _fwd_bwd(torch, cpu, [x.cpu()], dy.cpu())
+    rel = 1e-4
+    errs = _grad_rel(torch, [t.cpu() for t in grads_g], grads_c)
+    names = ["x"] + [n for n, _ in gpu.named_parameters()]
+    out_err = _grad_rel(torch, [out_g.cpu()], [out_c])[0]
+    worst = max(zip(errs, names))
+    ok = out_err <= rel and worst[0] <= rel
+    stats = dict(out_rel_err=out_err, grads=len(errs), worst_grad=worst[1],
+                 worst_grad_rel_err=worst[0], tolerance=rel)
+    log(f"  {json.dumps(stats)}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return ok, stats
+
+
+# ------------------------------------------------------------------ #
 # phase 8: ResNet-50 amp O2 training with the fused BatchNorm
 # ------------------------------------------------------------------ #
 # device-time groups of a ResNet step under --profile (kernel names;
@@ -2465,6 +2851,8 @@ def main(argv=None):
         ("11", lambda: phase_softmax_chain(torch)),
         ("8", lambda: phase_resnet(torch, args.profile)),
         ("9", lambda: phase_resnet_identity(torch)),
+        ("13", lambda: phase_group_norm_block(torch)),
+        ("14", lambda: phase_block_identity(torch)),
     ]
     results = {}
     for name, run in phases:
@@ -2481,8 +2869,8 @@ def main(argv=None):
             log(f"phase {name} {'passed' if ok else 'FAILED'} "
                 f"({time.monotonic() - t0:.0f}s)")
     (serve, paged, paged8, train, ident, resnet, resnet_ident, train_fp8,
-     chain, fp8_ident) = (results.get(n) for n in (
-         "3", "6", "7", "4", "5", "8", "9", "10", "11", "12"))
+     chain, fp8_ident, gn_block, block_ident) = (results.get(n) for n in (
+         "3", "6", "7", "4", "5", "8", "9", "10", "11", "12", "13", "14"))
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2494,8 +2882,9 @@ def main(argv=None):
                        paged=paged, paged_int8=paged8, train=train,
                        train_identity=ident, resnet=resnet,
                        resnet_identity=resnet_ident, train_fp8=train_fp8,
-                       softmax_chain=chain, fp8_identity=fp8_ident), f,
-                  indent=1)
+                       softmax_chain=chain, fp8_identity=fp8_ident,
+                       group_norm_block=gn_block,
+                       block_identity=block_ident), f, indent=1)
     if not ok:
         log("chip_smoke: FAILED")
         return 1
@@ -2530,6 +2919,11 @@ def main(argv=None):
                         "torch.bfloat16"),
         "softmax_bwd": ("softmax_bwd/bert", (16, 16, 512, 512),
                         "torch.bfloat16"),
+        # the GN cell of bench_configs.py: (8, 64x64, 512) bf16, SiLU
+        "group_norm_fwd": ("group_norm_fwd/main", (8, 4096, 512),
+                           "torch.bfloat16"),
+        "group_norm_bwd": ("group_norm_bwd/main", (8, 4096, 512),
+                           "torch.bfloat16"),
     }
     family = {"layer_norm": ("rms_norm", "layer_norm", "layer_norm/stats"),
               "layer_norm_bwd": ("layer_norm_bwd",),
@@ -2542,7 +2936,9 @@ def main(argv=None):
               "paged_decode_fused": ("paged_decode_fused",),
               **{k: (k,) for k in BN_KERNELS},
               "fp8_adam": ("fp8_adam",), "softmax_fwd": ("softmax_fwd",),
-              "softmax_bwd": ("softmax_bwd",)}
+              "softmax_bwd": ("softmax_bwd",),
+              "group_norm_fwd": ("group_norm_fwd",),
+              "group_norm_bwd": ("group_norm_bwd",)}
     kernels = []
     for name, (kname, shape, dt) in pick.items():
         match = [r for r in rows if r["kernel"] == kname and r["dtype"] == dt
@@ -2553,7 +2949,7 @@ def main(argv=None):
         r = match[0]
         n = sum((st or {}).get("launches", {}).get(name, 0)
                 for st in (serve, paged, paged8, train, resnet, train_fp8,
-                           chain))
+                           chain, gn_block))
         kernels.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"], launches=n,

@@ -6,7 +6,11 @@ non-finite steps (scale, tracker and event tallies equal to the JAX
 scaler's), an fp16 O2 step with a planted overflow (parameters and
 optimizer state bit-unchanged, scale halved), FusedAdam against the JAX
 ``fused_adam`` over three steps (AdamW and L2, bias correction; fp32
-within 1e-6), and the ``amp`` frontend.  All on the CPU.
+within 1e-6), and the ``amp`` frontend.  The public API restored for
+parity — ``PrecisionPolicy.with_overrides`` / ``cast_to_output``,
+``tree_cast``, ``MixedPrecisionTrainState.compute_params``,
+``select_step`` / ``backoff_exhausted`` and the package's top-level
+re-exports — against the JAX counterparts.  All on the CPU.
 """
 
 import jax
@@ -16,7 +20,9 @@ import pytest
 import torch
 
 from apex_tpu.core.loss_scale import DynamicLossScale as JaxDynamicLossScale
+from apex_tpu.core.loss_scale import StaticLossScale as JaxStaticLossScale
 from apex_tpu.core.precision import PrecisionPolicy as JaxPolicy
+from apex_tpu.core.precision import tree_cast as jax_tree_cast
 from apex_tpu.models import BertConfig as JaxBertConfig
 from apex_tpu.models import BertModel as JaxBertModel
 from apex_tpu.optim import fused_adam as jax_fused_adam
@@ -30,6 +36,7 @@ from apex_tpu_torch.core import (
     StaticLossScale,
     all_finite,
     norm_param_filter,
+    tree_cast,
 )
 from apex_tpu_torch.models import BertConfig, BertModel, params_from_jax
 from apex_tpu_torch.optim import fused_adam
@@ -92,6 +99,117 @@ class TestPrecision:
     def test_unknown_level_raises(self):
         with pytest.raises(ValueError, match="O4"):
             PrecisionPolicy.from_opt_level("O4")
+
+
+class TestRestoredApi:
+    """Public API of the JAX package's core, held against it."""
+
+    def test_with_overrides_matches_jax(self):
+        ref = JaxPolicy.O2().with_overrides(loss_scale=128.0,
+                                            keep_batchnorm_fp32=False)
+        got = PrecisionPolicy.O2().with_overrides(loss_scale=128.0,
+                                                  keep_batchnorm_fp32=False)
+        assert got.loss_scale == ref.loss_scale == 128.0
+        assert got.keep_batchnorm_fp32 is ref.keep_batchnorm_fp32 is False
+        assert got.opt_level == ref.opt_level == "O2"
+        assert got.needs_loss_scaling == ref.needs_loss_scaling
+        assert PrecisionPolicy.O2().loss_scale is None   # unchanged
+        with pytest.raises(TypeError):
+            PrecisionPolicy.O2().with_overrides(no_such_field=1)
+
+    @pytest.mark.parametrize("with_filter", [False, True])
+    def test_tree_cast_matches_jax(self, with_filter):
+        rng = np.random.default_rng(4)
+        a, b = (rng.normal(size=(3, 2)).astype(np.float32) for _ in "ab")
+        i = np.arange(4, dtype=np.int32)
+        jtree = {"dense": {"kernel": jnp.asarray(a)},
+                 "layer_norm": [jnp.asarray(b), jnp.asarray(i)], "n": 3}
+        ttree = {"dense": {"kernel": torch.from_numpy(a)},
+                 "layer_norm": [torch.from_numpy(b), torch.from_numpy(i)],
+                 "n": 3}
+
+        def keep(path, leaf):
+            return any("norm" in str(getattr(k, "key", k)) for k in path)
+        flt = keep if with_filter else None
+        ref = jax_tree_cast(jtree, jnp.bfloat16, keep_fp32_filter=flt)
+        got = tree_cast(ttree, torch.bfloat16, keep_fp32_filter=flt)
+        assert got["n"] == ref["n"] == 3
+        for g, r in ((got["dense"]["kernel"], ref["dense"]["kernel"]),
+                     (got["layer_norm"][0], ref["layer_norm"][0]),
+                     (got["layer_norm"][1], ref["layer_norm"][1])):
+            assert str(g.dtype).split(".")[-1] == jnp.dtype(r.dtype).name
+            np.testing.assert_array_equal(
+                g.float().numpy(), np.asarray(r.astype(jnp.float32)))
+        assert isinstance(got["layer_norm"], list)
+        assert tree_cast(ttree, None) is ttree
+
+    @pytest.mark.parametrize("level", ["O0", "O2"])
+    def test_cast_to_output_matches_jax(self, level):
+        x = np.linspace(-2, 2, 7, dtype=np.float32)
+        ref = JaxPolicy.from_opt_level(level).cast_to_output(
+            {"y": jnp.asarray(x)})
+        got = PrecisionPolicy.from_opt_level(level).cast_to_output(
+            {"y": torch.from_numpy(x)})
+        assert str(got["y"].dtype).split(".")[-1] == \
+            jnp.dtype(ref["y"].dtype).name
+        np.testing.assert_array_equal(got["y"].float().numpy(),
+                                      np.asarray(ref["y"], np.float32))
+
+    def test_compute_params_is_the_o2_model_copy(self):
+        model, state = _tiny_state("O2", torch.bfloat16)
+        cp = state.compute_params()
+        assert set(cp) == set(state.params)
+        assert cp["fc1.weight"].dtype == torch.bfloat16
+        assert cp["mid_norm.weight"].dtype == torch.float32
+        assert torch.equal(cp["fc1.weight"],
+                           state.params["fc1.weight"].bfloat16())
+        assert torch.equal(cp["fc1.weight"], model.fc1.weight)
+
+    def test_select_step_matches_jax(self):
+        ls, jls = DynamicLossScale(), JaxDynamicLossScale()
+        new = {"w": np.ones(3, np.float32), "s": [np.full(2, 5.0,
+                                                          np.float32)]}
+        old = {"w": np.zeros(3, np.float32), "s": [np.full(2, 7.0,
+                                                           np.float32)]}
+
+        def tt(tree):
+            return {"w": torch.from_numpy(tree["w"]),
+                    "s": [torch.from_numpy(tree["s"][0])]}
+
+        def jt(tree):
+            return {"w": jnp.asarray(tree["w"]),
+                    "s": [jnp.asarray(tree["s"][0])]}
+        for flag in (True, False):
+            got = ls.select_step(torch.tensor(flag), tt(new), tt(old))
+            ref = jls.select_step(jnp.asarray(flag), jt(new), jt(old))
+            np.testing.assert_array_equal(got["w"].numpy(),
+                                          np.asarray(ref["w"]))
+            np.testing.assert_array_equal(got["s"][0].numpy(),
+                                          np.asarray(ref["s"][0]))
+
+    def test_backoff_exhausted_matches_jax(self):
+        kw = dict(init_scale=4.0, min_scale=1.0, growth_interval=100)
+        ls, jls = DynamicLossScale(**kw), JaxDynamicLossScale(**kw)
+        st, jst = ls.init(), jls.init()
+        for _ in range(4):
+            assert bool(ls.backoff_exhausted(st)) == bool(
+                jls.backoff_exhausted(jst))
+            st = ls.adjust(st, torch.tensor(False))
+            jst = jls.adjust(jst, jnp.asarray(False))
+        assert bool(ls.backoff_exhausted(st))
+        s, js = StaticLossScale(8.0), JaxStaticLossScale(8.0)
+        assert bool(s.backoff_exhausted(s.init())) == bool(
+            js.backoff_exhausted(js.init()))
+
+    def test_top_level_reexports(self):
+        import apex_tpu
+        import apex_tpu_torch
+        for name in ("PrecisionPolicy", "LossScaleState", "DynamicLossScale",
+                     "StaticLossScale", "NoOpLossScale", "all_finite"):
+            assert hasattr(apex_tpu, name)
+            assert name in apex_tpu_torch.__all__
+            assert getattr(apex_tpu_torch, name) is getattr(
+                __import__("apex_tpu_torch.core", fromlist=[name]), name)
 
 
 # planted finiteness sequence: overflows at the start, a clean run that

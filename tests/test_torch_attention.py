@@ -160,9 +160,18 @@ class TestValidation:
             A.fused_attention(x, x, x, window=4)
 
     def test_tile_is_fixed(self):
+        # block_q / block_k are tile hints, as in the JAX package: any
+        # positive value is taken, the tile stays 64, the output is the
+        # same; a non-positive hint raises
+        q, k, v, _, _ = _inputs(11, 2, 40, 72, 2, 2, 16, None)
+        ref = A.fused_attention(_t(q), _t(k), _t(v), causal=True)
+        for bq, bk in ((128, None), (512, 512), (1, 7)):
+            got = A.fused_attention(_t(q), _t(k), _t(v), causal=True,
+                                    block_q=bq, block_k=bk)
+            assert torch.equal(got, ref)
         x = torch.zeros(1, 8, 2, 8)
-        with pytest.raises(ValueError, match="64"):
-            A.fused_attention(x, x, x, block_q=128)
+        with pytest.raises(ValueError, match="positive"):
+            A.fused_attention(x, x, x, block_q=0)
 
     def test_kernel_on_cpu_tensor_raises(self):
         x = torch.zeros(1, 8, 2, 8)

@@ -133,7 +133,8 @@ class TestDispatch:
                  "paged_attention": "_paged_fused_kernel",
                  "batch_norm": "_bn_bwd_dx_kernel",
                  "fp8_adam": "_fp8_adam_kernel",
-                 "softmax": "_softmax_bwd_kernel"}
+                 "softmax": "_softmax_bwd_kernel",
+                 "group_norm": "_gn_bwd_kernel"}
         for name, src in _build.SOURCES.items():
             path = os.path.join(REPO, "apex_tpu_torch", "csrc", src)
             with open(path) as f:

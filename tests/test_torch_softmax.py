@@ -14,11 +14,13 @@ Tolerances: fp32 within 1e-6 (sums in another order); bf16/fp16 within
 one ulp of the JAX value — for the gradient, given the same saved ``y``
 (the JAX backward kernel run on JAX's ``y``); end to end, one ulp plus
 what one-ulp differences of the saved half-precision ``y`` carry into
-``(dy - sum(dy*y)) * y * scale``.  A fully masked row's gradient is compared
-with the Pallas kernel only: the JAX XLA reference differentiates
-through ``where`` and gives it zero, the kernels (both packages') give
-``(dy - sum(dy*y)) * y * scale``.  Tests marked ``cuda`` hold the
-kernels against the plain version on a GPU and skip without one.
+``(dy - sum(dy*y)) * y * scale``.  A fully masked row's gradient
+follows the JAX dispatch: at ``sk % 128 == 0`` the Pallas kernel's
+``(dy - sum(dy*y)) * y * scale``; at a ragged ``sk`` (37, and causal
+``sq > sk``) ``jax.vjp`` of the XLA reference, which differentiates
+through ``where`` and gives 0 at every masked position.  Tests marked
+``cuda`` hold the kernels against the plain version on a GPU and skip
+without one.
 """
 
 import math
@@ -192,6 +194,49 @@ def test_fully_masked_row_is_uniform_like_the_kernel(dtype):
     yr = fused_scale_mask_softmax(xt, torch.from_numpy(mask), scale=0.5)
     _close(yr, jax_softmax(xj, jnp.asarray(mask), scale=0.5,
                            implementation="xla"), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["masked_row_sk37", "causal_sq6_sk4"])
+def test_ragged_masked_rows_get_the_where_gradient(case, dtype):
+    """At a ragged width the JAX package differentiates the reference
+    composition: dx is 0 on a fully masked row and at every causal-dead
+    position; the port's gradient equals ``jax.vjp`` of it."""
+    if case == "masked_row_sk37":
+        xt, xj, dyt, dyj, mask = _case((2, 2, 5, 37), (2, 1, 5, 37), 21,
+                                       dtype, full_row=True)
+        causal = False
+    else:
+        xt, xj, dyt, dyj, _ = _case((2, 2, 6, 4), None, 22, dtype)
+        mask, causal = None, True
+    y, dx, yj, dxj = _both(xt, xj, dyt, dyj, mask, 0.5, causal, "xla")
+    _close(y, yj, dtype)
+    _grad_close(dx, dxj, yj, dyt, 0.5, dtype)
+    dead = S._masked(tuple(xt.shape),
+                     None if mask is None else torch.from_numpy(mask),
+                     causal, "cpu").expand(xt.shape)
+    assert bool(dead.any())
+    assert bool((dx[dead] == 0).all()) and bool((_t(dxj)[dead] == 0).all())
+    # fully dead rows: the whole row's gradient is 0, as in JAX
+    rows = dead.all(-1)
+    assert bool(rows.any()) and bool((dx[rows] == 0).all())
+
+
+def test_kernel_width_keeps_the_kernel_gradient_on_a_masked_row():
+    """At sk = 128 the JAX dispatch runs the Pallas kernels: the fully
+    masked row keeps ``(dy - sum(dy*y)) * y * scale``, nonzero."""
+    xt, _, dyt, _, mask = _case((1, 2, 4, 128), (1, 1, 4, 128), 23,
+                                torch.float32, full_row=True)
+    x = xt.clone().requires_grad_()
+    m = torch.from_numpy(mask)
+    y = fused_scale_mask_softmax(x, m, scale=0.5)
+    (dx,) = torch.autograd.grad(y, x, dyt)
+    assert torch.equal(dx, S.softmax_bwd_reference(dyt, y.detach(), 0.5))
+    assert bool((dx[0, :, 0] != 0).any())
+
+
+def _t(a):
+    return torch.from_numpy(_np(a).copy())
 
 
 def test_no_grad_path_and_plain_composition_agree():
