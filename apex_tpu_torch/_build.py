@@ -6,8 +6,9 @@ loaded with ``ctypes``.  The build happens at first use, never at
 import: every ``nvcc`` is started at once and all are awaited, so the
 build takes as long as the slowest source (a few seconds each).  The
 libraries land in ``build/apex_tpu_torch/`` beside the package, named by
-a hash of their source, so an edited source is rebuilt and an unchanged
-one is reused.  A failed build raises with the compiler's output.
+a hash of their source and the shared headers (``csrc/*.cuh``), so an
+edited source is rebuilt and an unchanged one is reused.  A failed build
+raises with the compiler's output.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception.  The wrappers
@@ -103,7 +104,10 @@ def build_all(ptxas_info: bool = False) -> Dict[str, str]:
             if name in _paths:
                 continue
             path = _PKG / "csrc" / src
-            digest = hashlib.sha256(path.read_bytes()).hexdigest()[:16]
+            # the shared headers are part of every library's source
+            digest = hashlib.sha256(path.read_bytes() + b"".join(
+                h.read_bytes() for h in sorted((_PKG / "csrc").glob(
+                    "*.cuh")))).hexdigest()[:16]
             lib = out_dir / f"lib{name}-{digest}.so"
             if lib.exists() and not ptxas_info:
                 _paths[name] = lib

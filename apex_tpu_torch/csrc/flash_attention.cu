@@ -1,14 +1,13 @@
 // Flash attention: forward, and the backward's dq and dk/dv kernels.
 //
 // Replaces the Pallas TPU kernels of apex_tpu/ops/attention.py:
-//   _fa_fwd_kernel (:367)      -> fa_fwd_kernel:  o and the log2-domain
-//                                 logsumexp per query row (online softmax);
-//   _fa_bwd_dq_kernel (:577)   -> fa_bwd_dq_kernel:  dq, probabilities
-//                                 recomputed from the saved logsumexp;
-//   _fa_bwd_dkv_kernel (:649)  -> fa_bwd_dkv_kernel: dk, dv per query
-//                                 head (GQA groups are summed afterwards
-//                                 in fp32, in a fixed order, by the
-//                                 wrapper — as the JAX wrapper does).
+//   _fa_fwd_kernel (:367)      -> o and the log2-domain logsumexp per
+//                                 query row (online softmax);
+//   _fa_bwd_dq_kernel (:577)   -> dq, probabilities recomputed from the
+//                                 saved logsumexp;
+//   _fa_bwd_dkv_kernel (:649)  -> dk, dv, the GQA group of rep query
+//                                 heads summed in the kernel's fp32
+//                                 accumulators, in a fixed order.
 // They take the features of the Pallas kernels: an additive fp32 bias
 // broadcast as (b|1, h|1, sq|1, sk) through element strides (0 on a
 // broadcast axis); causal masking with the rectangular sk - sq offset;
@@ -26,29 +25,58 @@
 // the JAX layout (BSHD), read in place with row stride heads * d.  lse
 // and delta are (b * h, sq) float32, lane = batch * h + head.
 //
-// What bounds them on an H100: at BERT-Large (s = 512, d = 64) the
-// products — 4 * b * h * sq * sk * d flops forward, 8 * ... backward —
-// against a few hundred bytes per query row: operations, far above the
-// 295 flop/byte ridge of the tensor cores.  Design: one block per (lane,
-// 64-row tile), with a loop over the other operand's 64-row tiles in
-// place of the TPU's sequential grid axis.  Two paths, chosen by what
-// the inputs allow: bf16/fp16 inputs with head_dim 64 or 128 run the
-// products on the tensor cores (WMMA, below; wgmma with TMA is later
-// work); fp32 inputs and other head dims run them as fp32 FMA on the
-// CUDA cores.  In the latter, tiles are converted to fp32 in shared
-// memory (row stride d + 1, so the column reads of the score product hit
-// 16 different banks); each of 256 threads owns a 4 x 4 block of the
-// 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j) and of the
-// 64 x d accumulators; row maxima and sums reduce over the 16 lanes of a
-// half warp.  Softmax, masking and dropout are fp32 in both; a
-// probability or dS that feeds the next product is rounded to the input
-// dtype first, as in the Pallas kernels.  Outputs are written in the
-// input dtype.  Every sum runs in a fixed order, and the backward uses no
-// atomics, so reruns are bit-identical.  Tiles that the causal or window
-// mask kills entirely are skipped.
+// What bounds them on an H100: at BERT-Large (b 16, s 512, h 16, d 64)
+// the products — 4 * b * h * sq * sk * d flops forward, 8 * ... backward
+// (dq 3 of its 4 products and dk/dv 4, since each recomputes S) — against
+// a few hundred bytes per query row: operations, far above the 295
+// flop/byte ridge of the tensor cores, so the tensor cores' rate is the
+// bound (at this size the forward's bound is still its bytes, 0.020 ms).
+// Three paths, chosen by what the inputs allow:
+//
+// (1) Forward and dk/dv for bf16/fp16 with head_dim 64 or 128: Hopper
+//     kernels (fa_fwd_wgmma_kernel, fa_bwd_dkv_wgmma_kernel; sm_90a).
+//     They are the two on which a BERT training step lost the most
+//     time, and a Hopper kernel's rate needs wgmma on register
+//     accumulators fed by asynchronous loads.  Tiles arrive by TMA
+//     (tensor maps over the BSHD tensors, 128-byte swizzle, positions
+//     past the end read as zero) into a ring of two stages that a
+//     producer warp keeps full, so loads overlap the products; the grid
+//     is persistent, so they also overlap the previous work item's end.  The products are wgmma with fp32
+//     accumulators in registers, and every softmax, mask and dropout step
+//     works on those registers in the accumulator layout (a row across a
+//     quad of lanes: two shuffles per reduction).  Probabilities and dS
+//     are rounded to the input dtype in registers and enter the next
+//     product as its register A operand, so nothing but the loaded tiles
+//     touches shared memory.  Bias, causal/window and dropout are
+//     compile-time variants, and the causal / window / ragged-edge masks
+//     run only on the tiles that straddle an edge (the live tile range is
+//     worked out up front), so BERT's path (no mask, no dropout) has no
+//     per-element branch; a key-padding bias is read once per column.
+//     At BERT-Large the forward's bound is its bytes and dk/dv's its four
+//     products; what holds each above its bound (the softmax's exp2, an
+//     item of only four key tiles) is not measured.  See the notes at
+//     each kernel for its tiling.
+// (2) dq for bf16/fp16 with head_dim 64 or 128: WMMA 16x16x16 on four
+//     warps (fa_bwd_dq_tc_kernel), scores through shared memory; its
+//     Hopper redesign is later work, and it reads the forward's lse
+//     unchanged.
+// (3) fp32 inputs and other head dims: fp32 FMA on the CUDA cores.
+//     Tiles are converted to fp32 in shared memory (row stride d + 1, so
+//     the column reads of the score product hit 16 different banks);
+//     each of 256 threads owns a 4 x 4 block of the 64 x 64 score tile
+//     (rows ty + 16 i, columns tx + 16 j) and of the 64 x d accumulators;
+//     row maxima and sums reduce over the 16 lanes of a half warp.
+//
+// Softmax, masking and dropout are fp32 in all; a probability or dS that
+// feeds the next product is rounded to the input dtype first, as in the
+// Pallas kernels.  Outputs are written in the input dtype.  Every sum
+// runs in a fixed order, and no kernel uses atomics, so reruns are
+// bit-identical.  Tiles that the causal or window mask kills entirely
+// are skipped.
 #include <mma.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -381,14 +409,14 @@ fa_bwd_dq_kernel(Params p, const T* __restrict__ dout,
 }
 
 // ------------------------------------------------------------------ //
-// backward: dk, dv per query head
+// backward: dk, dv, the GQA group summed in the accumulators
 // ------------------------------------------------------------------ //
-template <typename T, typename TO, int DC>
+template <typename T, int DC>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_dkv_kernel(Params p, const T* __restrict__ dout,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, TO* __restrict__ dk,
-                  TO* __restrict__ dv) {
+                  const float* __restrict__ delta, T* __restrict__ dk,
+                  T* __restrict__ dv) {
   extern __shared__ float smem[];
   const int d = p.d, ld = d + 1;
   float* Ks = smem;
@@ -398,11 +426,10 @@ fa_bwd_dkv_kernel(Params p, const T* __restrict__ dout,
   float* Ps = dOs + kT * ld;
   float* Ds = Ps + kT * kLdS;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int lane = blockIdx.y, batch = lane / p.h, head = lane % p.h;
-  const int kvh = head / (p.h / p.hk);
+  const int batch = blockIdx.y / p.hk, kvh = blockIdx.y % p.hk;
+  const int rep = p.h / p.hk;
   const int k0 = blockIdx.x * kT;
   const long long qstride = (long long)p.h * d, kstride = (long long)p.hk * d;
-  const long long qoff = (long long)batch * p.sq * qstride + (long long)head * d;
   const long long koff = (long long)batch * p.sk * kstride + (long long)kvh * d;
   load_tile(Ks, ld, (const T*)p.k + koff, kstride, k0, p.sk, d);
   load_tile(Vs, ld, (const T*)p.v + koff, kstride, k0, p.sk, d);
@@ -412,89 +439,89 @@ fa_bwd_dkv_kernel(Params p, const T* __restrict__ dout,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < DC; ++j) adk[i][j] = adv[i][j] = 0.f;
-  for (int q0 = 0; q0 < p.sq; q0 += kT) {
-    if (!tile_live(p, q0, k0)) continue;
-    __syncthreads();
-    load_tile(Qs, ld, (const T*)p.q + qoff, qstride, q0, p.sq, d);
-    load_tile(dOs, ld, dout + qoff, qstride, q0, p.sq, d);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot(s, Qs, Ks, ld, d, ty, tx);
-    finish_scores(s, p, batch, head, q0, k0, ty, tx);
-    tile_dot(dp, dOs, Vs, ld, d, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      const float lr = row < p.sq ? lse[(long long)lane * p.sq + row] : 0.f;
-      const float dr = row < p.sq ? delta[(long long)lane * p.sq + row] : 0.f;
-      const uint32_t drow = p.dropout ? drop_row(p, (uint32_t)lane, row) : 0u;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pr = prob(s[i][j], lr);
-        float pd = pr, g = dp[i][j];
-        if (p.dropout) {
-          const bool keep = drop_keep(p, drow, k0 + tx + 16 * j);
-          pd = keep ? pr * p.drop_inv : 0.f;
-          g = keep ? g * p.drop_inv : 0.f;
-        }
-        Ps[(ty + 16 * i) * kLdS + tx + 16 * j] = as_operand<T>(pd);
-        Ds[(ty + 16 * i) * kLdS + tx + 16 * j] = as_operand<T>(pr * (g - dr));
-      }
-    }
-    __syncthreads();
-    // dV[key] += sum_q Pd[q][key] dO[q];  dK[key] += sum_q dS[q][key] Q[q]
-    for (int qq = 0; qq < kT; ++qq) {
-      float dov[DC], qv[DC];
-#pragma unroll
-      for (int j = 0; j < DC; ++j) {
-        const int c = tx + 16 * j;
-        dov[j] = c < d ? dOs[qq * ld + c] : 0.f;
-        qv[j] = c < d ? Qs[qq * ld + c] : 0.f;
-      }
+  for (int head = kvh * rep; head < (kvh + 1) * rep; ++head) {
+    const int lane = batch * p.h + head;
+    const long long qoff = (long long)batch * p.sq * qstride + (long long)head * d;
+    for (int q0 = 0; q0 < p.sq; q0 += kT) {
+      if (!tile_live(p, q0, k0)) continue;
+      __syncthreads();
+      load_tile(Qs, ld, (const T*)p.q + qoff, qstride, q0, p.sq, d);
+      load_tile(dOs, ld, dout + qoff, qstride, q0, p.sq, d);
+      __syncthreads();
+      float s[4][4], dp[4][4];
+      tile_dot(s, Qs, Ks, ld, d, ty, tx);
+      finish_scores(s, p, batch, head, q0, k0, ty, tx);
+      tile_dot(dp, dOs, Vs, ld, d, ty, tx);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float pd = Ps[qq * kLdS + ty + 16 * i];
-        const float g = Ds[qq * kLdS + ty + 16 * i];
+        const int row = q0 + ty + 16 * i;
+        const float lr = row < p.sq ? lse[(long long)lane * p.sq + row] : 0.f;
+        const float dr = row < p.sq ? delta[(long long)lane * p.sq + row] : 0.f;
+        const uint32_t drow = p.dropout ? drop_row(p, (uint32_t)lane, row) : 0u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float pr = prob(s[i][j], lr);
+          float pd = pr, g = dp[i][j];
+          if (p.dropout) {
+            const bool keep = drop_keep(p, drow, k0 + tx + 16 * j);
+            pd = keep ? pr * p.drop_inv : 0.f;
+            g = keep ? g * p.drop_inv : 0.f;
+          }
+          Ps[(ty + 16 * i) * kLdS + tx + 16 * j] = as_operand<T>(pd);
+          Ds[(ty + 16 * i) * kLdS + tx + 16 * j] = as_operand<T>(pr * (g - dr));
+        }
+      }
+      __syncthreads();
+      // dV[key] += sum_q Pd[q][key] dO[q];  dK[key] += sum_q dS[q][key] Q[q]
+      for (int qq = 0; qq < kT; ++qq) {
+        float dov[DC], qv[DC];
 #pragma unroll
         for (int j = 0; j < DC; ++j) {
-          adv[i][j] = fmaf(pd, dov[j], adv[i][j]);
-          adk[i][j] = fmaf(g, qv[j], adk[i][j]);
+          const int c = tx + 16 * j;
+          dov[j] = c < d ? dOs[qq * ld + c] : 0.f;
+          qv[j] = c < d ? Qs[qq * ld + c] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pd = Ps[qq * kLdS + ty + 16 * i];
+          const float g = Ds[qq * kLdS + ty + 16 * i];
+#pragma unroll
+          for (int j = 0; j < DC; ++j) {
+            adv[i][j] = fmaf(pd, dov[j], adv[i][j]);
+            adk[i][j] = fmaf(g, qv[j], adk[i][j]);
+          }
         }
       }
     }
   }
-  // outputs (b, sk, h, d): one slab per query head
+  // outputs (b, sk, hk, d): one slab per kv head
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty + 16 * i;
     if (key >= p.sk) continue;
-    const long long base = (((long long)batch * p.sk + key) * p.h + head) * d;
+    const long long base = (((long long)batch * p.sk + key) * p.hk + kvh) * d;
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
       const int c = tx + 16 * j;
       if (c < d) {
-        dk[base + c] = apex::from_f<TO>(adk[i][j] * p.scale);
-        dv[base + c] = apex::from_f<TO>(adv[i][j]);
+        dk[base + c] = apex::from_f<T>(adk[i][j] * p.scale);
+        dv[base + c] = apex::from_f<T>(adv[i][j]);
       }
     }
   }
 }
 
-
 // ------------------------------------------------------------------ //
-// tensor-core path: bf16 / fp16 inputs, head_dim 64 or 128
+// WMMA path of dq: bf16 / fp16 inputs, head_dim 64 or 128
 // ------------------------------------------------------------------ //
-// The same three functions with the products on the tensor cores
-// (WMMA 16x16x16, fp32 accumulation): one block of 4 warps per 64-row
-// tile, each warp owning 16 rows.  Tiles stay in the input dtype in
-// shared memory (row stride d + 8); a warp's score products land in an
-// fp32 tile, the masking / online softmax / dropout / dS step is the
-// scalar code above (two lanes per row, 32 columns each), and its
-// probabilities and dS are written in the input dtype as the next
-// product's operand — the rounding the Pallas kernels and the scalar
-// path make too.  The forward keeps its output accumulator in shared
-// memory so the scalar step can rescale it; the backward accumulates dq,
-// dk and dv in WMMA fragments.
+// The dq function with its products on the tensor cores through WMMA
+// 16x16x16 (fp32 accumulation): one block of 4 warps per 64-row tile,
+// each warp owning 16 rows.  Tiles stay in the input dtype in shared
+// memory (row stride d + 8); a warp's score products land in an fp32
+// tile, the masking / dropout / dS step is the scalar code above (two
+// lanes per row, 32 columns each), and dS is written in the input dtype
+// as the next product's operand — the rounding the Pallas kernels and
+// the scalar path make too.  dq accumulates in WMMA fragments.
 
 constexpr int kTcThreads = 128;    // 4 warps x 16 rows
 
@@ -574,90 +601,6 @@ __device__ __forceinline__ void warp_ab_acc(FragC (&acc)[DC], const T* a,
 
 template <typename T, int DC>
 __global__ void __launch_bounds__(kTcThreads)
-fa_fwd_tc_kernel(Params p, T* __restrict__ o, float* __restrict__ lse) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int d = 16 * DC, ld = d + 8, ldo = d + 4;
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + kT * ld;
-  T* Vs = Ks + kT * ld;
-  T* Ps = Vs + kT * ld;
-  float* Ss = reinterpret_cast<float*>(Ps + kT * kLdH);
-  float* Os = Ss + kT * kLdF;
-  const int warp = threadIdx.x >> 5, ln = threadIdx.x & 31;
-  const int lane = blockIdx.y, batch = lane / p.h, head = lane % p.h;
-  const int kvh = head / (p.h / p.hk);
-  const int q0 = blockIdx.x * kT;
-  const long long qstride = (long long)p.h * d, kstride = (long long)p.hk * d;
-  const T* kb = (const T*)p.k + (long long)batch * p.sk * kstride + (long long)kvh * d;
-  const T* vb = (const T*)p.v + (long long)batch * p.sk * kstride + (long long)kvh * d;
-  load_tile_h(Qs, ld, (const T*)p.q + (long long)batch * p.sq * qstride +
-                          (long long)head * d, qstride, q0, p.sq, d);
-  for (int i = threadIdx.x; i < kT * ldo; i += kTcThreads) Os[i] = 0.f;
-  // this thread's row of the tile and its half of the columns
-  const int r = warp * 16 + (ln >> 1), half = ln & 1, rot = (ln >> 4) & 1;
-  const int qpos = q0 + r;
-  const uint32_t drow = p.dropout ? drop_row(p, (uint32_t)lane, qpos) : 0u;
-  float m = kNegInf, l = 0.f;
-  float* srow = Ss + r * kLdF;
-  T* prow = Ps + r * kLdH;
-  float* orow = Os + r * ldo;
-  for (int k0 = 0; k0 < p.sk; k0 += kT) {
-    if (!tile_live(p, q0, k0)) continue;
-    __syncthreads();
-    load_tile_h(Ks, ld, kb, kstride, k0, p.sk, d);
-    load_tile_h(Vs, ld, vb, kstride, k0, p.sk, d);
-    __syncthreads();
-    warp_abt<T, DC>(Ss + warp * 16 * kLdF, Qs + warp * 16 * ld, Ks, ld);
-    __syncwarp();
-    float mx = kNegInf;
-    for (int c = 0; c < 32; ++c) {
-      const int col = tc_col(c, 32, rot, half);
-      const float v = score_at(p, srow[col], batch, head, qpos, k0 + col);
-      srow[col] = v;
-      mx = fmaxf(mx, v);
-    }
-    const float m_new = fmaxf(m, fmaxf(mx, __shfl_xor_sync(apex::kFull, mx, 1)));
-    const float alpha = exp2f(m - m_new);
-    float rs = 0.f;
-    for (int c = 0; c < 32; ++c) {
-      const int col = tc_col(c, 32, rot, half);
-      const float pr = prob(srow[col], m_new);
-      rs += pr;
-      float pv = pr;
-      if (p.dropout)
-        pv = drop_keep(p, drow, k0 + col) ? pr * p.drop_inv : 0.f;
-      prow[col] = apex::from_f<T>(pv);
-    }
-    l = l * alpha + rs + __shfl_xor_sync(apex::kFull, rs, 1);
-    for (int c = 0; c < d / 2; ++c) orow[tc_col(c, d / 2, rot, half)] *= alpha;
-    m = m_new;
-    __syncwarp();
-    FragC acc[DC];
-#pragma unroll
-    for (int j = 0; j < DC; ++j)
-      wmma::load_matrix_sync(acc[j], Os + warp * 16 * ldo + 16 * j, ldo,
-                             wmma::mem_row_major);
-    warp_ab_acc<T, DC>(acc, Ps + warp * 16 * kLdH, Vs, ld);
-#pragma unroll
-    for (int j = 0; j < DC; ++j)
-      wmma::store_matrix_sync(Os + warp * 16 * ldo + 16 * j, acc[j], ldo,
-                              wmma::mem_row_major);
-    __syncwarp();
-  }
-  if (qpos < p.sq) {
-    const float ls = l == 0.f ? 1.f : l;
-    T* out = o + (long long)batch * p.sq * qstride + qpos * qstride +
-             (long long)head * d;
-    for (int c = 0; c < d / 2; ++c) {
-      const int col = tc_col(c, d / 2, rot, half);
-      out[col] = apex::from_f<T>(orow[col] / ls);
-    }
-    if (half == 0) lse[(long long)lane * p.sq + qpos] = m + log2f(ls);
-  }
-}
-
-template <typename T, int DC>
-__global__ void __launch_bounds__(kTcThreads)
 fa_bwd_dq_tc_kernel(Params p, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq) {
@@ -725,101 +668,630 @@ fa_bwd_dq_tc_kernel(Params p, const T* __restrict__ dout,
   }
 }
 
-template <typename T, typename TO, int DC>
-__global__ void __launch_bounds__(kTcThreads)
-fa_bwd_dkv_tc_kernel(Params p, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, TO* __restrict__ dk,
-                     TO* __restrict__ dv) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int d = 16 * DC, ld = d + 8, ldo = d + 4;
-  T* Ks = reinterpret_cast<T*>(smem_raw);
-  T* Vs = Ks + kT * ld;
-  T* Qs = Vs + kT * ld;
-  T* dOs = Qs + kT * ld;
-  T* Pt = dOs + kT * ld;             // dropped probabilities, [key][q]
-  T* Dt = Pt + kT * kLdH;            // dS, [key][q]
-  float* St = reinterpret_cast<float*>(Dt + kT * kLdH);
-  float* DPt = St + kT * kLdF;
-  float* lse_s = DPt + kT * kLdF;
-  float* delta_s = lse_s + kT;
-  float* stage = St;                 // the results, after the loop
-  const int warp = threadIdx.x >> 5, ln = threadIdx.x & 31;
-  const int lane = blockIdx.y, batch = lane / p.h, head = lane % p.h;
-  const int kvh = head / (p.h / p.hk);
-  const int k0 = blockIdx.x * kT;
-  const long long qstride = (long long)p.h * d, kstride = (long long)p.hk * d;
-  const long long qoff = (long long)batch * p.sq * qstride + (long long)head * d;
-  const long long koff = (long long)batch * p.sk * kstride + (long long)kvh * d;
-  load_tile_h(Ks, ld, (const T*)p.k + koff, kstride, k0, p.sk, d);
-  load_tile_h(Vs, ld, (const T*)p.v + koff, kstride, k0, p.sk, d);
-  // this thread's key row of the tile and its half of the query columns
-  const int r = warp * 16 + (ln >> 1), half = ln & 1, rot = (ln >> 4) & 1;
-  const int kpos = k0 + r;
-  FragC adk[DC], adv[DC];
+// ------------------------------------------------------------------ //
+// Hopper path: forward and dk/dv with TMA and wgmma (sm_90a)
+// ------------------------------------------------------------------ //
+// Both kernels run 384 threads: two consumer warpgroups (warps 0-7),
+// each owning 64 rows of the block's tile, and a producer warpgroup
+// whose first warp (warp 8; its lane 0 issues every TMA load) does the
+// loading while the other three idle.  The producer fills a ring of
+// kHStages stages; a stage's "full" barrier completes when its bytes
+// have landed, its "empty" barrier when all 256 consumer threads are
+// done with it.  One block a multiprocessor, and the grid is persistent:
+// a block walks over many work items, so the next item's loads overlap
+// this item's last products and its epilogue.  A block of 9 warps would
+// be held to 168 registers a thread (3 warps on one scheduler's 16K);
+// with three warpgroups the producer gives back all but 40 and the
+// consumers take 232 (setmaxnreg), so the accumulators — up to 64 x 128
+// scores plus a 64 x 128 output in the forward at d = 128 — do not
+// spill.
+namespace hp = apex::hopper;
+
+constexpr int kHThreads = 384;   // 2 consumer + 1 producer warpgroup
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kHStages = 2;      // ring depth
+constexpr int kHM = 128;         // forward: query rows per block
+constexpr int kHN = 128;         // forward: keys per tile
+constexpr int kHK = 128;         // dk/dv: keys per block
+// dk/dv: queries per tile — 32 at d = 128 keeps dK, dV (64 registers
+// each), S^T and dP^T (16 each) and their packed operands within the
+// register file
+__host__ __device__ constexpr int dkv_bq(int d) { return d == 64 ? 64 : 32; }
+
+// the accumulator position of register i for lane wl (see hopper.cuh)
+__device__ __forceinline__ int acc_row(int i) { return 8 * ((i >> 1) & 1); }
+__device__ __forceinline__ int acc_col(int i, int wl) {
+  return 8 * (i >> 2) + 2 * (wl & 3) + (i & 1);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(apex::kFull, v, 1));
+  return fmaxf(v, __shfl_xor_sync(apex::kFull, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(apex::kFull, v, 1);
+  return v + __shfl_xor_sync(apex::kFull, v, 2);
+}
+
+// One key tile of the forward for a warpgroup's 64 rows, on the scores
+// in registers: scale (and bias), the masks where kMasked, the online
+// softmax update of m, l (this lane's partial row sums) and the output
+// accumulator, and the probabilities (dropped and rescaled for the value
+// product) packed to T as the A operand of O += P V.
+template <typename T, int D, bool kBias, bool kCausal, bool kDrop,
+          bool kMasked>
+__device__ __forceinline__ void fwd_tile_softmax(
+    float (&sc)[kHN / 2], float (&acc)[D / 2], float (&m)[2], float (&l)[2],
+    uint32_t (&pf)[kHN / 16][4], const Params& p, const float* const* brow,
+    const uint32_t (&drow)[2], int qa, int k0, int wl) {
+  const float c = p.scale * kLog2e;
+  const int off = p.sk - p.sq;
+  // a bias without a query axis (key padding) is read once per column
+  const bool bias_shared = kBias && p.bias_sq == 0;
+  float mx[2] = {m[0], m[1]};
+  // registers i + e (row qa) and i + 2 + e (row qa + 8) share a column
 #pragma unroll
-  for (int j = 0; j < DC; ++j) {
-    wmma::fill_fragment(adk[j], 0.f);
-    wmma::fill_fragment(adv[j], 0.f);
-  }
-  for (int q0 = 0; q0 < p.sq; q0 += kT) {
-    if (!tile_live(p, q0, k0)) continue;
-    __syncthreads();
-    load_tile_h(Qs, ld, (const T*)p.q + qoff, qstride, q0, p.sq, d);
-    load_tile_h(dOs, ld, dout + qoff, qstride, q0, p.sq, d);
-    for (int i = threadIdx.x; i < kT; i += kTcThreads) {
-      const int q = q0 + i;
-      lse_s[i] = q < p.sq ? lse[(long long)lane * p.sq + q] : 0.f;
-      delta_s[i] = q < p.sq ? delta[(long long)lane * p.sq + q] : 0.f;
-    }
-    __syncthreads();
-    // transposed tiles: S^T = K Q^T and dP^T = V dO^T, keys on rows
-    warp_abt<T, DC>(St + warp * 16 * kLdF, Ks + warp * 16 * ld, Qs, ld);
-    warp_abt<T, DC>(DPt + warp * 16 * kLdF, Vs + warp * 16 * ld, dOs, ld);
-    __syncwarp();
-    for (int c = 0; c < 32; ++c) {
-      const int qi = tc_col(c, 32, rot, half), qpos = q0 + qi;
-      const float s = score_at(p, St[r * kLdF + qi], batch, head, qpos, kpos);
-      const float pr = prob(s, lse_s[qi]);
-      float pd = pr, g = DPt[r * kLdF + qi];
-      if (p.dropout) {
-        const bool keep =
-            drop_keep(p, drop_row(p, (uint32_t)lane, qpos), kpos);
-        pd = keep ? pr * p.drop_inv : 0.f;
-        g = keep ? g * p.drop_inv : 0.f;
+  for (int i = 0; i < kHN / 2; i += 4)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int kpos = k0 + acc_col(i + e, wl);
+      float b[2] = {0.f, 0.f};
+      if (kBias && kpos < p.sk) {
+        b[0] = brow[0][kpos] * kLog2e;
+        b[1] = bias_shared ? b[0] : brow[1][kpos] * kLog2e;
       }
-      Pt[r * kLdH + qi] = apex::from_f<T>(pd);
-      Dt[r * kLdH + qi] = apex::from_f<T>(pr * (g - delta_s[qi]));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float v = sc[i + e + 2 * r] * c;
+        if (kBias) v += b[r];
+        if (kMasked) {
+          const int qpos = qa + 8 * r;
+          bool dead = kpos >= p.sk;
+          if (kCausal) {
+            dead = dead || kpos > qpos + off;
+            if (p.window > 0) dead = dead || kpos <= qpos + off - p.window;
+          }
+          if (dead) v = kNegInf;
+        }
+        sc[i + e + 2 * r] = v;
+        mx[r] = fmaxf(mx[r], v);
+      }
     }
-    __syncwarp();
-    // dV[key] += Pd^T dO;  dK[key] += dS^T Q
-    warp_ab_acc<T, DC>(adv, Pt + warp * 16 * kLdH, dOs, ld);
-    warp_ab_acc<T, DC>(adk, Dt + warp * 16 * kLdH, Qs, ld);
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = quad_max(mx[r]);
+    alpha[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kHN / 2; i += 2) {
+    const int r = (i >> 1) & 1;
+    float p0, p1;
+    if (kBias || kMasked) {
+      p0 = prob(sc[i], m[r]);
+      p1 = prob(sc[i + 1], m[r]);
+    } else {
+      p0 = exp2f(sc[i] - m[r]);
+      p1 = exp2f(sc[i + 1] - m[r]);
+    }
+    // the normaliser takes the undropped probabilities; only the value
+    // accumulation sees the dropped, rescaled ones
+    rs[r] += p0 + p1;
+    if (kDrop) {
+      const int kpos = k0 + acc_col(i, wl);
+      p0 = drop_keep(p, drow[r], kpos) ? p0 * p.drop_inv : 0.f;
+      p1 = drop_keep(p, drow[r], kpos + 1) ? p1 * p.drop_inv : 0.f;
+    }
+    pf[i >> 3][(i & 7) >> 1] = hp::pack2<T>(p0, p1);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+}
+
+// The work of one forward item: (lane, 128 query rows) and its live key
+// tiles [kt_lo, kt_hi) — the tiles outside are dead for every row of the
+// item and never loaded.
+struct FwdItem {
+  int lane, batch, head, kvh, q0, kt_lo, kt_hi;
+};
+
+template <bool kCausal>
+__device__ __forceinline__ FwdItem fwd_item(const Params& p, int item) {
+  const int nqb = (p.sq + kHM - 1) / kHM;
+  FwdItem it;
+  it.lane = item / nqb;
+  it.batch = it.lane / p.h;
+  it.head = it.lane % p.h;
+  it.kvh = it.head / (p.h / p.hk);
+  it.q0 = (item % nqb) * kHM;
+  it.kt_lo = 0;
+  it.kt_hi = (p.sk + kHN - 1) / kHN;
+  if (kCausal) {
+    const int off = p.sk - p.sq;
+    const int last_key = min(it.q0 + kHM, p.sq) - 1 + off;
+    it.kt_hi = last_key < 0 ? 0 : min(it.kt_hi, last_key / kHN + 1);
+    if (p.window > 0) {
+      const int first_key = it.q0 + off - p.window + 1;
+      it.kt_lo = first_key > 0 ? first_key / kHN : 0;
+    }
+  }
+  return it;
+}
+
+// Forward.  Persistent: one block per multiprocessor walks the items
+// item = blockIdx.x, + gridDim.x, ... (lane-major, so the blocks of a
+// wave share K and V in L2).  Each consumer warpgroup keeps its 64
+// rows' scores (64 x 128 fp32) and output (64 x d fp32) in registers.
+// An item's Q tile is loaded once; K and V tiles of 128 keys stream
+// through the ring, whose stages and phases run on across items.  S =
+// Q K^T is wgmma with both operands in shared memory (K-major); O += P V
+// takes P from registers and V transposed through its descriptor.  The
+// consumers hand Q back as soon as the item's last S is done, so the
+// producer loads the next item's Q and first K/V tile while they finish
+// the item and write its output.
+template <typename T, int D, bool kBias, bool kCausal, bool kDrop>
+__global__ void __launch_bounds__(kHThreads, 1)
+fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, Params p,
+                    int n_items, T* __restrict__ o, float* __restrict__ lse) {
+  constexpr int kQElems = kHM * D, kKElems = kHN * D;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  T* Qs = reinterpret_cast<T*>(base);
+  T* Ks = Qs + kQElems;                     // stage s at + s * kKElems
+  T* Vs = Ks + kHStages * kKElems;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + kHStages * kKElems);
+  uint64_t* q_full = bars;
+  uint64_t* q_empty = bars + 1;
+  uint64_t* full = bars + 2;
+  uint64_t* empty = bars + 2 + kHStages;
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(q_full, 1);
+    hp::mbar_init(q_empty, 256);
+    for (int s = 0; s < kHStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 256);
+    }
+    hp::mbar_fence_init();
   }
   __syncthreads();
-  const long long base = (((long long)batch * p.sk + kpos) * p.h + head) * d;
-  const float* srow = stage + r * ldo;
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  const int off = p.sk - p.sq;
+
+  if (warp >= 8) {
+    // producer warpgroup
+    hp::reg_dealloc<kProducerRegs>();
+    if (warp == 8 && wl == 0) {
+      int s = 0;
+      uint32_t ph = 0, qph = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const FwdItem it = fwd_item<kCausal>(p, item);
+        hp::mbar_wait(q_empty, qph ^ 1);
+        qph ^= 1;
+        hp::mbar_expect_tx(q_full, kQElems * (int)sizeof(T));
 #pragma unroll
-  for (int j = 0; j < DC; ++j)
-    wmma::store_matrix_sync(stage + warp * 16 * ldo + 16 * j, adk[j], ldo,
-                            wmma::mem_row_major);
-  __syncwarp();
-  if (kpos < p.sk)
-    for (int c = 0; c < d / 2; ++c) {
-      const int col = tc_col(c, d / 2, rot, half);
-      dk[base + col] = apex::from_f<TO>(srow[col] * p.scale);
-    }
-  __syncwarp();
+        for (int pn = 0; pn < D / 64; ++pn)
+          hp::tma_load_4d(Qs + pn * kHM * 64, &tq, q_full, 64 * pn, it.head,
+                          it.q0, it.batch);
+        for (int kt = it.kt_lo; kt < it.kt_hi; ++kt) {
+          hp::mbar_wait(&empty[s], ph ^ 1);
+          hp::mbar_expect_tx(&full[s], 2 * kKElems * (int)sizeof(T));
 #pragma unroll
-  for (int j = 0; j < DC; ++j)
-    wmma::store_matrix_sync(stage + warp * 16 * ldo + 16 * j, adv[j], ldo,
-                            wmma::mem_row_major);
-  __syncwarp();
-  if (kpos < p.sk)
-    for (int c = 0; c < d / 2; ++c) {
-      const int col = tc_col(c, d / 2, rot, half);
-      dv[base + col] = apex::from_f<TO>(srow[col]);
+          for (int pn = 0; pn < D / 64; ++pn) {
+            hp::tma_load_4d(Ks + s * kKElems + pn * kHN * 64, &tk, &full[s],
+                            64 * pn, it.kvh, kt * kHN, it.batch);
+            hp::tma_load_4d(Vs + s * kKElems + pn * kHN * 64, &tv, &full[s],
+                            64 * pn, it.kvh, kt * kHN, it.batch);
+          }
+          if (++s == kHStages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
     }
+  } else {
+    hp::reg_alloc<kConsumerRegs>();
+    // consumers: warpgroup wg owns rows q0 + 64 wg ... + 63 of an item
+    const int wg = warp >> 2, ww = warp & 3;
+    int s = 0;
+    uint32_t ph = 0, qph = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const FwdItem it = fwd_item<kCausal>(p, item);
+      const int wq0 = it.q0 + 64 * wg;
+      // this lane's rows: qa and qa + 8
+      const int qa = wq0 + 16 * ww + (wl >> 2);
+      const float* brow[2] = {nullptr, nullptr};
+      uint32_t drow[2] = {0u, 0u};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qpos = qa + 8 * r;
+        if (kBias)
+          brow[r] = p.bias + (long long)it.batch * p.bias_sb +
+                    (long long)it.head * p.bias_sh +
+                    (long long)min(qpos, p.sq - 1) * p.bias_sq;
+        if (kDrop) drow[r] = drop_row(p, (uint32_t)it.lane, qpos);
+      }
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+      hp::mbar_wait(q_full, qph);
+      qph ^= 1;
+      if (it.kt_hi <= it.kt_lo) hp::mbar_arrive(q_empty);
+      for (int kt = it.kt_lo; kt < it.kt_hi; ++kt) {
+        const int k0 = kt * kHN;
+        hp::mbar_wait(&full[s], ph);
+        float sc[kHN / 2];
+        const T* Kst = Ks + s * kKElems;
+        const T* Vst = Vs + s * kKElems;
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint64_t da = hp::desc_sw128(
+              Qs + (kk >> 2) * kHM * 64 + wg * 64 * 64 + (kk & 3) * 16, 16,
+              1024);
+          const uint64_t db = hp::desc_sw128(
+              Kst + (kk >> 2) * kHN * 64 + (kk & 3) * 16, 16, 1024);
+          hp::wgmma_ss<kHN, T>(sc, da, db, kk > 0);
+        }
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+        hp::fence_regs(sc);
+        if (kt == it.kt_hi - 1) hp::mbar_arrive(q_empty);  // Q is read
+        // this warpgroup's rows meet an edge of the mask in this tile
+        const bool edge =
+            k0 + kHN > p.sk ||
+            (kCausal && (k0 + kHN - 1 > wq0 + off ||
+                         (p.window > 0 && k0 <= wq0 + 63 + off - p.window)));
+        uint32_t pf[kHN / 16][4];
+        if (edge)
+          fwd_tile_softmax<T, D, kBias, kCausal, kDrop, true>(
+              sc, acc, m, l, pf, p, brow, drow, qa, k0, wl);
+        else
+          fwd_tile_softmax<T, D, kBias, kCausal, kDrop, false>(
+              sc, acc, m, l, pf, p, brow, drow, qa, k0, wl);
+        hp::fence_regs(acc);
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kHN / 16; ++kk)
+          hp::wgmma_rs_tb<D, T>(
+              acc, pf[kk],
+              hp::desc_sw128(Vst + kk * 16 * 64, kHN * 128, 1024), 1);
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+        hp::fence_regs(acc);
+        hp::fence_regs(pf);
+        hp::mbar_arrive(&empty[s]);
+        if (++s == kHStages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qpos = qa + 8 * r;
+        const float lsum = quad_sum(l[r]);
+        if (qpos >= p.sq) continue;
+        const float ls = lsum == 0.f ? 1.f : lsum;
+        T* orow = o + (((long long)it.batch * p.sq + qpos) * p.h + it.head) * D;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const int i = 4 * j + 2 * r;
+          *reinterpret_cast<uint32_t*>(orow + acc_col(i, wl)) =
+              hp::pack2<T>(acc[i] / ls, acc[i + 1] / ls);
+        }
+        if ((wl & 3) == 0)
+          lse[(long long)it.lane * p.sq + qpos] = m[r] + log2f(ls);
+      }
+    }
+  }
+}
+
+// One q tile of dk/dv for a warpgroup's 64 keys, on S^T and dP^T in
+// registers: P^T = exp2(S^T - lse[q]), dS^T = P^T (dP^T - delta[q]) with
+// dropout from the stage's per-query drop_row values, both packed to T
+// as the A operands of dV += P^T dO and dK += dS^T Q.
+template <typename T, int BQ, bool kBias, bool kCausal, bool kDrop,
+          bool kMasked>
+__device__ __forceinline__ void dkv_tile_grads(
+    const float (&st)[BQ / 2], const float (&dpt)[BQ / 2],
+    uint32_t (&pf)[BQ / 16][4], uint32_t (&df)[BQ / 16][4], const Params& p,
+    const float* lse_s, const float* delta_s, const uint32_t* drow_s,
+    const float* bias_hq, int ka, int q0, int wl) {
+  const float c = p.scale * kLog2e;
+  const int off = p.sk - p.sq;
+  // a bias without a query axis (key padding) holds one value per key:
+  // this lane's two keys' values, read once a tile
+  const bool bias_shared = kBias && p.bias_sq == 0;
+  float bkey[2] = {0.f, 0.f};
+  if (bias_shared) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (ka + 8 * r < p.sk) bkey[r] = bias_hq[ka + 8 * r] * kLog2e;
+  }
+#pragma unroll
+  for (int i = 0; i < BQ / 2; i += 2) {
+    const int kpos = ka + acc_row(i);
+    const int qi = acc_col(i, wl);
+    float pd[2], ds[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int qpos = q0 + qi + e;
+      float v = st[i + e] * c;
+      bool dead = false;
+      if (kMasked) {
+        dead = kpos >= p.sk || qpos >= p.sq;
+        if (kCausal) {
+          dead = dead || kpos > qpos + off;
+          if (p.window > 0) dead = dead || kpos <= qpos + off - p.window;
+        }
+      }
+      if (bias_shared)
+        v += bkey[(i >> 1) & 1];
+      else if (kBias && kpos < p.sk && qpos < p.sq)
+        v += bias_hq[(long long)qpos * p.bias_sq + kpos] * kLog2e;
+      if (dead) v = kNegInf;
+      const float pr = (kBias || kMasked) ? prob(v, lse_s[qi + e])
+                                          : exp2f(v - lse_s[qi + e]);
+      float g = dpt[i + e];
+      pd[e] = pr;
+      if (kDrop) {
+        const bool keep = drop_keep(p, drow_s[qi + e], kpos);
+        pd[e] = keep ? pr * p.drop_inv : 0.f;
+        g = keep ? g * p.drop_inv : 0.f;
+      }
+      ds[e] = pr * (g - delta_s[qi + e]);
+    }
+    pf[i >> 3][(i & 7) >> 1] = hp::pack2<T>(pd[0], pd[1]);
+    df[i >> 3][(i & 7) >> 1] = hp::pack2<T>(ds[0], ds[1]);
+  }
+}
+
+// The work of one dk/dv item: (kv lane = batch * hk + kv head, 128 keys)
+// and its live q tiles [qt_lo, qt_hi), taken for each of the rep query
+// heads of the GQA group: n_tiles in all.
+struct DkvItem {
+  int batch, kvh, k0, qt_lo, qt_hi, n_tiles;
+};
+
+template <int BQ, bool kCausal>
+__device__ __forceinline__ DkvItem dkv_item(const Params& p, int item) {
+  const int nkb = (p.sk + kHK - 1) / kHK;
+  const int kv_lane = item / nkb;
+  DkvItem it;
+  it.batch = kv_lane / p.hk;
+  it.kvh = kv_lane % p.hk;
+  it.k0 = (item % nkb) * kHK;
+  const int nqt = (p.sq + BQ - 1) / BQ;
+  it.qt_lo = 0;
+  it.qt_hi = nqt;
+  if (kCausal) {
+    const int off = p.sk - p.sq;
+    const int first_q = it.k0 - off;           // the first query seeing k0
+    it.qt_lo = first_q > 0 ? min(nqt, first_q / BQ) : 0;
+    if (p.window > 0) {
+      // the last query seeing the item's last key
+      const int last_q = min(it.k0 + kHK, p.sk) - 1 - off + p.window - 1;
+      it.qt_hi = last_q < 0 ? 0 : min(nqt, last_q / BQ + 1);
+    }
+  }
+  it.n_tiles = it.qt_hi > it.qt_lo ? (p.h / p.hk) * (it.qt_hi - it.qt_lo) : 0;
+  return it;
+}
+
+// dk/dv.  Persistent as the forward, over items (kv lane, 128 keys),
+// lane-major; each consumer warpgroup keeps its 64 keys' dK and dV (64 x
+// d fp32 each) in registers.  An item's K and V are loaded once.  Its
+// loop runs over the rep query heads of the GQA group, then over the
+// live q tiles, in a fixed order, so the group is summed in those
+// registers and dk, dv are written once per kv head.  Each stage brings
+// a q tile of Q and dO by TMA and the tile's lse, delta and dropout row
+// hashes (computed once per query by the producer warp).  S^T = K Q^T
+// and dP^T = V dO^T are wgmma with both operands in shared memory; dV +=
+// P^T dO and dK += dS^T Q take their A operand from registers and dO, Q
+// transposed through the descriptor.  K and V go back to the producer
+// once the item's last S^T and dP^T are done.
+template <typename T, int D, bool kBias, bool kCausal, bool kDrop>
+__global__ void __launch_bounds__(kHThreads, 1)
+fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, Params p,
+                        int n_items, const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        T* __restrict__ dk, T* __restrict__ dv) {
+  constexpr int BQ = dkv_bq(D);
+  constexpr int kKElems = kHK * D, kQElems = BQ * D;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  T* Ks = reinterpret_cast<T*>(base);
+  T* Vs = Ks + kKElems;
+  T* Qs = Vs + kKElems;                      // stage s at + s * kQElems
+  T* dOs = Qs + kHStages * kQElems;
+  float* lse_s = reinterpret_cast<float*>(dOs + kHStages * kQElems);
+  float* delta_s = lse_s + kHStages * BQ;
+  uint32_t* drow_s = reinterpret_cast<uint32_t*>(delta_s + kHStages * BQ);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(drow_s + kHStages * BQ);
+  uint64_t* kv_full = bars;
+  uint64_t* kv_empty = bars + 1;
+  uint64_t* full = bars + 2;
+  uint64_t* empty = bars + 2 + kHStages;
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(kv_full, 1);
+    hp::mbar_init(kv_empty, 256);
+    for (int s = 0; s < kHStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 256);
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  const int rep = p.h / p.hk;
+  const int off = p.sk - p.sq;
+
+  if (warp >= 8) {
+    // producer warpgroup
+    hp::reg_dealloc<kProducerRegs>();
+    if (warp == 8) {
+      int s = 0;
+      uint32_t ph = 0, kvph = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const DkvItem it = dkv_item<BQ, kCausal>(p, item);
+        if (wl == 0) {
+          hp::mbar_wait(kv_empty, kvph ^ 1);
+          hp::mbar_expect_tx(kv_full, 2 * kKElems * (int)sizeof(T));
+#pragma unroll
+          for (int pn = 0; pn < D / 64; ++pn) {
+            hp::tma_load_4d(Ks + pn * kHK * 64, &tk, kv_full, 64 * pn,
+                            it.kvh, it.k0, it.batch);
+            hp::tma_load_4d(Vs + pn * kHK * 64, &tv, kv_full, 64 * pn,
+                            it.kvh, it.k0, it.batch);
+          }
+        }
+        kvph ^= 1;
+        for (int t = 0; t < it.n_tiles; ++t) {
+          const int head = it.kvh * rep + t / (it.qt_hi - it.qt_lo);
+          const int q0 = (it.qt_lo + t % (it.qt_hi - it.qt_lo)) * BQ;
+          const int lane = it.batch * p.h + head;
+          hp::mbar_wait(&empty[s], ph ^ 1);
+          for (int i = wl; i < BQ; i += 32) {
+            const int q = q0 + i;
+            const bool in = q < p.sq;
+            lse_s[s * BQ + i] = in ? lse[(long long)lane * p.sq + q] : 0.f;
+            delta_s[s * BQ + i] = in ? delta[(long long)lane * p.sq + q] : 0.f;
+            if (kDrop) drow_s[s * BQ + i] = drop_row(p, (uint32_t)lane, q);
+          }
+          __syncwarp();
+          if (wl == 0) {
+            hp::mbar_expect_tx(&full[s], 2 * kQElems * (int)sizeof(T));
+#pragma unroll
+            for (int pn = 0; pn < D / 64; ++pn) {
+              hp::tma_load_4d(Qs + s * kQElems + pn * BQ * 64, &tq, &full[s],
+                              64 * pn, head, q0, it.batch);
+              hp::tma_load_4d(dOs + s * kQElems + pn * BQ * 64, &tdo,
+                              &full[s], 64 * pn, head, q0, it.batch);
+            }
+          }
+          if (++s == kHStages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    hp::reg_alloc<kConsumerRegs>();
+    // consumers: warpgroup wg owns keys k0 + 64 wg ... + 63 of an item
+    const int wg = warp >> 2, ww = warp & 3;
+    int s = 0;
+    uint32_t ph = 0, kvph = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const DkvItem it = dkv_item<BQ, kCausal>(p, item);
+      const int kw0 = it.k0 + 64 * wg;
+      // this lane's keys: ka and ka + 8
+      const int ka = kw0 + 16 * ww + (wl >> 2);
+      float adk[D / 2], adv[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+
+      hp::mbar_wait(kv_full, kvph);
+      kvph ^= 1;
+      if (it.n_tiles == 0) hp::mbar_arrive(kv_empty);
+      for (int t = 0; t < it.n_tiles; ++t) {
+        const int head = it.kvh * rep + t / (it.qt_hi - it.qt_lo);
+        const int q0 = (it.qt_lo + t % (it.qt_hi - it.qt_lo)) * BQ;
+        hp::mbar_wait(&full[s], ph);
+        const T* Qst = Qs + s * kQElems;
+        const T* dOst = dOs + s * kQElems;
+        float st[BQ / 2], dpt[BQ / 2];
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int ka_off =
+              (kk >> 2) * kHK * 64 + wg * 64 * 64 + (kk & 3) * 16;
+          const int qb_off = (kk >> 2) * BQ * 64 + (kk & 3) * 16;
+          hp::wgmma_ss<BQ, T>(st, hp::desc_sw128(Ks + ka_off, 16, 1024),
+                              hp::desc_sw128(Qst + qb_off, 16, 1024), kk > 0);
+          hp::wgmma_ss<BQ, T>(dpt, hp::desc_sw128(Vs + ka_off, 16, 1024),
+                              hp::desc_sw128(dOst + qb_off, 16, 1024), kk > 0);
+        }
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+        hp::fence_regs(st);
+        hp::fence_regs(dpt);
+        if (t == it.n_tiles - 1) hp::mbar_arrive(kv_empty);  // K, V are read
+        const bool edge =
+            q0 + BQ > p.sq || kw0 + 64 > p.sk ||
+            (kCausal &&
+             (kw0 + 63 > q0 + off ||
+              (p.window > 0 && kw0 <= q0 + BQ - 1 + off - p.window)));
+        const float* bias_hq =
+            kBias ? p.bias + (long long)it.batch * p.bias_sb +
+                        (long long)head * p.bias_sh
+                  : nullptr;
+        uint32_t pf[BQ / 16][4], df[BQ / 16][4];
+        if (edge)
+          dkv_tile_grads<T, BQ, kBias, kCausal, kDrop, true>(
+              st, dpt, pf, df, p, lse_s + s * BQ, delta_s + s * BQ,
+              drow_s + s * BQ, bias_hq, ka, q0, wl);
+        else
+          dkv_tile_grads<T, BQ, kBias, kCausal, kDrop, false>(
+              st, dpt, pf, df, p, lse_s + s * BQ, delta_s + s * BQ,
+              drow_s + s * BQ, bias_hq, ka, q0, wl);
+        hp::fence_regs(adk);
+        hp::fence_regs(adv);
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          hp::wgmma_rs_tb<D, T>(
+              adv, pf[kk],
+              hp::desc_sw128(dOst + kk * 16 * 64, BQ * 128, 1024), 1);
+          hp::wgmma_rs_tb<D, T>(
+              adk, df[kk],
+              hp::desc_sw128(Qst + kk * 16 * 64, BQ * 128, 1024), 1);
+        }
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+        hp::fence_regs(adk);
+        hp::fence_regs(adv);
+        hp::fence_regs(pf);
+        hp::fence_regs(df);
+        hp::mbar_arrive(&empty[s]);
+        if (++s == kHStages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int kpos = ka + 8 * r;
+        if (kpos >= p.sk) continue;
+        const long long at =
+            (((long long)it.batch * p.sk + kpos) * p.hk + it.kvh) * D;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const int i = 4 * j + 2 * r;
+          const int col = acc_col(i, wl);
+          *reinterpret_cast<uint32_t*>(dk + at + col) =
+              hp::pack2<T>(adk[i] * p.scale, adk[i + 1] * p.scale);
+          *reinterpret_cast<uint32_t*>(dv + at + col) =
+              hp::pack2<T>(adv[i], adv[i + 1]);
+        }
+      }
+    }
+  }
 }
 
 template <typename K>
@@ -855,29 +1327,16 @@ int bwd_dq(const Params& p, const void* dout, const float* lse,
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename TO, int DC>
+template <typename T, int DC>
 int bwd_dkv(const Params& p, const void* dout, const float* lse,
             const float* delta, void* dk, void* dv, cudaStream_t st) {
   const size_t smem = tiles_bytes(p.d, 4, 2);
-  auto kern = fa_bwd_dkv_kernel<T, TO, DC>;
+  auto kern = fa_bwd_dkv_kernel<T, DC>;
   int e = prepare(kern, smem);
   if (e) return e;
-  dim3 grid((p.sk + kT - 1) / kT, p.b * p.h);
-  kern<<<grid, kThreads, smem, st>>>(p, (const T*)dout, lse, delta, (TO*)dk,
-                                     (TO*)dv);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int DC>
-int fwd_tc(const Params& p, void* o, float* lse, cudaStream_t st) {
-  constexpr int d = 16 * DC, ld = d + 8;
-  const size_t smem = (3 * kT * ld + kT * kLdH) * sizeof(T) +
-                      (kT * kLdF + kT * (d + 4)) * sizeof(float);
-  auto kern = fa_fwd_tc_kernel<T, DC>;
-  int e = prepare(kern, smem);
-  if (e) return e;
-  dim3 grid((p.sq + kT - 1) / kT, p.b * p.h);
-  kern<<<grid, kTcThreads, smem, st>>>(p, (T*)o, lse);
+  dim3 grid((p.sk + kT - 1) / kT, p.b * p.hk);
+  kern<<<grid, kThreads, smem, st>>>(p, (const T*)dout, lse, delta, (T*)dk,
+                                     (T*)dv);
   return (int)cudaGetLastError();
 }
 
@@ -895,22 +1354,91 @@ int bwd_dq_tc(const Params& p, const void* dout, const float* lse,
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename TO, int DC>
-int bwd_dkv_tc(const Params& p, const void* dout, const float* lse,
-               const float* delta, void* dk, void* dv, cudaStream_t st) {
-  constexpr int d = 16 * DC, ld = d + 8;
-  const size_t smem = (4 * kT * ld + 2 * kT * kLdH) * sizeof(T) +
-                      (2 * kT * kLdF + 2 * kT) * sizeof(float);
-  auto kern = fa_bwd_dkv_tc_kernel<T, TO, DC>;
+// the Hopper kernels: one variant per (bias, causal, dropout)
+#define APEX_FA_VARIANTS(LAUNCH)                                           \
+  switch ((p.bias != nullptr) * 4 + (p.causal != 0) * 2 + (p.dropout != 0)) { \
+    case 0: return LAUNCH(false, false, false);                            \
+    case 1: return LAUNCH(false, false, true);                             \
+    case 2: return LAUNCH(false, true, false);                             \
+    case 3: return LAUNCH(false, true, true);                              \
+    case 4: return LAUNCH(true, false, false);                             \
+    case 5: return LAUNCH(true, false, true);                              \
+    case 6: return LAUNCH(true, true, false);                              \
+    default: return LAUNCH(true, true, true);                              \
+  }
+
+// blocks of a persistent kernel: one per multiprocessor, at most one per
+// item
+int persistent_grid(int n_items) {
+  int dev = 0, n_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  return max(1, min(n_items, n_sm));
+}
+
+template <typename T, int D, bool kBias, bool kCausal, bool kDrop>
+int fwd_wgmma_launch(const Params& p, const CUtensorMap& tq,
+                     const CUtensorMap& tk, const CUtensorMap& tv, void* o,
+                     float* lse, cudaStream_t st) {
+  constexpr size_t smem = 1024 + (size_t)(kHM * D + 2 * kHStages * kHN * D) *
+                                     sizeof(T) + (2 + 2 * kHStages) * 8;
+  auto kern = fa_fwd_wgmma_kernel<T, D, kBias, kCausal, kDrop>;
   int e = prepare(kern, smem);
   if (e) return e;
-  dim3 grid((p.sk + kT - 1) / kT, p.b * p.h);
-  kern<<<grid, kTcThreads, smem, st>>>(p, (const T*)dout, lse, delta, (TO*)dk,
-                                       (TO*)dv);
+  const int n_items = (p.sq + kHM - 1) / kHM * p.b * p.h;
+  kern<<<persistent_grid(n_items), kHThreads, smem, st>>>(tq, tk, tv, p,
+                                                          n_items, (T*)o, lse);
   return (int)cudaGetLastError();
 }
 
-// the tensor-core kernels take half inputs with head_dim 64 or 128
+template <typename T, int D>
+int fwd_wgmma(const Params& p, int dt, void* o, float* lse, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  int e = hp::tmap_bshd(&tq, p.q, dt, D, p.h, p.sq, p.b, kHM);
+  if (!e) e = hp::tmap_bshd(&tk, p.k, dt, D, p.hk, p.sk, p.b, kHN);
+  if (!e) e = hp::tmap_bshd(&tv, p.v, dt, D, p.hk, p.sk, p.b, kHN);
+  if (e) return e;
+#define APEX_FWD(B, C, R) fwd_wgmma_launch<T, D, B, C, R>(p, tq, tk, tv, o, lse, st)
+  APEX_FA_VARIANTS(APEX_FWD)
+#undef APEX_FWD
+}
+
+template <typename T, int D, bool kBias, bool kCausal, bool kDrop>
+int dkv_wgmma_launch(const Params& p, const CUtensorMap& tq,
+                     const CUtensorMap& tk, const CUtensorMap& tv,
+                     const CUtensorMap& tdo, const float* lse,
+                     const float* delta, void* dk, void* dv, cudaStream_t st) {
+  constexpr int BQ = dkv_bq(D);
+  constexpr size_t smem =
+      1024 + (size_t)(2 * kHK * D + 2 * kHStages * BQ * D) * sizeof(T) +
+      (size_t)3 * kHStages * BQ * 4 + (2 + 2 * kHStages) * 8;
+  auto kern = fa_bwd_dkv_wgmma_kernel<T, D, kBias, kCausal, kDrop>;
+  int e = prepare(kern, smem);
+  if (e) return e;
+  const int n_items = (p.sk + kHK - 1) / kHK * p.b * p.hk;
+  kern<<<persistent_grid(n_items), kHThreads, smem, st>>>(
+      tq, tk, tv, tdo, p, n_items, lse, delta, (T*)dk, (T*)dv);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int dkv_wgmma(const Params& p, int dt, const void* dout, const float* lse,
+              const float* delta, void* dk, void* dv, cudaStream_t st) {
+  constexpr int BQ = dkv_bq(D);
+  CUtensorMap tq, tk, tv, tdo;
+  int e = hp::tmap_bshd(&tq, p.q, dt, D, p.h, p.sq, p.b, BQ);
+  if (!e) e = hp::tmap_bshd(&tdo, dout, dt, D, p.h, p.sq, p.b, BQ);
+  if (!e) e = hp::tmap_bshd(&tk, p.k, dt, D, p.hk, p.sk, p.b, kHK);
+  if (!e) e = hp::tmap_bshd(&tv, p.v, dt, D, p.hk, p.sk, p.b, kHK);
+  if (e) return e;
+#define APEX_DKV(B, C, R) \
+  dkv_wgmma_launch<T, D, B, C, R>(p, tq, tk, tv, tdo, lse, delta, dk, dv, st)
+  APEX_FA_VARIANTS(APEX_DKV)
+#undef APEX_DKV
+}
+
+// the tensor-core kernels (wgmma, and WMMA for dq) take half inputs with
+// head_dim 64 or 128
 bool use_tc(int dt, int d) { return dt != apex::kF32 && (d == 64 || d == 128); }
 
 Params make_params(const void* q, const void* k, const void* v,
@@ -959,7 +1487,8 @@ Params make_params(const void* q, const void* k, const void* v,
 // scale; window <= 0 for none; dropout with keep iff hash >= threshold
 // and kept probabilities times drop_inv.  d <= 128.
 
-// o like q; lse (b * h, sq) float32, log2 domain.
+// o like q; lse (b * h, sq) float32, log2 domain.  Pointers 16-byte
+// aligned (TMA).
 extern "C" int apex_fa_fwd(APEX_FA_PARAMS, void* o, void* lse, void* stream) {
   const Params p = APEX_FA_ARGS;
   cudaStream_t st = (cudaStream_t)stream;
@@ -967,8 +1496,10 @@ extern "C" int apex_fa_fwd(APEX_FA_PARAMS, void* o, void* lse, void* stream) {
   const bool wide = d > 64;
   if (use_tc(dt, d)) {
     if (dt == apex::kBF16)
-      return wide ? fwd_tc<__nv_bfloat16, 8>(p, o, l, st) : fwd_tc<__nv_bfloat16, 4>(p, o, l, st);
-    return wide ? fwd_tc<__half, 8>(p, o, l, st) : fwd_tc<__half, 4>(p, o, l, st);
+      return wide ? fwd_wgmma<__nv_bfloat16, 128>(p, dt, o, l, st)
+                  : fwd_wgmma<__nv_bfloat16, 64>(p, dt, o, l, st);
+    return wide ? fwd_wgmma<__half, 128>(p, dt, o, l, st)
+                : fwd_wgmma<__half, 64>(p, dt, o, l, st);
   }
   switch (dt) {
     case apex::kF32: return wide ? fwd<float, 8>(p, o, l, st) : fwd<float, 4>(p, o, l, st);
@@ -1001,39 +1532,26 @@ extern "C" int apex_fa_bwd_dq(APEX_FA_PARAMS, const void* dout,
   }
 }
 
-// dk, dv (b, sk, h, d) per query head: float32 when out_f32 (GQA: the
-// wrapper sums each group of rep heads), else in dtype dt.
+// dk, dv like k, v (b, sk, hk, d) in dtype dt: under GQA each kv head
+// sums its group of rep query heads.  Pointers 16-byte aligned (TMA).
 extern "C" int apex_fa_bwd_dkv(APEX_FA_PARAMS, const void* dout,
                                const void* lse, const void* delta, void* dk,
-                               void* dv, int out_f32, void* stream) {
+                               void* dv, void* stream) {
   const Params p = APEX_FA_ARGS;
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   const float* dl = (const float*)delta;
   const bool wide = d > 64;
-#define APEX_DKV(T, TO)                                                 \
-  return wide ? bwd_dkv<T, TO, 8>(p, dout, l, dl, dk, dv, st)           \
-              : bwd_dkv<T, TO, 4>(p, dout, l, dl, dk, dv, st)
-#define APEX_DKV_TC(T, TO)                                              \
-  return wide ? bwd_dkv_tc<T, TO, 8>(p, dout, l, dl, dk, dv, st)        \
-              : bwd_dkv_tc<T, TO, 4>(p, dout, l, dl, dk, dv, st)
   if (use_tc(dt, d)) {
-    if (dt == apex::kBF16) {
-      if (out_f32) APEX_DKV_TC(__nv_bfloat16, float);
-      APEX_DKV_TC(__nv_bfloat16, __nv_bfloat16);
-    }
-    if (out_f32) APEX_DKV_TC(__half, float);
-    APEX_DKV_TC(__half, __half);
+    if (dt == apex::kBF16)
+      return wide ? dkv_wgmma<__nv_bfloat16, 128>(p, dt, dout, l, dl, dk, dv, st)
+                  : dkv_wgmma<__nv_bfloat16, 64>(p, dt, dout, l, dl, dk, dv, st);
+    return wide ? dkv_wgmma<__half, 128>(p, dt, dout, l, dl, dk, dv, st)
+                : dkv_wgmma<__half, 64>(p, dt, dout, l, dl, dk, dv, st);
   }
   switch (dt) {
-    case apex::kF32: APEX_DKV(float, float);
-    case apex::kBF16:
-      if (out_f32) APEX_DKV(__nv_bfloat16, float);
-      APEX_DKV(__nv_bfloat16, __nv_bfloat16);
-    default:
-      if (out_f32) APEX_DKV(__half, float);
-      APEX_DKV(__half, __half);
+    case apex::kF32: return wide ? bwd_dkv<float, 8>(p, dout, l, dl, dk, dv, st) : bwd_dkv<float, 4>(p, dout, l, dl, dk, dv, st);
+    case apex::kBF16: return wide ? bwd_dkv<__nv_bfloat16, 8>(p, dout, l, dl, dk, dv, st) : bwd_dkv<__nv_bfloat16, 4>(p, dout, l, dl, dk, dv, st);
+    default: return wide ? bwd_dkv<__half, 8>(p, dout, l, dl, dk, dv, st) : bwd_dkv<__half, 4>(p, dout, l, dl, dk, dv, st);
   }
-#undef APEX_DKV
-#undef APEX_DKV_TC
 }

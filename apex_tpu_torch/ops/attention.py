@@ -7,11 +7,14 @@ heads, head_dim)`` (BSHD), GQA through fewer kv heads.  Three kernels
 - ``_fa_fwd_kernel``: ``o`` and the log2-domain logsumexp per query
   row, by online softmax over key tiles;
 - ``_fa_bwd_dq_kernel``: ``dq`` from the saved logsumexp;
-- ``_fa_bwd_dkv_kernel``: ``dk``, ``dv`` per query head, GQA groups
-  summed afterwards in fp32 in a fixed order.
+- ``_fa_bwd_dkv_kernel``: ``dk``, ``dv``, each kv head summing its
+  GQA group of query heads in the kernel's fp32 accumulators.
 
 bf16/fp16 inputs with head_dim 64 or 128 run the kernels' products on
-the tensor cores (WMMA); fp32 and other head dims run them as fp32 FMA.
+the tensor cores: the forward and dk/dv as Hopper kernels (TMA loads,
+wgmma, the softmax on the accumulators in registers; 128 query rows or
+keys a block), dq through WMMA (64 rows a block); fp32 and other head
+dims run them as fp32 FMA (64 rows a block).
 Softmax, masks and dropout are fp32 either way, and a probability or dS
 entering the next product is rounded to the input dtype first, as the
 Pallas kernels do.  ``delta = rowsum(dO * O)`` is plain PyTorch, as XLA
@@ -48,7 +51,8 @@ __all__ = ["fused_attention", "attention_reference", "mask_to_bias",
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 _U32 = 0xFFFFFFFF
-#: the kernels' tile (rows of q and of k per block)
+#: the FMA and WMMA kernels' tile (rows of q and of k per block); the
+#: Hopper forward and dk/dv take 128 rows of q or k a block
 BLOCK = 64
 _logger = logging.getLogger(__name__)
 
@@ -276,7 +280,7 @@ def _common_args(q, k, v, bias, scale, causal, window, rate, seed):
                          "multiple of 8")
     if b * h > 65535:
         raise ValueError(f"batch * heads = {b * h} exceeds 65535")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     keep = [q, k, v]
     bias_ptr, strides = None, (0, 0, 0)
     if bias is not None:
@@ -294,6 +298,12 @@ def _common_args(q, k, v, bias, scale, causal, window, rate, seed):
             float(1.0 / (1.0 - rate)) if rate > 0.0 else 1.0,
             int(rate > 0.0), _build.DTYPE_CODES[q.dtype]]
     return q, k, v, keep, args
+
+
+def _aligned(t):
+    """``t``, copied if its data does not start on 16 bytes (the Hopper
+    kernels load it by TMA)."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 _COMMON_TYPES = [
@@ -330,7 +340,7 @@ def flash_bwd_dq_kernel(q, k, v, bias, dout, lse, delta, scale, causal,
     """The dq kernel: ``dq`` like ``q``."""
     q, k, v, keep, args = _common_args(q, k, v, bias, scale, causal,
                                        window, rate, seed)
-    dout = dout.to(q.dtype).contiguous()
+    dout = _aligned(dout.to(q.dtype).contiguous())
     lse, delta = lse.contiguous(), delta.contiguous()
     dq = torch.empty_like(q)
     if dq.numel() == 0 or k.shape[1] == 0:
@@ -345,34 +355,23 @@ def flash_bwd_dq_kernel(q, k, v, bias, dout, lse, delta, scale, causal,
 
 def flash_bwd_dkv_kernel(q, k, v, bias, dout, lse, delta, scale, causal,
                          window, rate, seed):
-    """The dk/dv kernel: ``(dk, dv)`` like ``k``, ``v``; per query head
-    in fp32 and group-summed in a fixed order under GQA."""
+    """The dk/dv kernel: ``(dk, dv)`` like ``k``, ``v``; under GQA each
+    kv head sums its group of query heads inside the kernel."""
     q, k, v, keep, args = _common_args(q, k, v, bias, scale, causal,
                                        window, rate, seed)
-    dout = dout.to(q.dtype).contiguous()
+    dout = _aligned(dout.to(q.dtype).contiguous())
     lse, delta = lse.contiguous(), delta.contiguous()
-    b, sq, h, d = q.shape
-    sk, hk = k.shape[1], k.shape[2]
-    rep = h // hk
-    out_dtype = torch.float32 if rep > 1 else k.dtype
-    dk = torch.empty(b, sk, h, d, dtype=out_dtype, device=q.device)
-    dv = torch.empty_like(dk)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
-        return dk.to(k.dtype), dv.to(v.dtype)
-    if sq == 0:
-        dk.zero_()
-        dv.zero_()
-    else:
-        fn = _build.function("flash_attention", "apex_fa_bwd_dkv",
-                             _COMMON_TYPES + [ctypes.c_void_p] * 5
-                             + [ctypes.c_int, ctypes.c_void_p])
-        code = fn(*args, dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), int(rep > 1), _stream(q))
-        _build.check(code, "flash_attention_bwd_dkv")
-    if rep > 1:
-        dk = dk.view(b, sk, hk, rep, d).sum(3)
-        dv = dv.view(b, sk, hk, rep, d).sum(3)
-    return dk.to(k.dtype), dv.to(v.dtype)
+        return dk, dv
+    if q.shape[1] == 0:
+        return dk.zero_(), dv.zero_()
+    fn = _build.function("flash_attention", "apex_fa_bwd_dkv",
+                         _COMMON_TYPES + [ctypes.c_void_p] * 6)
+    code = fn(*args, dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+              dk.data_ptr(), dv.data_ptr(), _stream(q))
+    _build.check(code, "flash_attention_bwd_dkv")
+    return dk, dv
 
 
 # ------------------------------------------------------------------ #
@@ -427,9 +426,9 @@ def fused_attention(q, k, v, *, causal: bool = False,
     ``dropout_seed`` (the caller draws it, e.g. from a
     ``torch.Generator``) drops probabilities with the counter hash.
     ``block_q`` / ``block_k``: tile hints, as in the JAX package; any
-    positive value is taken and ignored — the kernels tile by 64 and the
-    outputs do not depend on the tile.  ``implementation`` as in
-    :mod:`._dispatch`.
+    positive value is taken and ignored — the kernels choose their own
+    tiles (64 or 128 rows) and the outputs do not depend on the tile.
+    ``implementation`` as in :mod:`._dispatch`.
     """
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]

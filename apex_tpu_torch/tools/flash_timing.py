@@ -1,0 +1,160 @@
+"""Time the flash attention kernels of one checkout of the port.
+
+Run on a machine with an NVIDIA Hopper card, as a script:
+
+    python3 apex_tpu_torch/tools/flash_timing.py [--root DIR] [--label NAME]
+        [--sdpa] [--out DIR]
+
+It builds the ``flash_attention`` kernel library of the package found
+under ``--root`` (default: the checkout holding this script), and times
+the forward, dq and dk/dv kernels at ``chip_smoke.py``'s flash-row shapes
+in bf16 — BERT-Large (b 16, s 512, h 16, d 64) plain, with a key-padding
+bias and with dropout 0.1, and causal GQA 32/8 at d 128 with a window of
+512 (b 2, s 2048) — as device ms per call (torch.profiler) and call ms
+(CUDA events, the host's launch cost included).  To compare two versions
+on one card, run it once per checkout in turns (a, b, b, a) in one
+command.  ``--sdpa`` adds the yardstick ``scaled_dot_product_attention``:
+its forward, and its backward alone (``autograd.grad`` over a retained
+forward), timed between CUDA events with the host's enqueue hidden behind
+a device-side sleep, and the backward's profiler device time.  The record
+goes to ``<--out>/<label>.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from pathlib import Path
+
+CASES = [
+    # tag, b, s, h, hk, d, causal, window, key-padding bias, dropout rate
+    ("bert", 16, 512, 16, 16, 64, False, None, False, 0.0),
+    ("bert/pad", 16, 512, 16, 16, 64, False, None, True, 0.0),
+    ("bert/drop", 16, 512, 16, 16, 64, False, None, False, 0.1),
+    ("gqa/window", 2, 2048, 32, 8, 128, True, 512, False, 0.0),
+]
+
+
+def _profiled(torch, fn, iters=20, warmup=5):
+    """(device ms, call ms) per call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    call = start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev = sum(getattr(e, "self_device_time_total", 0)
+              for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return dev / iters / 1e3, call
+
+
+def _queued(torch, fn, iters=20, warmup=5):
+    """Device ms per call between CUDA events, the host's enqueue hidden
+    behind a ~25 ms device-side sleep."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main(argv=None):
+    here = Path(__file__).resolve().parents[2]
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(here))
+    ap.add_argument("--label", default="change")
+    ap.add_argument("--sdpa", action="store_true")
+    ap.add_argument("--out", default=os.path.join("build", "flash_timing"))
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("flash_timing: CUDA is not available", file=sys.stderr)
+        return 2
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.ops import attention as A
+
+    _build.SOURCES = {"flash_attention": "flash_attention.cu"}
+    t0 = time.monotonic()
+    _build.build_all()
+    out = dict(label=args.label, root=os.path.abspath(args.root),
+               card=torch.cuda.get_device_name(0),
+               build_s=time.monotonic() - t0, rows={})
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    dt = torch.bfloat16
+    for tag, b, s, h, hk, d, causal, window, has_bias, rate in CASES:
+        q, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(b, s, hk, d, generator=g, device=dev).to(dt)
+                for _ in range(2))
+        bias = None
+        if has_bias:
+            lens = torch.randint(s // 2, s + 1, (b,), generator=g,
+                                 device=dev)
+            bias = A.mask_to_bias(torch.arange(s, device=dev)[None, :]
+                                  >= lens[:, None]).view(b, 1, 1, s)
+        fa = (bias, d ** -0.5, causal, window, rate, 20240613)
+        o, lse = A.flash_fwd_reference(q, k, v, *fa)
+        bw = (q, k, v, bias, do, lse, A.attention_delta(do, o)) + fa[1:]
+        r = dict(fwd=_profiled(torch, lambda: A.flash_fwd_kernel(q, k, v,
+                                                                 *fa)),
+                 dq=_profiled(torch, lambda: A.flash_bwd_dq_kernel(*bw)),
+                 dkv=_profiled(torch, lambda: A.flash_bwd_dkv_kernel(*bw)))
+        if args.sdpa:
+            qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
+                               for t in (q, k, v, do))
+            mask = None
+            if bias is not None:
+                mask = bias.to(dt)
+            elif window:
+                i = torch.arange(s, device=dev)
+                mask = (i[None, :] <= i[:, None]) & (
+                    i[None, :] > i[:, None] - window)
+            kw = dict(attn_mask=mask, dropout_p=rate,
+                      is_causal=causal and mask is None, enable_gqa=hk != h)
+            qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+            kept = F.scaled_dot_product_attention(qg, kg, vg, **kw)
+
+            def bwd():
+                return torch.autograd.grad(kept, (qg, kg, vg), dot,
+                                           retain_graph=True)
+            r["sdpa_fwd_queued"] = _queued(
+                torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                              **kw))
+            r["sdpa_bwd_queued"] = _queued(torch, bwd)
+            r["sdpa_bwd_profiled"] = _profiled(torch, bwd)
+        out["rows"][tag] = r
+        print(args.label, tag, json.dumps(r), flush=True)
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, f"{args.label}.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,14 +8,19 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card:
     python3 chip_smoke.py --profile      # + device-time breakdowns
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (``nvcc``,
-``sm_90a``) and then runs fourteen phases, in the order 1, 2, 3, 6, 7,
+``sm_90a``), prints each wgmma/TMA kernel's ``-Xptxas -v`` line and its
+``HGMMA`` / ``UTMALDG`` counts (``cuobjdump -sass``), and then runs
+fourteen phases, in the order 1, 2, 3, 6, 7,
 4, 5, 10, 12, 11, 8, 9, 13, 14 (Llama-2-7B is built once for 3, 6 and 7
 and dropped before 4); any failure exits non-zero.
 
 1. Kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (Llama-2-7B width) and the training path's
    (BERT-Large: LayerNorm forward with statistics and backward, flash
-   attention forward, dq and dk/dv; a causal GQA window case at d=128;
+   attention forward, dq and dk/dv, each against its own bound and with
+   SDPA's forward or backward alone as yardstick, the forward and dk/dv
+   rerunning bitwise in bf16; a causal GQA window case at d=128; the
+   flash edge checks, among them the Hopper kernels' 128-row tile edges;
    the RoPE backward), and the paged kernels at the paged path's (decode,
    chunked prefill, speculative verify; int8/fp8 pools, GQA, garbage in
    dead pages; the fused decode step's written pages, codes and scales
@@ -216,6 +221,26 @@ def timed(torch, fn, iters=50, warmup=5):
     return dev_us / iters / 1e3, call_ms
 
 
+def queued_event_ms(torch, fn, iters=20, warmup=5, sleep_cycles=50_000_000):
+    """Device ms per call of ``fn`` between CUDA events, with the host's
+    enqueue hidden: the stream first sleeps on the device (~25 ms) while
+    the host queues every call, so the events time the calls back to back
+    on the device even where one call takes the host longer to enqueue
+    than the device to run."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _is_kernel(event):
     # a CPU op's self device time repeats the time of its kernels
     return str(getattr(event, "device_type", "")).endswith("CUDA")
@@ -264,13 +289,15 @@ def phase_kernels(torch, rows_out):
 
     def record(kernel, shape, dtype, err, passed, kern, plain, nbytes,
                ops, lib, tol, int_ops=0, ops_per_s=FP32_OPS_PER_S,
-               iters=None, lib_events=False):
+               iters=None, lib_events=False, extra=None):
         """``kern`` / ``plain`` / ``lib``: functions to time (lib may be
         None); times are device ms per call, call ms beside them.
-        ``lib_events``: take the library's time from the CUDA events
-        (call ms) — the profiler does not see every kernel of
-        ``scaled_dot_product_attention`` (it reported 0 device ms for
-        its flash backend)."""
+        ``lib_events``: take the library's time from CUDA events with
+        the host's enqueue hidden (:func:`queued_event_ms`) — the profiler
+        does not see every kernel of ``scaled_dot_product_attention`` (it
+        reported 0 device ms for its flash backend), and its backward
+        takes the host longer to enqueue than the device to run.
+        ``extra``: more fields for the row."""
         bms, by = bound(nbytes, ops, int_ops, ops_per_s)
         if iters is None:
             iters = 20 if kernel == "fused_sampling" else 50
@@ -279,14 +306,18 @@ def phase_kernels(torch, rows_out):
         row = dict(kernel=kernel, shape=shape, dtype=str(dtype), err=err,
                    passed=passed, ms=t_k[0], call_ms=t_k[1],
                    plain_ms=t_p[0], plain_call_ms=t_p[1],
-                   library_ms=None if t_l is None else t_l[
-                       1 if lib_events else 0],
+                   library_ms=None if t_l is None else (
+                       queued_event_ms(torch, lib, iters) if lib_events
+                       else t_l[0]),
                    library_device_ms=None if t_l is None else t_l[0],
                    library_call_ms=None if t_l is None else t_l[1],
                    bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops,
-                   int_ops=int_ops, tolerance=tol)
+                   int_ops=int_ops, tolerance=tol, **(extra or {}))
         rows_out.append(row)
-        lib_txt = "-" if t_l is None else f"{t_l[0]:.5f}/{t_l[1]:.4f}"
+        lib_txt = "-" if t_l is None else (
+            f"{t_l[0]:.5f}/{t_l[1]:.4f}" + (
+                f" (queued events {row['library_ms']:.5f})" if lib_events
+                else ""))
         log(f"  {kernel:22s} {str(shape):22s} {str(dtype)[6:]:9s} "
             f"err={err:.3g} {'ok' if passed else 'FAIL'}  device/call ms: "
             f"kernel={t_k[0]:.5f}/{t_k[1]:.4f} "
@@ -1217,9 +1248,12 @@ def _flash_rows(torch, g, record):
     """Flash forward, dq and dk/dv against their plain versions: BERT-
     Large (b=16, s=512, h=16, d=64) plain, with a (b,1,1,s) key-padding
     bias and with dropout 0.1; a causal GQA case with a window at d=128;
-    bf16 and fp32.  The library yardstick is
-    ``F.scaled_dot_product_attention`` forward, and forward+backward for
-    the backward pair."""
+    bf16 and fp32.  At BERT bf16 the forward and dk/dv must rerun
+    bitwise.  The library yardstick is ``F.scaled_dot_product_attention``
+    forward for the forward, and its backward alone (``autograd.grad``
+    over a retained forward, CUDA events) for each backward kernel, with
+    forward + backward beside it.  Bounds: the forward 2 products, dq 3
+    (S, dP, dS·K), dk/dv 4 (S, dP, dV, dK), each over its own bytes."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import attention as A
@@ -1261,7 +1295,10 @@ def _flash_rows(torch, g, record):
             dk, dv = A.flash_bwd_dkv_kernel(*bw)
             dk2, dv2 = A.flash_bwd_dkv_reference(*bw)
             torch.cuda.synchronize()
-            # fp32: sums in another order; bf16: outputs round to 8 bits
+            # fp32: sums in another order; bf16: outputs round to 8 bits.
+            # The kernel sums a GQA group in its fp32 accumulators, the
+            # plain dk/dv per head and then over the group: an order
+            # difference of fp32 sums, inside both bounds
             rel = 1e-5 if dt == torch.float32 else 2 ** -7
             tol = f"max |err| <= {rel:g} x max |ref| per output"
             live = lse2 > -1e29
@@ -1271,6 +1308,15 @@ def _flash_rows(torch, g, record):
             e_k, p_k = _close_rel(torch, dk, dk2, rel)
             e_v, p_v = _close_rel(torch, dv, dv2, rel)
             p_dead = bool((lse[~live] < -1e29).all())
+            if tag == "bert" and dt == torch.bfloat16:
+                o3, lse3 = A.flash_fwd_kernel(q, k, v, *args)
+                dk3, dv3 = A.flash_bwd_dkv_kernel(*bw)
+                bitwise = (torch.equal(o, o3) and torch.equal(lse, lse3)
+                           and torch.equal(dk, dk3) and torch.equal(dv, dv3))
+                log(f"  flash bert bf16 rerun: forward and dk/dv bitwise "
+                    f"{bitwise}")
+                ok &= bitwise
+                del o3, lse3, dk3, dv3
             # the library yardstick on (b, h, s, d) copies
             qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
                                for t in (q, k, v, do))
@@ -1292,18 +1338,28 @@ def _flash_rows(torch, g, record):
             def lib_fwd_bwd():
                 out = F.scaled_dot_product_attention(qg, kg, vg, **lib_kw)
                 return torch.autograd.grad(out, (qg, kg, vg), dot)
+            kept = F.scaled_dot_product_attention(qg, kg, vg, **lib_kw)
+
+            def lib_bwd():
+                return torch.autograd.grad(kept, (qg, kg, vg), dot,
+                                           retain_graph=True)
 
             isz = q.element_size()
             pairs = visible_pairs(s, s, c["causal"], c["window"])
             bias_bytes = 0 if bias is None else bias.numel() * 4
-            qo = 2 * b * s * h * d * isz
-            kv = 2 * b * s * hk * d * isz
-            io_f = qo + kv + b * h * s * 4 + bias_bytes
-            io_b = io_f + qo + kv
-            flops = 2 * b * h * pairs * d
+            q_b = b * s * h * d * isz            # q, o, dO or dq
+            kv_b = b * s * hk * d * isz          # k, v, dk or dv
+            row_b = b * h * s * 4                # lse or delta
+            io_f = 2 * q_b + 2 * kv_b + row_b + bias_bytes
+            io_dq = 3 * q_b + 2 * kv_b + 2 * row_b + bias_bytes
+            io_dkv = 2 * q_b + 4 * kv_b + 2 * row_b + bias_bytes
+            flops = 2 * b * h * pairs * d        # one product
             peak = FP32_OPS_PER_S if dt == torch.float32 else BF16_OPS_PER_S
             shape = (b, s, h, hk, d)
             it = 20
+            t_fb = queued_event_ms(torch, lib_fwd_bwd, it)
+            lib_note = ("; library: SDPA backward alone, forward + backward "
+                        "in library_fwd_bwd_ms")
             ok &= record(f"flash_fwd/{tag}", shape, dt, max(e_o, e_l),
                          p_o and p_l and p_dead,
                          lambda: A.flash_fwd_kernel(q, k, v, *args),
@@ -1313,17 +1369,18 @@ def _flash_rows(torch, g, record):
             ok &= record(f"flash_bwd_dq/{tag}", shape, dt, e_q, p_q,
                          lambda: A.flash_bwd_dq_kernel(*bw),
                          lambda: A.flash_bwd_dq_reference(*bw),
-                         io_b, 4 * flops, lib_fwd_bwd, tol + "; bound and "
-                         "library of the dq + dk/dv pair", ops_per_s=peak,
-                         iters=it, lib_events=True)
+                         io_dq, 3 * flops, lib_bwd, tol + lib_note,
+                         ops_per_s=peak, iters=it, lib_events=True,
+                         extra=dict(library_fwd_bwd_ms=t_fb))
             ok &= record(f"flash_bwd_dkv/{tag}", shape, dt, max(e_k, e_v),
                          p_k and p_v,
                          lambda: A.flash_bwd_dkv_kernel(*bw),
                          lambda: A.flash_bwd_dkv_reference(*bw),
-                         io_b, 4 * flops, lib_fwd_bwd, tol + "; bound and "
-                         "library of the dq + dk/dv pair", ops_per_s=peak,
-                         iters=it, lib_events=True)
-            del o2, lse2, dq2, dk2, dv2
+                         io_dkv, 4 * flops, lib_bwd, tol + lib_note,
+                         ops_per_s=peak, iters=it, lib_events=True,
+                         extra=dict(library_fwd_bwd_ms=t_fb))
+            log(f"  (SDPA forward + backward {t_fb:.5f} ms)")
+            del o2, lse2, dq2, dk2, dv2, kept
             torch.cuda.empty_cache()
     return ok
 
@@ -1333,8 +1390,12 @@ def _flash_edge_checks(torch, g):
     shapes do not reach: ragged tiles (sq, sk not multiples of 64), rows
     with no visible key (causal sq > sk, a bias masking a whole row),
     GQA with a window, dropout under a bias, fp16, and head_dim 72 (the
-    FMA kernels for half inputs); fp32, bf16 and fp16 each.  Correctness
-    only, at small shapes."""
+    FMA kernels for half inputs); the Hopper kernels' 128-wide tile
+    edges (multiples of 64 but not of 128 with the causal sk - sq offset
+    crossing a tile, a 257-row ragged tail under a key-padding bias, GQA
+    8/2 at d = 128 with a window and dropout, a per-query bias with a
+    dead row and dropout); fp32, bf16 and fp16 each.
+    Correctness only, at small shapes."""
     from apex_tpu_torch.ops import attention as A
 
     dev = torch.device("cuda")
@@ -1343,7 +1404,12 @@ def _flash_edge_checks(torch, g):
              (2, 96, 64, 2, 2, 64, True, None, None, 0.0),
              (2, 200, 200, 4, 1, 128, True, 50, None, 0.0),
              (2, 128, 128, 4, 4, 64, False, None, (2, 1, 1, 128), 0.1),
-             (2, 72, 136, 4, 4, 72, False, None, (1, 4, 72, 136), 0.0)]
+             (2, 72, 136, 4, 4, 72, False, None, (1, 4, 72, 136), 0.0),
+             (2, 192, 320, 4, 4, 64, True, None, None, 0.0),
+             (2, 257, 257, 4, 4, 64, False, None, (2, 1, 1, 257), 0.0),
+             (2, 257, 257, 2, 2, 128, False, None, (2, 1, 1, 257), 0.0),
+             (2, 200, 200, 8, 2, 128, True, 50, None, 0.1),
+             (2, 130, 200, 4, 4, 64, False, None, (2, 4, 130, 200), 0.1)]
     ok = True
     for b, sq, sk, h, hk, d, causal, window, bs, rate in cases:
         for dt in (torch.float32, torch.bfloat16, torch.float16):
@@ -2777,6 +2843,48 @@ def _profile_steps(torch, eng, n=4):
                           calls_per_step=c / n) for us, k, c in rows[:15]])
 
 
+def _hopper_report(_build, build_logs):
+    """Each wgmma/TMA kernel's ``-Xptxas -v`` line (registers, shared
+    memory, spills) and the count of its ``HGMMA`` and ``UTMALDG``
+    instructions in the built library's SASS (``cuobjdump -sass``)."""
+    import shutil
+
+    out = {}
+    fn = None
+    for line in build_logs.get("flash_attention", "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        elif fn and "wgmma" in fn and ("Used" in line or "spill" in line):
+            out.setdefault(fn, dict(ptxas=[]))["ptxas"].append(line.strip())
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build._paths[
+        "flash_attention"])], capture_output=True, text=True,
+        check=True).stdout
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "wgmma" in m.group(1) else None
+        elif fn:
+            rec = out.setdefault(fn, dict(ptxas=[]))
+            rec["HGMMA"] = rec.get("HGMMA", 0) + ("HGMMA" in line)
+            rec["UTMALDG"] = rec.get("UTMALDG", 0) + ("UTMALDG" in line)
+    groups = {}
+    for fn, rec in out.items():
+        kind = "fa_fwd_wgmma" if "fa_fwd_wgmma" in fn else "fa_bwd_dkv_wgmma"
+        key = (kind, rec.get("HGMMA", 0), rec.get("UTMALDG", 0),
+               " | ".join(rec["ptxas"]))
+        groups[key] = groups.get(key, 0) + 1
+    for (kind, hg, tma, px), n in sorted(groups.items()):
+        log(f"  {kind} x{n} variants: HGMMA {hg} UTMALDG {tma} | {px}")
+    if not out or not all(r.get("HGMMA") and r.get("UTMALDG")
+                          for r in out.values()):
+        raise RuntimeError("the wgmma/TMA flash kernels show no HGMMA or "
+                           "UTMALDG in their SASS")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2814,6 +2922,7 @@ def main(argv=None):
         log(f"  {name}: {len(regs)} kernels, registers <= "
             f"{max(regs, default=0)}, smem <= {max(smem, default=0)} "
             f"bytes, spill stores {spills} bytes")
+    build["hopper_kernels"] = _hopper_report(_build, build_logs)
 
     rows = []
     t0 = time.monotonic()

@@ -78,6 +78,16 @@ REFERENCE_CASES = {
 }
 
 
+# shapes that cross the card kernels' 128-wide tiles: ragged tails, the
+# causal sk - sq offset crossing a tile, GQA with a window and dropout
+TILE_EDGE_CASES = {
+    "ragged_key_padding": (2, 130, 257, 4, 4, 16, (2, 1, 1, 257), False,
+                           None, 0.0),
+    "causal_192x320": (2, 192, 320, 4, 4, 16, None, True, None, 0.0),
+    "gqa_window_dropout": (1, 200, 200, 8, 2, 16, None, True, 50, 0.1),
+}
+
+
 class TestReference:
     @pytest.mark.parametrize("case", list(REFERENCE_CASES))
     def test_reference_matches_jax(self, case):
@@ -111,6 +121,30 @@ class TestReference:
             lambda a, bb, c: A.fused_attention(a, bb, c, **kw), q, k, v, do)
         _assert_same(port, (ref[0].detach().numpy(),
                             [g.numpy() for g in ref[1]]))
+        for g in port[1]:
+            assert torch.isfinite(g).all()
+
+
+class TestTileEdges:
+    @pytest.mark.parametrize("case", list(TILE_EDGE_CASES))
+    def test_fused_attention_matches_jax(self, case):
+        """``fused_attention`` (the plain versions of the kernels, the CPU
+        path) against the JAX composition — what the JAX
+        ``fused_attention`` runs at shapes its Pallas tiles do not
+        divide — forward and gradients."""
+        b, sq, sk, h, hk, d, bs, causal, window, rate = TILE_EDGE_CASES[case]
+        q, k, v, do, bias = _inputs(6, b, sq, sk, h, hk, d, bs)
+        kw = dict(causal=causal, window=window, dropout_rate=rate,
+                  dropout_seed=321 if rate else None)
+        ref = _jax_value_and_grads(
+            lambda a, bb, c: JA.attention_reference(
+                a, bb, c, bias=None if bias is None else jnp.asarray(bias),
+                **kw), q, k, v, do)
+        port = _port_value_and_grads(
+            lambda a, bb, c: A.fused_attention(
+                a, bb, c, bias=None if bias is None else _t(bias), **kw),
+            q, k, v, do)
+        _assert_same(port, ref)
         for g in port[1]:
             assert torch.isfinite(g).all()
 
@@ -161,8 +195,8 @@ class TestValidation:
 
     def test_tile_is_fixed(self):
         # block_q / block_k are tile hints, as in the JAX package: any
-        # positive value is taken, the tile stays 64, the output is the
-        # same; a non-positive hint raises
+        # positive value is taken, the kernels' tiles stay as they are,
+        # the output is the same; a non-positive hint raises
         q, k, v, _, _ = _inputs(11, 2, 40, 72, 2, 2, 16, None)
         ref = A.fused_attention(_t(q), _t(k), _t(v), causal=True)
         for bq, bk in ((128, None), (512, 512), (1, 7)):
@@ -235,3 +269,65 @@ def test_kernels_match_plain_on_card(case, dtype, cuda_device):
     for got, ref in zip(A.flash_bwd_dkv_kernel(*bw),
                         A.flash_bwd_dkv_reference(*bw)):
         _card_close(got, ref, dtype)
+
+
+# the Hopper kernels' tile edges, as chip_smoke.py's edge checks:
+# (b, sq, sk, h, hk, d, bias shape, causal, window, dropout rate)
+CARD_EDGE_CASES = {
+    "causal_192x320": (2, 192, 320, 4, 4, 64, None, True, None, 0.0),
+    "ragged_257_key_padding": (2, 257, 257, 4, 4, 64, (2, 1, 1, 257),
+                               False, None, 0.0),
+    "ragged_257_d128": (2, 257, 257, 2, 2, 128, (2, 1, 1, 257), False,
+                        None, 0.0),
+    "gqa_8_2_window_dropout": (2, 200, 200, 8, 2, 128, None, True, 50, 0.1),
+    "per_query_bias_dropout": (2, 130, 200, 4, 4, 64, (2, 4, 130, 200),
+                               False, None, 0.1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", list(CARD_EDGE_CASES))
+def test_hopper_kernels_at_tile_edges_on_card(case, dtype, cuda_device):
+    """The wgmma/TMA forward and dk/dv (and the dq kernel beside them)
+    against their plain versions where tiles are ragged; dead rows keep
+    the -1e30 logsumexp."""
+    b, sq, sk, h, hk, d, bs, causal, window, rate = CARD_EDGE_CASES[case]
+    q, k, v, do, bias = (None if a is None else _t(a).to(cuda_device)
+                         for a in _inputs(7, b, sq, sk, h, hk, d, bs))
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    args = (bias, d ** -0.5, causal, window, rate, 99)
+    o, lse = A.flash_fwd_kernel(q, k, v, *args)
+    o2, lse2 = A.flash_fwd_reference(q, k, v, *args)
+    live = lse2 > -1e29
+    _card_close(o, o2, torch.bfloat16)
+    torch.testing.assert_close(lse[live], lse2[live], rtol=1e-5, atol=1e-5)
+    assert bool((lse[~live] < -1e29).all())
+    delta = A.attention_delta(do, o2)
+    bw = (q, k, v, bias, do, lse2, delta) + args[1:]
+    _card_close(A.flash_bwd_dq_kernel(*bw), A.flash_bwd_dq_reference(*bw),
+                torch.bfloat16)
+    # the kernel sums a GQA group in fp32 registers, the plain version
+    # per head and then over the group: an fp32 order difference
+    for got, ref in zip(A.flash_bwd_dkv_kernel(*bw),
+                        A.flash_bwd_dkv_reference(*bw)):
+        assert torch.isfinite(got).all()
+        _card_close(got, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_hopper_kernels_rerun_bitwise_on_card(cuda_device):
+    """At the BERT-Large shape in bf16 the forward and dk/dv give the
+    same bits on a rerun (no atomics, sums in a fixed order)."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v, do = (torch.randn(16, 512, 16, 64, generator=g,
+                               device=cuda_device).to(torch.bfloat16)
+                   for _ in range(4))
+    args = (None, 0.125, False, None, 0.0, 0)
+    o, lse = A.flash_fwd_kernel(q, k, v, *args)
+    bw = (q, k, v, None, do, lse, A.attention_delta(do, o)) + args[1:]
+    dk, dv = A.flash_bwd_dkv_kernel(*bw)
+    o2, lse2 = A.flash_fwd_kernel(q, k, v, *args)
+    dk2, dv2 = A.flash_bwd_dkv_kernel(*bw)
+    for a, b in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, b)
