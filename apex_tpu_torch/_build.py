@@ -4,11 +4,13 @@ Each source in ``apex_tpu_torch/csrc`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, and
 loaded with ``ctypes``.  The build happens at first use, never at
 import: every ``nvcc`` is started at once and all are awaited, so the
-build takes as long as the slowest source (a few seconds each).  The
-libraries land in ``build/apex_tpu_torch/`` beside the package, named by
-a hash of their source and the shared headers (``csrc/*.cuh``), so an
-edited source is rebuilt and an unchanged one is reused.  A failed build
-raises with the compiler's output.
+build takes as long as the slowest source.  ``--split-compile=0`` lets
+each ``nvcc`` optimise its source's kernels on every core (the wgmma
+variants of ``flash_attention.cu`` are the long pole).  The libraries
+land in ``build/apex_tpu_torch/`` beside the package, named by a hash of
+their source and the shared headers (``csrc/*.cuh``), so an edited
+source is rebuilt and an unchanged one is reused.  A failed build raises
+with the compiler's output.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception.  The wrappers
@@ -55,7 +57,7 @@ ENTRIES = ("layer_norm", "layer_norm_bwd", "rope", "fused_sampling",
            "bn_bwd_dx", "fp8_adam", "softmax_fwd", "softmax_bwd",
            "group_norm_fwd", "group_norm_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "--split-compile=0", "-Xcompiler", "-fPIC")
 
 #: dtype codes of the floating types every kernel computes in
 FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

@@ -214,4 +214,15 @@ bool dispatch_vec(int xt, int vec, F&& f) {
   }
 }
 
+// Blocks of a persistent grid on the current device: per_sm on each
+// multiprocessor, at most one per item.
+inline int persistent_grid(long long n_items, int per_sm = 1) {
+  int dev = 0, n_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  const long long cap = (long long)(per_sm > 1 ? per_sm : 1) *
+                        (n_sm > 1 ? n_sm : 1);
+  return (int)(n_items < 1 ? 1 : n_items < cap ? n_items : cap);
+}
+
 }  // namespace apex

@@ -31,17 +31,17 @@
 // a few hundred bytes per query row: operations, far above the 295
 // flop/byte ridge of the tensor cores, so the tensor cores' rate is the
 // bound (at this size the forward's bound is still its bytes, 0.020 ms).
-// Three paths, chosen by what the inputs allow:
+// Two paths, chosen by what the inputs allow:
 //
-// (1) Forward and dk/dv for bf16/fp16 with head_dim 64 or 128: Hopper
-//     kernels (fa_fwd_wgmma_kernel, fa_bwd_dkv_wgmma_kernel; sm_90a).
-//     They are the two on which a BERT training step lost the most
-//     time, and a Hopper kernel's rate needs wgmma on register
-//     accumulators fed by asynchronous loads.  Tiles arrive by TMA
-//     (tensor maps over the BSHD tensors, 128-byte swizzle, positions
-//     past the end read as zero) into a ring of two stages that a
-//     producer warp keeps full, so loads overlap the products; the grid
-//     is persistent, so they also overlap the previous work item's end.  The products are wgmma with fp32
+// (1) Forward, dq and dk/dv for bf16/fp16 with head_dim 64 or 128:
+//     Hopper kernels (fa_fwd_wgmma_kernel, fa_bwd_dq_wgmma_kernel,
+//     fa_bwd_dkv_wgmma_kernel; sm_90a).  A Hopper kernel's rate needs
+//     wgmma on register accumulators fed by asynchronous loads.  Tiles
+//     arrive by TMA (tensor maps over the BSHD tensors, 128-byte
+//     swizzle, positions past the end read as zero) into a ring of two
+//     stages that a producer warp keeps full, so loads overlap the
+//     products; the grid is persistent, so they also overlap the
+//     previous work item's end.  The products are wgmma with fp32
 //     accumulators in registers, and every softmax, mask and dropout step
 //     works on those registers in the accumulator layout (a row across a
 //     quad of lanes: two shuffles per reduction).  Probabilities and dS
@@ -52,15 +52,11 @@
 //     run only on the tiles that straddle an edge (the live tile range is
 //     worked out up front), so BERT's path (no mask, no dropout) has no
 //     per-element branch; a key-padding bias is read once per column.
-//     At BERT-Large the forward's bound is its bytes and dk/dv's its four
-//     products; what holds each above its bound (the softmax's exp2, an
-//     item of only four key tiles) is not measured.  See the notes at
-//     each kernel for its tiling.
-// (2) dq for bf16/fp16 with head_dim 64 or 128: WMMA 16x16x16 on four
-//     warps (fa_bwd_dq_tc_kernel), scores through shared memory; its
-//     Hopper redesign is later work, and it reads the forward's lse
-//     unchanged.
-// (3) fp32 inputs and other head dims: fp32 FMA on the CUDA cores.
+//     At BERT-Large the forward's bound is its bytes, dq's its three
+//     products and dk/dv's its four; what holds each above its bound (the
+//     exp2 per score, an item of only four key tiles) is not measured.
+//     See the notes at each kernel for its tiling.
+// (2) fp32 inputs and other head dims: fp32 FMA on the CUDA cores.
 //     Tiles are converted to fp32 in shared memory (row stride d + 1, so
 //     the column reads of the score product hit 16 different banks);
 //     each of 256 threads owns a 4 x 4 block of the 64 x 64 score tile
@@ -73,8 +69,6 @@
 // runs in a fixed order, and no kernel uses atomics, so reruns are
 // bit-identical.  Tiles that the causal or window mask kills entirely
 // are skipped.
-#include <mma.h>
-
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -512,166 +506,9 @@ fa_bwd_dkv_kernel(Params p, const T* __restrict__ dout,
 }
 
 // ------------------------------------------------------------------ //
-// WMMA path of dq: bf16 / fp16 inputs, head_dim 64 or 128
+// Hopper path: forward, dq and dk/dv with TMA and wgmma (sm_90a)
 // ------------------------------------------------------------------ //
-// The dq function with its products on the tensor cores through WMMA
-// 16x16x16 (fp32 accumulation): one block of 4 warps per 64-row tile,
-// each warp owning 16 rows.  Tiles stay in the input dtype in shared
-// memory (row stride d + 8); a warp's score products land in an fp32
-// tile, the masking / dropout / dS step is the scalar code above (two
-// lanes per row, 32 columns each), and dS is written in the input dtype
-// as the next product's operand — the rounding the Pallas kernels and
-// the scalar path make too.  dq accumulates in WMMA fragments.
-
-constexpr int kTcThreads = 128;    // 4 warps x 16 rows
-
-// The scalar step gives each row of a warp's 16 two lanes (half = 0, 1),
-// which take the even and odd columns; rows 8-15 walk their columns
-// rotated by one pair.  With row strides of 4 (mod 32) words, the 32
-// lanes then touch 32 different banks at every step.
-__device__ __forceinline__ int tc_col(int c, int n, int rot, int half) {
-  return 2 * ((c + rot) & (n - 1)) + half;
-}
-constexpr int kLdF = kT + 4;       // fp32 score tile row stride
-constexpr int kLdH = kT + 8;       // half score tile row stride
-
-using namespace nvcuda;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-template <typename T>
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>;
-template <typename T, typename L>
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, T, L>;
-
-// rows [row0, row0 + 64) of a (seq, heads, d) slab into smem of row
-// stride ld in the input dtype, 16 bytes per thread; rows past `rows`
-// read as zero (d % 8 == 0)
-template <typename T>
-__device__ __forceinline__ void load_tile_h(T* dst, int ld, const T* src,
-                                            long long row_stride, int row0,
-                                            int rows, int d) {
-  const int vpr = d / 8;
-  for (int idx = threadIdx.x; idx < kT * vpr; idx += kTcThreads) {
-    const int r = idx / vpr, c = (idx - r * vpr) * 8;
-    const int pos = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (pos < rows)
-      v = *reinterpret_cast<const uint4*>(src + (long long)pos * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-  }
-}
-
-// out[16 x 64] (fp32, row stride kLdF) = A[16 x d] . B[64 x d]^T
-template <typename T, int DC>
-__device__ __forceinline__ void warp_abt(float* out, const T* a, const T* b,
-                                         int ld) {
-  FragA<T> fa[DC];
-#pragma unroll
-  for (int k = 0; k < DC; ++k) wmma::load_matrix_sync(fa[k], a + 16 * k, ld);
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int k = 0; k < DC; ++k) {
-      FragB<T, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, b + n * 16 * ld + 16 * k, ld);
-      wmma::mma_sync(acc, fa[k], fb, acc);
-    }
-    wmma::store_matrix_sync(out + n * 16, acc, kLdF, wmma::mem_row_major);
-  }
-}
-
-// acc[j] += A[16 x 64] (row stride kLdH) . B[64 x d] (row stride ld),
-// column block j of the result
-template <typename T, int DC>
-__device__ __forceinline__ void warp_ab_acc(FragC (&acc)[DC], const T* a,
-                                            const T* b, int ld) {
-#pragma unroll
-  for (int kk = 0; kk < kT; kk += 16) {
-    FragA<T> fa;
-    wmma::load_matrix_sync(fa, a + kk, kLdH);
-#pragma unroll
-    for (int j = 0; j < DC; ++j) {
-      FragB<T, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, b + kk * ld + 16 * j, ld);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-}
-
-template <typename T, int DC>
-__global__ void __launch_bounds__(kTcThreads)
-fa_bwd_dq_tc_kernel(Params p, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int d = 16 * DC, ld = d + 8, ldo = d + 4;
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* dOs = Qs + kT * ld;
-  T* Ks = dOs + kT * ld;
-  T* Vs = Ks + kT * ld;
-  T* Ds = Vs + kT * ld;
-  float* Ss = reinterpret_cast<float*>(Ds + kT * kLdH);
-  float* DPs = Ss + kT * kLdF;
-  float* stage = Ss;                 // the result, after the loop
-  const int warp = threadIdx.x >> 5, ln = threadIdx.x & 31;
-  const int lane = blockIdx.y, batch = lane / p.h, head = lane % p.h;
-  const int kvh = head / (p.h / p.hk);
-  const int q0 = blockIdx.x * kT;
-  const long long qstride = (long long)p.h * d, kstride = (long long)p.hk * d;
-  const long long qoff = (long long)batch * p.sq * qstride + (long long)head * d;
-  const T* kb = (const T*)p.k + (long long)batch * p.sk * kstride + (long long)kvh * d;
-  const T* vb = (const T*)p.v + (long long)batch * p.sk * kstride + (long long)kvh * d;
-  load_tile_h(Qs, ld, (const T*)p.q + qoff, qstride, q0, p.sq, d);
-  load_tile_h(dOs, ld, dout + qoff, qstride, q0, p.sq, d);
-  const int r = warp * 16 + (ln >> 1), half = ln & 1, rot = (ln >> 4) & 1;
-  const int qpos = q0 + r;
-  const float lr = qpos < p.sq ? lse[(long long)lane * p.sq + qpos] : 0.f;
-  const float dr = qpos < p.sq ? delta[(long long)lane * p.sq + qpos] : 0.f;
-  const uint32_t drow = p.dropout ? drop_row(p, (uint32_t)lane, qpos) : 0u;
-  FragC acc[DC];
-#pragma unroll
-  for (int j = 0; j < DC; ++j) wmma::fill_fragment(acc[j], 0.f);
-  for (int k0 = 0; k0 < p.sk; k0 += kT) {
-    if (!tile_live(p, q0, k0)) continue;
-    __syncthreads();
-    load_tile_h(Ks, ld, kb, kstride, k0, p.sk, d);
-    load_tile_h(Vs, ld, vb, kstride, k0, p.sk, d);
-    __syncthreads();
-    warp_abt<T, DC>(Ss + warp * 16 * kLdF, Qs + warp * 16 * ld, Ks, ld);
-    warp_abt<T, DC>(DPs + warp * 16 * kLdF, dOs + warp * 16 * ld, Vs, ld);
-    __syncwarp();
-    for (int c = 0; c < 32; ++c) {
-      const int col = tc_col(c, 32, rot, half);
-      const float s = score_at(p, Ss[r * kLdF + col], batch, head, qpos, k0 + col);
-      float g = DPs[r * kLdF + col];
-      if (p.dropout)
-        g = drop_keep(p, drow, k0 + col) ? g * p.drop_inv : 0.f;
-      Ds[r * kLdH + col] = apex::from_f<T>(prob(s, lr) * (g - dr));
-    }
-    __syncwarp();
-    warp_ab_acc<T, DC>(acc, Ds + warp * 16 * kLdH, Ks, ld);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < DC; ++j)
-    wmma::store_matrix_sync(stage + warp * 16 * ldo + 16 * j, acc[j], ldo,
-                            wmma::mem_row_major);
-  __syncwarp();
-  if (qpos < p.sq) {
-    T* out = dq + qoff + qpos * qstride;
-    const float* srow = stage + r * ldo;
-    for (int c = 0; c < d / 2; ++c) {
-      const int col = tc_col(c, d / 2, rot, half);
-      out[col] = apex::from_f<T>(srow[col] * p.scale);
-    }
-  }
-}
-
-// ------------------------------------------------------------------ //
-// Hopper path: forward and dk/dv with TMA and wgmma (sm_90a)
-// ------------------------------------------------------------------ //
-// Both kernels run 384 threads: two consumer warpgroups (warps 0-7),
+// The three kernels run 384 threads: two consumer warpgroups (warps 0-7),
 // each owning 64 rows of the block's tile, and a producer warpgroup
 // whose first warp (warp 8; its lane 0 issues every TMA load) does the
 // loading while the other three idle.  The producer fills a ring of
@@ -690,13 +527,19 @@ namespace hp = apex::hopper;
 constexpr int kHThreads = 384;   // 2 consumer + 1 producer warpgroup
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kHStages = 2;      // ring depth
-constexpr int kHM = 128;         // forward: query rows per block
+constexpr int kHM = 128;         // forward and dq: query rows per item
 constexpr int kHN = 128;         // forward: keys per tile
 constexpr int kHK = 128;         // dk/dv: keys per block
 // dk/dv: queries per tile — 32 at d = 128 keeps dK, dV (64 registers
 // each), S^T and dP^T (16 each) and their packed operands within the
 // register file
 __host__ __device__ constexpr int dkv_bq(int d) { return d == 64 ? 64 : 32; }
+// dq: keys per tile — 128 at d = 64 (S and dP 64 registers each, dQ 32,
+// packed dS 32); 64 at d = 128, where dQ alone takes 64, and with
+// dropout, whose hashes spilled 44 bytes at d = 64 with 128 keys
+__host__ __device__ constexpr int dq_bn(int d, bool drop) {
+  return d == 64 && !drop ? 128 : 64;
+}
 
 // the accumulator position of register i for lane wl (see hopper.cuh)
 __device__ __forceinline__ int acc_row(int i) { return 8 * ((i >> 1) & 1); }
@@ -792,31 +635,31 @@ __device__ __forceinline__ void fwd_tile_softmax(
   for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 }
 
-// The work of one forward item: (lane, 128 query rows) and its live key
-// tiles [kt_lo, kt_hi) — the tiles outside are dead for every row of the
-// item and never loaded.
-struct FwdItem {
+// The work of one item of a Q-stationary kernel (the forward, dq):
+// (lane, 128 query rows) and its live tiles of BN keys [kt_lo, kt_hi) —
+// the tiles outside are dead for every row of the item and never loaded.
+struct QItem {
   int lane, batch, head, kvh, q0, kt_lo, kt_hi;
 };
 
-template <bool kCausal>
-__device__ __forceinline__ FwdItem fwd_item(const Params& p, int item) {
+template <int BN, bool kCausal>
+__device__ __forceinline__ QItem q_item(const Params& p, int item) {
   const int nqb = (p.sq + kHM - 1) / kHM;
-  FwdItem it;
+  QItem it;
   it.lane = item / nqb;
   it.batch = it.lane / p.h;
   it.head = it.lane % p.h;
   it.kvh = it.head / (p.h / p.hk);
   it.q0 = (item % nqb) * kHM;
   it.kt_lo = 0;
-  it.kt_hi = (p.sk + kHN - 1) / kHN;
+  it.kt_hi = (p.sk + BN - 1) / BN;
   if (kCausal) {
     const int off = p.sk - p.sq;
     const int last_key = min(it.q0 + kHM, p.sq) - 1 + off;
-    it.kt_hi = last_key < 0 ? 0 : min(it.kt_hi, last_key / kHN + 1);
+    it.kt_hi = last_key < 0 ? 0 : min(it.kt_hi, last_key / BN + 1);
     if (p.window > 0) {
       const int first_key = it.q0 + off - p.window + 1;
-      it.kt_lo = first_key > 0 ? first_key / kHN : 0;
+      it.kt_lo = first_key > 0 ? first_key / BN : 0;
     }
   }
   return it;
@@ -872,7 +715,7 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       int s = 0;
       uint32_t ph = 0, qph = 0;
       for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-        const FwdItem it = fwd_item<kCausal>(p, item);
+        const QItem it = q_item<kHN, kCausal>(p, item);
         hp::mbar_wait(q_empty, qph ^ 1);
         qph ^= 1;
         hp::mbar_expect_tx(q_full, kQElems * (int)sizeof(T));
@@ -904,7 +747,7 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     int s = 0;
     uint32_t ph = 0, qph = 0;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-      const FwdItem it = fwd_item<kCausal>(p, item);
+      const QItem it = q_item<kHN, kCausal>(p, item);
       const int wq0 = it.q0 + 64 * wg;
       // this lane's rows: qa and qa + 8
       const int qa = wq0 + 16 * ww + (wl >> 2);
@@ -991,6 +834,245 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
         if ((wl & 3) == 0)
           lse[(long long)it.lane * p.sq + qpos] = m[r] + log2f(ls);
+      }
+    }
+  }
+}
+
+// One key tile of dq for a warpgroup's 64 rows, on S and dP in
+// registers: P = exp2(S scale log2e + bias - lse) (exactly 0 at a dead
+// position), dropout on dP through the forward's hash, dS = P (dP -
+// delta), packed to T as the A operand of dQ += dS K.  Registers i + e
+// (row qa) and i + 2 + e (row qa + 8) share a column, so a key-padding
+// bias is read once for both rows.
+template <typename T, int BN, bool kBias, bool kCausal, bool kDrop,
+          bool kMasked>
+__device__ __forceinline__ void dq_tile_ds(
+    const float (&sc)[BN / 2], const float (&dp)[BN / 2],
+    uint32_t (&df)[BN / 16][4], const Params& p, const float* const* brow,
+    const uint32_t (&drow)[2], const float (&lr)[2], const float (&dr)[2],
+    int qa, int k0, int wl) {
+  const float c = p.scale * kLog2e;
+  const int off = p.sk - p.sq;
+  const bool bias_shared = kBias && p.bias_sq == 0;
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 4) {
+    float ds[2][2];                  // [e][r]
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int kpos = k0 + acc_col(i + e, wl);
+      float b[2] = {0.f, 0.f};
+      // off the edge every kpos < sk, and loads free of that test can
+      // issue together
+      if (kBias && (!kMasked || kpos < p.sk)) {
+        b[0] = brow[0][kpos] * kLog2e;
+        b[1] = bias_shared ? b[0] : brow[1][kpos] * kLog2e;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float v = sc[i + e + 2 * r] * c;
+        if (kBias) v += b[r];
+        if (kMasked) {
+          const int qpos = qa + 8 * r;
+          bool dead = kpos >= p.sk;
+          if (kCausal) {
+            dead = dead || kpos > qpos + off;
+            if (p.window > 0) dead = dead || kpos <= qpos + off - p.window;
+          }
+          if (dead) v = kNegInf;
+        }
+        const float pr = (kBias || kMasked) ? prob(v, lr[r])
+                                            : exp2f(v - lr[r]);
+        float g = dp[i + e + 2 * r];
+        // delta = rowsum(dO . O) already holds the dropout factor
+        if (kDrop) g = drop_keep(p, drow[r], kpos) ? g * p.drop_inv : 0.f;
+        ds[e][r] = pr * (g - dr[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      df[i >> 3][((i & 7) >> 1) + r] = hp::pack2<T>(ds[0][r], ds[1][r]);
+  }
+}
+
+// dq.  Q-stationary as the forward, persistent over the same items
+// (lane, 128 query rows), lane-major; each consumer warpgroup keeps its
+// 64 rows' dQ (64 x d fp32) in registers.  An item's Q and dO tiles
+// arrive once by TMA; K and V tiles of dq_bn keys stream through the
+// ring.  Per key tile, S = Q K^T and dP = dO V^T are wgmma with both
+// operands in shared memory (K-major) — the forward's S product, issued
+// twice; dS is formed on their registers (dq_tile_ds) and enters dQ +=
+// dS K as the register A operand, K read MN-major through its descriptor
+// from the same swizzled tile, as the forward feeds V to O += P V.  Each
+// consumer thread reads its two rows' lse and delta once per item.  Q
+// and dO go back to the producer once the item's last S and dP are done,
+// so the next item's loads overlap this item's last product and its
+// epilogue.  dq = scale * dQ, rows past sq not written.
+template <typename T, int D, bool kBias, bool kCausal, bool kDrop>
+__global__ void __launch_bounds__(kHThreads, 1)
+fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, Params p,
+                       int n_items, const float* __restrict__ lse,
+                       const float* __restrict__ delta, T* __restrict__ dq) {
+  constexpr int BN = dq_bn(D, kDrop);
+  constexpr int kQElems = kHM * D, kKElems = BN * D;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  T* Qs = reinterpret_cast<T*>(base);
+  T* dOs = Qs + kQElems;
+  T* Ks = dOs + kQElems;                    // stage s at + s * kKElems
+  T* Vs = Ks + kHStages * kKElems;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + kHStages * kKElems);
+  uint64_t* q_full = bars;
+  uint64_t* q_empty = bars + 1;
+  uint64_t* full = bars + 2;
+  uint64_t* empty = bars + 2 + kHStages;
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(q_full, 1);
+    hp::mbar_init(q_empty, 256);
+    for (int s = 0; s < kHStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 256);
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  const int off = p.sk - p.sq;
+
+  if (warp >= 8) {
+    // producer warpgroup
+    hp::reg_dealloc<kProducerRegs>();
+    if (warp == 8 && wl == 0) {
+      int s = 0;
+      uint32_t ph = 0, qph = 0;
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const QItem it = q_item<BN, kCausal>(p, item);
+        hp::mbar_wait(q_empty, qph ^ 1);
+        qph ^= 1;
+        hp::mbar_expect_tx(q_full, 2 * kQElems * (int)sizeof(T));
+#pragma unroll
+        for (int pn = 0; pn < D / 64; ++pn) {
+          hp::tma_load_4d(Qs + pn * kHM * 64, &tq, q_full, 64 * pn, it.head,
+                          it.q0, it.batch);
+          hp::tma_load_4d(dOs + pn * kHM * 64, &tdo, q_full, 64 * pn,
+                          it.head, it.q0, it.batch);
+        }
+        for (int kt = it.kt_lo; kt < it.kt_hi; ++kt) {
+          hp::mbar_wait(&empty[s], ph ^ 1);
+          hp::mbar_expect_tx(&full[s], 2 * kKElems * (int)sizeof(T));
+#pragma unroll
+          for (int pn = 0; pn < D / 64; ++pn) {
+            hp::tma_load_4d(Ks + s * kKElems + pn * BN * 64, &tk, &full[s],
+                            64 * pn, it.kvh, kt * BN, it.batch);
+            hp::tma_load_4d(Vs + s * kKElems + pn * BN * 64, &tv, &full[s],
+                            64 * pn, it.kvh, kt * BN, it.batch);
+          }
+          if (++s == kHStages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    hp::reg_alloc<kConsumerRegs>();
+    // consumers: warpgroup wg owns rows q0 + 64 wg ... + 63 of an item
+    const int wg = warp >> 2, ww = warp & 3;
+    int s = 0;
+    uint32_t ph = 0, qph = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const QItem it = q_item<BN, kCausal>(p, item);
+      const int wq0 = it.q0 + 64 * wg;
+      // this lane's rows: qa and qa + 8
+      const int qa = wq0 + 16 * ww + (wl >> 2);
+      const float* brow[2] = {nullptr, nullptr};
+      uint32_t drow[2] = {0u, 0u};
+      float lr[2], dr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qpos = qa + 8 * r;
+        const bool in = qpos < p.sq;
+        lr[r] = in ? lse[(long long)it.lane * p.sq + qpos] : 0.f;
+        dr[r] = in ? delta[(long long)it.lane * p.sq + qpos] : 0.f;
+        if (kBias)
+          brow[r] = p.bias + (long long)it.batch * p.bias_sb +
+                    (long long)it.head * p.bias_sh +
+                    (long long)min(qpos, p.sq - 1) * p.bias_sq;
+        if (kDrop) drow[r] = drop_row(p, (uint32_t)it.lane, qpos);
+      }
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+      hp::mbar_wait(q_full, qph);
+      qph ^= 1;
+      if (it.kt_hi <= it.kt_lo) hp::mbar_arrive(q_empty);
+      for (int kt = it.kt_lo; kt < it.kt_hi; ++kt) {
+        const int k0 = kt * BN;
+        hp::mbar_wait(&full[s], ph);
+        const T* Kst = Ks + s * kKElems;
+        const T* Vst = Vs + s * kKElems;
+        float sc[BN / 2], dp[BN / 2];
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int qa_off = (kk >> 2) * kHM * 64 + wg * 64 * 64 + (kk & 3) * 16;
+          const int kb_off = (kk >> 2) * BN * 64 + (kk & 3) * 16;
+          hp::wgmma_ss<BN, T>(sc, hp::desc_sw128(Qs + qa_off, 16, 1024),
+                              hp::desc_sw128(Kst + kb_off, 16, 1024), kk > 0);
+          hp::wgmma_ss<BN, T>(dp, hp::desc_sw128(dOs + qa_off, 16, 1024),
+                              hp::desc_sw128(Vst + kb_off, 16, 1024), kk > 0);
+        }
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+        hp::fence_regs(sc);
+        hp::fence_regs(dp);
+        if (kt == it.kt_hi - 1) hp::mbar_arrive(q_empty);  // Q, dO are read
+        // this warpgroup's rows meet an edge of the mask in this tile
+        const bool edge =
+            k0 + BN > p.sk ||
+            (kCausal && (k0 + BN - 1 > wq0 + off ||
+                         (p.window > 0 && k0 <= wq0 + 63 + off - p.window)));
+        uint32_t df[BN / 16][4];
+        if (edge)
+          dq_tile_ds<T, BN, kBias, kCausal, kDrop, true>(
+              sc, dp, df, p, brow, drow, lr, dr, qa, k0, wl);
+        else
+          dq_tile_ds<T, BN, kBias, kCausal, kDrop, false>(
+              sc, dp, df, p, brow, drow, lr, dr, qa, k0, wl);
+        hp::fence_regs(acc);
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          hp::wgmma_rs_tb<D, T>(
+              acc, df[kk], hp::desc_sw128(Kst + kk * 16 * 64, BN * 128, 1024),
+              1);
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+        hp::fence_regs(acc);
+        hp::fence_regs(df);
+        hp::mbar_arrive(&empty[s]);
+        if (++s == kHStages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qpos = qa + 8 * r;
+        if (qpos >= p.sq) continue;
+        T* orow = dq + (((long long)it.batch * p.sq + qpos) * p.h + it.head) * D;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const int i = 4 * j + 2 * r;
+          *reinterpret_cast<uint32_t*>(orow + acc_col(i, wl)) =
+              hp::pack2<T>(acc[i] * p.scale, acc[i + 1] * p.scale);
+        }
       }
     }
   }
@@ -1340,20 +1422,6 @@ int bwd_dkv(const Params& p, const void* dout, const float* lse,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DC>
-int bwd_dq_tc(const Params& p, const void* dout, const float* lse,
-              const float* delta, void* dq, cudaStream_t st) {
-  constexpr int d = 16 * DC, ld = d + 8;
-  const size_t smem = (4 * kT * ld + kT * kLdH) * sizeof(T) +
-                      2 * kT * kLdF * sizeof(float);
-  auto kern = fa_bwd_dq_tc_kernel<T, DC>;
-  int e = prepare(kern, smem);
-  if (e) return e;
-  dim3 grid((p.sq + kT - 1) / kT, p.b * p.h);
-  kern<<<grid, kTcThreads, smem, st>>>(p, (const T*)dout, lse, delta, (T*)dq);
-  return (int)cudaGetLastError();
-}
-
 // the Hopper kernels: one variant per (bias, causal, dropout)
 #define APEX_FA_VARIANTS(LAUNCH)                                           \
   switch ((p.bias != nullptr) * 4 + (p.causal != 0) * 2 + (p.dropout != 0)) { \
@@ -1367,15 +1435,6 @@ int bwd_dq_tc(const Params& p, const void* dout, const float* lse,
     default: return LAUNCH(true, true, true);                              \
   }
 
-// blocks of a persistent kernel: one per multiprocessor, at most one per
-// item
-int persistent_grid(int n_items) {
-  int dev = 0, n_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  return max(1, min(n_items, n_sm));
-}
-
 template <typename T, int D, bool kBias, bool kCausal, bool kDrop>
 int fwd_wgmma_launch(const Params& p, const CUtensorMap& tq,
                      const CUtensorMap& tk, const CUtensorMap& tv, void* o,
@@ -1386,7 +1445,7 @@ int fwd_wgmma_launch(const Params& p, const CUtensorMap& tq,
   int e = prepare(kern, smem);
   if (e) return e;
   const int n_items = (p.sq + kHM - 1) / kHM * p.b * p.h;
-  kern<<<persistent_grid(n_items), kHThreads, smem, st>>>(tq, tk, tv, p,
+  kern<<<apex::persistent_grid(n_items), kHThreads, smem, st>>>(tq, tk, tv, p,
                                                           n_items, (T*)o, lse);
   return (int)cudaGetLastError();
 }
@@ -1404,6 +1463,39 @@ int fwd_wgmma(const Params& p, int dt, void* o, float* lse, cudaStream_t st) {
 }
 
 template <typename T, int D, bool kBias, bool kCausal, bool kDrop>
+int dq_wgmma_launch(const Params& p, const CUtensorMap& tq,
+                    const CUtensorMap& tdo, int dt, const float* lse,
+                    const float* delta, void* dq, cudaStream_t st) {
+  constexpr int BN = dq_bn(D, kDrop);
+  CUtensorMap tk, tv;
+  int e = hp::tmap_bshd(&tk, p.k, dt, D, p.hk, p.sk, p.b, BN);
+  if (!e) e = hp::tmap_bshd(&tv, p.v, dt, D, p.hk, p.sk, p.b, BN);
+  if (e) return e;
+  constexpr size_t smem = 1024 + (size_t)(2 * kHM * D + 2 * kHStages * BN * D) *
+                                     sizeof(T) + (2 + 2 * kHStages) * 8;
+  auto kern = fa_bwd_dq_wgmma_kernel<T, D, kBias, kCausal, kDrop>;
+  e = prepare(kern, smem);
+  if (e) return e;
+  const int n_items = (p.sq + kHM - 1) / kHM * p.b * p.h;
+  kern<<<apex::persistent_grid(n_items), kHThreads, smem, st>>>(
+      tq, tk, tv, tdo, p, n_items, lse, delta, (T*)dq);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int dq_wgmma(const Params& p, int dt, const void* dout, const float* lse,
+             const float* delta, void* dq, cudaStream_t st) {
+  CUtensorMap tq, tdo;
+  int e = hp::tmap_bshd(&tq, p.q, dt, D, p.h, p.sq, p.b, kHM);
+  if (!e) e = hp::tmap_bshd(&tdo, dout, dt, D, p.h, p.sq, p.b, kHM);
+  if (e) return e;
+#define APEX_DQ(B, C, R) \
+  dq_wgmma_launch<T, D, B, C, R>(p, tq, tdo, dt, lse, delta, dq, st)
+  APEX_FA_VARIANTS(APEX_DQ)
+#undef APEX_DQ
+}
+
+template <typename T, int D, bool kBias, bool kCausal, bool kDrop>
 int dkv_wgmma_launch(const Params& p, const CUtensorMap& tq,
                      const CUtensorMap& tk, const CUtensorMap& tv,
                      const CUtensorMap& tdo, const float* lse,
@@ -1416,7 +1508,7 @@ int dkv_wgmma_launch(const Params& p, const CUtensorMap& tq,
   int e = prepare(kern, smem);
   if (e) return e;
   const int n_items = (p.sk + kHK - 1) / kHK * p.b * p.hk;
-  kern<<<persistent_grid(n_items), kHThreads, smem, st>>>(
+  kern<<<apex::persistent_grid(n_items), kHThreads, smem, st>>>(
       tq, tk, tv, tdo, p, n_items, lse, delta, (T*)dk, (T*)dv);
   return (int)cudaGetLastError();
 }
@@ -1437,8 +1529,7 @@ int dkv_wgmma(const Params& p, int dt, const void* dout, const float* lse,
 #undef APEX_DKV
 }
 
-// the tensor-core kernels (wgmma, and WMMA for dq) take half inputs with
-// head_dim 64 or 128
+// the wgmma kernels take half inputs with head_dim 64 or 128
 bool use_tc(int dt, int d) { return dt != apex::kF32 && (d == 64 || d == 128); }
 
 Params make_params(const void* q, const void* k, const void* v,
@@ -1509,7 +1600,7 @@ extern "C" int apex_fa_fwd(APEX_FA_PARAMS, void* o, void* lse, void* stream) {
 }
 
 // dout, dq like q; lse from apex_fa_fwd; delta (b * h, sq) float32 =
-// rowsum(dout * o).
+// rowsum(dout * o).  Pointers 16-byte aligned (TMA).
 extern "C" int apex_fa_bwd_dq(APEX_FA_PARAMS, const void* dout,
                               const void* lse, const void* delta, void* dq,
                               void* stream) {
@@ -1520,10 +1611,10 @@ extern "C" int apex_fa_bwd_dq(APEX_FA_PARAMS, const void* dout,
   const bool wide = d > 64;
   if (use_tc(dt, d)) {
     if (dt == apex::kBF16)
-      return wide ? bwd_dq_tc<__nv_bfloat16, 8>(p, dout, l, dl, dq, st)
-                  : bwd_dq_tc<__nv_bfloat16, 4>(p, dout, l, dl, dq, st);
-    return wide ? bwd_dq_tc<__half, 8>(p, dout, l, dl, dq, st)
-                : bwd_dq_tc<__half, 4>(p, dout, l, dl, dq, st);
+      return wide ? dq_wgmma<__nv_bfloat16, 128>(p, dt, dout, l, dl, dq, st)
+                  : dq_wgmma<__nv_bfloat16, 64>(p, dt, dout, l, dl, dq, st);
+    return wide ? dq_wgmma<__half, 128>(p, dt, dout, l, dl, dq, st)
+                : dq_wgmma<__half, 64>(p, dt, dout, l, dl, dq, st);
   }
   switch (dt) {
     case apex::kF32: return wide ? bwd_dq<float, 8>(p, dout, l, dl, dq, st) : bwd_dq<float, 4>(p, dout, l, dl, dq, st);

@@ -14,13 +14,32 @@
 // (2 * rows * h * itemsize, plus 8 bytes of statistics per row when they
 // are asked for); the backward reads dy and x and writes dx
 // (3 * rows * h * itemsize, plus the statistics) — a handful of flops per
-// element, far below the card's 295 flop/byte ridge.  Design: one block
-// per row; the row is swept from global memory once per statistic (the
-// later sweeps hit L1/L2, a row is at most a few KB), the sums are fp32
+// element, far below the card's 295 flop/byte ridge.  The sums are fp32
 // in registers reduced in a fixed order (the same result on every run),
-// and outputs are stored in x's dtype.  There is no h % 128 lane rule:
-// any h works.  The weight and bias keep their own dtype (fp32 norm
-// weights on bf16 activations under amp O2) and are multiplied in fp32.
+// and outputs are stored in x's dtype.  The weight and bias keep their
+// own dtype (fp32 norm weights on bf16 activations under amp O2) and are
+// multiplied in fp32.
+//
+// Forward: one block per row; the row is swept from global memory once
+// per statistic (the later sweeps hit L1/L2, a row is at most a few KB).
+//
+// Backward dx, two paths:
+// (1) Register-resident (ln_bwd_dx_vec_kernel), when a row is a whole
+//     number of 16-byte vectors (h * itemsize % 16 == 0; rows and the
+//     weight 16-byte aligned) and h <= 8192.  A row group of 1, 2, 4 or
+//     8 warps (the fewest that hold the row) owns a row, in blocks of
+//     128 threads (256 for a group of 8 warps); each lane holds up to 32
+//     elements of it — 4 vectors of bf16/fp16 or 8 of fp32 — so one warp
+//     takes a row up to h = 1024, and 8 warps up to h = 8192.  dy and x
+//     are read once, with 16-byte loads, and stay in registers between the
+//     reductions and the write; both sums run in one pass, warp shuffles
+//     in a fixed tree, then (row groups of more than one warp) the warp
+//     partials in warp order.  Each lane's weight columns, read once as
+//     vectors, stay in registers across the rows it walks: the grid is
+//     sized to the blocks that fit on the card at once and strides over
+//     rows.
+// (2) Otherwise: one 256-thread block per row, x and dy swept twice
+//     (the second sweep from L1/L2) with two block reductions.
 #include "common.cuh"
 
 namespace {
@@ -94,6 +113,137 @@ ln_bwd_dx_kernel(const T* __restrict__ dy, const T* __restrict__ x,
   }
 }
 
+// the E weights of columns [v E, v E + E) in fp32, read as 8- or 16-byte
+// vectors (E * sizeof(W) is 8, 16 or 32 bytes)
+template <typename W, int E>
+__device__ __forceinline__ void load_w(float (&out)[E], const W* w, int v) {
+  constexpr int kBytes = E * (int)sizeof(W);
+  using V = typename std::conditional<kBytes == 8, uint2, uint4>::type;
+  constexpr int kN = kBytes / (int)sizeof(V);
+  V raw[kN];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) raw[k] = reinterpret_cast<const V*>(w + v * E)[k];
+  const W* e = reinterpret_cast<const W*>(raw);
+#pragma unroll
+  for (int i = 0; i < E; ++i) out[i] = apex::to_f(e[i]);
+}
+
+// threads of a register-resident block: 128, or one row group of 8 warps
+// (128-thread blocks beat 256 at 8192 x 1024 and, by more, at 1280 rows)
+__host__ __device__ constexpr int vec_threads(int warps) {
+  return warps * 32 > 128 ? warps * 32 : 128;
+}
+
+// Register-resident dx (path 1 of the header): kWarps warps per row,
+// vec_threads / 32 / kWarps rows per block pass, NV 16-byte vectors a
+// lane.  Vector v of a row belongs to thread v % (32 kWarps) of its row
+// group.
+template <typename T, typename W, int kWarps>
+__global__ void __launch_bounds__(vec_threads(kWarps))
+ln_bwd_dx_vec_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                     const W* __restrict__ w, const float* __restrict__ mean,
+                     const float* __restrict__ rstd, T* __restrict__ dx,
+                     long long rows, int h, int rms) {
+  constexpr int E = 16 / sizeof(T);           // elements per vector
+  constexpr int NV = 32 / E;                  // vectors per lane
+  constexpr int kBlock = vec_threads(kWarps);
+  constexpr int kGroups = kBlock / 32 / kWarps;
+  constexpr int kStride = 32 * kWarps;        // vectors per row pass
+  __shared__ float red[kBlock / 32][2];
+  const int warp = threadIdx.x >> 5;
+  const int grp = warp / kWarps;
+  const int t = (warp % kWarps) * 32 + (threadIdx.x & 31);
+  const int nvec = h / E;
+  float wv[NV][E];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int v = t + j * kStride;
+    if (w != nullptr && v < nvec) {
+      load_w<W, E>(wv[j], w, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) wv[j][e] = 1.f;
+    }
+  }
+  for (long long base = (long long)blockIdx.x * kGroups; base < rows;
+       base += (long long)gridDim.x * kGroups) {
+    const long long row = base + grp;
+    const bool active = row < rows;
+    uint4 xv[NV], dv[NV];
+    float mu = 0.f, rs = 0.f, s1 = 0.f, s2 = 0.f;
+    if (active) {
+      mu = mean[row];
+      rs = rstd[row];
+      const uint4* xr = reinterpret_cast<const uint4*>(x + row * h);
+      const uint4* dyr = reinterpret_cast<const uint4*>(dy + row * h);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int v = t + j * kStride;
+        if (v < nvec) {
+          xv[j] = xr[v];
+          dv[j] = dyr[v];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        if (t + j * kStride >= nvec) continue;
+        const T* xe = reinterpret_cast<const T*>(&xv[j]);
+        const T* de = reinterpret_cast<const T*>(&dv[j]);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float xhat = __fmul_rn(__fsub_rn(apex::to_f(xe[e]), mu), rs);
+          float wdy = apex::to_f(de[e]);
+          if (w != nullptr) wdy = __fmul_rn(wdy, wv[j][e]);
+          s1 += wdy;
+          s2 = __fmaf_rn(wdy, xhat, s2);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s1 += __shfl_xor_sync(apex::kFull, s1, o);
+      s2 += __shfl_xor_sync(apex::kFull, s2, o);
+    }
+    if (kWarps > 1) {
+      if ((threadIdx.x & 31) == 0) {
+        red[warp][0] = s1;
+        red[warp][1] = s2;
+      }
+      __syncthreads();
+      s1 = red[grp * kWarps][0];
+      s2 = red[grp * kWarps][1];
+#pragma unroll
+      for (int k = 1; k < kWarps; ++k) {
+        s1 += red[grp * kWarps + k][0];
+        s2 += red[grp * kWarps + k][1];
+      }
+      __syncthreads();
+    }
+    if (!active) continue;
+    const float c1 = rms ? 0.f : s1 / (float)h;
+    const float c2 = s2 / (float)h;
+    uint4* dxr = reinterpret_cast<uint4*>(dx + row * h);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int v = t + j * kStride;
+      if (v >= nvec) continue;
+      const T* xe = reinterpret_cast<const T*>(&xv[j]);
+      const T* de = reinterpret_cast<const T*>(&dv[j]);
+      uint4 ov;
+      T* oe = reinterpret_cast<T*>(&ov);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float xhat = __fmul_rn(__fsub_rn(apex::to_f(xe[e]), mu), rs);
+        float wdy = apex::to_f(de[e]);
+        if (w != nullptr) wdy = __fmul_rn(wdy, wv[j][e]);
+        const float o = __fsub_rn(__fsub_rn(wdy, c1), __fmul_rn(xhat, c2));
+        oe[e] = apex::from_f<T>(__fmul_rn(o, rs));
+      }
+      dxr[v] = ov;
+    }
+  }
+}
+
 template <typename T, typename W>
 void launch_fwd(const void* x, const void* w, const void* b, void* y,
                 float* mean, float* rstd, long long rows, int h, float eps,
@@ -113,22 +263,59 @@ void launch_fwd_w(const void* x, const void* w, const void* b, void* y,
   }
 }
 
+template <typename T, typename W, int kWarps>
+int launch_bwd_vec(const void* dy, const void* x, const void* w,
+                   const float* mean, const float* rstd, void* dx,
+                   long long rows, int h, int rms, cudaStream_t st) {
+  constexpr int kBlock = vec_threads(kWarps);
+  constexpr int kGroups = kBlock / 32 / kWarps;   // rows a block pass
+  auto kern = ln_bwd_dx_vec_kernel<T, W, kWarps>;
+  // as many blocks as fit on the card at once, with the row passes
+  // spread evenly over them
+  int per_sm = 0;
+  int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                             kBlock, 0);
+  if (e) return e;
+  const long long groups = (rows + kGroups - 1) / kGroups;
+  const long long cap = apex::persistent_grid(groups, per_sm);
+  const long long passes = (groups + cap - 1) / cap;
+  const unsigned grid = (unsigned)((groups + passes - 1) / passes);
+  kern<<<grid, kBlock, 0, st>>>((const T*)dy, (const T*)x, (const W*)w,
+                                  mean, rstd, (T*)dx, rows, h, rms);
+  return 0;
+}
+
 template <typename T, typename W>
-void launch_bwd(const void* dy, const void* x, const void* w,
-                const float* mean, const float* rstd, void* dx,
-                long long rows, int h, int rms, cudaStream_t st) {
-  ln_bwd_dx_kernel<T, W><<<(unsigned)rows, kThreads, 0, st>>>(
-      (const T*)dy, (const T*)x, (const W*)w, mean, rstd, (T*)dx, h, rms);
+int launch_bwd(const void* dy, const void* x, const void* w,
+               const float* mean, const float* rstd, void* dx,
+               long long rows, int h, int rms, cudaStream_t st) {
+  constexpr int kElemsPerWarp = 32 * 32;      // a lane holds 32 elements
+  const bool vec = (long long)h * sizeof(T) % 16 == 0 &&
+                   h <= 8 * kElemsPerWarp &&
+                   ((uintptr_t)dy | (uintptr_t)x | (uintptr_t)dx |
+                    (uintptr_t)w) % 16 == 0;
+  if (!vec) {
+    ln_bwd_dx_kernel<T, W><<<(unsigned)rows, kThreads, 0, st>>>(
+        (const T*)dy, (const T*)x, (const W*)w, mean, rstd, (T*)dx, h, rms);
+    return 0;
+  }
+  if (h <= kElemsPerWarp)
+    return launch_bwd_vec<T, W, 1>(dy, x, w, mean, rstd, dx, rows, h, rms, st);
+  if (h <= 2 * kElemsPerWarp)
+    return launch_bwd_vec<T, W, 2>(dy, x, w, mean, rstd, dx, rows, h, rms, st);
+  if (h <= 4 * kElemsPerWarp)
+    return launch_bwd_vec<T, W, 4>(dy, x, w, mean, rstd, dx, rows, h, rms, st);
+  return launch_bwd_vec<T, W, 8>(dy, x, w, mean, rstd, dx, rows, h, rms, st);
 }
 
 template <typename T>
-void launch_bwd_w(const void* dy, const void* x, const void* w,
-                  const float* mean, const float* rstd, void* dx,
-                  long long rows, int h, int rms, int wt, cudaStream_t st) {
+int launch_bwd_w(const void* dy, const void* x, const void* w,
+                 const float* mean, const float* rstd, void* dx,
+                 long long rows, int h, int rms, int wt, cudaStream_t st) {
   switch (wt) {
-    case apex::kF32: launch_bwd<T, float>(dy, x, w, mean, rstd, dx, rows, h, rms, st); break;
-    case apex::kBF16: launch_bwd<T, __nv_bfloat16>(dy, x, w, mean, rstd, dx, rows, h, rms, st); break;
-    default: launch_bwd<T, __half>(dy, x, w, mean, rstd, dx, rows, h, rms, st); break;
+    case apex::kF32: return launch_bwd<T, float>(dy, x, w, mean, rstd, dx, rows, h, rms, st);
+    case apex::kBF16: return launch_bwd<T, __nv_bfloat16>(dy, x, w, mean, rstd, dx, rows, h, rms, st);
+    default: return launch_bwd<T, __half>(dy, x, w, mean, rstd, dx, rows, h, rms, st);
   }
 }
 
@@ -162,10 +349,11 @@ extern "C" int apex_ln_bwd_dx(const void* dy, const void* x, const void* w,
   cudaStream_t st = (cudaStream_t)stream;
   const float* mu = (const float*)mean;
   const float* rs = (const float*)rstd;
+  int e;
   switch (xt) {
-    case apex::kF32: launch_bwd_w<float>(dy, x, w, mu, rs, dx, rows, h, rms, wt, st); break;
-    case apex::kBF16: launch_bwd_w<__nv_bfloat16>(dy, x, w, mu, rs, dx, rows, h, rms, wt, st); break;
-    default: launch_bwd_w<__half>(dy, x, w, mu, rs, dx, rows, h, rms, wt, st); break;
+    case apex::kF32: e = launch_bwd_w<float>(dy, x, w, mu, rs, dx, rows, h, rms, wt, st); break;
+    case apex::kBF16: e = launch_bwd_w<__nv_bfloat16>(dy, x, w, mu, rs, dx, rows, h, rms, wt, st); break;
+    default: e = launch_bwd_w<__half>(dy, x, w, mu, rs, dx, rows, h, rms, wt, st); break;
   }
-  return (int)cudaGetLastError();
+  return e ? e : (int)cudaGetLastError();
 }

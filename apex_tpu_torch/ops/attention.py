@@ -11,10 +11,9 @@ heads, head_dim)`` (BSHD), GQA through fewer kv heads.  Three kernels
   GQA group of query heads in the kernel's fp32 accumulators.
 
 bf16/fp16 inputs with head_dim 64 or 128 run the kernels' products on
-the tensor cores: the forward and dk/dv as Hopper kernels (TMA loads,
-wgmma, the softmax on the accumulators in registers; 128 query rows or
-keys a block), dq through WMMA (64 rows a block); fp32 and other head
-dims run them as fp32 FMA (64 rows a block).
+the tensor cores as Hopper kernels (TMA loads, wgmma, the softmax or
+dS on the accumulators in registers; 128 query rows or keys a block);
+fp32 and other head dims run them as fp32 FMA (64 rows a block).
 Softmax, masks and dropout are fp32 either way, and a probability or dS
 entering the next product is rounded to the input dtype first, as the
 Pallas kernels do.  ``delta = rowsum(dO * O)`` is plain PyTorch, as XLA
@@ -51,8 +50,8 @@ __all__ = ["fused_attention", "attention_reference", "mask_to_bias",
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 _U32 = 0xFFFFFFFF
-#: the FMA and WMMA kernels' tile (rows of q and of k per block); the
-#: Hopper forward and dk/dv take 128 rows of q or k a block
+#: the FMA kernels' tile (rows of q and of k per block); the Hopper
+#: kernels take 128 rows of q or k a block
 BLOCK = 64
 _logger = logging.getLogger(__name__)
 

@@ -3,7 +3,7 @@
 Run on a machine with an NVIDIA Hopper card, as a script:
 
     python3 apex_tpu_torch/tools/flash_timing.py [--root DIR] [--label NAME]
-        [--sdpa] [--out DIR]
+        [--sdpa] [--layer-norm] [--nvcc] [--out DIR]
 
 It builds the ``flash_attention`` kernel library of the package found
 under ``--root`` (default: the checkout holding this script), and times
@@ -16,8 +16,16 @@ on one card, run it once per checkout in turns (a, b, b, a) in one
 command.  ``--sdpa`` adds the yardstick ``scaled_dot_product_attention``:
 its forward, and its backward alone (``autograd.grad`` over a retained
 forward), timed between CUDA events with the host's enqueue hidden behind
-a device-side sleep, and the backward's profiler device time.  The record
-goes to ``<--out>/<label>.json``.
+a device-side sleep, and the backward's profiler device time.
+``--layer-norm`` also builds the ``layer_norm`` library and times its
+backward dx kernel at BERT-Large's training shapes — 8192 x 1024 (every
+LayerNorm of the encoder) and 1280 x 1024 (the 16 x 80 gathered MLM
+rows), bf16 activations with fp32 weights (amp O2) and fp32 — beside
+``F.layer_norm``'s backward alone on the same inputs (``autograd.grad``
+over a retained forward, x alone requiring a gradient: dx only).
+``--nvcc`` first times ``nvcc`` on ``flash_attention.cu`` alone, once with
+the checkout's ``_build.NVCC_FLAGS`` and once with them less
+``--split-compile``.  The record goes to ``<--out>/<label>.json``.
 """
 
 from __future__ import annotations
@@ -80,12 +88,59 @@ def _queued(torch, fn, iters=20, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def _layer_norm_rows(torch, F, g):
+    """``{tag: {"dx": (device ms, call ms), "torch_bwd": ...}}`` of the
+    LayerNorm backward dx kernel and ``F.layer_norm``'s backward."""
+    from apex_tpu_torch.ops import layer_norm as L
+
+    dev = torch.device("cuda")
+    rows = {}
+    for n in (8192, 1280):
+        for dt in (torch.bfloat16, torch.float32):
+            h = 1024
+            x = (1 + torch.randn(n, h, generator=g, device=dev)).to(dt)
+            w = 1 + 0.1 * torch.randn(h, generator=g, device=dev)
+            b = 0.1 * torch.randn(h, generator=g, device=dev)
+            dy = torch.randn(n, h, generator=g, device=dev).to(dt)
+            _, mu, rs = L.layer_norm_fwd_kernel(x, w, b, 1e-5, False, True)
+            xr = x.detach().requires_grad_()
+            y = F.layer_norm(xr, (h,), w.to(dt), b.to(dt), 1e-5)
+            rows[f"ln_bwd/{n}x{h}/{str(dt)[6:]}"] = dict(
+                dx=_profiled(torch, lambda: L.layer_norm_bwd_dx_kernel(
+                    dy, x, w, mu, rs, False), iters=50),
+                torch_bwd=_profiled(torch, lambda: torch.autograd.grad(
+                    y, xr, dy, retain_graph=True), iters=50))
+    return rows
+
+
+def _nvcc_seconds(_build, out_dir):
+    """``{"flags": s, "no_split": s}``: seconds of one ``nvcc`` of the
+    flash source with the checkout's flags, and without split compile."""
+    import subprocess
+
+    src = Path(_build.__file__).resolve().parent / "csrc" / \
+        _build.SOURCES["flash_attention"]
+    lib = os.path.join(out_dir, "nvcc_timing.so")
+    secs = {}
+    for tag in ("flags", "no_split"):
+        flags = [f for f in _build.NVCC_FLAGS
+                 if tag == "flags" or not f.startswith("--split-compile")]
+        t0 = time.monotonic()
+        subprocess.run([_build._nvcc(), *flags, "-o", lib, str(src)],
+                       check=True, capture_output=True)
+        secs[tag] = time.monotonic() - t0
+    os.remove(lib)
+    return secs
+
+
 def main(argv=None):
     here = Path(__file__).resolve().parents[2]
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(here))
     ap.add_argument("--label", default="change")
     ap.add_argument("--sdpa", action="store_true")
+    ap.add_argument("--layer-norm", action="store_true")
+    ap.add_argument("--nvcc", action="store_true")
     ap.add_argument("--out", default=os.path.join("build", "flash_timing"))
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
@@ -99,11 +154,17 @@ def main(argv=None):
     from apex_tpu_torch.ops import attention as A
 
     _build.SOURCES = {"flash_attention": "flash_attention.cu"}
+    if args.layer_norm:
+        _build.SOURCES["layer_norm"] = "layer_norm.cu"
+    os.makedirs(args.out, exist_ok=True)
+    out = dict(label=args.label, root=os.path.abspath(args.root),
+               card=torch.cuda.get_device_name(0), rows={})
+    if args.nvcc:
+        out["nvcc_s"] = _nvcc_seconds(_build, args.out)
+        print(args.label, "nvcc_s", json.dumps(out["nvcc_s"]), flush=True)
     t0 = time.monotonic()
     _build.build_all()
-    out = dict(label=args.label, root=os.path.abspath(args.root),
-               card=torch.cuda.get_device_name(0),
-               build_s=time.monotonic() - t0, rows={})
+    out["build_s"] = time.monotonic() - t0
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     dt = torch.bfloat16
@@ -150,7 +211,10 @@ def main(argv=None):
             r["sdpa_bwd_profiled"] = _profiled(torch, bwd)
         out["rows"][tag] = r
         print(args.label, tag, json.dumps(r), flush=True)
-    os.makedirs(args.out, exist_ok=True)
+    if args.layer_norm:
+        for tag, r in _layer_norm_rows(torch, F, g).items():
+            out["rows"][tag] = r
+            print(args.label, tag, json.dumps(r), flush=True)
     with open(os.path.join(args.out, f"{args.label}.json"), "w") as f:
         json.dump(out, f, indent=1)
     return 0

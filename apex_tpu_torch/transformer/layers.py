@@ -4,7 +4,9 @@ Counterparts of ``ColumnParallelLinear``, ``RowParallelLinear`` and
 ``VocabParallelEmbedding`` in ``apex_tpu/transformer/layers.py``.  This
 slice runs on one card, so the layers hold whole weights and insert no
 collectives; the names stay so that a tensor-parallel slice can shard
-them without renaming a parameter.
+them without renaming a parameter.  Like every entry point of the port
+they are built on ``device`` (default ``"cuda"``; raises when CUDA is
+unavailable unless ``device="cpu"``).
 
 Numerics follow the JAX layers: the product runs in the compute
 ``dtype`` with fp32 accumulation (``torch.nn.functional.linear``), the
@@ -24,6 +26,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from apex_tpu_torch.ops._dispatch import resolve_device
+
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding"]
 
@@ -35,6 +39,7 @@ class _Linear(nn.Module):
         super().__init__()
         self.in_features, self.features = int(in_features), int(features)
         self.dtype = dtype
+        device = resolve_device(device)
         self.weight = nn.Parameter(torch.empty(
             features, in_features, dtype=param_dtype, device=device))
         if use_bias:
@@ -78,7 +83,8 @@ class VocabParallelEmbedding(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(
-            num_embeddings, features, dtype=param_dtype, device=device))
+            num_embeddings, features, dtype=param_dtype,
+            device=resolve_device(device)))
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None):

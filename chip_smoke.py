@@ -16,12 +16,12 @@ and dropped before 4); any failure exits non-zero.
 
 1. Kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (Llama-2-7B width) and the training path's
-   (BERT-Large: LayerNorm forward with statistics and backward, flash
-   attention forward, dq and dk/dv, each against its own bound and with
-   SDPA's forward or backward alone as yardstick, the forward and dk/dv
-   rerunning bitwise in bf16; a causal GQA window case at d=128; the
-   flash edge checks, among them the Hopper kernels' 128-row tile edges;
-   the RoPE backward), and the paged kernels at the paged path's (decode,
+   (BERT-Large: LayerNorm forward with statistics and backward, the
+   backward rerunning bitwise in bf16, flash attention forward, dq and
+   dk/dv, each against its own bound and with SDPA's forward or backward
+   alone as yardstick, all three rerunning bitwise in bf16; a causal GQA
+   window case at d=128; the flash edge checks, among them the Hopper
+   kernels' 128-row tile edges; the RoPE backward), and the paged kernels at the paged path's (decode,
    chunked prefill, speculative verify; int8/fp8 pools, GQA, garbage in
    dead pages; the fused decode step's written pages, codes and scales
    bitwise), and the four BatchNorm passes at the ResNet path's (the
@@ -179,6 +179,12 @@ PAGED_KERNELS = ("paged_attention", "paged_decode_fused")
 TRAIN_LAUNCHES = {"layer_norm": 98, "layer_norm_bwd": 50,
                   "flash_attention_fwd": 48, "flash_attention_bwd_dq": 24,
                   "flash_attention_bwd_dkv": 24}
+# device ms per BERT step of each hand kernel of the path and of cuBLAS's
+# GEMMs (phases 4 and 10 under --profile); the rest under "other"
+BERT_GROUPS = {"flash_fwd": r"fa_fwd_", "flash_dq": r"fa_bwd_dq_",
+               "flash_dkv": r"fa_bwd_dkv_", "layer_norm": r"ln_fwd_kernel",
+               "layer_norm_bwd": r"ln_bwd_dx", "fp8_adam": r"fp8_adam_kernel",
+               "gemms": r"nvjet|gemm|cutlass"}
 # ResNet-50: 53 BNs (the stem, 3 per block x 16, 4 bn_down), each one
 # launch of each pass per step (no remat)
 BN_KERNELS = ("bn_reduce", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx")
@@ -695,6 +701,13 @@ def _layer_norm_training_rows(torch, g, record):
                 2 * rows * h * isz + 2 * h * 4 + 8 * rows, 7 * rows * h,
                 lambda: F.layer_norm(x, (h,), w.to(dt), b.to(dt), 1e-5),
                 tol_f + "; mean/rstd 1e-5")
+            if rows == 8192 and dt == torch.bfloat16:
+                rerun = torch.equal(
+                    dx, L.layer_norm_bwd_dx_kernel(dy, x, w, mu, rs, False))
+                log(f"  layer_norm_bwd {rows}x{h} bf16 rerun bitwise "
+                    f"{rerun}")
+                passed_b &= rerun
+                tol_b += "; rerun bitwise"
             xr = x.detach().requires_grad_()
             ylib = F.layer_norm(xr, (h,), w.to(dt), b.to(dt), 1e-5)
             err_b = float((dx.float() - dx2.float()).abs().max())
@@ -1248,7 +1261,7 @@ def _flash_rows(torch, g, record):
     """Flash forward, dq and dk/dv against their plain versions: BERT-
     Large (b=16, s=512, h=16, d=64) plain, with a (b,1,1,s) key-padding
     bias and with dropout 0.1; a causal GQA case with a window at d=128;
-    bf16 and fp32.  At BERT bf16 the forward and dk/dv must rerun
+    bf16 and fp32.  At BERT bf16 the forward, dq and dk/dv must rerun
     bitwise.  The library yardstick is ``F.scaled_dot_product_attention``
     forward for the forward, and its backward alone (``autograd.grad``
     over a retained forward, CUDA events) for each backward kernel, with
@@ -1310,13 +1323,15 @@ def _flash_rows(torch, g, record):
             p_dead = bool((lse[~live] < -1e29).all())
             if tag == "bert" and dt == torch.bfloat16:
                 o3, lse3 = A.flash_fwd_kernel(q, k, v, *args)
+                dq3 = A.flash_bwd_dq_kernel(*bw)
                 dk3, dv3 = A.flash_bwd_dkv_kernel(*bw)
                 bitwise = (torch.equal(o, o3) and torch.equal(lse, lse3)
+                           and torch.equal(dq, dq3)
                            and torch.equal(dk, dk3) and torch.equal(dv, dv3))
-                log(f"  flash bert bf16 rerun: forward and dk/dv bitwise "
-                    f"{bitwise}")
+                log(f"  flash bert bf16 rerun: forward, dq and dk/dv "
+                    f"bitwise {bitwise}")
                 ok &= bitwise
-                del o3, lse3, dk3, dv3
+                del o3, lse3, dq3, dk3, dv3
             # the library yardstick on (b, h, s, d) copies
             qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
                                for t in (q, k, v, do))
@@ -1995,7 +2010,8 @@ def phase_train(torch, profile=False, steps=10, warmup=3):
     losses = [float(o[0]) for o in outs]
     finite = [bool(o[1]) for o in outs]
     t_o2 = sum(step_ms) / len(step_ms)
-    prof = _profile_train(torch, train_step) if profile else None
+    prof = _profile_train(torch, train_step, groups=BERT_GROUPS) \
+        if profile else None
     per_step = {k: v / steps for k, v in launches.items()}
     del model, state, outs
     torch.cuda.empty_cache()
@@ -2197,7 +2213,8 @@ def phase_train_fp8(torch, profile=False, steps=10, warmup=3,
     losses = [float(o[0]) for o in outs]
     finite = [bool(o[1]) for o in outs]
     t_step = sum(step_ms) / len(step_ms)
-    prof = _profile_train(torch, train_step) if profile else None
+    prof = _profile_train(torch, train_step, groups=BERT_GROUPS) \
+        if profile else None
     per_step = {k: v / steps for k, v in launches.items()}
     # the skip step: an inf in one gradient of the scaled loss
     loss = loss_of()
@@ -2846,7 +2863,11 @@ def _profile_steps(torch, eng, n=4):
 def _hopper_report(_build, build_logs):
     """Each wgmma/TMA kernel's ``-Xptxas -v`` line (registers, shared
     memory, spills) and the count of its ``HGMMA`` and ``UTMALDG``
-    instructions in the built library's SASS (``cuobjdump -sass``)."""
+    instructions in the built library's SASS (``cuobjdump -sass``), by
+    kind (forward, dq, dk/dv).  Raises when a kind is missing, when a
+    kernel shows no ``HGMMA`` or no ``UTMALDG``, when this build printed
+    no ``-Xptxas -v`` line for one (the library was not compiled in this
+    call), or when one spills."""
     import shutil
 
     out = {}
@@ -2870,18 +2891,34 @@ def _hopper_report(_build, build_logs):
             rec = out.setdefault(fn, dict(ptxas=[]))
             rec["HGMMA"] = rec.get("HGMMA", 0) + ("HGMMA" in line)
             rec["UTMALDG"] = rec.get("UTMALDG", 0) + ("UTMALDG" in line)
+    kinds = ("fa_fwd_wgmma", "fa_bwd_dq_wgmma", "fa_bwd_dkv_wgmma")
     groups = {}
     for fn, rec in out.items():
-        kind = "fa_fwd_wgmma" if "fa_fwd_wgmma" in fn else "fa_bwd_dkv_wgmma"
-        key = (kind, rec.get("HGMMA", 0), rec.get("UTMALDG", 0),
+        kind = [k for k in kinds if k in fn]
+        if len(kind) != 1:
+            raise RuntimeError(f"wgmma kernel {fn} is none of {kinds}")
+        rec["kind"] = kind[0]
+        key = (kind[0], rec.get("HGMMA", 0), rec.get("UTMALDG", 0),
                " | ".join(rec["ptxas"]))
         groups[key] = groups.get(key, 0) + 1
     for (kind, hg, tma, px), n in sorted(groups.items()):
         log(f"  {kind} x{n} variants: HGMMA {hg} UTMALDG {tma} | {px}")
-    if not out or not all(r.get("HGMMA") and r.get("UTMALDG")
+    missing = [k for k in kinds if not any(
+        r["kind"] == k for r in out.values())]
+    if missing or not all(r.get("HGMMA") and r.get("UTMALDG")
                           for r in out.values()):
-        raise RuntimeError("the wgmma/TMA flash kernels show no HGMMA or "
-                           "UTMALDG in their SASS")
+        raise RuntimeError(f"the wgmma/TMA flash kernels {missing or ''} "
+                           "are missing or show no HGMMA or UTMALDG in "
+                           "their SASS")
+    unread = [fn for fn, r in out.items() if not r["ptxas"]]
+    if unread:
+        raise RuntimeError("no -Xptxas -v line from this build for the "
+                           f"wgmma kernels {unread}: spills unchecked")
+    spilled = [fn for fn, r in out.items() if any(
+        int(n) for px in r["ptxas"]
+        for n in re.findall(r"(\d+) bytes spill", px))]
+    if spilled:
+        raise RuntimeError(f"wgmma kernels spill: {spilled}")
     return out
 
 

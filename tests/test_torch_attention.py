@@ -289,9 +289,8 @@ CARD_EDGE_CASES = {
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", list(CARD_EDGE_CASES))
 def test_hopper_kernels_at_tile_edges_on_card(case, dtype, cuda_device):
-    """The wgmma/TMA forward and dk/dv (and the dq kernel beside them)
-    against their plain versions where tiles are ragged; dead rows keep
-    the -1e30 logsumexp."""
+    """The wgmma/TMA forward, dq and dk/dv against their plain versions
+    where tiles are ragged; dead rows keep the -1e30 logsumexp."""
     b, sq, sk, h, hk, d, bs, causal, window, rate = CARD_EDGE_CASES[case]
     q, k, v, do, bias = (None if a is None else _t(a).to(cuda_device)
                          for a in _inputs(7, b, sq, sk, h, hk, d, bs))
@@ -317,8 +316,8 @@ def test_hopper_kernels_at_tile_edges_on_card(case, dtype, cuda_device):
 
 @pytest.mark.cuda
 def test_hopper_kernels_rerun_bitwise_on_card(cuda_device):
-    """At the BERT-Large shape in bf16 the forward and dk/dv give the
-    same bits on a rerun (no atomics, sums in a fixed order)."""
+    """At the BERT-Large shape in bf16 the forward, dq and dk/dv give
+    the same bits on a rerun (no atomics, sums in a fixed order)."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v, do = (torch.randn(16, 512, 16, 64, generator=g,
                                device=cuda_device).to(torch.bfloat16)
@@ -326,8 +325,10 @@ def test_hopper_kernels_rerun_bitwise_on_card(cuda_device):
     args = (None, 0.125, False, None, 0.0, 0)
     o, lse = A.flash_fwd_kernel(q, k, v, *args)
     bw = (q, k, v, None, do, lse, A.attention_delta(do, o)) + args[1:]
+    dq = A.flash_bwd_dq_kernel(*bw)
     dk, dv = A.flash_bwd_dkv_kernel(*bw)
     o2, lse2 = A.flash_fwd_kernel(q, k, v, *args)
+    dq2 = A.flash_bwd_dq_kernel(*bw)
     dk2, dv2 = A.flash_bwd_dkv_kernel(*bw)
-    for a, b in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2)):
+    for a, b in ((o, o2), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2)):
         assert torch.equal(a, b)

@@ -96,6 +96,23 @@ class TestDispatch:
             resolve_device(None)
         assert resolve_device("cpu").type == "cpu"
 
+    @pytest.mark.parametrize("name", ["ColumnParallelLinear",
+                                      "RowParallelLinear",
+                                      "VocabParallelEmbedding"])
+    def test_tensor_parallel_layers_default_to_the_card(self, name):
+        """The layers resolve ``device=None`` like every entry point:
+        the card, or an error without CUDA; the CPU when asked."""
+        import apex_tpu_torch.transformer as T
+
+        cls = getattr(T, name)
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                cls(8, 4)
+        else:
+            assert cls(8, 4).weight.device.type == "cuda"
+        layer = cls(8, 4, device="cpu")
+        assert all(p.device.type == "cpu" for p in layer.parameters())
+
     def test_port_imports_no_jax(self):
         code = (
             "import sys, pkgutil, importlib, apex_tpu_torch\n"
