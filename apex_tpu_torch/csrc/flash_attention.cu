@@ -541,20 +541,10 @@ __host__ __device__ constexpr int dq_bn(int d, bool drop) {
   return d == 64 && !drop ? 128 : 64;
 }
 
-// the accumulator position of register i for lane wl (see hopper.cuh)
-__device__ __forceinline__ int acc_row(int i) { return 8 * ((i >> 1) & 1); }
-__device__ __forceinline__ int acc_col(int i, int wl) {
-  return 8 * (i >> 2) + 2 * (wl & 3) + (i & 1);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(apex::kFull, v, 1));
-  return fmaxf(v, __shfl_xor_sync(apex::kFull, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(apex::kFull, v, 1);
-  return v + __shfl_xor_sync(apex::kFull, v, 2);
-}
+using hp::acc_col;
+using hp::acc_row;
+using hp::quad_max;
+using hp::quad_sum;
 
 // One key tile of the forward for a warpgroup's 64 rows, on the scores
 // in registers: scale (and bias), the masks where kMasked, the online

@@ -81,6 +81,42 @@ inline int tmap_bshd(CUtensorMap* m, const void* ptr, int half_kind, int d,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// A (heads, blocks, bs, d) paged KV pool as the 4-D map {d, bs, blocks,
+// heads}, with boxes of one page of one head: 64 columns with the
+// 128-byte swizzle for a bf16 / fp16 pool (kind kBF16 / kF16), all d
+// columns unswizzled for a pool of 1-byte codes (kI8 / kF8).
+inline int tmap_pages(CUtensorMap* m, const void* ptr, int kind, int d,
+                      int bs, int blocks, int heads) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
+  const bool half = kind == kBF16 || kind == kF16;
+  const cuuint64_t es = half ? 2 : 1;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)bs,
+                              (cuuint64_t)blocks, (cuuint64_t)heads};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * es,
+                                 (cuuint64_t)bs * d * es,
+                                 (cuuint64_t)blocks * bs * d * es};
+  const cuuint32_t box[4] = {half ? 64u : (cuuint32_t)d, (cuuint32_t)bs, 1,
+                             1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = enc(
+      m, kind == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+         : kind == kF16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                        : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      4, const_cast<void*>(ptr), dims, strides, box, estr,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      half ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The element offset of (row, col) in a 128-byte-swizzled panel of 64
+// half-precision columns (the layout TMA writes; row 0 on a 1024-byte
+// boundary), for threads that store an operand tile themselves.
+__host__ __device__ constexpr int sw128_at(int row, int col) {
+  return row * 64 + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
+}
+
 // ------------------------------------------------------------------ //
 // device: mbarriers and TMA
 // ------------------------------------------------------------------ //
@@ -121,6 +157,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// orders this thread's shared-memory stores before later reads by the
+// async proxy (wgmma, TMA); then a barrier hands the tile over
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier among `threads` threads (a multiple of 32) on named barrier
+// `id` (1-15; 0 is __syncthreads')
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // one box of a 4-D map into shared memory, completing on `bar`
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* m,
                                             uint64_t* bar, int c0, int c1,
@@ -152,6 +200,23 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// the accumulator position of register i for lane wl (see the header):
+// row offset 0 or 8 from the lane's first row, and column
+__device__ __forceinline__ int acc_row(int i) { return 8 * ((i >> 1) & 1); }
+__device__ __forceinline__ int acc_col(int i, int wl) {
+  return 8 * (i >> 2) + 2 * (wl & 3) + (i & 1);
+}
+
+// reductions over the quad of lanes that shares an accumulator row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
+  return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
 }
 
 // pins accumulator registers in place around asynchronous products, so

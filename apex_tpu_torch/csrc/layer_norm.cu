@@ -20,26 +20,29 @@
 // own dtype (fp32 norm weights on bf16 activations under amp O2) and are
 // multiplied in fp32.
 //
-// Forward: one block per row; the row is swept from global memory once
-// per statistic (the later sweeps hit L1/L2, a row is at most a few KB).
-//
-// Backward dx, two paths:
-// (1) Register-resident (ln_bwd_dx_vec_kernel), when a row is a whole
-//     number of 16-byte vectors (h * itemsize % 16 == 0; rows and the
-//     weight 16-byte aligned) and h <= 8192.  A row group of 1, 2, 4 or
-//     8 warps (the fewest that hold the row) owns a row, in blocks of
-//     128 threads (256 for a group of 8 warps); each lane holds up to 32
-//     elements of it — 4 vectors of bf16/fp16 or 8 of fp32 — so one warp
-//     takes a row up to h = 1024, and 8 warps up to h = 8192.  dy and x
-//     are read once, with 16-byte loads, and stay in registers between the
-//     reductions and the write; both sums run in one pass, warp shuffles
-//     in a fixed tree, then (row groups of more than one warp) the warp
-//     partials in warp order.  Each lane's weight columns, read once as
+// Forward and backward dx each take one of two paths:
+// (1) Register-resident (ln_fwd_vec_kernel, ln_bwd_dx_vec_kernel), when
+//     a row is a whole number of 16-byte vectors (h * itemsize % 16 ==
+//     0; rows, weight and bias 16-byte aligned) and h <= 8192.  A row
+//     group of 1, 2, 4 or 8 warps (the fewest that hold the row) owns a
+//     row, in blocks of 128 threads (256 for a group of 8 warps); each
+//     lane holds up to 32 elements of it — 4 vectors of bf16/fp16 or 8
+//     of fp32 — so one warp takes a row up to h = 1024, and 8 warps up
+//     to h = 8192.  The row (x, and dy in the backward) is read once,
+//     with 16-byte loads, and stays in registers between the reductions
+//     and the write.  Sums are warp shuffles in a fixed tree, then (row
+//     groups of more than one warp) the warp partials in warp order.
+//     The forward takes the JAX kernel's two passes over the registers:
+//     the mean, then the sum of (x - mean)^2 (no E[x^2] - mean^2; RMSNorm
+//     takes mean 0 and skips the first); the backward's two sums run in
+//     one pass.  Each lane's weight (and bias) columns, read once as
 //     vectors, stay in registers across the rows it walks: the grid is
 //     sized to the blocks that fit on the card at once and strides over
 //     rows.
-// (2) Otherwise: one 256-thread block per row, x and dy swept twice
-//     (the second sweep from L1/L2) with two block reductions.
+// (2) Otherwise (h not a whole number of 16-byte vectors, or above
+//     8192): one 256-thread block per row, the row swept from global
+//     memory once per statistic and once for the write (the later
+//     sweeps from L1/L2), with a block reduction per statistic.
 #include "common.cuh"
 
 namespace {
@@ -244,22 +247,190 @@ ln_bwd_dx_vec_kernel(const T* __restrict__ dy, const T* __restrict__ x,
   }
 }
 
+// the sum of v over a row group of kWarps warps: a shuffle tree in the
+// warp, then the warp partials in warp order; every thread of the block
+// calls it (red holds a float per warp)
+template <int kWarps>
+__device__ __forceinline__ float group_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(apex::kFull, v, o);
+  if (kWarps > 1) {
+    const int warp = threadIdx.x >> 5, g0 = warp / kWarps * kWarps;
+    if ((threadIdx.x & 31) == 0) red[warp] = v;
+    __syncthreads();
+    v = red[g0];
+#pragma unroll
+    for (int k = 1; k < kWarps; ++k) v += red[g0 + k];
+    __syncthreads();
+  }
+  return v;
+}
+
+// Register-resident forward (path 1 of the header): the layout of
+// ln_bwd_dx_vec_kernel.  mean_out / rstd_out may be null (serving).
+template <typename T, typename W, int kWarps>
+__global__ void __launch_bounds__(vec_threads(kWarps))
+ln_fwd_vec_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                  const W* __restrict__ b, T* __restrict__ y,
+                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                  long long rows, int h, float eps, int rms) {
+  constexpr int E = 16 / sizeof(T);           // elements per vector
+  constexpr int NV = 32 / E;                  // vectors per lane
+  constexpr int kBlock = vec_threads(kWarps);
+  constexpr int kGroups = kBlock / 32 / kWarps;
+  constexpr int kStride = 32 * kWarps;        // vectors per row pass
+  __shared__ float red[kBlock / 32];
+  const int grp = (threadIdx.x >> 5) / kWarps;
+  const int t = ((threadIdx.x >> 5) % kWarps) * 32 + (threadIdx.x & 31);
+  const int nvec = h / E;
+  float wv[NV][E], bv[NV][E];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int v = t + j * kStride;
+    if (w != nullptr && v < nvec) {
+      load_w<W, E>(wv[j], w, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) wv[j][e] = 1.f;
+    }
+    if (b != nullptr && v < nvec) {
+      load_w<W, E>(bv[j], b, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) bv[j][e] = 0.f;
+    }
+  }
+  for (long long base = (long long)blockIdx.x * kGroups; base < rows;
+       base += (long long)gridDim.x * kGroups) {
+    const long long row = base + grp;
+    const bool active = row < rows;
+    uint4 xv[NV];
+    float mu = 0.f;
+    if (active) {
+      const uint4* xr = reinterpret_cast<const uint4*>(x + row * h);
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        if (t + j * kStride < nvec) xv[j] = xr[t + j * kStride];
+    }
+    if (!rms) {
+      float s = 0.f;
+      if (active) {
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          if (t + j * kStride >= nvec) continue;
+          const T* xe = reinterpret_cast<const T*>(&xv[j]);
+#pragma unroll
+          for (int e = 0; e < E; ++e) s += apex::to_f(xe[e]);
+        }
+      }
+      mu = group_sum<kWarps>(s, red) / (float)h;
+    }
+    float ss = 0.f;
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        if (t + j * kStride >= nvec) continue;
+        const T* xe = reinterpret_cast<const T*>(&xv[j]);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float d = __fsub_rn(apex::to_f(xe[e]), mu);
+          ss = __fmaf_rn(d, d, ss);
+        }
+      }
+    }
+    const float var = group_sum<kWarps>(ss, red) / (float)h;
+    if (!active) continue;
+    const float rstd = 1.0f / sqrtf(var + eps);
+    uint4* yr = reinterpret_cast<uint4*>(y + row * h);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int v = t + j * kStride;
+      if (v >= nvec) continue;
+      const T* xe = reinterpret_cast<const T*>(&xv[j]);
+      uint4 ov;
+      T* oe = reinterpret_cast<T*>(&ov);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        float o = __fmul_rn(__fsub_rn(apex::to_f(xe[e]), mu), rstd);
+        if (w != nullptr) o = __fmul_rn(o, wv[j][e]);
+        if (b != nullptr) o = __fadd_rn(o, bv[j][e]);
+        oe[e] = apex::from_f<T>(o);
+      }
+      yr[v] = ov;
+    }
+    if (t == 0 && mean_out != nullptr) {
+      mean_out[row] = mu;
+      rstd_out[row] = rstd;
+    }
+  }
+}
+
+// a grid of as many blocks of kern as fit on the card at once, with the
+// row passes of kGroups rows spread evenly over them (0, or an error)
+template <typename K>
+int vec_grid(K kern, int block, int groups_per_block, long long rows,
+             unsigned* grid) {
+  int per_sm = 0;
+  const int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kern, block, 0);
+  if (e) return e;
+  const long long groups = (rows + groups_per_block - 1) / groups_per_block;
+  const long long cap = apex::persistent_grid(groups, per_sm);
+  const long long passes = (groups + cap - 1) / cap;
+  *grid = (unsigned)((groups + passes - 1) / passes);
+  return 0;
+}
+
+// whether rows of h elements of T at these pointers take path 1
+template <typename T>
+bool vec_path(int h, uintptr_t ptrs) {
+  return (long long)h * sizeof(T) % 16 == 0 && h <= 8 * 32 * 32 &&
+         ptrs % 16 == 0;
+}
+
+template <typename T, typename W, int kWarps>
+int launch_fwd_vec(const void* x, const void* w, const void* b, void* y,
+                   float* mean, float* rstd, long long rows, int h,
+                   float eps, int rms, cudaStream_t st) {
+  constexpr int kBlock = vec_threads(kWarps);
+  auto kern = ln_fwd_vec_kernel<T, W, kWarps>;
+  unsigned grid = 0;
+  const int e = vec_grid(kern, kBlock, kBlock / 32 / kWarps, rows, &grid);
+  if (e) return e;
+  kern<<<grid, kBlock, 0, st>>>((const T*)x, (const W*)w, (const W*)b,
+                                  (T*)y, mean, rstd, rows, h, eps, rms);
+  return 0;
+}
+
 template <typename T, typename W>
-void launch_fwd(const void* x, const void* w, const void* b, void* y,
-                float* mean, float* rstd, long long rows, int h, float eps,
-                int rms, cudaStream_t st) {
-  ln_fwd_kernel<T, W><<<(unsigned)rows, kThreads, 0, st>>>(
-      (const T*)x, (const W*)w, (const W*)b, (T*)y, mean, rstd, h, eps, rms);
+int launch_fwd(const void* x, const void* w, const void* b, void* y,
+               float* mean, float* rstd, long long rows, int h, float eps,
+               int rms, cudaStream_t st) {
+  if (!vec_path<T>(h, (uintptr_t)x | (uintptr_t)y | (uintptr_t)w |
+                          (uintptr_t)b)) {
+    ln_fwd_kernel<T, W><<<(unsigned)rows, kThreads, 0, st>>>(
+        (const T*)x, (const W*)w, (const W*)b, (T*)y, mean, rstd, h, eps,
+        rms);
+    return 0;
+  }
+  constexpr int kElemsPerWarp = 32 * 32;      // a lane holds 32 elements
+  if (h <= kElemsPerWarp)
+    return launch_fwd_vec<T, W, 1>(x, w, b, y, mean, rstd, rows, h, eps, rms, st);
+  if (h <= 2 * kElemsPerWarp)
+    return launch_fwd_vec<T, W, 2>(x, w, b, y, mean, rstd, rows, h, eps, rms, st);
+  if (h <= 4 * kElemsPerWarp)
+    return launch_fwd_vec<T, W, 4>(x, w, b, y, mean, rstd, rows, h, eps, rms, st);
+  return launch_fwd_vec<T, W, 8>(x, w, b, y, mean, rstd, rows, h, eps, rms, st);
 }
 
 template <typename T>
-void launch_fwd_w(const void* x, const void* w, const void* b, void* y,
-                  float* mean, float* rstd, long long rows, int h, float eps,
-                  int rms, int wt, cudaStream_t st) {
+int launch_fwd_w(const void* x, const void* w, const void* b, void* y,
+                 float* mean, float* rstd, long long rows, int h, float eps,
+                 int rms, int wt, cudaStream_t st) {
   switch (wt) {
-    case apex::kF32: launch_fwd<T, float>(x, w, b, y, mean, rstd, rows, h, eps, rms, st); break;
-    case apex::kBF16: launch_fwd<T, __nv_bfloat16>(x, w, b, y, mean, rstd, rows, h, eps, rms, st); break;
-    default: launch_fwd<T, __half>(x, w, b, y, mean, rstd, rows, h, eps, rms, st); break;
+    case apex::kF32: return launch_fwd<T, float>(x, w, b, y, mean, rstd, rows, h, eps, rms, st);
+    case apex::kBF16: return launch_fwd<T, __nv_bfloat16>(x, w, b, y, mean, rstd, rows, h, eps, rms, st);
+    default: return launch_fwd<T, __half>(x, w, b, y, mean, rstd, rows, h, eps, rms, st);
   }
 }
 
@@ -268,18 +439,10 @@ int launch_bwd_vec(const void* dy, const void* x, const void* w,
                    const float* mean, const float* rstd, void* dx,
                    long long rows, int h, int rms, cudaStream_t st) {
   constexpr int kBlock = vec_threads(kWarps);
-  constexpr int kGroups = kBlock / 32 / kWarps;   // rows a block pass
   auto kern = ln_bwd_dx_vec_kernel<T, W, kWarps>;
-  // as many blocks as fit on the card at once, with the row passes
-  // spread evenly over them
-  int per_sm = 0;
-  int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                             kBlock, 0);
+  unsigned grid = 0;
+  const int e = vec_grid(kern, kBlock, kBlock / 32 / kWarps, rows, &grid);
   if (e) return e;
-  const long long groups = (rows + kGroups - 1) / kGroups;
-  const long long cap = apex::persistent_grid(groups, per_sm);
-  const long long passes = (groups + cap - 1) / cap;
-  const unsigned grid = (unsigned)((groups + passes - 1) / passes);
   kern<<<grid, kBlock, 0, st>>>((const T*)dy, (const T*)x, (const W*)w,
                                   mean, rstd, (T*)dx, rows, h, rms);
   return 0;
@@ -290,11 +453,8 @@ int launch_bwd(const void* dy, const void* x, const void* w,
                const float* mean, const float* rstd, void* dx,
                long long rows, int h, int rms, cudaStream_t st) {
   constexpr int kElemsPerWarp = 32 * 32;      // a lane holds 32 elements
-  const bool vec = (long long)h * sizeof(T) % 16 == 0 &&
-                   h <= 8 * kElemsPerWarp &&
-                   ((uintptr_t)dy | (uintptr_t)x | (uintptr_t)dx |
-                    (uintptr_t)w) % 16 == 0;
-  if (!vec) {
+  if (!vec_path<T>(h, (uintptr_t)dy | (uintptr_t)x | (uintptr_t)dx |
+                          (uintptr_t)w)) {
     ln_bwd_dx_kernel<T, W><<<(unsigned)rows, kThreads, 0, st>>>(
         (const T*)dy, (const T*)x, (const W*)w, mean, rstd, (T*)dx, h, rms);
     return 0;
@@ -332,12 +492,13 @@ extern "C" int apex_ln_fwd(const void* x, const void* w, const void* b,
   cudaStream_t st = (cudaStream_t)stream;
   float* mu = (float*)mean;
   float* rs = (float*)rstd;
+  int e;
   switch (xt) {
-    case apex::kF32: launch_fwd_w<float>(x, w, b, y, mu, rs, rows, h, eps, rms, wt, st); break;
-    case apex::kBF16: launch_fwd_w<__nv_bfloat16>(x, w, b, y, mu, rs, rows, h, eps, rms, wt, st); break;
-    default: launch_fwd_w<__half>(x, w, b, y, mu, rs, rows, h, eps, rms, wt, st); break;
+    case apex::kF32: e = launch_fwd_w<float>(x, w, b, y, mu, rs, rows, h, eps, rms, wt, st); break;
+    case apex::kBF16: e = launch_fwd_w<__nv_bfloat16>(x, w, b, y, mu, rs, rows, h, eps, rms, wt, st); break;
+    default: e = launch_fwd_w<__half>(x, w, b, y, mu, rs, rows, h, eps, rms, wt, st); break;
   }
-  return (int)cudaGetLastError();
+  return e ? e : (int)cudaGetLastError();
 }
 
 // dy, x, dx: (rows, h) contiguous in dtype xt; w: (h,) in dtype wt or

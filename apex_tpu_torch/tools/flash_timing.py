@@ -1,9 +1,10 @@
-"""Time the flash attention kernels of one checkout of the port.
+"""Time the flash attention, LayerNorm and paged attention kernels of one
+checkout of the port.
 
 Run on a machine with an NVIDIA Hopper card, as a script:
 
     python3 apex_tpu_torch/tools/flash_timing.py [--root DIR] [--label NAME]
-        [--sdpa] [--layer-norm] [--nvcc] [--out DIR]
+        [--sdpa] [--layer-norm] [--paged] [--no-flash] [--nvcc] [--out DIR]
 
 It builds the ``flash_attention`` kernel library of the package found
 under ``--root`` (default: the checkout holding this script), and times
@@ -18,11 +19,20 @@ its forward, and its backward alone (``autograd.grad`` over a retained
 forward), timed between CUDA events with the host's enqueue hidden behind
 a device-side sleep, and the backward's profiler device time.
 ``--layer-norm`` also builds the ``layer_norm`` library and times its
-backward dx kernel at BERT-Large's training shapes — 8192 x 1024 (every
-LayerNorm of the encoder) and 1280 x 1024 (the 16 x 80 gathered MLM
-rows), bf16 activations with fp32 weights (amp O2) and fp32 — beside
-``F.layer_norm``'s backward alone on the same inputs (``autograd.grad``
-over a retained forward, x alone requiring a gradient: dx only).
+forward with statistics and its backward dx kernel at BERT-Large's
+training shapes — 8192 x 1024 (every LayerNorm of the encoder) and 1280
+x 1024 (the 16 x 80 gathered MLM rows), bf16 activations with fp32
+weights (amp O2) and fp32 — beside ``F.layer_norm``'s forward, and its
+backward alone (``autograd.grad`` over a retained forward, x alone
+requiring a gradient: dx only), on the same inputs; and the serving
+RMSNorm forward (4 x 4096 bf16, bf16 weight, no statistics) beside
+``F.rms_norm``.  ``--paged`` also builds the ``paged_attention`` library
+and times ``paged_attention`` on ``chip_smoke.py``'s pools at its
+chunked-prefill shapes (8 rows of 128 queries over contexts of 0-872
+tokens, Llama-2-7B's 32 heads at d 128, pages of 16, bf16: on bf16 and
+int8 pages, and GQA 32/8) and the GQA speculative verify (4 rows of 4
+queries, 32/8 heads, contexts of 250-510).  ``--no-flash`` leaves the flash library out
+(neither built nor timed).
 ``--nvcc`` first times ``nvcc`` on ``flash_attention.cu`` alone, once with
 the checkout's ``_build.NVCC_FLAGS`` and once with them less
 ``--split-compile``.  The record goes to ``<--out>/<label>.json``.
@@ -113,6 +123,77 @@ def _layer_norm_rows(torch, F, g):
     return rows
 
 
+def _layer_norm_fwd_rows(torch, F, g):
+    """``{tag: {"fwd": (device ms, call ms), "torch_fwd": ...}}`` of the
+    LayerNorm forward kernel (with statistics at the training shapes,
+    without at the serving RMSNorm's) and the PyTorch call."""
+    from apex_tpu_torch.ops import layer_norm as L
+
+    dev = torch.device("cuda")
+    rows = {}
+    for n in (8192, 1280):
+        for dt in (torch.bfloat16, torch.float32):
+            h = 1024
+            x = (1 + torch.randn(n, h, generator=g, device=dev)).to(dt)
+            w = 1 + 0.1 * torch.randn(h, generator=g, device=dev)
+            b = 0.1 * torch.randn(h, generator=g, device=dev)
+            wd, bd = w.to(dt), b.to(dt)
+            rows[f"ln_fwd/{n}x{h}/{str(dt)[6:]}"] = dict(
+                fwd=_profiled(torch, lambda: L.layer_norm_fwd_kernel(
+                    x, w, b, 1e-5, False, True), iters=50),
+                torch_fwd=_profiled(torch, lambda: F.layer_norm(
+                    x, (h,), wd, bd, 1e-5), iters=50))
+    x = torch.randn(4, 4096, generator=g, device=dev).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(4096, generator=g, device=dev)).to(
+        torch.bfloat16)
+    r = dict(fwd=_profiled(torch, lambda: L.layer_norm_fwd_kernel(
+        x, w, None, 1e-5, True, False), iters=50))
+    if hasattr(F, "rms_norm"):
+        r["torch_fwd"] = _profiled(
+            torch, lambda: F.rms_norm(x, (4096,), w, eps=1e-5), iters=50)
+    rows["rms_fwd/4x4096/bfloat16"] = r
+    return rows
+
+
+PAGED_CASES = [
+    # tag, b, s, h, hk, lengths, kv_dtype
+    ("chunk", 8, 128, 32, 32, [0, 120, 250, 400, 560, 700, 812, 872], None),
+    ("chunk/int8", 8, 128, 32, 32, [0, 120, 250, 400, 560, 700, 812, 872],
+     "int8"),
+    ("chunk/gqa", 8, 128, 32, 8, [0, 120, 250, 400, 560, 700, 812, 872],
+     None),
+    ("verify/gqa", 4, 4, 32, 8, [510, 480, 333, 250], None),
+]
+
+
+def _paged_rows(torch, g):
+    """``{tag: {"kernel": (device ms, call ms)}}`` of ``paged_attention``
+    at :data:`PAGED_CASES` on ``chip_smoke.py``'s pools (this checkout's:
+    each row's tokens on shuffled pages of 16, d 128, bf16 q)."""
+    import importlib
+
+    sys.path.insert(1, str(Path(__file__).resolve().parents[2]))
+    import chip_smoke
+
+    PA = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    dev = torch.device("cuda")
+    rows = {}
+    for tag, b, s, h, hk, lengths, kv in PAGED_CASES:
+        kp, vp, tables, lens, _ = chip_smoke._paged_pool(
+            torch, g, dev, b=b, hk=hk, d=128, bs=16, lengths=lengths, s=s,
+            dtype=torch.bfloat16)
+        kw = {}
+        if kv:
+            kp, vp, ks, vs = PA.quantize_kv_pages(kp, vp, kv)
+            kw = dict(k_scales=ks, v_scales=vs)
+        q = torch.randn(b, s, h, 128, generator=g, device=dev).to(
+            torch.bfloat16)
+        rows[f"paged/{tag}"] = dict(kernel=_profiled(
+            torch, lambda: PA.paged_attention(q, kp, vp, tables, lens, **kw),
+            iters=20))
+    return rows
+
+
 def _nvcc_seconds(_build, out_dir):
     """``{"flags": s, "no_split": s}``: seconds of one ``nvcc`` of the
     flash source with the checkout's flags, and without split compile."""
@@ -140,6 +221,8 @@ def main(argv=None):
     ap.add_argument("--label", default="change")
     ap.add_argument("--sdpa", action="store_true")
     ap.add_argument("--layer-norm", action="store_true")
+    ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--no-flash", action="store_true")
     ap.add_argument("--nvcc", action="store_true")
     ap.add_argument("--out", default=os.path.join("build", "flash_timing"))
     args = ap.parse_args(argv)
@@ -153,9 +236,12 @@ def main(argv=None):
     from apex_tpu_torch import _build
     from apex_tpu_torch.ops import attention as A
 
-    _build.SOURCES = {"flash_attention": "flash_attention.cu"}
+    _build.SOURCES = {} if args.no_flash else {
+        "flash_attention": "flash_attention.cu"}
     if args.layer_norm:
         _build.SOURCES["layer_norm"] = "layer_norm.cu"
+    if args.paged:
+        _build.SOURCES["paged_attention"] = "paged_attention.cu"
     os.makedirs(args.out, exist_ok=True)
     out = dict(label=args.label, root=os.path.abspath(args.root),
                card=torch.cuda.get_device_name(0), rows={})
@@ -168,7 +254,8 @@ def main(argv=None):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     dt = torch.bfloat16
-    for tag, b, s, h, hk, d, causal, window, has_bias, rate in CASES:
+    for tag, b, s, h, hk, d, causal, window, has_bias, rate in (
+            [] if args.no_flash else CASES):
         q, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(dt)
                  for _ in range(2))
         k, v = (torch.randn(b, s, hk, d, generator=g, device=dev).to(dt)
@@ -211,8 +298,13 @@ def main(argv=None):
             r["sdpa_bwd_profiled"] = _profiled(torch, bwd)
         out["rows"][tag] = r
         print(args.label, tag, json.dumps(r), flush=True)
+    more = []
     if args.layer_norm:
-        for tag, r in _layer_norm_rows(torch, F, g).items():
+        more += [_layer_norm_fwd_rows, _layer_norm_rows]
+    if args.paged:
+        more.append(lambda torch, F, g: _paged_rows(torch, g))
+    for rows_of in more:
+        for tag, r in rows_of(torch, F, g).items():
             out["rows"][tag] = r
             print(args.label, tag, json.dumps(r), flush=True)
     with open(os.path.join(args.out, f"{args.label}.json"), "w") as f:

@@ -24,7 +24,10 @@ and dropped before 4); any failure exits non-zero.
    kernels' 128-row tile edges; the RoPE backward), and the paged kernels at the paged path's (decode,
    chunked prefill, speculative verify; int8/fp8 pools, GQA, garbage in
    dead pages; the fused decode step's written pages, codes and scales
-   bitwise), and the four BatchNorm passes at the ResNet path's (the
+   bitwise; the Hopper chunk kernel's edges — 16 lanes, d 64, fp16,
+   lengths 0 / 15 / 16, pages of 8 — and pages of 128 on the tile
+   kernel; the chunk kernel and the LayerNorm forward rerunning bitwise),
+   and the four BatchNorm passes at the ResNet path's (the
    stem's and stage 0's last BN, bf16 and fp32; the maps bitwise, the
    reductions within 1e-5 of the summed magnitudes, bf16 reruns
    bitwise), the fp8 Adam step at BERT-Large's per-leaf layout and on
@@ -52,8 +55,9 @@ and dropped before 4); any failure exits non-zero.
    32/128/512) for 8 requests; every kernel of the path must launch.
 6. Paged serving: the same model from a paged pool of 16384 tokens (8
    slots, pages of 16, chunks of 128) for 16 requests of 20-1000 prompt
-   tokens, then steady decode at 4 and 8 slots; both paged kernels must
-   launch and every page come back.
+   tokens, then steady decode at 4 and 8 slots (and, under ``--profile``,
+   chunked-prefill steps of 8 slots, B-9's device ms per step); both
+   paged kernels must launch and every page come back.
 7. The same on int8 pages with prefix sharing and 3 lookup drafts: 8
    requests, 4 behind one 256-token system prompt, run twice; greedy
    results must repeat; then steady decode at 4 slots.
@@ -182,9 +186,13 @@ TRAIN_LAUNCHES = {"layer_norm": 98, "layer_norm_bwd": 50,
 # device ms per BERT step of each hand kernel of the path and of cuBLAS's
 # GEMMs (phases 4 and 10 under --profile); the rest under "other"
 BERT_GROUPS = {"flash_fwd": r"fa_fwd_", "flash_dq": r"fa_bwd_dq_",
-               "flash_dkv": r"fa_bwd_dkv_", "layer_norm": r"ln_fwd_kernel",
+               "flash_dkv": r"fa_bwd_dkv_", "layer_norm": r"ln_fwd_",
                "layer_norm_bwd": r"ln_bwd_dx", "fp8_adam": r"fp8_adam_kernel",
                "gemms": r"nvjet|gemm|cutlass"}
+# device ms per chunked-prefill step of phase 6 (under --profile): B-9,
+# the other hand kernels of the step, cuBLAS's GEMMs; the rest "other"
+PREFILL_GROUPS = {"paged_attention": r"paged_attn_", "layer_norm": r"ln_fwd_",
+                  "rope": r"rope", "gemms": r"nvjet|gemm|cutlass"}
 # ResNet-50: 53 BNs (the stem, 3 per block x 16, 4 bn_down), each one
 # launch of each pass per step (no remat)
 BN_KERNELS = ("bn_reduce", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx")
@@ -492,7 +500,10 @@ def _paged_rows(torch, g, record, rows_out):
     shape (4 rows of 510/480/333/250 tokens, Llama-2-7B heads), the
     chunked-prefill shape (8 rows, chunk 128, contexts to 1000) and the
     speculative verify (s = 4); B-10 at the decode shape with RoPE; int8
-    and fp8 pools, GQA (32/8 heads), fp32, dead pages of garbage.
+    and fp8 pools, GQA (32/8 heads), fp32, dead pages of garbage; the
+    Hopper chunk kernel's edges (16 lanes, d 64, fp16, lengths 0 / 15 /
+    16, pages of 8) and pages of 128 on the tile kernel.  The chunk
+    kernel reruns bitwise at the chunk shape, bf16 and int8 pages.
     B-10's written pages, codes and scales must equal the plain
     version's bitwise on live pages.  There is no PyTorch call for
     attention over a paged pool (library "none");
@@ -511,7 +522,7 @@ def _paged_rows(torch, g, record, rows_out):
     bf16 = torch.bfloat16
     dec = [510, 480, 333, 250]
     chunk = [0, 120, 250, 400, 560, 700, 812, 872]
-    cases = [  # tag, b, s, h, hk, lengths, dtype, kv_dtype
+    cases = [  # tag, b, s, h, hk, lengths, dtype, kv_dtype[, d, bs]
         ("decode", 4, 1, 32, 32, dec, bf16, None),
         ("decode", 4, 1, 32, 32, dec, torch.float32, None),
         ("decode/int8", 4, 1, 32, 32, dec, bf16, "int8"),
@@ -523,11 +534,21 @@ def _paged_rows(torch, g, record, rows_out):
         ("chunk/gqa", 8, 128, 32, 8, chunk, bf16, None),
         ("verify", 4, 4, 32, 32, dec, bf16, None),
         ("verify/fp8", 4, 4, 32, 32, dec, bf16, "fp8"),
+        # the edges of the Hopper chunk kernel: 16 lanes (a GQA verify),
+        # d 64, fp16 q, an e4m3 pool, lengths 0 / bs - 1 / bs, pages of
+        # 8, and pages of 128, which stay on the tile kernel
+        ("verify/gqa", 4, 4, 32, 8, dec, bf16, None),
+        ("chunk/d64", 8, 128, 32, 32, chunk, bf16, None, 64, 16),
+        ("chunk/fp16", 8, 128, 32, 32, chunk, torch.float16, None),
+        ("chunk/fp8", 8, 128, 32, 32, chunk, bf16, "fp8"),
+        ("chunk/edges", 3, 128, 32, 8, [0, 15, 16], bf16, None),
+        ("chunk/bs8", 8, 128, 32, 32, chunk, bf16, None, 128, 8),
+        ("chunk/bs128", 8, 128, 32, 32, chunk, bf16, None, 128, 128),
     ]
     ok = True
     cos_t, sin_t = rope_cos_sin(4096, 128, device=dev)
-    for tag, b, s, h, hk, lengths, dt, kv in cases:
-        d, bs = 128, 16
+    for tag, b, s, h, hk, lengths, dt, kv, *geom in cases:
+        d, bs = geom or (128, 16)
         kp, vp, tables, lens, live = _paged_pool(
             torch, g, dev, b=b, hk=hk, d=d, bs=bs, lengths=lengths, s=s,
             dtype=dt)
@@ -562,6 +583,11 @@ def _paged_rows(torch, g, record, rows_out):
         torch.cuda.synchronize()
         err, passed = _close_rel(torch, got, ref, rel)
         passed &= bool(torch.isfinite(got).all())
+        if tag in ("chunk", "chunk/int8"):
+            rerun = torch.equal(got, PA.paged_attention(*args, **kw))
+            log(f"  paged_attn/{tag} rerun bitwise {rerun}")
+            passed &= rerun
+            tol += "; rerun bitwise"
         ok &= record(f"paged_attn/{tag}", shape, dt, err, passed,
                      lambda: PA.paged_attention(*args, **kw),
                      lambda: PA.paged_attention(*args, implementation="torch",
@@ -656,7 +682,7 @@ def _layer_norm_training_rows(torch, g, record):
     """LayerNorm forward with saved statistics and the dx backward at
     the training shapes (b*s = 8192 rows and the 16*80 = 1280 gathered
     MLM rows of BERT-Large), bf16 activations with fp32 weights as under
-    amp O2, and fp32."""
+    amp O2, and fp32; both rerun bitwise at 8192 x 1024 bf16."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import layer_norm as L
@@ -691,6 +717,14 @@ def _layer_norm_training_rows(torch, g, record):
                 tol_f = "1 bf16 ulp + 2^-16 of the largest |y|"
                 tol_b = "2^-7 of the largest |dx|"
             passed_f &= stats_err <= 1e-5
+            if rows == 8192 and dt == torch.bfloat16:
+                again = L.layer_norm_fwd_kernel(x, w, b, 1e-5, False, True)
+                rerun = all(torch.equal(a, c)
+                            for a, c in zip((y, mu, rs), again))
+                log(f"  layer_norm/stats {rows}x{h} bf16 rerun bitwise "
+                    f"{rerun}")
+                passed_f &= rerun
+                tol_f += "; rerun bitwise"
             isz = x.element_size()
             err_f = max(float((y.float() - y2.float()).abs().max()),
                         stats_err)
@@ -1824,6 +1858,16 @@ def phase_paged(torch, model, profile=False):
         prof["slots_8"] = _profile_steps(torch, eng)
     for slot in range(8):
         eng.release(slot)
+    if profile:
+        # chunked prefill: 8 prompts of 1000 tokens, profiled over their
+        # 2nd-5th chunks of 128 (every slot prefilling in every step)
+        long = [torch.randint(0, VOCAB, (1000,), generator=gen).numpy()
+                for _ in range(8)]
+        for slot, p in enumerate(long):
+            eng.admit(slot, p, max_new_tokens=1)
+        prof["prefill_8"] = _profile_steps(torch, eng, groups=PREFILL_GROUPS)
+        for slot in range(8):
+            eng.release(slot)
     ok &= eng.blocks_in_use == 0
     stats = dict(requests=len(results), prompt_lens=lens, tokens=ntok,
                  steps=steps, wall_s=wall, warmup_s=warm_s,
@@ -2085,21 +2129,7 @@ def _profile_train(torch, train_step, n=2, groups=None):
         wall_us = (time.monotonic() - t0) * 1e6
     rows = [(_device_us(e), e.key, e.count) for e in pr.key_averages()
             if _is_kernel(e) and _device_us(e) > 0]
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    out = dict(steps=n, wall_ms_per_step=wall_us / n / 1e3,
-               device_busy_ms_per_step=busy / n / 1e3,
-               device_idle_share=max(0.0, 1 - busy / wall_us),
-               top=[dict(kernel=k[:90], ms_per_step=us / n / 1e3,
-                         calls_per_step=c / n) for us, k, c in rows[:15]])
-    if groups:
-        split = dict.fromkeys(list(groups) + ["other"], 0.0)
-        for us, key, _ in rows:
-            name = next((k for k, pat in groups.items()
-                         if re.search(pat, key)), "other")
-            split[name] += us / n / 1e3
-        out["device_ms_per_step_by_group"] = split
-    return out
+    return _profile_summary(rows, n, wall_us, groups)
 
 
 # ------------------------------------------------------------------ #
@@ -2834,9 +2864,10 @@ def phase_resnet_identity(torch):
     return ok, stats
 
 
-def _profile_steps(torch, eng, n=4):
-    """Device time by kernel over ``n`` steady decode steps, and the
-    share of the window the device was busy (torch.profiler, CUPTI)."""
+def _profile_steps(torch, eng, n=4, groups=None):
+    """Device time by kernel over ``n`` engine steps after one more, and
+    the share of the window the device was idle (torch.profiler,
+    CUPTI); ``groups`` as in :func:`_profile_train`."""
     from torch.profiler import ProfilerActivity, profile
 
     eng.step()
@@ -2851,65 +2882,93 @@ def _profile_steps(torch, eng, n=4):
     for e in p.key_averages():
         if _is_kernel(e) and _device_us(e) > 0:
             rows.append((_device_us(e), e.key, e.count))
-    rows.sort(reverse=True)
+    return _profile_summary(rows, n, wall_us, groups)
+
+
+def _profile_summary(rows, n, wall_us, groups=None):
+    """Per-step device busy ms, idle share and the 15 costliest kernels
+    of ``rows`` ((device us, kernel name, calls) over ``n`` steps of
+    ``wall_us``); ``groups`` (name -> regex on the kernel name) adds the
+    device ms per step of each group, the rest under "other"."""
+    rows = sorted(rows, reverse=True)
     busy = sum(r[0] for r in rows)
-    return dict(steps=n, wall_ms_per_step=wall_us / n / 1e3,
-                device_busy_ms_per_step=busy / n / 1e3,
-                device_idle_share=max(0.0, 1 - busy / wall_us),
-                top=[dict(kernel=k[:90], ms_per_step=us / n / 1e3,
-                          calls_per_step=c / n) for us, k, c in rows[:15]])
+    out = dict(steps=n, wall_ms_per_step=wall_us / n / 1e3,
+               device_busy_ms_per_step=busy / n / 1e3,
+               device_idle_share=max(0.0, 1 - busy / wall_us),
+               top=[dict(kernel=k[:90], ms_per_step=us / n / 1e3,
+                         calls_per_step=c / n) for us, k, c in rows[:15]])
+    if groups:
+        split = dict.fromkeys(list(groups) + ["other"], 0.0)
+        for us, key, _ in rows:
+            name = next((k for k, pat in groups.items()
+                         if re.search(pat, key)), "other")
+            split[name] += us / n / 1e3
+        out["device_ms_per_step_by_group"] = split
+    return out
+
+
+# the wgmma/TMA kernels of each library, by kind
+HOPPER_KINDS = {
+    "flash_attention": ("fa_fwd_wgmma", "fa_bwd_dq_wgmma", "fa_bwd_dkv_wgmma"),
+    "paged_attention": ("paged_attn_wgmma",),
+}
 
 
 def _hopper_report(_build, build_logs):
     """Each wgmma/TMA kernel's ``-Xptxas -v`` line (registers, shared
     memory, spills) and the count of its ``HGMMA`` and ``UTMALDG``
     instructions in the built library's SASS (``cuobjdump -sass``), by
-    kind (forward, dq, dk/dv).  Raises when a kind is missing, when a
-    kernel shows no ``HGMMA`` or no ``UTMALDG``, when this build printed
-    no ``-Xptxas -v`` line for one (the library was not compiled in this
+    kind (:data:`HOPPER_KINDS`: the flash forward, dq and dk/dv; the
+    paged chunk kernel).  Raises when a kind is missing, when a variant
+    shows no ``HGMMA`` or no ``UTMALDG``, when this build printed no
+    ``-Xptxas -v`` line for one (the library was not compiled in this
     call), or when one spills."""
     import shutil
 
-    out = {}
-    fn = None
-    for line in build_logs.get("flash_attention", "").splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            fn = m.group(1)
-        elif fn and "wgmma" in fn and ("Used" in line or "spill" in line):
-            out.setdefault(fn, dict(ptxas=[]))["ptxas"].append(line.strip())
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(_build._paths[
-        "flash_attention"])], capture_output=True, text=True,
-        check=True).stdout
-    fn = None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = m.group(1) if "wgmma" in m.group(1) else None
-        elif fn:
-            rec = out.setdefault(fn, dict(ptxas=[]))
-            rec["HGMMA"] = rec.get("HGMMA", 0) + ("HGMMA" in line)
-            rec["UTMALDG"] = rec.get("UTMALDG", 0) + ("UTMALDG" in line)
-    kinds = ("fa_fwd_wgmma", "fa_bwd_dq_wgmma", "fa_bwd_dkv_wgmma")
-    groups = {}
-    for fn, rec in out.items():
-        kind = [k for k in kinds if k in fn]
-        if len(kind) != 1:
-            raise RuntimeError(f"wgmma kernel {fn} is none of {kinds}")
-        rec["kind"] = kind[0]
-        key = (kind[0], rec.get("HGMMA", 0), rec.get("UTMALDG", 0),
-               " | ".join(rec["ptxas"]))
-        groups[key] = groups.get(key, 0) + 1
-    for (kind, hg, tma, px), n in sorted(groups.items()):
-        log(f"  {kind} x{n} variants: HGMMA {hg} UTMALDG {tma} | {px}")
-    missing = [k for k in kinds if not any(
-        r["kind"] == k for r in out.values())]
-    if missing or not all(r.get("HGMMA") and r.get("UTMALDG")
-                          for r in out.values()):
-        raise RuntimeError(f"the wgmma/TMA flash kernels {missing or ''} "
-                           "are missing or show no HGMMA or UTMALDG in "
-                           "their SASS")
+    out = {}
+    for lib, kinds in HOPPER_KINDS.items():
+        found = {}
+        fn = None
+        for line in build_logs.get(lib, "").splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+            elif fn and "wgmma" in fn and ("Used" in line
+                                           or "spill" in line):
+                found.setdefault(fn, dict(ptxas=[]))["ptxas"].append(
+                    line.strip())
+        sass = subprocess.run([tool, "-sass", str(_build._paths[lib])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1) if "wgmma" in m.group(1) else None
+            elif fn:
+                rec = found.setdefault(fn, dict(ptxas=[]))
+                rec["HGMMA"] = rec.get("HGMMA", 0) + ("HGMMA" in line)
+                rec["UTMALDG"] = rec.get("UTMALDG", 0) + ("UTMALDG" in line)
+        groups = {}
+        for fn, rec in found.items():
+            kind = [k for k in kinds if k in fn]
+            if len(kind) != 1:
+                raise RuntimeError(f"wgmma kernel {fn} is none of {kinds}")
+            rec["kind"] = kind[0]
+            key = (kind[0], rec.get("HGMMA", 0), rec.get("UTMALDG", 0),
+                   " | ".join(rec["ptxas"]))
+            groups[key] = groups.get(key, 0) + 1
+        for (kind, hg, tma, px), n in sorted(groups.items()):
+            log(f"  {kind} x{n} variants: HGMMA {hg} UTMALDG {tma} | {px}")
+        missing = [k for k in kinds if not any(
+            r["kind"] == k for r in found.values())]
+        if missing or not all(r.get("HGMMA") and r.get("UTMALDG")
+                              for r in found.values()):
+            raise RuntimeError(f"the wgmma/TMA kernels of {lib} "
+                               f"{missing or ''} are missing or show no "
+                               "HGMMA or UTMALDG in their SASS")
+        out.update(found)
     unread = [fn for fn, r in out.items() if not r["ptxas"]]
     if unread:
         raise RuntimeError("no -Xptxas -v line from this build for the "

@@ -13,8 +13,17 @@ under amp O2.  Tolerances: an fp32 output within rtol 1e-5 / atol 1e-5
 bf16 ulp of the reference plus 2^-7 of its largest magnitude (both
 round the same fp32 value, whose sums differ in order).
 
-Tests marked ``cuda`` hold the backward kernel against its plain
-version on a GPU, and its rerun bitwise, and skip without one.
+The forward with statistics (``y`` and the fp32 per-row mean and rstd
+the backward reads) is also held against the JAX forward kernel
+``_run_ln_fwd`` in interpret mode and, for ``y``, the XLA composition, at
+those widths and at 100 and 10000, where the CUDA forward falls back to
+one block a row (a bf16 row not a whole number of 16-byte vectors; past
+the register-resident limit of 8192): ``y`` at the tolerances above,
+mean and rstd within rtol 1e-5 / atol 1e-6 (fp32 sums in another order).
+
+Tests marked ``cuda`` hold the forward and backward kernels against
+their plain versions on a GPU, and their reruns bitwise, and skip
+without one.
 """
 
 import jax
@@ -23,12 +32,14 @@ import numpy as np
 import pytest
 import torch
 
+from apex_tpu.ops.layer_norm import _run_ln_fwd as jax_ln_fwd
 from apex_tpu.ops.layer_norm import fused_layer_norm as jax_layer_norm
 from apex_tpu.ops.layer_norm import fused_rms_norm as jax_rms_norm
 from apex_tpu_torch.ops import fused_layer_norm, fused_rms_norm
 from apex_tpu_torch.ops import layer_norm as L
 
 WIDTHS = (40, 256, 1000, 1024, 4096)
+FWD_WIDTHS = WIDTHS + (100, 10000)
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -97,6 +108,37 @@ def test_norm_gradients_match_jax(rms, impl, dtype, affine, h):
         _check(got, ref)
 
 
+@pytest.mark.parametrize("h", FWD_WIDTHS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("rms", [False, True], ids=["ln", "rms"])
+def test_forward_with_statistics_matches_jax(rms, dtype, h):
+    """``y``, mean and rstd of the plain forward against the JAX forward
+    kernel in interpret mode (fp32 weight and bias), and ``y`` against
+    the XLA composition."""
+    rng = np.random.default_rng(h + 3 * rms)
+    jdt, tdt = DTYPES[dtype]
+    x = np.array(jnp.asarray(
+        (1.5 + rng.normal(size=(6, h))).astype(np.float32), jdt))
+    w = (1 + 0.1 * rng.normal(size=h)).astype(np.float32)
+    b = None if rms else (0.1 * rng.normal(size=h)).astype(np.float32)
+    jy, jmu, jrs = jax_ln_fwd(
+        jnp.asarray(x), jnp.asarray(w).reshape(1, h),
+        None if b is None else jnp.asarray(b).reshape(1, h), 1e-5, rms, True)
+    y, mu, rs = L.layer_norm_stats_reference(
+        torch.from_numpy(x.astype(np.float32)).to(tdt), torch.from_numpy(w),
+        None if b is None else torch.from_numpy(b), 1e-5, rms)
+    _check(y, jy)
+    np.testing.assert_allclose(mu.numpy(), np.asarray(jmu)[:, 0],
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(rs.numpy(), np.asarray(jrs)[:, 0],
+                               rtol=1e-5, atol=1e-6)
+    xla = (jax_rms_norm(jnp.asarray(x), jnp.asarray(w), eps=1e-5,
+                        implementation="xla") if rms else
+           jax_layer_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                          eps=1e-5, implementation="xla"))
+    _check(y, xla)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -130,3 +172,37 @@ def test_backward_kernel_matches_plain_and_reruns_bitwise_on_card(
             assert err <= 2 ** -7 * ref.float().abs().max()
         assert torch.equal(
             dx, L.layer_norm_bwd_dx_kernel(dy, x, weight, mu, rs, rms))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", FWD_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rms", [False, True], ids=["ln", "rms"])
+def test_forward_kernel_matches_plain_and_reruns_bitwise_on_card(
+        rms, dtype, h, cuda_device):
+    """The forward kernel with statistics against its plain version (y
+    fp32 within rtol 1e-5 / atol 1e-5, bf16 within one bf16 ulp plus
+    2^-16 of the largest |y|; mean and rstd within 1e-5: the tolerances
+    of ``chip_smoke.py``), with and without affine parameters, and a
+    rerun bit for bit; h = 100 and 10000 take the one-block-a-row
+    kernel."""
+    g = torch.Generator(device=cuda_device).manual_seed(h)
+    x = (1 + torch.randn(300, h, generator=g, device=cuda_device)).to(dtype)
+    w = 1 + 0.1 * torch.randn(h, generator=g, device=cuda_device)
+    b = None if rms else 0.1 * torch.randn(h, generator=g,
+                                           device=cuda_device)
+    for weight, bias in ((w, b), (None, None)):
+        got = L.layer_norm_fwd_kernel(x, weight, bias, 1e-5, rms, True)
+        y, mu, rs = L.layer_norm_stats_reference(x, weight, bias, 1e-5, rms)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got[0], y, rtol=1e-5, atol=1e-5)
+        else:
+            ref = y.float().abs()
+            ulp = torch.exp2(torch.floor(torch.log2(ref.clamp(
+                min=1e-30))) - 7)
+            assert bool(((got[0].float() - y.float()).abs() <= ulp
+                         + 2 ** -16 * ref.max()).all())
+        assert float((got[1] - mu).abs().max()) <= 1e-5
+        assert float(((got[2] - rs) / rs).abs().max()) <= 1e-5
+        again = L.layer_norm_fwd_kernel(x, weight, bias, 1e-5, rms, True)
+        assert all(torch.equal(a, c) for a, c in zip(got, again))

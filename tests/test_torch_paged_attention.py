@@ -8,8 +8,18 @@ versions.  Written pages, codes and scales must be bitwise equal on live
 pages; attention outputs agree within 1e-5 of each output's largest
 entry in fp32 (the sums run in another order: XLA's einsum, the Pallas
 online softmax over pages and PyTorch's einsum each add the keys in
-their own order, and nothing else differs).  ``cuda``-marked tests hold
-the CUDA kernels against the plain versions and skip without a card.
+their own order, and nothing else differs).  ``TestChunkEdges`` holds
+the plain ``paged_attention`` at the shapes where the Hopper chunk
+kernel changes its course — 9, 16, 64, 65, 128 and 129 query lanes per
+kv head (one lane past the decode kernel's 8, a GQA verify, one and two
+warpgroups, one lane into a second warpgroup or item), d 64 and 128,
+pages of 8 and 16 and lengths 0, page - 1 and page — in fp32 (1e-5, as
+above), bf16 and fp16 (both sides round the same fp32 result: one ulp,
+2^-7 of the largest entry; the Pallas kernel's q pre-scaled in q's
+dtype and P rounded to it stay within that too) and on int8 / e4m3
+pools (1e-5).
+``cuda``-marked tests hold the CUDA kernels against the plain versions
+and skip without a card.
 """
 
 import importlib
@@ -286,6 +296,79 @@ def run_fused(case, impl):
         implementation=impl, **kw)
 
 
+# the Hopper chunk kernel's edges: s, h, hk, d, page size; lanes (h //
+# hk * s) 9, 16, 64, 65, 128 and 129
+CHUNK_EDGES = [
+    (9, 2, 2, 64, 8),
+    (4, 8, 2, 128, 16),
+    (16, 8, 2, 64, 16),
+    (65, 2, 2, 64, 8),
+    (32, 8, 2, 128, 8),
+    (43, 6, 2, 64, 16),
+]
+EDGE_IDS = [f"lanes{h // hk * s}-d{d}-bs{bs}"
+            for s, h, hk, d, bs in CHUNK_EDGES]
+
+
+def edge_case(rng, geom, lengths=None, garbage=1e4):
+    """Pool, tables, lengths 0 / page - 1 / page (or ``lengths``) and
+    fp32 queries of one CHUNK_EDGES geometry, as numpy arrays."""
+    s, h, hk, d, BS = geom
+    lengths = [0, BS - 1, BS] if lengths is None else lengths
+    MB = max(-(-(n + s) // BS) for n in lengths)
+    NB = 1 + sum(-(-(n + s) // BS) for n in lengths) + 4
+    kp, vp, tables = pool(rng, b=len(lengths), hk=hk, d=d, NB=NB, BS=BS,
+                          MB=MB, lengths=lengths, s=s, garbage=garbage)
+    q = rng.normal(size=(len(lengths), s, h, d)).astype(np.float32)
+    return q, kp, vp, tables, np.asarray(lengths, np.int32)
+
+
+class TestChunkEdges:
+    @pytest.mark.parametrize("geom", CHUNK_EDGES, ids=EDGE_IDS)
+    @pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+    def test_fp32_matches_jax(self, geom, impl):
+        rng = np.random.default_rng(20)
+        arrays = edge_case(rng, geom)
+        ref = J.paged_attention(*(jnp.asarray(a) for a in arrays),
+                                implementation=impl)
+        close(P.paged_attention(*(torch.from_numpy(a) for a in arrays)),
+              ref)
+
+    @pytest.mark.parametrize("geom", CHUNK_EDGES, ids=EDGE_IDS)
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+    @pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+    def test_half_matches_jax(self, geom, dtype, impl):
+        rng = np.random.default_rng(21)
+        q, kp, vp, tables, lens = edge_case(rng, geom, garbage=0.0)
+        jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float16
+        args = [jnp.asarray(a, jdt) for a in (q, kp, vp)]
+        ref = J.paged_attention(*args, jnp.asarray(tables),
+                                jnp.asarray(lens), implementation=impl)
+        got = P.paged_attention(*(to_torch(a) for a in args),
+                                torch.from_numpy(tables),
+                                torch.from_numpy(lens))
+        assert got.dtype == getattr(torch, dtype)
+        close(got, ref, rel=2 ** -7)
+
+    @pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+    @pytest.mark.parametrize("geom", CHUNK_EDGES[1::2], ids=EDGE_IDS[1::2])
+    def test_coded_matches_jax(self, kv_dtype, geom):
+        rng = np.random.default_rng(22)
+        q, kp, vp, tables, lens = edge_case(rng, geom, garbage=0.0)
+        kq, vq, ks, vs = J.quantize_kv_pages(jnp.asarray(kp),
+                                             jnp.asarray(vp), kv_dtype)
+        for impl in ("xla", "pallas_interpret"):
+            ref = J.paged_attention(jnp.asarray(q), kq, vq,
+                                    jnp.asarray(tables), jnp.asarray(lens),
+                                    k_scales=ks, v_scales=vs,
+                                    implementation=impl)
+            got = P.paged_attention(
+                torch.from_numpy(q), to_torch(kq), to_torch(vq),
+                torch.from_numpy(tables), torch.from_numpy(lens),
+                k_scales=to_torch(ks), v_scales=to_torch(vs))
+            close(got, ref)
+
+
 class TestPagedDecodeFused:
     @pytest.mark.parametrize("kv_dtype", [None] + KV_DTYPES)
     @pytest.mark.parametrize("rope", [True, False])
@@ -437,3 +520,36 @@ class TestKernels:
         for g, r in zip(got[1:], ref[1:]):
             np.testing.assert_array_equal(bits(g[:, live].cpu()),
                                           bits(r[:, live].cpu()))
+
+
+@pytest.mark.cuda
+class TestChunkKernel:
+    """The Hopper chunk kernel (bf16 / fp16 q, pages of 8-64) and the tile
+    kernel it leaves pages of 128 to, against the plain version: o within
+    2^-7 of its largest entry (``chip_smoke.py``'s tolerance: P enters the
+    value product in q's dtype), and a rerun bit for bit."""
+
+    @pytest.mark.parametrize("kv_dtype", [None] + KV_DTYPES)
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+    @pytest.mark.parametrize("geom", CHUNK_EDGES + [
+        (24, 4, 4, 128, 32), (20, 8, 2, 64, 64), (16, 4, 4, 128, 128)],
+        ids=EDGE_IDS + ["bs32", "bs64", "bs128-tile"])
+    def test_matches_plain_and_reruns_bitwise(self, cuda_device, geom,
+                                               dtype, kv_dtype):
+        rng = np.random.default_rng(12)
+        BS = geom[-1]
+        q, kp, vp, tables, lens = edge_case(
+            rng, geom, lengths=[0, BS - 1, BS, 3 * BS + 5], garbage=1e4)
+        dev = cuda_device
+        kpt, vpt = (torch.from_numpy(a).to(dev).to(dtype) for a in (kp, vp))
+        kw = {}
+        if kv_dtype:
+            kpt, vpt, ks, vs = P.quantize_kv_pages(kpt, vpt, kv_dtype)
+            kw = dict(k_scales=ks, v_scales=vs)
+        args = (torch.from_numpy(q).to(dev).to(dtype), kpt, vpt,
+                torch.from_numpy(tables).to(dev),
+                torch.from_numpy(lens).to(dev))
+        got = P.paged_attention(*args, **kw)
+        ref = P.paged_attention(*args, implementation="torch", **kw)
+        close(got.cpu(), ref.cpu().float().numpy(), rel=2 ** -7)
+        assert torch.equal(got, P.paged_attention(*args, **kw))
