@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma/TMA kernels:
 // tensor maps built on the host (cuTensorMapEncodeTiled, reached through
 // the runtime's driver entry point, so nothing links against libcuda),
-// TMA tile loads completing on an mbarrier, the mbarrier operations of a
-// producer/consumer ring, and warpgroup matrix multiplies (wgmma) with
-// their shared-memory descriptors for 128-byte-swizzled tiles.
+// TMA tile loads and 1-D bulk copies completing on an mbarrier, the
+// mbarrier operations of a producer/consumer ring, 4-byte cp.async, and
+// warpgroup matrix multiplies (wgmma) with their shared-memory
+// descriptors for 128-byte-swizzled tiles.
 //
 // Tiles: TMA writes a box of R rows x 64 half-precision columns (128
 // bytes a row) with the 128-byte swizzle; a head of 128 columns is two
@@ -178,6 +179,33 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* m,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"((uint64_t)m), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3) : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// into shared memory by the bulk-copy engine, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+// ------------------------------------------------------------------ //
+// device: cp.async (LDGSTS), for words whose addresses come from an index
+// ------------------------------------------------------------------ //
+// 4 bytes (a page scale, a RoPE coefficient)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ------------------------------------------------------------------ //

@@ -50,6 +50,7 @@ from apex_tpu_torch.ops._dispatch import resolve_impl
 
 __all__ = ["paged_attention", "paged_attention_reference",
            "paged_decode_fused", "paged_decode_fused_reference",
+           "paged_attention_splits", "paged_decode_fused_splits",
            "rope_rows", "kv_quant_spec", "kv_store_bytes_per_token",
            "quantize_kv", "quantize_kv_pages", "tp_head_shards",
            "pool_qmax", "paged_cost_bytes"]
@@ -235,6 +236,16 @@ def paged_decode_fused_reference(q, k_new, v_new, k_pages, v_pages,
     its previous page's scale, and the page's scale takes the max.
     Updates the pool (and scales) in place; returns ``(o, k_pages,
     v_pages)`` plus ``(k_scales, v_scales)`` when quantized."""
+    return _write_then_attend(
+        paged_attention_reference, q, k_new, v_new, k_pages, v_pages,
+        block_tables, lengths, max_seq_len=max_seq_len, cos_b=cos_b,
+        sin_b=sin_b, scale=scale, k_scales=k_scales, v_scales=v_scales,
+        chunk_lens=chunk_lens)
+
+
+def _write_then_attend(attend, q, k_new, v_new, k_pages, v_pages,
+                       block_tables, lengths, *, max_seq_len, cos_b, sin_b,
+                       scale, k_scales, v_scales, chunk_lens):
     b, s, h, d = q.shape
     if s != 1:
         raise ValueError(
@@ -257,8 +268,7 @@ def paged_decode_fused_reference(q, k_new, v_new, k_pages, v_pages,
     if k_scales is None:
         k_pages[:, phys, off] = kT.to(k_pages.dtype)
         v_pages[:, phys, off] = vT.to(v_pages.dtype)
-        o = paged_attention_reference(q, k_pages, v_pages, block_tables,
-                                      lengths, scale=scale)
+        o = attend(q, k_pages, v_pages, block_tables, lengths, scale=scale)
         return o, k_pages, v_pages
     qmax = _qmax_for_pool(k_pages.dtype)
     store_dt = k_pages.dtype
@@ -284,21 +294,118 @@ def paged_decode_fused_reference(q, k_new, v_new, k_pages, v_pages,
         sc.scatter_reduce_(1, phys[None].expand(hk, -1), run, "amax")
     k_pages[:, phys, off] = quantize_kv(kT, k_scales[:, phys], qmax, store_dt)
     v_pages[:, phys, off] = quantize_kv(vT, v_scales[:, phys], qmax, store_dt)
-    o = paged_attention_reference(q, k_pages, v_pages, block_tables,
-                                  lengths, scale=scale, k_scales=k_scales,
-                                  v_scales=v_scales)
+    o = attend(q, k_pages, v_pages, block_tables, lengths, scale=scale,
+               k_scales=k_scales, v_scales=v_scales)
     return o, k_pages, v_pages, k_scales, v_scales
+
+
+# --------------------------------------------------------------------- #
+# a plain model of the split-K kernels (tests only)
+# --------------------------------------------------------------------- #
+def paged_attention_splits(q, k_pages, v_pages, block_tables, lengths, *,
+                           split_pages: int, scale: Optional[float] = None,
+                           k_scales=None, v_scales=None):
+    """The arithmetic of the CUDA kernels for up to 8 query lanes per
+    (row, kv head), in plain PyTorch.  A row of ``n`` visible keys (``len
+    + s``, at most the table's) is cut into ``ceil(n / split)`` splits of
+    ``ceil(n / splits)`` keys rounded up to whole pages (``split`` =
+    ``split_pages`` pages; the kernels take the smallest split, at least
+    ``_SPLIT_KEYS`` keys, whose items fit their grid); per split, in fp32
+    and the log2 domain, the scores ``(q * scale * log2 e) . k`` (codes
+    cast up, times the page's ``scale / qmax``), the split's maximum
+    ``m``, ``p = exp2(s - m)``, ``l = sum p`` and ``acc = sum (p *
+    v_scale / qmax) v``; then the merge: ``M = max m``, ``f = exp2(m -
+    M)`` (0 for a split with no visible key), ``o = sum f acc / sum f l``
+    (a sum of 0 counts as 1), in q's dtype.  Used by the tests to hold the
+    split-and-merge against the JAX function; the serving path never
+    calls it."""
+    b, s, h, d = q.shape
+    hk, _nb, bs, _ = k_pages.shape
+    rep = h // hk
+    scale = (d ** -0.5) if scale is None else scale
+    mb = block_tables.shape[1]
+    kmax = mb * bs
+    split = int(split_pages) * bs
+    keys = torch.clamp(lengths.long() + s, max=kmax)               # (b,)
+    ns = torch.clamp(torch.div(keys + split - 1, split, rounding_mode="floor"),
+                     min=1)
+    per = torch.div(keys + ns - 1, ns, rounding_mode="floor")
+    sk = torch.clamp(torch.div(per + bs - 1, bs, rounding_mode="floor") * bs,
+                     min=bs)
+    nsmax = int(ns.max()) if b else 1
+    k_pos = torch.arange(kmax, device=q.device)
+    sid = torch.div(k_pos[None, :], sk[:, None], rounding_mode="floor")
+    onehot = sid[:, :, None] == torch.arange(nsmax, device=q.device)
+    tables = block_tables.long()
+    kc = k_pages[:, tables].permute(1, 2, 3, 0, 4).reshape(
+        b, kmax, hk, d).float()
+    vc = v_pages[:, tables].permute(1, 2, 3, 0, 4).reshape(
+        b, kmax, hk, d).float()
+    kf = torch.ones(b, kmax, hk, device=q.device)
+    vf = torch.ones(b, kmax, hk, device=q.device)
+    if k_scales is not None:
+        dq = torch.tensor(1.0 / _qmax_for_pool(k_pages.dtype))
+        kf = (k_scales[:, tables].float() * dq).permute(
+            1, 2, 0).repeat_interleave(bs, dim=1)
+        vf = (v_scales[:, tables].float() * dq).permute(
+            1, 2, 0).repeat_interleave(bs, dim=1)
+    qs = q.reshape(b, s, hk, rep, d).float() * torch.tensor(
+        scale * _LOG2E, dtype=torch.float32)
+    sc = torch.einsum("bsgrd,bkgd->bsgrk", qs, kc)
+    sc = sc * kf.permute(0, 2, 1)[:, None, :, None, :]
+    pos_q = lengths.long()[:, None] + torch.arange(s, device=q.device)
+    visible = k_pos[None, None, :] <= pos_q[:, :, None]            # (b,s,K)
+    sc = torch.where(visible[:, :, None, None, :], sc,
+                     torch.full_like(sc, -math.inf))
+    oh = onehot[:, None, None, None]                            # (b,1,1,1,K,n)
+    m = torch.where(oh, sc[..., None], torch.full_like(
+        sc[..., None], -math.inf)).amax(dim=-2)                    # (...,n)
+    base = torch.where(m == -math.inf, torch.zeros_like(m), m)
+    base_k = torch.gather(base, -1, sid[:, None, None, None, :].expand(
+        b, s, hk, rep, kmax).clamp(max=nsmax - 1))
+    p = torch.exp2(sc - base_k)
+    l = (p[..., None] * oh).sum(dim=-2)
+    pv = p * vf.permute(0, 2, 1)[:, None, :, None, :]
+    acc = torch.einsum("bsgrk,bkn,bkgd->bsgrnd", pv, onehot.float(), vc)
+    mx = m.amax(dim=-1, keepdim=True)
+    mx = torch.where(mx == -math.inf, torch.zeros_like(mx), mx)
+    f = torch.where(m == -math.inf, torch.zeros_like(m), torch.exp2(m - mx))
+    lsum = (l * f).sum(dim=-1)
+    o = (acc * f[..., None]).sum(dim=-2)
+    o = o / torch.where(lsum == 0, torch.ones_like(lsum), lsum)[..., None]
+    return o.reshape(b, s, h, d).to(q.dtype)
+
+
+def paged_decode_fused_splits(q, k_new, v_new, k_pages, v_pages,
+                              block_tables, lengths, *, split_pages: int,
+                              max_seq_len: int, cos_b=None, sin_b=None,
+                              scale: Optional[float] = None, k_scales=None,
+                              v_scales=None, chunk_lens=None):
+    """:func:`paged_decode_fused_reference`'s write, then
+    :func:`paged_attention_splits`: the fused decode kernel's split
+    model (tests only).  Same returns."""
+    def attend(*args, **kw):
+        return paged_attention_splits(*args, split_pages=split_pages, **kw)
+    return _write_then_attend(
+        attend, q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
+        max_seq_len=max_seq_len, cos_b=cos_b, sin_b=sin_b, scale=scale,
+        k_scales=k_scales, v_scales=v_scales, chunk_lens=chunk_lens)
 
 
 # --------------------------------------------------------------------- #
 # CUDA kernels
 # --------------------------------------------------------------------- #
-def _ptr_ok(t: torch.Tensor, d: int) -> None:
-    align = t.element_size() * (d // 32)
+def _ptr_ok(t: torch.Tensor, d: int, align: int = 0) -> None:
+    align = max(align, t.element_size() * (d // 32))
     if t.data_ptr() % align:
         raise ValueError(
             f"tensor of {t.dtype} not aligned to {align} bytes for the "
             f"paged kernels")
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous), copied when its data is not 16-byte aligned."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_kernel_args(q, k_pages, tables, lengths, *rest):
@@ -321,6 +428,50 @@ def _check_kernel_args(q, k_pages, tables, lengths, *rest):
         raise ValueError("the pool must be contiguous")
 
 
+#: the fewest keys of a split of the kernels for up to 8 query lanes per
+#: (row, kv head), rounded down to whole pages (at least one); the kernels
+#: widen the splits until their items fit the grid
+_SPLIT_KEYS = 32
+#: rows one split launch enumerates (``kMaxRows`` of the source)
+_SPLIT_ROWS = 128
+#: (device, stream) -> the split kernels' int32 tickets, zero between calls
+_TICKETS = {}
+_SM_COUNT = {}
+
+
+def _split_args(q, lanes, hk, bs, mb):
+    """``(workspace, tickets, split keys, workspace items)`` of a split
+    kernel launch: the workspace from the caching allocator, one item's
+    partials for every warp the launch can have (one a block, at most 32
+    blocks an SM, no more than the items at the smallest split), the
+    tickets from a zeroed buffer kept per device and stream (the kernels
+    leave it zero)."""
+    b, d = q.shape[0], q.shape[-1]
+    if mb * bs >= 1 << 21 or hk > 1024 or bs > 1024:
+        raise ValueError(
+            f"the split kernels take tables of fewer than 2^21 keys and up "
+            f"to 1024 kv heads and page tokens, got {mb} pages of {bs}, "
+            f"{hk} kv heads")
+    split = max(1, _SPLIT_KEYS // bs) * bs
+    dev = q.device
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    rows = min(b, _SPLIT_ROWS)
+    items = min(rows * hk * max(1, -(-(mb * bs) // split)),
+                _SM_COUNT[dev] * 32)
+    ws = torch.empty(items * lanes * (d + 2), dtype=torch.float32,
+                     device=dev)
+    stream = torch.cuda.current_stream(dev)
+    key = (dev, stream.cuda_stream)
+    tickets = _TICKETS.get(key)
+    if tickets is None or tickets.numel() < b * hk:
+        tickets = torch.zeros(max(b * hk, 1024), dtype=torch.int32,
+                              device=dev)
+        _TICKETS[key] = tickets
+    return ws, tickets, split, items
+
+
 def _paged_kernel(q, k_pages, v_pages, tables, lengths, scale, k_scales,
                   v_scales):
     b, s, h, d = q.shape
@@ -341,15 +492,27 @@ def _paged_kernel(q, k_pages, v_pages, tables, lengths, scale, k_scales,
         vs = v_scales.to(torch.float32).contiguous()
     for t in (q, k_pages, v_pages):
         _ptr_ok(t, d)
+    mb = tables.shape[1]
+    lanes = (h // hk) * s
+    ws = tickets = None
+    split = ws_items = 0
+    if lanes <= 8:
+        # the split kernels copy rows by 16-byte cp.async
+        q = _aligned16(q)
+        for t in (k_pages, v_pages):
+            _ptr_ok(t, d, 16)
+        ws, tickets, split, ws_items = _split_args(q, lanes, hk, bs, mb)
     fn = _build.function("paged_attention", "apex_paged_attention", [
-        ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p])
     code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
               0 if ks is None else ks.data_ptr(),
               0 if vs is None else vs.data_ptr(),
               tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-              b, s, h, hk, d, nb, bs, tables.shape[1],
+              0 if ws is None else ws.data_ptr(),
+              0 if tickets is None else tickets.data_ptr(),
+              b, s, h, hk, d, nb, bs, mb, split, ws_items,
               float(scale) * _LOG2E,
               1.0 / _qmax_for_pool(k_pages.dtype) if coded else 1.0,
               _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[k_pages.dtype],
@@ -392,10 +555,13 @@ def _decode_fused_kernel(q, k_new, v_new, k_pages, v_pages, tables, lengths,
     o = torch.empty_like(q)
     if b == 0:
         return o
-    for t in (q, k_new, v_new, k_pages, v_pages):
-        _ptr_ok(t, d)
+    q, k_new, v_new = (_aligned16(t) for t in (q, k_new, v_new))
+    for t in (k_pages, v_pages):
+        _ptr_ok(t, d, 16)
+    mb = tables.shape[1]
+    ws, tickets, split, ws_items = _split_args(q, h // hk, hk, bs, mb)
     fn = _build.function("paged_attention", "apex_paged_decode_fused", [
-        ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p] * 15 + [ctypes.c_int] * 11 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p])
     code = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
@@ -406,7 +572,8 @@ def _decode_fused_kernel(q, k_new, v_new, k_pages, v_pages, tables, lengths,
               0 if cl is None else cl.data_ptr(),
               0 if cs is None else cs.data_ptr(),
               0 if sn is None else sn.data_ptr(), o.data_ptr(),
-              b, h, hk, d, nb, bs, tables.shape[1], int(S), half,
+              ws.data_ptr(), tickets.data_ptr(),
+              b, h, hk, d, nb, bs, mb, int(S), half, split, ws_items,
               float(scale) * _LOG2E,
               _qmax_for_pool(k_pages.dtype) if coded else 1.0,
               _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[k_pages.dtype],

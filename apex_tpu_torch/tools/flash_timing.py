@@ -4,7 +4,8 @@ checkout of the port.
 Run on a machine with an NVIDIA Hopper card, as a script:
 
     python3 apex_tpu_torch/tools/flash_timing.py [--root DIR] [--label NAME]
-        [--sdpa] [--layer-norm] [--paged] [--no-flash] [--nvcc] [--out DIR]
+        [--sdpa] [--layer-norm] [--paged] [--split-keys N,...] [--no-flash]
+        [--nvcc] [--out DIR]
 
 It builds the ``flash_attention`` kernel library of the package found
 under ``--root`` (default: the checkout holding this script), and times
@@ -30,8 +31,15 @@ RMSNorm forward (4 x 4096 bf16, bf16 weight, no statistics) beside
 and times ``paged_attention`` on ``chip_smoke.py``'s pools at its
 chunked-prefill shapes (8 rows of 128 queries over contexts of 0-872
 tokens, Llama-2-7B's 32 heads at d 128, pages of 16, bf16: on bf16 and
-int8 pages, and GQA 32/8) and the GQA speculative verify (4 rows of 4
-queries, 32/8 heads, contexts of 250-510).  ``--no-flash`` leaves the flash library out
+int8 pages, and GQA 32/8), the GQA and MHA speculative verify (4 rows of
+4 queries, contexts of 250-510) and the decode shapes (4 rows of
+510/480/333/250 tokens: bf16, int8, fp8, GQA 32/8, fp32, and bf16 with
+the serving engine's 256-page tables; one row of 4000 tokens), and at
+each decode shape ``paged_decode_fused`` with RoPE as well;
+``--split-keys 32,128`` adds those of at most 8 lanes at each of these
+floors of the split-K kernels' split size (``_SPLIT_KEYS``; checkouts
+that have one).
+``--no-flash`` leaves the flash library out
 (neither built nor timed).
 ``--nvcc`` first times ``nvcc`` on ``flash_attention.cu`` alone, once with
 the checkout's ``_build.NVCC_FLAGS`` and once with them less
@@ -155,42 +163,86 @@ def _layer_norm_fwd_rows(torch, F, g):
     return rows
 
 
+_DEC = [510, 480, 333, 250]
+_CHUNK = [0, 120, 250, 400, 560, 700, 812, 872]
 PAGED_CASES = [
-    # tag, b, s, h, hk, lengths, kv_dtype
-    ("chunk", 8, 128, 32, 32, [0, 120, 250, 400, 560, 700, 812, 872], None),
-    ("chunk/int8", 8, 128, 32, 32, [0, 120, 250, 400, 560, 700, 812, 872],
-     "int8"),
-    ("chunk/gqa", 8, 128, 32, 8, [0, 120, 250, 400, 560, 700, 812, 872],
-     None),
-    ("verify/gqa", 4, 4, 32, 8, [510, 480, 333, 250], None),
+    # tag, b, s, h, hk, lengths, kv_dtype[, q dtype, table width in pages]
+    ("chunk", 8, 128, 32, 32, _CHUNK, None),
+    ("chunk/int8", 8, 128, 32, 32, _CHUNK, "int8"),
+    ("chunk/gqa", 8, 128, 32, 8, _CHUNK, None),
+    ("verify/gqa", 4, 4, 32, 8, _DEC, None),
+    ("verify", 4, 4, 32, 32, _DEC, None),
+    ("decode", 4, 1, 32, 32, _DEC, None),
+    ("decode/int8", 4, 1, 32, 32, _DEC, "int8"),
+    ("decode/fp8", 4, 1, 32, 32, _DEC, "fp8"),
+    ("decode/gqa", 4, 1, 32, 8, _DEC, None),
+    ("decode/fp32", 4, 1, 32, 32, _DEC, None, "float32"),
+    ("decode/w256", 4, 1, 32, 32, _DEC, None, "bfloat16", 256),
+    ("decode/long", 1, 1, 32, 32, [4000], None),
 ]
 
 
-def _paged_rows(torch, g):
-    """``{tag: {"kernel": (device ms, call ms)}}`` of ``paged_attention``
-    at :data:`PAGED_CASES` on ``chip_smoke.py``'s pools (this checkout's:
-    each row's tokens on shuffled pages of 16, d 128, bf16 q)."""
+def _paged_rows(torch, g, split_keys=()):
+    """``{tag: {"kernel": (device ms, call ms)[, "fused": ...]}}`` of
+    ``paged_attention`` at :data:`PAGED_CASES` on ``chip_smoke.py``'s
+    pools (this checkout's: each row's tokens on shuffled pages of 16, d
+    128) and, at s = 1, of ``paged_decode_fused`` with RoPE on the same
+    pools (the step writes the same row at every call).  Each of
+    ``split_keys`` adds the rows of the cases of at most 8 lanes with the
+    checkout's ``_SPLIT_KEYS`` (the split size's floor) set to it
+    (``/split<n>`` tags), where the checkout has one."""
     import importlib
 
     sys.path.insert(1, str(Path(__file__).resolve().parents[2]))
     import chip_smoke
 
     PA = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+    from apex_tpu_torch.ops.rope import rope_cos_sin
+
     dev = torch.device("cuda")
+    cos_t, sin_t = rope_cos_sin(4096, 128, device=dev)
     rows = {}
-    for tag, b, s, h, hk, lengths, kv in PAGED_CASES:
+    default = getattr(PA, "_SPLIT_KEYS", None)
+    sweeps = [(None, "")] + [(n, f"/split{n}") for n in split_keys
+                             if default is not None]
+    for tag, b, s, h, hk, lengths, kv, *more in PAGED_CASES:
+        dt = getattr(torch, more[0]) if more else torch.bfloat16
+        width = more[1] if len(more) > 1 else None
         kp, vp, tables, lens, _ = chip_smoke._paged_pool(
             torch, g, dev, b=b, hk=hk, d=128, bs=16, lengths=lengths, s=s,
-            dtype=torch.bfloat16)
+            dtype=dt, width=width)
         kw = {}
         if kv:
             kp, vp, ks, vs = PA.quantize_kv_pages(kp, vp, kv)
             kw = dict(k_scales=ks, v_scales=vs)
-        q = torch.randn(b, s, h, 128, generator=g, device=dev).to(
-            torch.bfloat16)
-        rows[f"paged/{tag}"] = dict(kernel=_profiled(
-            torch, lambda: PA.paged_attention(q, kp, vp, tables, lens, **kw),
-            iters=20))
+        q = torch.randn(b, s, h, 128, generator=g, device=dev).to(dt)
+        fkw = None
+        if s == 1:
+            pos = lens.long()
+            nk, nv = (torch.randn(b, 1, hk, 128, generator=g,
+                                  device=dev).to(dt) for _ in range(2))
+            fkw = dict(max_seq_len=4096, cos_b=cos_t[pos][:, None, None, :],
+                       sin_b=sin_t[pos][:, None, None, :])
+            if kv:
+                fkw["chunk_lens"] = torch.ones(b, dtype=torch.int32,
+                                               device=dev)
+            pools = [t.clone() for t in (kp, vp)]
+            fsc = ({"k_scales": kw["k_scales"].clone(),
+                    "v_scales": kw["v_scales"].clone()} if kv else {})
+        for split, suffix in sweeps:
+            if split is not None and (h // hk) * s > 8:
+                continue
+            if split is not None:
+                PA._SPLIT_KEYS = split
+            r = dict(kernel=_profiled(
+                torch, lambda: PA.paged_attention(q, kp, vp, tables, lens,
+                                                  **kw), iters=20))
+            if fkw is not None:
+                r["fused"] = _profiled(torch, lambda: PA.paged_decode_fused(
+                    q, nk, nv, *pools, tables, lens, **fkw, **fsc), iters=20)
+            rows[f"paged/{tag}{suffix}"] = r
+        if default is not None:
+            PA._SPLIT_KEYS = default
     return rows
 
 
@@ -222,6 +274,9 @@ def main(argv=None):
     ap.add_argument("--sdpa", action="store_true")
     ap.add_argument("--layer-norm", action="store_true")
     ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--split-keys", default="",
+                    help="comma-separated split sizes (keys) to time the "
+                         "split-K paged rows at besides the default")
     ap.add_argument("--no-flash", action="store_true")
     ap.add_argument("--nvcc", action="store_true")
     ap.add_argument("--out", default=os.path.join("build", "flash_timing"))
@@ -302,7 +357,8 @@ def main(argv=None):
     if args.layer_norm:
         more += [_layer_norm_fwd_rows, _layer_norm_rows]
     if args.paged:
-        more.append(lambda torch, F, g: _paged_rows(torch, g))
+        splits = [int(x) for x in args.split_keys.split(",") if x]
+        more.append(lambda torch, F, g: _paged_rows(torch, g, splits))
     for rows_of in more:
         for tag, r in rows_of(torch, F, g).items():
             out["rows"][tag] = r

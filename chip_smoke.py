@@ -9,7 +9,8 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (``nvcc``,
 ``sm_90a``), prints each wgmma/TMA kernel's ``-Xptxas -v`` line and its
-``HGMMA`` / ``UTMALDG`` counts (``cuobjdump -sass``), and then runs
+``HGMMA`` / ``UTMALDG`` counts (``cuobjdump -sass``), and each split-K
+paged kernel's line and its bulk and ``LDGSTS`` copy counts, and then runs
 fourteen phases, in the order 1, 2, 3, 6, 7,
 4, 5, 10, 12, 11, 8, 9, 13, 14 (Llama-2-7B is built once for 3, 6 and 7
 and dropped before 4); any failure exits non-zero.
@@ -26,7 +27,10 @@ and dropped before 4); any failure exits non-zero.
    dead pages; the fused decode step's written pages, codes and scales
    bitwise; the Hopper chunk kernel's edges — 16 lanes, d 64, fp16,
    lengths 0 / 15 / 16, pages of 8 — and pages of 128 on the tile
-   kernel; the chunk kernel and the LayerNorm forward rerunning bitwise),
+   kernel; the split-K kernels at the engine's 256-page tables, on one
+   4000-token row, at 2 and 8 verify lanes and lengths 0 / 1 / 15 / 16 /
+   17; decode, decode/int8, verify, the fused decode (output, pages,
+   scales), the chunk kernel and the LayerNorm forward rerunning bitwise),
    and the four BatchNorm passes at the ResNet path's (the
    stem's and stage 0's last BN, bf16 and fp32; the maps bitwise, the
    reductions within 1e-5 of the summed magnitudes, bf16 reruns
@@ -56,11 +60,13 @@ and dropped before 4); any failure exits non-zero.
 6. Paged serving: the same model from a paged pool of 16384 tokens (8
    slots, pages of 16, chunks of 128) for 16 requests of 20-1000 prompt
    tokens, then steady decode at 4 and 8 slots (and, under ``--profile``,
-   chunked-prefill steps of 8 slots, B-9's device ms per step); both
-   paged kernels must launch and every page come back.
+   B-10's device ms per steady decode step and chunked-prefill steps of 8
+   slots, B-9's device ms per step); both paged kernels must launch and
+   every page come back.
 7. The same on int8 pages with prefix sharing and 3 lookup drafts: 8
    requests, 4 behind one 256-token system prompt, run twice; greedy
-   results must repeat; then steady decode at 4 slots.
+   results must repeat; then steady decode at 4 slots (under
+   ``--profile``, B-9's and B-10's device ms per verify step).
 4. Training: BERT-Large amp O2 (bf16, fp32 masters, FusedAdam with fp32
    moments, remat), b=16, s=512, 80 masked positions — ``bench.py``'s
    step — 3 warm-up and 10 timed steps on one batch, with the
@@ -193,6 +199,13 @@ BERT_GROUPS = {"flash_fwd": r"fa_fwd_", "flash_dq": r"fa_bwd_dq_",
 # the other hand kernels of the step, cuBLAS's GEMMs; the rest "other"
 PREFILL_GROUPS = {"paged_attention": r"paged_attn_", "layer_norm": r"ln_fwd_",
                   "rope": r"rope", "gemms": r"nvjet|gemm|cutlass"}
+# device ms per steady decode or verify step of phases 6 and 7 (under
+# --profile): B-10, B-9 (a verify step), the other hand kernels of the
+# step, cuBLAS's GEMMs; the rest "other"
+DECODE_GROUPS = {"paged_decode_fused": r"paged_decode_",
+                 "paged_attention": r"paged_attn_", "layer_norm": r"ln_fwd_",
+                 "rope": r"rope", "fused_sampling": r"sample_kernel",
+                 "gemms": r"nvjet|gemm|cutlass"}
 # ResNet-50: 53 BNs (the stem, 3 per block x 16, 4 bn_down), each one
 # launch of each pass per step (no remat)
 BN_KERNELS = ("bn_reduce", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx")
@@ -470,13 +483,15 @@ def phase_kernels(torch, rows_out):
 
 
 def _paged_pool(torch, g, dev, *, b, hk, d, bs, lengths, s, dtype,
-                spare=64):
+                spare=64, width=None):
     """A pool holding each row's ``lengths[i] + s`` tokens on shuffled
     pages, with ``spare`` dead pages and the null page full of large
-    garbage (1e4 x the live scale) that the mask must keep out."""
+    garbage (1e4 x the live scale) that the mask must keep out; tables of
+    ``width`` pages (default: as wide as the longest row needs; the rest
+    of a row's entries point at the null page, as the engine's do)."""
     need = [-(-(n + s) // bs) for n in lengths]
     nb = 1 + sum(need) + spare
-    mb = max(need)
+    mb = max(need) if width is None else width
     kp = torch.randn(hk, nb, bs, d, generator=g, device=dev)
     vp = torch.randn(hk, nb, bs, d, generator=g, device=dev)
     perm = torch.randperm(nb - 1, generator=g, device=dev) + 1
@@ -499,16 +514,20 @@ def _paged_rows(torch, g, record, rows_out):
     """The paged kernels against their plain versions: B-9 at the decode
     shape (4 rows of 510/480/333/250 tokens, Llama-2-7B heads), the
     chunked-prefill shape (8 rows, chunk 128, contexts to 1000) and the
-    speculative verify (s = 4); B-10 at the decode shape with RoPE; int8
-    and fp8 pools, GQA (32/8 heads), fp32, dead pages of garbage; the
-    Hopper chunk kernel's edges (16 lanes, d 64, fp16, lengths 0 / 15 /
-    16, pages of 8) and pages of 128 on the tile kernel.  The chunk
-    kernel reruns bitwise at the chunk shape, bf16 and int8 pages.
-    B-10's written pages, codes and scales must equal the plain
-    version's bitwise on live pages.  There is no PyTorch call for
-    attention over a paged pool (library "none");
-    ``F.scaled_dot_product_attention`` over the same live K/V laid out
-    densely is timed beside it as a yardstick ("sdpa_dense_ms")."""
+    speculative verify (s = 4; MHA at s = 2 and s = 8, the 8-lane edge of
+    the split kernel); B-10 at the decode shape with RoPE; int8 and fp8
+    pools, GQA (32/8 heads), fp32, dead pages of garbage; the split
+    kernels at the engine's 256-page tables, on one 4000-token row and at
+    lengths 0 / 1 / 15 / 16 / 17; the Hopper chunk kernel's edges (16
+    lanes, d 64, fp16, lengths 0 / 15 / 16, pages of 8) and pages of 128
+    on the tile kernel.  Decode, decode/int8, verify and the chunk kernel
+    (bf16 and int8 pages) rerun bitwise, and so does B-10 at decode and
+    decode/int8 (output, pages and scales).  B-10's written pages, codes
+    and scales must equal the plain version's bitwise on live pages.
+    There is no PyTorch call for attention over a paged pool (library
+    "none"); ``F.scaled_dot_product_attention`` over the same live K/V
+    laid out densely is timed beside it as a yardstick
+    ("sdpa_dense_ms")."""
     import importlib
 
     import torch.nn.functional as F
@@ -544,14 +563,23 @@ def _paged_rows(torch, g, record, rows_out):
         ("chunk/edges", 3, 128, 32, 8, [0, 15, 16], bf16, None),
         ("chunk/bs8", 8, 128, 32, 32, chunk, bf16, None, 128, 8),
         ("chunk/bs128", 8, 128, 32, 32, chunk, bf16, None, 128, 128),
+        # the split kernels (up to 8 lanes): the engine's 256-page tables,
+        # one long row, the 2- and 8-lane verify, short rows
+        ("decode/w256", 4, 1, 32, 32, dec, bf16, None, 128, 16, 256),
+        ("decode/int8-w256", 4, 1, 32, 32, dec, bf16, "int8", 128, 16, 256),
+        ("decode/long", 1, 1, 32, 32, [4000], bf16, None),
+        ("verify/s2", 4, 2, 32, 32, dec, bf16, None),
+        ("verify/s8", 4, 8, 32, 32, dec, bf16, None),
+        ("decode/edges", 5, 1, 32, 32, [0, 1, 15, 16, 17], bf16, None),
     ]
+    rerun_tags = ("decode", "decode/int8", "verify", "chunk", "chunk/int8")
     ok = True
     cos_t, sin_t = rope_cos_sin(4096, 128, device=dev)
     for tag, b, s, h, hk, lengths, dt, kv, *geom in cases:
-        d, bs = geom or (128, 16)
+        d, bs, width = (list(geom) + [None])[:3] if geom else (128, 16, None)
         kp, vp, tables, lens, live = _paged_pool(
             torch, g, dev, b=b, hk=hk, d=d, bs=bs, lengths=lengths, s=s,
-            dtype=dt)
+            dtype=dt, width=width)
         kw = {}
         if kv:
             kp, vp, ks, vs = PA.quantize_kv_pages(kp, vp, kv)
@@ -583,7 +611,7 @@ def _paged_rows(torch, g, record, rows_out):
         torch.cuda.synchronize()
         err, passed = _close_rel(torch, got, ref, rel)
         passed &= bool(torch.isfinite(got).all())
-        if tag in ("chunk", "chunk/int8"):
+        if tag in rerun_tags and dt == bf16:
             rerun = torch.equal(got, PA.paged_attention(*args, **kw))
             log(f"  paged_attn/{tag} rerun bitwise {rerun}")
             passed &= rerun
@@ -626,6 +654,17 @@ def _paged_rows(torch, g, record, rows_out):
         passed &= written and bool(torch.isfinite(out_k[0]).all())
         log(f"  paged_decode_fused/{tag}: written pages"
             f"{' and scales' if kv else ''} bitwise: {written}")
+        if tag in rerun_tags and dt == bf16:
+            pr = [t.clone() for t in base]
+            again = fused("kernel", pr)
+            torch.cuda.synchronize()
+            rerun = all(torch.equal(a.view(torch.uint8), r.view(torch.uint8))
+                        for a, r in zip((out_k[0],) + tuple(pk),
+                                        (again[0],) + tuple(pr)))
+            log(f"  paged_decode_fused/{tag} rerun bitwise (output, pages"
+                f"{', scales' if kv else ''}) {rerun}")
+            passed &= rerun
+            del pr, again
         ok &= record(f"paged_decode_fused/{tag}", shape, dt, err, passed,
                      lambda: fused("kernel", pk), lambda: fused("torch", pt),
                      PA.paged_cost_bytes(q, kp, lengths, written_rows=True),
@@ -1850,12 +1889,12 @@ def phase_paged(torch, model, profile=False):
     s4, w4, t4 = _steady_decode(eng, four)
     prof = {}
     if profile:
-        prof["slots_4"] = _profile_steps(torch, eng)
+        prof["slots_4"] = _profile_steps(torch, eng, groups=DECODE_GROUPS)
     for slot in range(4):
         eng.release(slot)
     s8, w8, t8 = _steady_decode(eng, serve_prompts(torch))
     if profile:
-        prof["slots_8"] = _profile_steps(torch, eng)
+        prof["slots_8"] = _profile_steps(torch, eng, groups=DECODE_GROUPS)
     for slot in range(8):
         eng.release(slot)
     if profile:
@@ -1938,7 +1977,8 @@ def phase_paged_int8(torch, model, profile=False):
     # contexts (drafts on: a step emits 1-4 tokens per slot)
     proposed, accepted = eng.spec_proposed, eng.spec_accepted
     s4, w4, t4 = _steady_decode(eng, serve_prompts(torch)[-4:][::-1])
-    prof = _profile_steps(torch, eng) if profile else None
+    prof = (_profile_steps(torch, eng, groups=DECODE_GROUPS) if profile
+            else None)
     for slot in range(4):
         eng.release(slot)
     proposed = eng.spec_proposed - proposed
@@ -2907,35 +2947,45 @@ def _profile_summary(rows, n, wall_us, groups=None):
     return out
 
 
-# the wgmma/TMA kernels of each library, by kind
+# the Hopper kernels of each library, by kind, and the SASS instructions
+# every variant of a kind must show: wgmma products (HGMMA) and TMA tile
+# loads (UTMALDG), or bulk copies (UBLKCP); LDGSTS (cp.async) is counted
+_WGMMA_TMA = ("HGMMA", "UTMALDG")
 HOPPER_KINDS = {
-    "flash_attention": ("fa_fwd_wgmma", "fa_bwd_dq_wgmma", "fa_bwd_dkv_wgmma"),
-    "paged_attention": ("paged_attn_wgmma",),
+    "flash_attention": {"fa_fwd_wgmma": _WGMMA_TMA,
+                        "fa_bwd_dq_wgmma": _WGMMA_TMA,
+                        "fa_bwd_dkv_wgmma": _WGMMA_TMA},
+    "paged_attention": {"paged_attn_wgmma": _WGMMA_TMA,
+                        "paged_attn_split": ("UBLKCP",),
+                        "paged_decode_split": ("UBLKCP",)},
 }
+SASS_COUNTS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
 
 
 def _hopper_report(_build, build_logs):
-    """Each wgmma/TMA kernel's ``-Xptxas -v`` line (registers, shared
-    memory, spills) and the count of its ``HGMMA`` and ``UTMALDG``
-    instructions in the built library's SASS (``cuobjdump -sass``), by
-    kind (:data:`HOPPER_KINDS`: the flash forward, dq and dk/dv; the
-    paged chunk kernel).  Raises when a kind is missing, when a variant
-    shows no ``HGMMA`` or no ``UTMALDG``, when this build printed no
-    ``-Xptxas -v`` line for one (the library was not compiled in this
-    call), or when one spills."""
+    """Each Hopper kernel's ``-Xptxas -v`` lines (registers, shared
+    memory, spills) and the count of its ``HGMMA``, ``UTMALDG``,
+    ``UBLKCP`` and ``LDGSTS`` instructions in the built library's SASS
+    (``cuobjdump -sass``), by kind (:data:`HOPPER_KINDS`: the flash
+    forward, dq and dk/dv; the paged chunk kernel and the two split-K
+    kernels).  Raises
+    when a kind is missing, when a variant lacks an instruction its kind
+    needs, when this build printed no ``-Xptxas -v`` line for one (the
+    library was not compiled in this call), or when one spills."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
     for lib, kinds in HOPPER_KINDS.items():
+        def kind_of(fn):
+            return [k for k in kinds if k in fn]
         found = {}
         fn = None
         for line in build_logs.get(lib, "").splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 fn = m.group(1)
-            elif fn and "wgmma" in fn and ("Used" in line
-                                           or "spill" in line):
+            elif fn and kind_of(fn) and ("Used" in line or "spill" in line):
                 found.setdefault(fn, dict(ptxas=[]))["ptxas"].append(
                     line.strip())
         sass = subprocess.run([tool, "-sass", str(_build._paths[lib])],
@@ -2945,39 +2995,41 @@ def _hopper_report(_build, build_logs):
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
-                fn = m.group(1) if "wgmma" in m.group(1) else None
+                fn = m.group(1) if kind_of(m.group(1)) else None
             elif fn:
                 rec = found.setdefault(fn, dict(ptxas=[]))
-                rec["HGMMA"] = rec.get("HGMMA", 0) + ("HGMMA" in line)
-                rec["UTMALDG"] = rec.get("UTMALDG", 0) + ("UTMALDG" in line)
+                for ins in SASS_COUNTS:
+                    rec[ins] = rec.get(ins, 0) + (ins in line)
         groups = {}
         for fn, rec in found.items():
-            kind = [k for k in kinds if k in fn]
+            kind = kind_of(fn)
             if len(kind) != 1:
-                raise RuntimeError(f"wgmma kernel {fn} is none of {kinds}")
+                raise RuntimeError(f"kernel {fn} is not one of {list(kinds)}")
             rec["kind"] = kind[0]
-            key = (kind[0], rec.get("HGMMA", 0), rec.get("UTMALDG", 0),
-                   " | ".join(rec["ptxas"]))
+            key = (kind[0],) + tuple(rec.get(i, 0) for i in SASS_COUNTS) + (
+                " | ".join(rec["ptxas"]),)
             groups[key] = groups.get(key, 0) + 1
-        for (kind, hg, tma, px), n in sorted(groups.items()):
-            log(f"  {kind} x{n} variants: HGMMA {hg} UTMALDG {tma} | {px}")
+        for (kind, *counts, px), n in sorted(groups.items()):
+            txt = " ".join(f"{i} {c}" for i, c in zip(SASS_COUNTS, counts))
+            log(f"  {kind} x{n} variants: {txt} | {px}")
         missing = [k for k in kinds if not any(
             r["kind"] == k for r in found.values())]
-        if missing or not all(r.get("HGMMA") and r.get("UTMALDG")
-                              for r in found.values()):
-            raise RuntimeError(f"the wgmma/TMA kernels of {lib} "
-                               f"{missing or ''} are missing or show no "
-                               "HGMMA or UTMALDG in their SASS")
+        short = [fn for fn, r in found.items()
+                 if not all(r.get(i) for i in kinds[r["kind"]])]
+        if missing or short:
+            raise RuntimeError(
+                f"the Hopper kernels of {lib}: kinds {missing} missing; "
+                f"{short} lack the instructions of their kind ({kinds})")
         out.update(found)
     unread = [fn for fn, r in out.items() if not r["ptxas"]]
     if unread:
         raise RuntimeError("no -Xptxas -v line from this build for the "
-                           f"wgmma kernels {unread}: spills unchecked")
+                           f"Hopper kernels {unread}: spills unchecked")
     spilled = [fn for fn, r in out.items() if any(
         int(n) for px in r["ptxas"]
         for n in re.findall(r"(\d+) bytes spill", px))]
     if spilled:
-        raise RuntimeError(f"wgmma kernels spill: {spilled}")
+        raise RuntimeError(f"Hopper kernels spill: {spilled}")
     return out
 
 

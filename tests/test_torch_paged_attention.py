@@ -18,6 +18,17 @@ above), bf16 and fp16 (both sides round the same fp32 result: one ulp,
 2^-7 of the largest entry; the Pallas kernel's q pre-scaled in q's
 dtype and P rounded to it stay within that too) and on int8 / e4m3
 pools (1e-5).
+``TestSplitModel`` holds ``paged_attention_splits`` and
+``paged_decode_fused_splits``, the plain model of the split-K kernels
+for up to 8 query lanes per kv head (each split's online softmax, then
+the merge in split order), against the JAX function through its XLA
+reference and its Pallas kernel in interpret mode: splits of 1 page, 3
+pages and more than the row, lengths 0, 1, page - 1, page and page + 1,
+a 256-page table with 3 live pages, 1, 4, 5 and 8 lanes, GQA 32/8 at s =
+1 and 2, int8 and e4m3 pools, and the fused step with RoPE where the
+written row opens a page and where the row is at max_seq_len (1e-5 of
+the largest output entry in fp32, as above: only the order of the sums
+differs; the written pages, codes and scales bitwise).
 ``cuda``-marked tests hold the CUDA kernels against the plain versions
 and skip without a card.
 """
@@ -466,6 +477,115 @@ class TestPagedDecodeFused:
 
 
 # --------------------------------------------------------------------- #
+# the plain model of the split-K kernels (up to 8 lanes per kv head)
+# --------------------------------------------------------------------- #
+# s, h, hk: lanes (h // hk * s) 1, 4 (the MHA verify), 5, 8, and GQA
+# 32/8 at s = 1 and 2
+SPLIT_GEOMS = [(1, 4, 4), (4, 4, 4), (5, 2, 2), (2, 8, 2), (1, 32, 8),
+               (2, 32, 8)]
+SPLIT_IDS = ["lanes1", "verify4", "lanes5", "gqa-lanes8", "gqa32-8-s1",
+             "gqa32-8-s2"]
+SPLIT_PAGES = [1, 3, 100]          # 100 pages: more than any row
+
+
+def split_case(rng, s, h, hk, *, BS=8, MB=None, lengths=None, garbage=1e4,
+               d=32):
+    """Pool, tables, fp32 queries and lengths 0 / 1 / page - 1 / page /
+    page + 1 (or ``lengths``), as numpy arrays; tables ``MB`` pages wide
+    (default: as wide as the longest row needs)."""
+    lengths = [0, 1, BS - 1, BS, BS + 1] if lengths is None else lengths
+    need = [-(-(n + s) // BS) for n in lengths]
+    MB = max(need) if MB is None else MB
+    NB = 1 + sum(need) + 4
+    kp, vp, tables = pool(rng, b=len(lengths), hk=hk, d=d, NB=NB, BS=BS,
+                          MB=MB, lengths=lengths, s=s, garbage=garbage)
+    q = rng.normal(size=(len(lengths), s, h, d)).astype(np.float32)
+    return q, kp, vp, tables, np.asarray(lengths, np.int32)
+
+
+class TestSplitModel:
+    @pytest.mark.parametrize("split_pages", SPLIT_PAGES)
+    @pytest.mark.parametrize("geom", SPLIT_GEOMS, ids=SPLIT_IDS)
+    @pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+    def test_matches_jax(self, geom, split_pages, impl):
+        rng = np.random.default_rng(30)
+        arrays = split_case(rng, *geom)
+        ref = J.paged_attention(*(jnp.asarray(a) for a in arrays),
+                                implementation=impl)
+        got = P.paged_attention_splits(
+            *(torch.from_numpy(a) for a in arrays), split_pages=split_pages)
+        close(got, ref)
+
+    @pytest.mark.parametrize("split_pages", [1, 3, 100])
+    @pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+    def test_wide_table_few_live_pages(self, split_pages, impl):
+        """The engine's tables: 256 pages a row, 3 of them live (the
+        rest point at the null page, full of garbage)."""
+        rng = np.random.default_rng(31)
+        arrays = split_case(rng, 1, 4, 2, MB=256, lengths=[17, 23, 9])
+        ref = J.paged_attention(*(jnp.asarray(a) for a in arrays),
+                                implementation=impl)
+        got = P.paged_attention_splits(
+            *(torch.from_numpy(a) for a in arrays), split_pages=split_pages)
+        close(got, ref)
+
+    @pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+    @pytest.mark.parametrize("split_pages", [1, 3])
+    @pytest.mark.parametrize("geom", [SPLIT_GEOMS[0], SPLIT_GEOMS[3]],
+                             ids=[SPLIT_IDS[0], SPLIT_IDS[3]])
+    def test_coded_matches_jax(self, geom, split_pages, kv_dtype):
+        rng = np.random.default_rng(32)
+        q, kp, vp, tables, lens = split_case(rng, *geom, garbage=0.0)
+        kq, vq, ks, vs = J.quantize_kv_pages(jnp.asarray(kp),
+                                             jnp.asarray(vp), kv_dtype)
+        for impl in ("xla", "pallas_interpret"):
+            ref = J.paged_attention(jnp.asarray(q), kq, vq,
+                                    jnp.asarray(tables), jnp.asarray(lens),
+                                    k_scales=ks, v_scales=vs,
+                                    implementation=impl)
+            got = P.paged_attention_splits(
+                torch.from_numpy(q), to_torch(kq), to_torch(vq),
+                torch.from_numpy(tables), torch.from_numpy(lens),
+                split_pages=split_pages, k_scales=to_torch(ks),
+                v_scales=to_torch(vs))
+            close(got, ref)
+
+    @pytest.mark.parametrize("kv_dtype", [None] + KV_DTYPES)
+    @pytest.mark.parametrize("split_pages", [1, 3, 100])
+    @pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+    def test_fused_matches_jax(self, kv_dtype, split_pages, impl):
+        """The fused step with RoPE: rows writing mid-page, opening a page
+        (length 8 at pages of 8), at a page's end, empty, and at
+        max_seq_len (nothing written)."""
+        rng = np.random.default_rng(33)
+        case = fused_case(rng, kv_dtype=kv_dtype, rope=True,
+                          pad_rows=(2,) if kv_dtype else ())
+        q, nk, nv, tables, lengths, jx, S, live = case
+        ref = run_fused(case, impl)
+        kw = {k: to_torch(v) for k, v in jx.items()}
+        got = P.paged_decode_fused_splits(
+            torch.from_numpy(q), torch.from_numpy(nk), torch.from_numpy(nv),
+            kw.pop("k_pages"), kw.pop("v_pages"), torch.from_numpy(tables),
+            torch.from_numpy(lengths), split_pages=split_pages,
+            max_seq_len=S, **kw)
+        close(got[0], ref[0])
+        plain = run_fused(case, "torch")
+        for g, r in zip(got[1:], plain[1:]):
+            np.testing.assert_array_equal(bits(g[:, live]), bits(r[:, live]))
+
+    def test_split_sizes_agree(self):
+        """Every split size gives the plain version's output within 1e-5,
+        on a long row whose balanced splits end mid-way."""
+        rng = np.random.default_rng(34)
+        q, kp, vp, tables, lens = (torch.from_numpy(a) for a in split_case(
+            rng, 2, 8, 2, BS=16, lengths=[300, 5, 47]))
+        ref = P.paged_attention_reference(q, kp, vp, tables, lens)
+        for sp in (1, 2, 3, 5, 8, 19, 64):
+            close(P.paged_attention_splits(q, kp, vp, tables, lens,
+                                           split_pages=sp), ref.numpy())
+
+
+# --------------------------------------------------------------------- #
 # the CUDA kernels against the plain versions (on a card only)
 # --------------------------------------------------------------------- #
 @pytest.fixture
@@ -553,3 +673,68 @@ class TestChunkKernel:
         ref = P.paged_attention(*args, implementation="torch", **kw)
         close(got.cpu(), ref.cpu().float().numpy(), rel=2 ** -7)
         assert torch.equal(got, P.paged_attention(*args, **kw))
+
+
+@pytest.mark.cuda
+class TestSplitKernels:
+    """The split-K kernels (up to 8 lanes per kv head: ``paged_attention``
+    at decode and verify widths, and ``paged_decode_fused``) against their
+    plain versions at the shapes of ``TestSplitModel``, d 64 and 128, fp32
+    (1e-5 of the largest output entry), bf16 (2^-7) and on int8 / e4m3
+    pools: a rerun bit for bit, and the fused step's written pages, codes
+    and scales bitwise on live pages."""
+
+    @pytest.mark.parametrize("kv_dtype", [None] + KV_DTYPES)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("geom", SPLIT_GEOMS, ids=SPLIT_IDS)
+    @pytest.mark.parametrize("width", [None, 256])
+    def test_attention(self, cuda_device, geom, dtype, kv_dtype, width):
+        rng = np.random.default_rng(40)
+        q, kp, vp, tables, lens = split_case(
+            rng, *geom, BS=16, MB=width, d=128,
+            lengths=[0, 1, 15, 16, 17, 300, 4000 if width else 70])
+        dev = cuda_device
+        kpt, vpt = (torch.from_numpy(a).to(dev).to(dtype) for a in (kp, vp))
+        kw = {}
+        if kv_dtype:
+            kpt, vpt, ks, vs = P.quantize_kv_pages(kpt, vpt, kv_dtype)
+            kw = dict(k_scales=ks, v_scales=vs)
+        args = (torch.from_numpy(q).to(dev).to(dtype), kpt, vpt,
+                torch.from_numpy(tables).to(dev),
+                torch.from_numpy(lens).to(dev))
+        got = P.paged_attention(*args, **kw)
+        ref = P.paged_attention(*args, implementation="torch", **kw)
+        rel = REL if dtype == torch.float32 else 2 ** -7
+        close(got.cpu(), ref.cpu().float().numpy(), rel=rel)
+        assert torch.equal(got, P.paged_attention(*args, **kw))
+
+    @pytest.mark.parametrize("kv_dtype", [None] + KV_DTYPES)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_fused(self, cuda_device, kv_dtype, dtype, d):
+        rng = np.random.default_rng(41)
+        case = fused_case(rng, kv_dtype=kv_dtype, rope=True, d=d,
+                          pad_rows=(3,) if kv_dtype else ())
+        q, nk, nv, tables, lengths, jx, S, live = case
+
+        def run(impl):
+            kw = {k: to_torch(v).to(cuda_device) for k, v in jx.items()}
+            kw["k_pages"] = kw["k_pages"].to(
+                dtype if kv_dtype is None else kw["k_pages"].dtype)
+            kw["v_pages"] = kw["v_pages"].to(
+                dtype if kv_dtype is None else kw["v_pages"].dtype)
+            return P.paged_decode_fused(
+                *(torch.from_numpy(a).to(cuda_device).to(dtype)
+                  for a in (q, nk, nv)),
+                kw.pop("k_pages"), kw.pop("v_pages"),
+                torch.from_numpy(tables).to(cuda_device),
+                torch.from_numpy(lengths).to(cuda_device), max_seq_len=S,
+                implementation=impl, **kw)
+        got, again, ref = run("kernel"), run("kernel"), run("torch")
+        rel = REL if dtype == torch.float32 else 2 ** -7
+        close(got[0].cpu(), ref[0].cpu().float().numpy(), rel=rel)
+        for a, b in zip(got, again):
+            assert torch.equal(bits_t(a.cpu()), bits_t(b.cpu()))
+        for g, r in zip(got[1:], ref[1:]):
+            np.testing.assert_array_equal(bits(g[:, live].cpu()),
+                                          bits(r[:, live].cpu()))
