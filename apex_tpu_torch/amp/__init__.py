@@ -7,6 +7,7 @@ from apex_tpu_torch.amp.frontend import (
     scale_loss,
     state_dict,
 )
+from apex_tpu_torch.core.precision import PrecisionPolicy
 
 __all__ = ["initialize", "scale_loss", "master_params", "state_dict",
-           "load_state_dict"]
+           "load_state_dict", "PrecisionPolicy"]

@@ -19,7 +19,9 @@
 // key outputs zeros and a backward through it stays finite.  Softmax
 // runs in the log2 domain (exp2) and the saved logsumexp is log2-domain;
 // it never leaves this fwd/bwd pair.  Ragged tiles are masked, so any sq
-// and sk are taken; head_dim up to 128.
+// and sk are taken; head_dim up to 256 (a multiple of 8), and any batch *
+// heads (the FMA kernels number their blocks on grid.x; the Hopper
+// kernels' items are an int).
 //
 // Layout: q, o, dO, dq are (b, sq, h, d) and k, v, dk, dv (b, sk, hk, d),
 // the JAX layout (BSHD), read in place with row stride heads * d.  lse
@@ -61,7 +63,9 @@
 //     the column reads of the score product hit 16 different banks);
 //     each of 256 threads owns a 4 x 4 block of the 64 x 64 score tile
 //     (rows ty + 16 i, columns tx + 16 j) and of the 64 x d accumulators;
-//     row maxima and sums reduce over the 16 lanes of a half warp.
+//     row maxima and sums reduce over the 16 lanes of a half warp.  Above
+//     head_dim 128 the tiles are 32 rows (2 x 2 a thread), so that dq's
+//     and dk/dv's fp32 tiles fit the 227 KB of shared memory.
 //
 // Softmax, masking and dropout are fp32 in all; a probability or dS that
 // feeds the next product is rounded to the input dtype first, as in the
@@ -74,9 +78,8 @@
 
 namespace {
 
-constexpr int kT = 64;           // rows of every tile
+constexpr int kT = 64;           // rows of a tile (32 above head_dim 128)
 constexpr int kThreads = 256;    // 16 x 16 threads
-constexpr int kLdS = kT + 1;     // row stride of the score tiles in smem
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -115,24 +118,26 @@ __device__ __forceinline__ bool drop_keep(const Params& p, uint32_t row,
   return fmix32(row ^ ((uint32_t)kpos * 0x85EBCA6Bu)) >= p.threshold;
 }
 
-// Whether the (q0, k0) tile holds any visible position.
-__device__ __forceinline__ bool tile_live(const Params& p, int q0, int k0) {
+// Whether the tile of queries [q0, q0 + nq) and keys [k0, k0 + nk) holds
+// any visible position.
+__device__ __forceinline__ bool tile_live(const Params& p, int q0, int k0,
+                                          int nq = kT, int nk = kT) {
   if (!p.causal) return true;
   const int off = p.sk - p.sq;
-  const int q_last = min(q0 + kT, p.sq) - 1 + off;
+  const int q_last = min(q0 + nq, p.sq) - 1 + off;
   if (k0 > q_last) return false;
-  if (p.window > 0 && k0 + kT - 1 < q0 + off - p.window + 1) return false;
+  if (p.window > 0 && k0 + nk - 1 < q0 + off - p.window + 1) return false;
   return true;
 }
 
-// rows [row0, row0 + 64) of a (seq, heads, d) slab at `src` (already
+// rows [row0, row0 + n) of a (seq, heads, d) slab at `src` (already
 // offset to its batch and head) into fp32 smem of row stride ld; rows
 // past `rows` read as zero
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
                                           long long row_stride, int row0,
-                                          int rows, int d) {
-  for (int idx = threadIdx.x; idx < kT * d; idx += kThreads) {
+                                          int rows, int d, int n = kT) {
+  for (int idx = threadIdx.x; idx < n * d; idx += kThreads) {
     const int r = idx / d, c = idx - r * d;
     const int pos = row0 + r;
     dst[r * ld + c] =
@@ -141,23 +146,24 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
 }
 
 // s[i][j] = <A[ty + 16 i], B[tx + 16 j]> over the first d columns
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A,
+template <int R>
+__device__ __forceinline__ void tile_dot(float (&s)[R][R], const float* A,
                                          const float* B, int ld, int d,
                                          int ty, int tx) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int j = 0; j < R; ++j) s[i][j] = 0.f;
   for (int c = 0; c < d; ++c) {
-    float a[4], bb[4];
+    float a[R], bb[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * ld + c];
+    for (int i = 0; i < R; ++i) a[i] = A[(ty + 16 * i) * ld + c];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bb[j] = B[(tx + 16 * j) * ld + c];
+    for (int j = 0; j < R; ++j) bb[j] = B[(tx + 16 * j) * ld + c];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
+      for (int j = 0; j < R; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
   }
 }
 
@@ -180,14 +186,15 @@ __device__ __forceinline__ float score_at(const Params& p, float raw,
   return dead ? kNegInf : v;
 }
 
-__device__ __forceinline__ void finish_scores(float (&s)[4][4],
+template <int R>
+__device__ __forceinline__ void finish_scores(float (&s)[R][R],
                                               const Params& p, int batch,
                                               int head, int q0, int k0,
                                               int ty, int tx) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < R; ++j)
       s[i][j] = score_at(p, s[i][j], batch, head, q0 + ty + 16 * i,
                          k0 + tx + 16 * j);
 }
@@ -220,52 +227,61 @@ __device__ __forceinline__ float prob(float s, float m) {
 // ------------------------------------------------------------------ //
 // forward
 // ------------------------------------------------------------------ //
-template <typename T, int DC>
+// The FMA kernels are built at a tile of TT = 16 R rows (R = 4 up to
+// head_dim 128, R = 2 above, so that the fp32 tiles of head_dim 256 fit
+// the shared memory) and DC = ceil(d / 16) accumulator columns a thread.
+// Blocks are numbered over (lane, tile) on grid.x, so any batch * heads
+// runs.
+template <typename T, int DC, int R>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_kernel(Params p, T* __restrict__ o, float* __restrict__ lse) {
+  constexpr int TT = 16 * R, LdS = TT + 1;
   extern __shared__ float smem[];
   const int d = p.d, ld = d + 1;
   float* Qs = smem;
-  float* Ks = Qs + kT * ld;
-  float* Vs = Ks + kT * ld;
-  float* Ps = Vs + kT * ld;
+  float* Ks = Qs + TT * ld;
+  float* Vs = Ks + TT * ld;
+  float* Ps = Vs + TT * ld;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int lane = blockIdx.y, batch = lane / p.h, head = lane % p.h;
+  const int ntq = (p.sq + TT - 1) / TT;
+  const int lane = blockIdx.x / ntq, batch = lane / p.h, head = lane % p.h;
   const int kvh = head / (p.h / p.hk);
-  const int q0 = blockIdx.x * kT;
+  const int q0 = (blockIdx.x - lane * ntq) * TT;
   const long long qstride = (long long)p.h * d, kstride = (long long)p.hk * d;
   const T* qb = (const T*)p.q + (long long)batch * p.sq * qstride + (long long)head * d;
   const T* kb = (const T*)p.k + (long long)batch * p.sk * kstride + (long long)kvh * d;
   const T* vb = (const T*)p.v + (long long)batch * p.sk * kstride + (long long)kvh * d;
-  load_tile(Qs, ld, qb, qstride, q0, p.sq, d);
+  load_tile(Qs, ld, qb, qstride, q0, p.sq, d, TT);
 
-  float m[4], l[4], acc[4][DC];
-  uint32_t drow[4];
+  float m[R], l[R], acc[R][DC];
+  uint32_t drow[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
     drow[i] = p.dropout ? drop_row(p, (uint32_t)lane, q0 + ty + 16 * i) : 0u;
 #pragma unroll
     for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
   }
-  for (int k0 = 0; k0 < p.sk; k0 += kT) {
-    if (!tile_live(p, q0, k0)) continue;
+  for (int k0 = 0; k0 < p.sk; k0 += TT) {
+    if (!tile_live(p, q0, k0, TT, TT)) continue;
     __syncthreads();
-    load_tile(Ks, ld, kb, kstride, k0, p.sk, d);
-    load_tile(Vs, ld, vb, kstride, k0, p.sk, d);
+    load_tile(Ks, ld, kb, kstride, k0, p.sk, d, TT);
+    load_tile(Vs, ld, vb, kstride, k0, p.sk, d, TT);
     __syncthreads();
-    float s[4][4];
-    tile_dot(s, Qs, Ks, ld, d, ty, tx);
-    finish_scores(s, p, batch, head, q0, k0, ty, tx);
+    float s[R][R];
+    tile_dot<R>(s, Qs, Ks, ld, d, ty, tx);
+    finish_scores<R>(s, p, batch, head, q0, k0, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+    for (int i = 0; i < R; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < R; ++j) mx = fmaxf(mx, s[i][j]);
       const float m_new = fmaxf(m[i], half_warp_max(mx));
       const float alpha = exp2f(m[i] - m_new);
-      float pr[4], rs = 0.f;
+      float pr[R], rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         pr[j] = prob(s[i][j], m_new);
         rs += pr[j];
       }
@@ -273,18 +289,18 @@ fa_fwd_kernel(Params p, T* __restrict__ o, float* __restrict__ lse) {
       // value accumulation sees the dropped, rescaled ones
       l[i] = l[i] * alpha + half_warp_sum(rs);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         float pv = pr[j];
         if (p.dropout)
           pv = drop_keep(p, drow[i], k0 + tx + 16 * j) ? pv * p.drop_inv : 0.f;
-        Ps[(ty + 16 * i) * kLdS + tx + 16 * j] = as_operand<T>(pv);
+        Ps[(ty + 16 * i) * LdS + tx + 16 * j] = as_operand<T>(pv);
       }
 #pragma unroll
       for (int j = 0; j < DC; ++j) acc[i][j] *= alpha;
       m[i] = m_new;
     }
     __syncthreads();
-    for (int kk = 0; kk < kT; ++kk) {
+    for (int kk = 0; kk < TT; ++kk) {
       float vv[DC];
 #pragma unroll
       for (int j = 0; j < DC; ++j) {
@@ -292,15 +308,15 @@ fa_fwd_kernel(Params p, T* __restrict__ o, float* __restrict__ lse) {
         vv[j] = c < d ? Vs[kk * ld + c] : 0.f;
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pv = Ps[(ty + 16 * i) * kLdS + kk];
+      for (int i = 0; i < R; ++i) {
+        const float pv = Ps[(ty + 16 * i) * LdS + kk];
 #pragma unroll
         for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(pv, vv[j], acc[i][j]);
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= p.sq) continue;
     const float ls = l[i] == 0.f ? 1.f : l[i];
@@ -317,33 +333,35 @@ fa_fwd_kernel(Params p, T* __restrict__ o, float* __restrict__ lse) {
 // ------------------------------------------------------------------ //
 // backward: dq
 // ------------------------------------------------------------------ //
-template <typename T, int DC>
+template <typename T, int DC, int R>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_dq_kernel(Params p, const T* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, T* __restrict__ dq) {
+  constexpr int TT = 16 * R, LdS = TT + 1;
   extern __shared__ float smem[];
   const int d = p.d, ld = d + 1;
   float* Qs = smem;
-  float* dOs = Qs + kT * ld;
-  float* Ks = dOs + kT * ld;
-  float* Vs = Ks + kT * ld;
-  float* Ds = Vs + kT * ld;
+  float* dOs = Qs + TT * ld;
+  float* Ks = dOs + TT * ld;
+  float* Vs = Ks + TT * ld;
+  float* Ds = Vs + TT * ld;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int lane = blockIdx.y, batch = lane / p.h, head = lane % p.h;
+  const int ntq = (p.sq + TT - 1) / TT;
+  const int lane = blockIdx.x / ntq, batch = lane / p.h, head = lane % p.h;
   const int kvh = head / (p.h / p.hk);
-  const int q0 = blockIdx.x * kT;
+  const int q0 = (blockIdx.x - lane * ntq) * TT;
   const long long qstride = (long long)p.h * d, kstride = (long long)p.hk * d;
   const long long qoff = (long long)batch * p.sq * qstride + (long long)head * d;
   const T* kb = (const T*)p.k + (long long)batch * p.sk * kstride + (long long)kvh * d;
   const T* vb = (const T*)p.v + (long long)batch * p.sk * kstride + (long long)kvh * d;
-  load_tile(Qs, ld, (const T*)p.q + qoff, qstride, q0, p.sq, d);
-  load_tile(dOs, ld, dout + qoff, qstride, q0, p.sq, d);
+  load_tile(Qs, ld, (const T*)p.q + qoff, qstride, q0, p.sq, d, TT);
+  load_tile(dOs, ld, dout + qoff, qstride, q0, p.sq, d, TT);
 
-  float lr[4], dr[4], acc[4][DC];
-  uint32_t drow[4];
+  float lr[R], dr[R], acc[R][DC];
+  uint32_t drow[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int row = q0 + ty + 16 * i;
     lr[i] = row < p.sq ? lse[(long long)lane * p.sq + row] : 0.f;
     dr[i] = row < p.sq ? delta[(long long)lane * p.sq + row] : 0.f;
@@ -351,30 +369,30 @@ fa_bwd_dq_kernel(Params p, const T* __restrict__ dout,
 #pragma unroll
     for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
   }
-  for (int k0 = 0; k0 < p.sk; k0 += kT) {
-    if (!tile_live(p, q0, k0)) continue;
+  for (int k0 = 0; k0 < p.sk; k0 += TT) {
+    if (!tile_live(p, q0, k0, TT, TT)) continue;
     __syncthreads();
-    load_tile(Ks, ld, kb, kstride, k0, p.sk, d);
-    load_tile(Vs, ld, vb, kstride, k0, p.sk, d);
+    load_tile(Ks, ld, kb, kstride, k0, p.sk, d, TT);
+    load_tile(Vs, ld, vb, kstride, k0, p.sk, d, TT);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot(s, Qs, Ks, ld, d, ty, tx);
-    finish_scores(s, p, batch, head, q0, k0, ty, tx);
-    tile_dot(dp, dOs, Vs, ld, d, ty, tx);
+    float s[R][R], dp[R][R];
+    tile_dot<R>(s, Qs, Ks, ld, d, ty, tx);
+    finish_scores<R>(s, p, batch, head, q0, k0, ty, tx);
+    tile_dot<R>(dp, dOs, Vs, ld, d, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         float g = dp[i][j];
         if (p.dropout)
           g = drop_keep(p, drow[i], k0 + tx + 16 * j) ? g * p.drop_inv : 0.f;
         // dS = P * (dP - delta); delta = rowsum(dO . O) already holds
         // the dropout factor
-        Ds[(ty + 16 * i) * kLdS + tx + 16 * j] =
+        Ds[(ty + 16 * i) * LdS + tx + 16 * j] =
             as_operand<T>(prob(s[i][j], lr[i]) * (g - dr[i]));
       }
     __syncthreads();
-    for (int kk = 0; kk < kT; ++kk) {
+    for (int kk = 0; kk < TT; ++kk) {
       float kv[DC];
 #pragma unroll
       for (int j = 0; j < DC; ++j) {
@@ -382,15 +400,15 @@ fa_bwd_dq_kernel(Params p, const T* __restrict__ dout,
         kv[j] = c < d ? Ks[kk * ld + c] : 0.f;
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float g = Ds[(ty + 16 * i) * kLdS + kk];
+      for (int i = 0; i < R; ++i) {
+        const float g = Ds[(ty + 16 * i) * LdS + kk];
 #pragma unroll
         for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(g, kv[j], acc[i][j]);
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= p.sq) continue;
     T* out = dq + qoff + row * qstride;
@@ -405,55 +423,58 @@ fa_bwd_dq_kernel(Params p, const T* __restrict__ dout,
 // ------------------------------------------------------------------ //
 // backward: dk, dv, the GQA group summed in the accumulators
 // ------------------------------------------------------------------ //
-template <typename T, int DC>
+template <typename T, int DC, int R>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_dkv_kernel(Params p, const T* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, T* __restrict__ dk,
                   T* __restrict__ dv) {
+  constexpr int TT = 16 * R, LdS = TT + 1;
   extern __shared__ float smem[];
   const int d = p.d, ld = d + 1;
   float* Ks = smem;
-  float* Vs = Ks + kT * ld;
-  float* Qs = Vs + kT * ld;
-  float* dOs = Qs + kT * ld;
-  float* Ps = dOs + kT * ld;
-  float* Ds = Ps + kT * kLdS;
+  float* Vs = Ks + TT * ld;
+  float* Qs = Vs + TT * ld;
+  float* dOs = Qs + TT * ld;
+  float* Ps = dOs + TT * ld;
+  float* Ds = Ps + TT * LdS;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int batch = blockIdx.y / p.hk, kvh = blockIdx.y % p.hk;
+  const int ntk = (p.sk + TT - 1) / TT;
+  const int kl = blockIdx.x / ntk;
+  const int batch = kl / p.hk, kvh = kl % p.hk;
   const int rep = p.h / p.hk;
-  const int k0 = blockIdx.x * kT;
+  const int k0 = (blockIdx.x - kl * ntk) * TT;
   const long long qstride = (long long)p.h * d, kstride = (long long)p.hk * d;
   const long long koff = (long long)batch * p.sk * kstride + (long long)kvh * d;
-  load_tile(Ks, ld, (const T*)p.k + koff, kstride, k0, p.sk, d);
-  load_tile(Vs, ld, (const T*)p.v + koff, kstride, k0, p.sk, d);
+  load_tile(Ks, ld, (const T*)p.k + koff, kstride, k0, p.sk, d, TT);
+  load_tile(Vs, ld, (const T*)p.v + koff, kstride, k0, p.sk, d, TT);
 
-  float adk[4][DC], adv[4][DC];
+  float adk[R][DC], adv[R][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < DC; ++j) adk[i][j] = adv[i][j] = 0.f;
   for (int head = kvh * rep; head < (kvh + 1) * rep; ++head) {
     const int lane = batch * p.h + head;
     const long long qoff = (long long)batch * p.sq * qstride + (long long)head * d;
-    for (int q0 = 0; q0 < p.sq; q0 += kT) {
-      if (!tile_live(p, q0, k0)) continue;
+    for (int q0 = 0; q0 < p.sq; q0 += TT) {
+      if (!tile_live(p, q0, k0, TT, TT)) continue;
       __syncthreads();
-      load_tile(Qs, ld, (const T*)p.q + qoff, qstride, q0, p.sq, d);
-      load_tile(dOs, ld, dout + qoff, qstride, q0, p.sq, d);
+      load_tile(Qs, ld, (const T*)p.q + qoff, qstride, q0, p.sq, d, TT);
+      load_tile(dOs, ld, dout + qoff, qstride, q0, p.sq, d, TT);
       __syncthreads();
-      float s[4][4], dp[4][4];
-      tile_dot(s, Qs, Ks, ld, d, ty, tx);
-      finish_scores(s, p, batch, head, q0, k0, ty, tx);
-      tile_dot(dp, dOs, Vs, ld, d, ty, tx);
+      float s[R][R], dp[R][R];
+      tile_dot<R>(s, Qs, Ks, ld, d, ty, tx);
+      finish_scores<R>(s, p, batch, head, q0, k0, ty, tx);
+      tile_dot<R>(dp, dOs, Vs, ld, d, ty, tx);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < R; ++i) {
         const int row = q0 + ty + 16 * i;
         const float lr = row < p.sq ? lse[(long long)lane * p.sq + row] : 0.f;
         const float dr = row < p.sq ? delta[(long long)lane * p.sq + row] : 0.f;
         const uint32_t drow = p.dropout ? drop_row(p, (uint32_t)lane, row) : 0u;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           const float pr = prob(s[i][j], lr);
           float pd = pr, g = dp[i][j];
           if (p.dropout) {
@@ -461,13 +482,13 @@ fa_bwd_dkv_kernel(Params p, const T* __restrict__ dout,
             pd = keep ? pr * p.drop_inv : 0.f;
             g = keep ? g * p.drop_inv : 0.f;
           }
-          Ps[(ty + 16 * i) * kLdS + tx + 16 * j] = as_operand<T>(pd);
-          Ds[(ty + 16 * i) * kLdS + tx + 16 * j] = as_operand<T>(pr * (g - dr));
+          Ps[(ty + 16 * i) * LdS + tx + 16 * j] = as_operand<T>(pd);
+          Ds[(ty + 16 * i) * LdS + tx + 16 * j] = as_operand<T>(pr * (g - dr));
         }
       }
       __syncthreads();
       // dV[key] += sum_q Pd[q][key] dO[q];  dK[key] += sum_q dS[q][key] Q[q]
-      for (int qq = 0; qq < kT; ++qq) {
+      for (int qq = 0; qq < TT; ++qq) {
         float dov[DC], qv[DC];
 #pragma unroll
         for (int j = 0; j < DC; ++j) {
@@ -476,9 +497,9 @@ fa_bwd_dkv_kernel(Params p, const T* __restrict__ dout,
           qv[j] = c < d ? Qs[qq * ld + c] : 0.f;
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pd = Ps[qq * kLdS + ty + 16 * i];
-          const float g = Ds[qq * kLdS + ty + 16 * i];
+        for (int i = 0; i < R; ++i) {
+          const float pd = Ps[qq * LdS + ty + 16 * i];
+          const float g = Ds[qq * LdS + ty + 16 * i];
 #pragma unroll
           for (int j = 0; j < DC; ++j) {
             adv[i][j] = fmaf(pd, dov[j], adv[i][j]);
@@ -490,7 +511,7 @@ fa_bwd_dkv_kernel(Params p, const T* __restrict__ dout,
   }
   // outputs (b, sk, hk, d): one slab per kv head
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int key = k0 + ty + 16 * i;
     if (key >= p.sk) continue;
     const long long base = (((long long)batch * p.sk + key) * p.hk + kvh) * d;
@@ -1372,45 +1393,62 @@ int prepare(K kern, size_t smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-size_t tiles_bytes(int d, int n_in, int n_score) {
-  return ((size_t)n_in * kT * (d + 1) + (size_t)n_score * kT * kLdS) * sizeof(float);
+size_t tiles_bytes(int d, int n_in, int n_score, int tt) {
+  return ((size_t)n_in * tt * (d + 1) + (size_t)n_score * tt * (tt + 1)) *
+         sizeof(float);
 }
 
-template <typename T, int DC>
+template <typename T, int DC, int R>
 int fwd(const Params& p, void* o, float* lse, cudaStream_t st) {
-  const size_t smem = tiles_bytes(p.d, 3, 1);
-  auto kern = fa_fwd_kernel<T, DC>;
+  constexpr int TT = 16 * R;
+  const size_t smem = tiles_bytes(p.d, 3, 1, TT);
+  auto kern = fa_fwd_kernel<T, DC, R>;
   int e = prepare(kern, smem);
   if (e) return e;
-  dim3 grid((p.sq + kT - 1) / kT, p.b * p.h);
-  kern<<<grid, kThreads, smem, st>>>(p, (T*)o, lse);
+  const long long grid = (long long)(p.sq + TT - 1) / TT * p.b * p.h;
+  kern<<<(unsigned)grid, kThreads, smem, st>>>(p, (T*)o, lse);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DC>
+template <typename T, int DC, int R>
 int bwd_dq(const Params& p, const void* dout, const float* lse,
            const float* delta, void* dq, cudaStream_t st) {
-  const size_t smem = tiles_bytes(p.d, 4, 1);
-  auto kern = fa_bwd_dq_kernel<T, DC>;
+  constexpr int TT = 16 * R;
+  const size_t smem = tiles_bytes(p.d, 4, 1, TT);
+  auto kern = fa_bwd_dq_kernel<T, DC, R>;
   int e = prepare(kern, smem);
   if (e) return e;
-  dim3 grid((p.sq + kT - 1) / kT, p.b * p.h);
-  kern<<<grid, kThreads, smem, st>>>(p, (const T*)dout, lse, delta, (T*)dq);
+  const long long grid = (long long)(p.sq + TT - 1) / TT * p.b * p.h;
+  kern<<<(unsigned)grid, kThreads, smem, st>>>(p, (const T*)dout, lse, delta,
+                                               (T*)dq);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DC>
+template <typename T, int DC, int R>
 int bwd_dkv(const Params& p, const void* dout, const float* lse,
             const float* delta, void* dk, void* dv, cudaStream_t st) {
-  const size_t smem = tiles_bytes(p.d, 4, 2);
-  auto kern = fa_bwd_dkv_kernel<T, DC>;
+  constexpr int TT = 16 * R;
+  const size_t smem = tiles_bytes(p.d, 4, 2, TT);
+  auto kern = fa_bwd_dkv_kernel<T, DC, R>;
   int e = prepare(kern, smem);
   if (e) return e;
-  dim3 grid((p.sk + kT - 1) / kT, p.b * p.hk);
-  kern<<<grid, kThreads, smem, st>>>(p, (const T*)dout, lse, delta, (T*)dk,
-                                     (T*)dv);
+  const long long grid = (long long)(p.sk + TT - 1) / TT * p.b * p.hk;
+  kern<<<(unsigned)grid, kThreads, smem, st>>>(p, (const T*)dout, lse, delta,
+                                               (T*)dk, (T*)dv);
   return (int)cudaGetLastError();
 }
+
+// The FMA kernels by head dim: DC = 4 (d <= 64), 8 (<= 128), 16 (<= 256)
+// accumulator columns; tiles of 64 rows, 32 above 128.
+#define APEX_FMA(FN, T, ...)                                             \
+  (d <= 64 ? FN<T, 4, 4>(__VA_ARGS__)                                    \
+   : d <= 128 ? FN<T, 8, 4>(__VA_ARGS__) : FN<T, 16, 2>(__VA_ARGS__))
+#define APEX_FMA_DT(FN, ...)                                             \
+  switch (dt) {                                                          \
+    case apex::kF32: return APEX_FMA(FN, float, __VA_ARGS__);            \
+    case apex::kBF16: return APEX_FMA(FN, __nv_bfloat16, __VA_ARGS__);   \
+    default: return APEX_FMA(FN, __half, __VA_ARGS__);                   \
+  }
 
 // the Hopper kernels: one variant per (bias, causal, dropout)
 #define APEX_FA_VARIANTS(LAUNCH)                                           \
@@ -1566,7 +1604,7 @@ Params make_params(const void* q, const void* k, const void* v,
 // dtype dt; bias float32 with element strides (bsb, bsh, bsq, 1) over
 // (b, h, sq, sk), 0 on a broadcast axis, or null; scale the softmax
 // scale; window <= 0 for none; dropout with keep iff hash >= threshold
-// and kept probabilities times drop_inv.  d <= 128.
+// and kept probabilities times drop_inv.  d a multiple of 8 up to 256.
 
 // o like q; lse (b * h, sq) float32, log2 domain.  Pointers 16-byte
 // aligned (TMA).
@@ -1582,11 +1620,7 @@ extern "C" int apex_fa_fwd(APEX_FA_PARAMS, void* o, void* lse, void* stream) {
     return wide ? fwd_wgmma<__half, 128>(p, dt, o, l, st)
                 : fwd_wgmma<__half, 64>(p, dt, o, l, st);
   }
-  switch (dt) {
-    case apex::kF32: return wide ? fwd<float, 8>(p, o, l, st) : fwd<float, 4>(p, o, l, st);
-    case apex::kBF16: return wide ? fwd<__nv_bfloat16, 8>(p, o, l, st) : fwd<__nv_bfloat16, 4>(p, o, l, st);
-    default: return wide ? fwd<__half, 8>(p, o, l, st) : fwd<__half, 4>(p, o, l, st);
-  }
+  APEX_FMA_DT(fwd, p, o, l, st)
 }
 
 // dout, dq like q; lse from apex_fa_fwd; delta (b * h, sq) float32 =
@@ -1606,11 +1640,7 @@ extern "C" int apex_fa_bwd_dq(APEX_FA_PARAMS, const void* dout,
     return wide ? dq_wgmma<__half, 128>(p, dt, dout, l, dl, dq, st)
                 : dq_wgmma<__half, 64>(p, dt, dout, l, dl, dq, st);
   }
-  switch (dt) {
-    case apex::kF32: return wide ? bwd_dq<float, 8>(p, dout, l, dl, dq, st) : bwd_dq<float, 4>(p, dout, l, dl, dq, st);
-    case apex::kBF16: return wide ? bwd_dq<__nv_bfloat16, 8>(p, dout, l, dl, dq, st) : bwd_dq<__nv_bfloat16, 4>(p, dout, l, dl, dq, st);
-    default: return wide ? bwd_dq<__half, 8>(p, dout, l, dl, dq, st) : bwd_dq<__half, 4>(p, dout, l, dl, dq, st);
-  }
+  APEX_FMA_DT(bwd_dq, p, dout, l, dl, dq, st)
 }
 
 // dk, dv like k, v (b, sk, hk, d) in dtype dt: under GQA each kv head
@@ -1630,9 +1660,5 @@ extern "C" int apex_fa_bwd_dkv(APEX_FA_PARAMS, const void* dout,
     return wide ? dkv_wgmma<__half, 128>(p, dt, dout, l, dl, dk, dv, st)
                 : dkv_wgmma<__half, 64>(p, dt, dout, l, dl, dk, dv, st);
   }
-  switch (dt) {
-    case apex::kF32: return wide ? bwd_dkv<float, 8>(p, dout, l, dl, dk, dv, st) : bwd_dkv<float, 4>(p, dout, l, dl, dk, dv, st);
-    case apex::kBF16: return wide ? bwd_dkv<__nv_bfloat16, 8>(p, dout, l, dl, dk, dv, st) : bwd_dkv<__nv_bfloat16, 4>(p, dout, l, dl, dk, dv, st);
-    default: return wide ? bwd_dkv<__half, 8>(p, dout, l, dl, dk, dv, st) : bwd_dkv<__half, 4>(p, dout, l, dl, dk, dv, st);
-  }
+  APEX_FMA_DT(bwd_dkv, p, dout, l, dl, dk, dv, st)
 }

@@ -13,7 +13,17 @@ heads, head_dim)`` (BSHD), GQA through fewer kv heads.  Three kernels
 bf16/fp16 inputs with head_dim 64 or 128 run the kernels' products on
 the tensor cores as Hopper kernels (TMA loads, wgmma, the softmax or
 dS on the accumulators in registers; 128 query rows or keys a block);
-fp32 and other head dims run them as fp32 FMA (64 rows a block).
+fp32 and other head dims run them as fp32 FMA (64 rows a block, 32
+above head_dim 128).
+
+The kernels take every head_dim of the JAX package's Pallas envelope
+(``d % 8 == 0``) up to :data:`MAX_HEAD_DIM`, any ``batch * heads``, and
+ragged sequence lengths.  :func:`flash_kernel_ok` is the envelope: under
+``"auto"`` a CUDA call outside it (``d % 8 != 0`` or q, k, v of mixed
+dtypes, which the JAX package also sends to its composition; head_dim
+above 256, which no preset of the repo's models reaches) runs the
+plain versions, as ``implementation="torch"`` does, with a log line once
+per shape.
 Softmax, masks and dropout are fp32 either way, and a probability or dS
 entering the next product is rounded to the input dtype first, as the
 Pallas kernels do.  ``delta = rowsum(dO * O)`` is plain PyTorch, as XLA
@@ -42,6 +52,7 @@ from apex_tpu_torch import _build
 from apex_tpu_torch.ops._dispatch import resolve_impl
 
 __all__ = ["fused_attention", "attention_reference", "mask_to_bias",
+           "flash_kernel_ok", "MAX_HEAD_DIM",
            "dropout_keep_mask", "flash_fwd_reference",
            "flash_bwd_dq_reference", "flash_bwd_dkv_reference",
            "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
@@ -53,7 +64,17 @@ _U32 = 0xFFFFFFFF
 #: the FMA kernels' tile (rows of q and of k per block); the Hopper
 #: kernels take 128 rows of q or k a block
 BLOCK = 64
+#: the widest head_dim the kernels take
+MAX_HEAD_DIM = 256
 _logger = logging.getLogger(__name__)
+
+
+def flash_kernel_ok(d: int, same_dtype: bool = True) -> bool:
+    """Whether the flash kernels take head_dim ``d`` (with q, k and v of
+    one dtype when ``same_dtype``): the JAX package's Pallas envelope
+    (``d % 8 == 0``, one dtype; its tile conditions do not apply, as the
+    kernels mask ragged tiles) up to :data:`MAX_HEAD_DIM`."""
+    return d % 8 == 0 and d <= MAX_HEAD_DIM and bool(same_dtype)
 
 
 # ------------------------------------------------------------------ #
@@ -274,11 +295,9 @@ def _common_args(q, k, v, bias, scale, causal, window, rate, seed):
             f"{tuple(_build.FLOAT_CODES)} is needed")
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
-    if d > 128 or d % 8:
-        raise ValueError(f"head_dim {d}: the kernels take d <= 128, a "
-                         "multiple of 8")
-    if b * h > 65535:
-        raise ValueError(f"batch * heads = {b * h} exceeds 65535")
+    if not flash_kernel_ok(d):
+        raise ValueError(f"head_dim {d}: the kernels take d <= "
+                         f"{MAX_HEAD_DIM}, a multiple of 8")
     q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     keep = [q, k, v]
     bias_ptr, strides = None, (0, 0, 0)
@@ -427,7 +446,10 @@ def fused_attention(q, k, v, *, causal: bool = False,
     ``block_q`` / ``block_k``: tile hints, as in the JAX package; any
     positive value is taken and ignored — the kernels choose their own
     tiles (64 or 128 rows) and the outputs do not depend on the tile.
-    ``implementation`` as in :mod:`._dispatch`.
+    ``implementation`` as in :mod:`._dispatch`; under ``"auto"`` a CUDA
+    call outside :func:`flash_kernel_ok` (head_dim not a multiple of 8
+    or above 256, mixed dtypes) runs the plain versions, as
+    ``implementation="torch"`` does, logged once per shape.
     """
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
@@ -455,7 +477,13 @@ def fused_attention(q, k, v, *, causal: bool = False,
             "integer) — a silent constant seed would drop the same "
             "positions every step")
     seed = int(dropout_seed) if rate > 0.0 else 0
-    kernel = resolve_impl(implementation, q) == "kernel"
+    kernel = resolve_impl(
+        implementation, q, inside=flash_kernel_ok(
+            d, q.dtype == k.dtype == v.dtype),
+        op="fused_attention", shape=(tuple(q.shape), str(q.dtype),
+                                     str(k.dtype), str(v.dtype)),
+        why=f"head_dim {d} or dtypes outside d % 8 == 0, d <= "
+            f"{MAX_HEAD_DIM}, one dtype") == "kernel"
     if bias is not None and bias_requires_grad:
         _logger.info("fused_attention: bias_requires_grad takes the O(S^2) "
                      "differentiable composition; q=%s bias=%s",

@@ -234,7 +234,7 @@ def _sample_kernel(logits, keys, temperature, top_k, top_p):
 
 def fused_sample(logits, keys, temperature, top_k, top_p, *,
                  vocab_size: Optional[int] = None,
-                 implementation: Optional[str] = None):
+                 implementation: Optional[str] = None, block_v: int = 0):
     """Sample one int32 token per row of ``logits`` ``(rows, vocab)``.
 
     ``keys`` ``(rows, 2)`` int64 uint32 words (:func:`split` products);
@@ -243,8 +243,14 @@ def fused_sample(logits, keys, temperature, top_k, top_p, *,
     vocab)`` logits with ``(rows, width, 2)`` keys (the speculative
     verify) run as ``rows * width`` rows of the same kernel, the per-row
     parameters repeated over the width, and return ``(rows, width)``.
+    ``block_v``: the vocab tile hint of the JAX package (0: its
+    autotuned tile); any non-negative value is taken and ignored — the
+    kernel chooses its own passes and the token does not depend on them.
     ``implementation`` as in :mod:`._dispatch`.
     """
+    if int(block_v) < 0:
+        raise ValueError(f"block_v must be a non-negative tile hint, got "
+                         f"{block_v}")
     n0 = logits.shape[0]
     logits, keys, temperature, top_k, top_p, width = _flatten_width(
         logits, keys, temperature, top_k, top_p)

@@ -53,7 +53,8 @@ __all__ = ["paged_attention", "paged_attention_reference",
            "paged_attention_splits", "paged_decode_fused_splits",
            "rope_rows", "kv_quant_spec", "kv_store_bytes_per_token",
            "quantize_kv", "quantize_kv_pages", "tp_head_shards",
-           "pool_qmax", "paged_cost_bytes"]
+           "pool_qmax", "paged_cost_bytes", "paged_kernel_ok",
+           "MAX_HEAD_DIM"]
 
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
@@ -395,8 +396,40 @@ def paged_decode_fused_splits(q, k_new, v_new, k_pages, v_pages,
 # --------------------------------------------------------------------- #
 # CUDA kernels
 # --------------------------------------------------------------------- #
-def _ptr_ok(t: torch.Tensor, d: int, align: int = 0) -> None:
-    align = max(align, t.element_size() * (d // 32))
+#: the widest head_dim the kernels take
+MAX_HEAD_DIM = 256
+#: the head-dim widths the split and tile kernels are built at; a head
+#: dim runs at the narrowest that holds it (``width_cpt`` of the source)
+_WIDTHS = (64, 96, 128, 256)
+
+
+def paged_kernel_ok(d: int, q_dtype, kv_dtype) -> bool:
+    """Whether the paged kernels take head_dim ``d`` with q of
+    ``q_dtype`` over pages of ``kv_dtype``: the JAX package's Pallas
+    envelope (``d % 8 == 0``; pages of q's dtype or 1-byte codes) up to
+    :data:`MAX_HEAD_DIM`.  Its other conditions (pages a multiple of 8
+    tokens, rotary halves a multiple of 8) do not apply: the kernels take
+    every page size and half, as they did before the envelope."""
+    return (d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM
+            and (kv_dtype == q_dtype or kv_dtype in _QMAX_BY_DTYPE))
+
+
+def _route(implementation, q, k_pages, op):
+    """``"kernel"`` or ``"torch"`` for a paged call (see
+    :func:`._dispatch.resolve_impl`)."""
+    d = q.shape[-1]
+    return resolve_impl(
+        implementation, q, inside=paged_kernel_ok(d, q.dtype, k_pages.dtype),
+        op=op, shape=(tuple(q.shape), str(q.dtype), str(k_pages.dtype)),
+        why=f"head_dim {d} or pool dtype outside d % 8 == 0, d <= "
+            f"{MAX_HEAD_DIM}, pages of q's dtype or 1-byte codes")
+
+
+def _width(d: int) -> int:
+    return next(w for w in _WIDTHS if d <= w)
+
+
+def _ptr_ok(t: torch.Tensor, align: int) -> None:
     if t.data_ptr() % align:
         raise ValueError(
             f"tensor of {t.dtype} not aligned to {align} bytes for the "
@@ -417,13 +450,11 @@ def _check_kernel_args(q, k_pages, tables, lengths, *rest):
     if q.dtype not in _build.FLOAT_CODES:
         raise TypeError(f"unsupported q dtype {q.dtype}")
     d = q.shape[-1]
-    if d not in (64, 128):
+    if not paged_kernel_ok(d, q.dtype, k_pages.dtype):
         raise ValueError(
-            f"the paged kernels take head_dim 64 or 128, got {d}")
-    if k_pages.dtype != q.dtype and k_pages.dtype not in _QMAX_BY_DTYPE:
-        raise TypeError(
-            f"pages of {k_pages.dtype} with q of {q.dtype}: the pool holds "
-            "q's dtype or int8 / float8_e4m3fn codes")
+            f"the paged kernels take head_dim 8 .. {MAX_HEAD_DIM}, a "
+            f"multiple of 8, over pages of q's dtype or int8 / "
+            f"float8_e4m3fn codes; got {d} over {k_pages.dtype}")
     if not k_pages.is_contiguous():
         raise ValueError("the pool must be contiguous")
 
@@ -439,13 +470,14 @@ _TICKETS = {}
 _SM_COUNT = {}
 
 
-def _split_args(q, lanes, hk, bs, mb):
+def _split_args(q, lanes, hk, bs, mb, groups=1):
     """``(workspace, tickets, split keys, workspace items)`` of a split
-    kernel launch: the workspace from the caching allocator, one item's
-    partials for every warp the launch can have (one a block, at most 32
-    blocks an SM, no more than the items at the smallest split), the
-    tickets from a zeroed buffer kept per device and stream (the kernels
-    leave it zero)."""
+    kernel launch with ``lanes`` query lanes an item and ``groups`` items
+    per (row, split, kv head): the workspace from the caching allocator,
+    one item's partials at the kernel's width for every warp the launch
+    can have (one a block, at most 32 blocks an SM, no more than the
+    items at the smallest split), the tickets from a zeroed buffer kept
+    per device and stream (the kernels leave it zero)."""
     b, d = q.shape[0], q.shape[-1]
     if mb * bs >= 1 << 21 or hk > 1024 or bs > 1024:
         raise ValueError(
@@ -458,15 +490,15 @@ def _split_args(q, lanes, hk, bs, mb):
         _SM_COUNT[dev] = torch.cuda.get_device_properties(
             dev).multi_processor_count
     rows = min(b, _SPLIT_ROWS)
-    items = min(rows * hk * max(1, -(-(mb * bs) // split)),
+    items = min(rows * hk * groups * max(1, -(-(mb * bs) // split)),
                 _SM_COUNT[dev] * 32)
-    ws = torch.empty(items * lanes * (d + 2), dtype=torch.float32,
+    ws = torch.empty(items * lanes * (_width(d) + 2), dtype=torch.float32,
                      device=dev)
     stream = torch.cuda.current_stream(dev)
     key = (dev, stream.cuda_stream)
     tickets = _TICKETS.get(key)
-    if tickets is None or tickets.numel() < b * hk:
-        tickets = torch.zeros(max(b * hk, 1024), dtype=torch.int32,
+    if tickets is None or tickets.numel() < b * hk * groups:
+        tickets = torch.zeros(max(b * hk * groups, 1024), dtype=torch.int32,
                               device=dev)
         _TICKETS[key] = tickets
     return ws, tickets, split, items
@@ -490,17 +522,15 @@ def _paged_kernel(q, k_pages, v_pages, tables, lengths, scale, k_scales,
     if coded:
         ks = k_scales.to(torch.float32).contiguous()
         vs = v_scales.to(torch.float32).contiguous()
-    for t in (q, k_pages, v_pages):
-        _ptr_ok(t, d)
     mb = tables.shape[1]
     lanes = (h // hk) * s
     ws = tickets = None
     split = ws_items = 0
     if lanes <= 8:
-        # the split kernels copy rows by 16-byte cp.async
+        # the split kernels copy rows by bulk copies of 16-byte vectors
         q = _aligned16(q)
         for t in (k_pages, v_pages):
-            _ptr_ok(t, d, 16)
+            _ptr_ok(t, 16)
         ws, tickets, split, ws_items = _split_args(q, lanes, hk, bs, mb)
     fn = _build.function("paged_attention", "apex_paged_attention", [
         ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
@@ -528,10 +558,6 @@ def _decode_fused_kernel(q, k_new, v_new, k_pages, v_pages, tables, lengths,
     hk, nb, bs, _ = k_pages.shape
     _check_kernel_args(q, k_pages, tables, lengths, ("k_new", k_new),
                        ("chunk_lens", chunk_lens))
-    if h // hk > 8:
-        raise ValueError(
-            f"the fused decode kernel holds up to 8 query heads per kv "
-            f"head, got {h // hk}")
     if not v_pages.is_contiguous() or v_pages.dtype != k_pages.dtype:
         raise ValueError("v_pages must be contiguous and of k_pages' dtype")
     if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
@@ -557,9 +583,12 @@ def _decode_fused_kernel(q, k_new, v_new, k_pages, v_pages, tables, lengths,
         return o
     q, k_new, v_new = (_aligned16(t) for t in (q, k_new, v_new))
     for t in (k_pages, v_pages):
-        _ptr_ok(t, d, 16)
+        _ptr_ok(t, 16)
     mb = tables.shape[1]
-    ws, tickets, split, ws_items = _split_args(q, h // hk, hk, bs, mb)
+    # an item per group of up to 8 query heads of a kv head
+    rep = h // hk
+    ws, tickets, split, ws_items = _split_args(q, min(rep, 8), hk, bs, mb,
+                                               groups=-(-rep // 8))
     fn = _build.function("paged_attention", "apex_paged_decode_fused", [
         ctypes.c_void_p] * 15 + [ctypes.c_int] * 11 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -631,12 +660,15 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     """Attention of chunk queries over a paged pool (layouts in the
     module docstring); the chunk's own K/V must already be written.
     Quantized pools need ``k_scales`` / ``v_scales``.  ``implementation``
-    as in :mod:`._dispatch`."""
+    as in :mod:`._dispatch`: under ``"auto"`` a CUDA call outside
+    :func:`paged_kernel_ok` (head_dim not a multiple of 8 or above 256,
+    pages of another float dtype) runs the plain version, logged once per
+    shape."""
     _no_mesh(mesh, shard_axis)
     _check_pool(q, k_pages, v_pages, block_tables, lengths, k_scales,
                 v_scales)
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
-    if resolve_impl(implementation, q) == "torch":
+    if _route(implementation, q, k_pages, "paged_attention") == "torch":
         return paged_attention_reference(
             q, k_pages, v_pages, block_tables, lengths, scale=scale,
             k_scales=k_scales, v_scales=v_scales)
@@ -658,7 +690,9 @@ def paged_decode_fused(q, k_new, v_new, k_pages, v_pages, block_tables,
     to the null page.  The pool and scales are updated in place; returns
     ``(o, k_pages, v_pages[, k_scales, v_scales])``.  The kernel's
     written pages, codes and scales equal the plain version's bitwise on
-    live pages; ``o`` agrees up to the order of the sums."""
+    live pages; ``o`` agrees up to the order of the sums.  Any number of
+    query heads per kv head.  ``implementation`` as in
+    :func:`paged_attention`."""
     _no_mesh(mesh, shard_axis)
     b, s, h, d = q.shape
     if s != 1:
@@ -688,7 +722,7 @@ def paged_decode_fused(q, k_new, v_new, k_pages, v_pages, block_tables,
     _check_pool(q, k_pages, v_pages, block_tables, lengths, k_scales,
                 v_scales)
     scale = (d ** -0.5) if scale is None else float(scale)
-    if resolve_impl(implementation, q) == "torch":
+    if _route(implementation, q, k_pages, "paged_decode_fused") == "torch":
         return paged_decode_fused_reference(
             q, k_new, v_new, k_pages, v_pages, block_tables, lengths,
             max_seq_len=int(max_seq_len), cos_b=cos_b, sin_b=sin_b,

@@ -27,13 +27,14 @@ __all__ = ["fused_rope", "rope_reference", "rope_cos_sin"]
 
 
 def rope_cos_sin(seq_len: int, rot_dim: int, *, base: float = 10000.0,
-                 device=None):
-    """``(seq, rot_dim/2)`` cos/sin tables, computed in fp32."""
+                 dtype=torch.float32, device=None):
+    """``(seq, rot_dim/2)`` cos/sin tables, computed in fp32 and then
+    cast to ``dtype``, as the JAX package builds them."""
     inv_freq = 1.0 / (base ** (torch.arange(
         0, rot_dim, 2, dtype=torch.float32, device=device) / rot_dim))
     t = torch.arange(seq_len, dtype=torch.float32, device=device)
     freqs = torch.outer(t, inv_freq)
-    return freqs.cos(), freqs.sin()
+    return freqs.cos().to(dtype), freqs.sin().to(dtype)
 
 
 def _as_4d(x, cos):

@@ -118,9 +118,10 @@ class Fp8Layout:
     multiple of 256; ``total``: codes in all (``total / 256`` scales).
     """
 
-    # a CTA of the kernel (8 warps) takes 8 blocks of a leaf, or a tile
-    # of 256 rows x 16 columns of a transposed one (16 blocks)
-    TILE_R, TILE_C, WARPS = 256, 16, 8
+    # an item of the kernel is 32 blocks: a tile of 256 rows x 32
+    # columns of a transposed leaf, or a run of up to 32 of a leaf's
+    # blocks in order
+    TILE_R, TILE_C, ITEM_BLOCKS = 256, 32, 32
 
     def __init__(self, leaves: Sequence[Leaf]):
         self.leaves = tuple(leaves)
@@ -133,6 +134,7 @@ class Fp8Layout:
             d += _fp8_pad(leaf.numel)
         self.numel, self.total = s, d
         self._tables = {}
+        self._maps = {}
 
     def zeros(self, device) -> Fp8Moment:
         return Fp8Moment(
@@ -168,14 +170,15 @@ class Fp8Layout:
         return out
 
     def table(self, device) -> Tuple[torch.Tensor, int]:
-        """The kernel's leaf table on ``device`` and its CTA count.
+        """The kernel's leaf table on ``device`` and its item count.
 
-        One int64 row of 8 per leaf: first CTA, kind (0: buffer order;
+        One int64 row of 8 per leaf: first item, kind (0: buffer order;
         1: transposed, in tiles; 2: transposed, element by element),
         numel, src, first block, padded blocks, rows, cols.  A
-        transposed leaf takes tiles of 256 x 16 when rows % 256 == 0
-        and cols % 16 == 0, then CTAs of 8 blocks for its padded blocks
-        beyond numel; any other leaf takes CTAs of 8 blocks."""
+        transposed leaf takes tiles of 256 x 32 when rows % 256 == 0
+        and cols % 32 == 0, then items of up to 32 blocks for its padded
+        blocks beyond numel; any other leaf takes items of up to 32
+        blocks."""
         key = str(device)
         if key not in self._tables:
             rows, start = [], 0
@@ -189,7 +192,7 @@ class Fp8Layout:
                 rest = nblk - (leaf.numel // _FP8_BLOCK if tiled else 0)
                 rows.append([start, kind, leaf.numel, self.src[i],
                              self.dst[i] // _FP8_BLOCK, nblk, r, c])
-                start += tiles + -(-rest // self.WARPS)
+                start += tiles + -(-rest // self.ITEM_BLOCKS)
             t = torch.tensor(np.asarray(rows, np.int64).reshape(-1, 8),
                              device=device)
             self._tables[key] = (t, start)
@@ -279,23 +282,52 @@ def fp8_adam_kernel(g, p, m: Fp8Moment, v: Fp8Moment, layout: Fp8Layout,
     if finite is not None and (finite.dtype != torch.bool
                                or finite.device != dev):
         raise ValueError(f"finite must be a bool on {dev}")
-    table, ctas = layout.table(dev)
-    if ctas == 0:
+    table, items = layout.table(dev)
+    if items == 0:
         return
+    # the copy engines move fp32 g and p from 16-byte-aligned addresses;
+    # a transposed leaf's tiles come by TMA through its tensor maps
+    async_ok = (p.dtype == torch.float32 and g.data_ptr() % 16 == 0
+                and p.data_ptr() % 16 == 0)
+    maps = _fp8_maps(layout, g, p, m.q, v.q) if async_ok else None
     fn = _build.function("fp8_adam", "apex_fp8_adam", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p])
     code = fn(g.data_ptr(), p.data_ptr(), m.q.data_ptr(),
               m.scale.data_ptr(), v.q.data_ptr(), v.scale.data_ptr(),
-              table.data_ptr(), len(layout.leaves), ctas, sc.data_ptr(),
-              None if finite is None else finite.data_ptr(), b1, 1.0 - b1,
-              b2, 1.0 - b2, eps, weight_decay, int(adam_w_mode),
-              _build.DTYPE_CODES[p.dtype],
+              table.data_ptr(), len(layout.leaves), items,
+              None if maps is None else maps.data_ptr(), int(async_ok),
+              sc.data_ptr(), None if finite is None else finite.data_ptr(),
+              b1, 1.0 - b1, b2, 1.0 - b2, eps, weight_decay,
+              int(adam_w_mode), _build.DTYPE_CODES[p.dtype],
               torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "fp8_adam")
+
+
+def _fp8_maps(layout: Fp8Layout, g, p, mq, vq):
+    """The kernel's TMA tensor maps of ``g``, ``p`` and the two moments'
+    codes (four 128-byte maps a leaf, for its tiles), on the device;
+    built on the host once per set of buffers (the train state keeps its
+    buffers) and kept on the layout."""
+    key = (g.data_ptr(), p.data_ptr(), mq.data_ptr(), vq.data_ptr(),
+           str(p.device))
+    maps = layout._maps.get(key)
+    if maps is None:
+        table, _ = layout.table("cpu")
+        host = np.zeros(512 * len(layout.leaves), dtype=np.uint8)
+        fn = _build.function("fp8_adam", "apex_fp8_adam_maps", [
+            ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
+        code = fn(g.data_ptr(), p.data_ptr(), mq.data_ptr(), vq.data_ptr(),
+                  table.data_ptr(), len(layout.leaves), host.ctypes.data)
+        if code != 0:
+            raise RuntimeError(f"fp8_adam: tensor maps: CUDA error {code}")
+        maps = torch.from_numpy(host).to(p.device)
+        layout._maps = {key: maps}
+    return maps
 
 
 @dataclasses.dataclass(frozen=True)

@@ -499,7 +499,7 @@ class InferenceServer:
         :meth:`health`), and the draft accept rate when speculation is
         configured."""
         eng = self.engine
-        if not getattr(eng, "paged", False):
+        if not eng.paged:
             return {}
         out: Dict[str, Any] = {
             "blocks_in_use": eng.blocks_in_use,

@@ -187,6 +187,10 @@ class BlockAllocator:
         return self.blocks_total * self.block_size
 
     @property
+    def tokens_free(self) -> int:
+        return len(self._free) * self.block_size
+
+    @property
     def shared_blocks(self) -> int:
         """Pages mapped by more than one reference."""
         return sum(1 for r in list(self._refs.values()) if r > 1)

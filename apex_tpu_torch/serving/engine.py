@@ -127,6 +127,9 @@ class Engine:
     device).  Host API, single-threaded (the server's worker owns it):
     :meth:`admit`, :meth:`step`, :meth:`release`, :meth:`warmup`."""
 
+    #: dense slab layout — :class:`PagedEngine` is the paged twin
+    paged = False
+
     def __init__(self, model, *, max_slots: int = 4,
                  prompt_buckets: Sequence[int] = DEFAULT_BUCKETS,
                  prefill_chunk: int = 0):
@@ -830,6 +833,10 @@ class PagedEngine:
     @property
     def blocks_total(self) -> int:
         return self._alloc.blocks_total
+
+    @property
+    def blocks_free(self) -> int:
+        return self._alloc.blocks_free
 
     @property
     def blocks_in_use(self) -> int:

@@ -1,11 +1,11 @@
-"""Time the flash attention, LayerNorm and paged attention kernels of one
-checkout of the port.
+"""Time the flash attention, LayerNorm, paged attention and fp8 Adam
+kernels of one checkout of the port.
 
 Run on a machine with an NVIDIA Hopper card, as a script:
 
     python3 apex_tpu_torch/tools/flash_timing.py [--root DIR] [--label NAME]
-        [--sdpa] [--layer-norm] [--paged] [--split-keys N,...] [--no-flash]
-        [--nvcc] [--out DIR]
+        [--sdpa] [--layer-norm] [--paged] [--split-keys N,...] [--fp8-adam]
+        [--no-flash] [--nvcc] [--out DIR]
 
 It builds the ``flash_attention`` kernel library of the package found
 under ``--root`` (default: the checkout holding this script), and times
@@ -39,6 +39,12 @@ each decode shape ``paged_decode_fused`` with RoPE as well;
 ``--split-keys 32,128`` adds those of at most 8 lanes at each of these
 floors of the split-K kernels' split size (``_SPLIT_KEYS``; checkouts
 that have one).
+``--fp8-adam`` also builds the ``fp8_adam`` library and times one fp8
+Adam step (``fp8_adam_kernel``, one launch) at ``chip_smoke.py``'s
+BERT-Large layout (every parameter a leaf, the linear weights
+transposed, 3.36e8 fp32 masters; AdamW, wd 0) and on its small leaves
+(7, 300, 16384 + 300 elements and transposed leaves of 300 x 5, 512 x 64
+and 1024 x 4096, wd 0.01).
 ``--no-flash`` leaves the flash library out
 (neither built nor timed).
 ``--nvcc`` first times ``nvcc`` on ``flash_attention.cu`` alone, once with
@@ -266,6 +272,46 @@ def _nvcc_seconds(_build, out_dir):
     return secs
 
 
+def _fp8_adam_rows(torch, g):
+    """``{tag: {"step": (device ms, call ms)}}`` of the fp8 Adam kernel,
+    the state after three steps."""
+    import importlib
+
+    from apex_tpu_torch.core import parameter_leaves
+    from apex_tpu_torch.models import BertConfig, BertModel
+    fa = importlib.import_module("apex_tpu_torch.optim.fused_adam")
+
+    dev = torch.device("cuda")
+    meta = BertModel(BertConfig.bert_large(dtype=torch.bfloat16, remat=True),
+                     device="meta")
+    small = [fa.Leaf(7), fa.Leaf(300), fa.Leaf(16384 + 300),
+             fa.Leaf(300 * 5, (300, 5)), fa.Leaf(512 * 64, (512, 64)),
+             fa.Leaf(1024 * 4096, (1024, 4096))]
+    rows = {}
+    for tag, leaves, wd in (
+            ("fp8_adam/bert_large", [lf for _, lf in parameter_leaves(meta)],
+             0.0),
+            ("fp8_adam/small", small, 0.01)):
+        lay = fa.Fp8Layout(leaves)
+        opt = fa.fused_adam(1e-3, weight_decay=wd,
+                            moment_format="fp8_block_scaled")
+        p = torch.randn(lay.numel, generator=g, device=dev)
+        st = opt.init([p], [leaves])
+        for _ in range(3):
+            gr = 1e-3 * torch.randn(lay.numel, generator=g, device=dev)
+            opt.step([gr], st, [p], implementation="kernel")
+        sc = torch.tensor([1e-3, 0.1, 0.001], device=dev)
+        m, v = st.exp_avg[0], st.exp_avg_sq[0]
+        hp = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=wd,
+                  adam_w_mode=True)
+        rows[tag] = dict(step=_profiled(
+            torch, lambda: fa.fp8_adam_kernel(gr, p, m, v, lay, sc, None,
+                                              **hp), iters=10))
+        del p, st, gr, m, v
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None):
     here = Path(__file__).resolve().parents[2]
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -277,6 +323,7 @@ def main(argv=None):
     ap.add_argument("--split-keys", default="",
                     help="comma-separated split sizes (keys) to time the "
                          "split-K paged rows at besides the default")
+    ap.add_argument("--fp8-adam", action="store_true")
     ap.add_argument("--no-flash", action="store_true")
     ap.add_argument("--nvcc", action="store_true")
     ap.add_argument("--out", default=os.path.join("build", "flash_timing"))
@@ -297,6 +344,8 @@ def main(argv=None):
         _build.SOURCES["layer_norm"] = "layer_norm.cu"
     if args.paged:
         _build.SOURCES["paged_attention"] = "paged_attention.cu"
+    if args.fp8_adam:
+        _build.SOURCES["fp8_adam"] = "fp8_adam.cu"
     os.makedirs(args.out, exist_ok=True)
     out = dict(label=args.label, root=os.path.abspath(args.root),
                card=torch.cuda.get_device_name(0), rows={})
@@ -359,6 +408,8 @@ def main(argv=None):
     if args.paged:
         splits = [int(x) for x in args.split_keys.split(",") if x]
         more.append(lambda torch, F, g: _paged_rows(torch, g, splits))
+    if args.fp8_adam:
+        more.append(lambda torch, F, g: _fp8_adam_rows(torch, g))
     for rows_of in more:
         for tag, r in rows_of(torch, F, g).items():
             out["rows"][tag] = r

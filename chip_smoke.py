@@ -9,8 +9,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
 It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (``nvcc``,
 ``sm_90a``), prints each wgmma/TMA kernel's ``-Xptxas -v`` line and its
-``HGMMA`` / ``UTMALDG`` counts (``cuobjdump -sass``), and each split-K
-paged kernel's line and its bulk and ``LDGSTS`` copy counts, and then runs
+``HGMMA`` / ``UTMALDG`` counts (``cuobjdump -sass``), each split-K
+paged kernel's line and its bulk and ``LDGSTS`` copy counts, and the fp8
+Adam kernel's line and its TMA and bulk copy counts, and then runs
 fourteen phases, in the order 1, 2, 3, 6, 7,
 4, 5, 10, 12, 11, 8, 9, 13, 14 (Llama-2-7B is built once for 3, 6 and 7
 and dropped before 4); any failure exits non-zero.
@@ -22,15 +23,22 @@ and dropped before 4); any failure exits non-zero.
    dk/dv, each against its own bound and with SDPA's forward or backward
    alone as yardstick, all three rerunning bitwise in bf16; a causal GQA
    window case at d=128; the flash edge checks, among them the Hopper
-   kernels' 128-row tile edges; the RoPE backward), and the paged kernels at the paged path's (decode,
+   kernels' 128-row tile edges, head_dim 256 and 70400 batch x heads;
+   the RoPE backward), and the paged kernels at the paged path's (decode,
    chunked prefill, speculative verify; int8/fp8 pools, GQA, garbage in
    dead pages; the fused decode step's written pages, codes and scales
    bitwise; the Hopper chunk kernel's edges — 16 lanes, d 64, fp16,
    lengths 0 / 15 / 16, pages of 8 — and pages of 128 on the tile
    kernel; the split-K kernels at the engine's 256-page tables, on one
    4000-token row, at 2 and 8 verify lanes and lengths 0 / 1 / 15 / 16 /
-   17; decode, decode/int8, verify, the fused decode (output, pages,
-   scales), the chunk kernel and the LayerNorm forward rerunning bitwise),
+   17; head dims 96 and 256 through the split, tile and fused kernels,
+   80 with guarded channels, 72 on int8 pages; the fused decode step
+   with 16 and 12 query heads per kv head; decode, decode/int8,
+   decode/d80, verify, the fused decode (output, pages, scales), the
+   chunk kernel and the LayerNorm forward rerunning bitwise), the
+   kernels' envelope (head_dim 36 through flash and both paged ops, 264
+   through flash: a logged route to the plain version, no launch, the
+   plain version's output bitwise),
    and the four BatchNorm passes at the ResNet path's (the
    stem's and stage 0's last BN, bf16 and fp32; the maps bitwise, the
    reductions within 1e-5 of the summed magnitudes, bf16 reruns
@@ -475,6 +483,7 @@ def phase_kernels(torch, rows_out):
     ok &= _flash_rows(torch, g, record)
     ok &= _flash_edge_checks(torch, g)
     ok &= _paged_rows(torch, g, record, rows_out)
+    ok &= _envelope_checks(torch, g)
     ok &= _batch_norm_rows(torch, g, record)
     ok &= _fp8_adam_rows(torch, g, record)
     ok &= _softmax_rows(torch, g, record)
@@ -520,9 +529,13 @@ def _paged_rows(torch, g, record, rows_out):
     kernels at the engine's 256-page tables, on one 4000-token row and at
     lengths 0 / 1 / 15 / 16 / 17; the Hopper chunk kernel's edges (16
     lanes, d 64, fp16, lengths 0 / 15 / 16, pages of 8) and pages of 128
-    on the tile kernel.  Decode, decode/int8, verify and the chunk kernel
-    (bf16 and int8 pages) rerun bitwise, and so does B-10 at decode and
-    decode/int8 (output, pages and scales).  B-10's written pages, codes
+    on the tile kernel; head dims 96 and 256 (decode, chunk, verify, coded
+    pools, fp32), 80 (guarded channels) and 72 on int8 pages (rows not of
+    whole 16-byte vectors); the fused decode step with 16 and 12 query
+    heads per kv head.  Decode, decode/int8, decode/d80, verify and the
+    chunk kernel (bf16 and int8 pages) rerun bitwise, and so does B-10 at
+    decode, decode/int8, decode/d80 and decode/gqa16-int8 (output, pages
+    and scales).  B-10's written pages, codes
     and scales must equal the plain version's bitwise on live pages.
     There is no PyTorch call for attention over a paged pool (library
     "none"); ``F.scaled_dot_product_attention`` over the same live K/V
@@ -571,12 +584,37 @@ def _paged_rows(torch, g, record, rows_out):
         ("verify/s2", 4, 2, 32, 32, dec, bf16, None),
         ("verify/s8", 4, 8, 32, 32, dec, bf16, None),
         ("decode/edges", 5, 1, 32, 32, [0, 1, 15, 16, 17], bf16, None),
+        # head dims other than 64 and 128 (the tile and split kernels at
+        # their widths 96 and 256, and d = 80 with guarded channels in the
+        # width 96; rows of 1-byte codes that are not whole 16-byte
+        # vectors at d = 72), and GQA groups above 8 query heads per kv
+        # head in the fused decode step (16 in two lane groups, 12 in
+        # groups of 8 and 4)
+        ("decode/d96", 4, 1, 32, 32, dec, bf16, None, 96, 16),
+        ("chunk/d96", 8, 128, 32, 32, chunk, bf16, None, 96, 16),
+        ("verify/d96", 4, 4, 32, 32, dec, bf16, None, 96, 16),
+        ("decode/fp8-d96", 4, 1, 32, 32, dec, bf16, "fp8", 96, 16),
+        ("decode/d256", 4, 1, 16, 16, dec, bf16, None, 256, 16),
+        ("chunk/d256", 8, 128, 16, 16, chunk, bf16, None, 256, 16),
+        ("verify/d256", 4, 4, 16, 16, dec, bf16, None, 256, 16),
+        ("decode/int8-d256", 4, 1, 16, 16, dec, bf16, "int8", 256, 16),
+        ("decode/d256-fp32", 4, 1, 16, 16, dec, torch.float32, None, 256,
+         16),
+        ("decode/d80", 4, 1, 32, 32, dec, bf16, None, 80, 16),
+        ("chunk/d80", 8, 128, 32, 32, chunk, bf16, None, 80, 16),
+        ("verify/d80", 4, 4, 32, 32, dec, bf16, None, 80, 16),
+        ("decode/int8-d80", 4, 1, 32, 32, dec, bf16, "int8", 80, 16),
+        ("decode/int8-d72", 4, 1, 32, 8, dec, bf16, "int8", 72, 16),
+        ("decode/gqa16", 4, 1, 64, 4, dec, bf16, None),
+        ("decode/gqa16-int8", 4, 1, 64, 4, dec, bf16, "int8"),
+        ("decode/gqa12", 4, 1, 48, 4, dec, bf16, None),
     ]
-    rerun_tags = ("decode", "decode/int8", "verify", "chunk", "chunk/int8")
+    rerun_tags = ("decode", "decode/int8", "verify", "chunk", "chunk/int8",
+                  "decode/d80", "decode/gqa16-int8")
     ok = True
-    cos_t, sin_t = rope_cos_sin(4096, 128, device=dev)
     for tag, b, s, h, hk, lengths, dt, kv, *geom in cases:
         d, bs, width = (list(geom) + [None])[:3] if geom else (128, 16, None)
+        cos_t, sin_t = rope_cos_sin(4096, d, device=dev)
         kp, vp, tables, lens, live = _paged_pool(
             torch, g, dev, b=b, hk=hk, d=d, bs=bs, lengths=lengths, s=s,
             dtype=dt, width=width)
@@ -674,6 +712,87 @@ def _paged_rows(torch, g, record, rows_out):
         rows_out[-1]["sdpa_dense_ms"] = t_sd[0]
         del pk, pt, out_k, out_t
     torch.cuda.empty_cache()
+    return ok
+
+
+def _envelope_checks(torch, g):
+    """Shapes outside the kernels' envelope (ROADMAP C-8): head_dim 36,
+    which the JAX package also sends to its composition, through
+    ``fused_attention``, ``paged_attention`` and ``paged_decode_fused``,
+    and head_dim 264, above the port's 256, through ``fused_attention``.
+    Under ``"auto"`` on the card each must log its route ("falling back
+    to the plain composition"), launch no kernel, and return what
+    ``implementation="torch"`` returns, bitwise (for the fused step also
+    the written pages)."""
+    import importlib
+    import logging
+
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.ops import attention as A
+    from apex_tpu_torch.ops.rope import rope_cos_sin
+    PA = importlib.import_module("apex_tpu_torch.ops.paged_attention")
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    lines = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    logger = logging.getLogger("apex_tpu_torch.ops")
+    catch, level = Catch(), logger.level
+    logger.addHandler(catch)
+    logger.setLevel(logging.INFO)
+
+    def check(tag, auto, plain):
+        lines.clear()
+        before = dict(_build.launches)
+        got, ref = auto(), plain()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        op = tag.split("/")[0]
+        logged = [x for x in lines if x.startswith(op + ": falling back")]
+        quiet = _build.launches == before
+        log(f"  envelope {tag}: log {logged[:1]}; no launch {quiet}; equal "
+            f"to the plain version {same}")
+        return bool(logged) and quiet and same
+
+    ok = True
+    try:
+        for d in (36, 264):
+            q, k, v = (torch.randn(2, 40, 4, d, generator=g, device=dev).to(
+                bf16) for _ in range(3))
+            ok &= check(f"fused_attention/d{d}",
+                        lambda: (A.fused_attention(q, k, v, causal=True),),
+                        lambda: (A.fused_attention(q, k, v, causal=True,
+                                                   implementation="torch"),))
+        d, lengths = 36, [40, 17, 0, 33]
+        kp, vp, tables, lens, _ = _paged_pool(
+            torch, g, dev, b=4, hk=8, d=d, bs=16, lengths=lengths, s=1,
+            dtype=bf16)
+        q = torch.randn(4, 1, 8, d, generator=g, device=dev).to(bf16)
+        args = (q, kp, vp, tables, lens)
+        ok &= check("paged_attention/d36",
+                    lambda: (PA.paged_attention(*args),),
+                    lambda: (PA.paged_attention(*args,
+                                                implementation="torch"),))
+        cos_t, sin_t = rope_cos_sin(4096, d, device=dev)
+        pos = lens.long()
+        kw = dict(max_seq_len=4096, cos_b=cos_t[pos][:, None, None, :],
+                  sin_b=sin_t[pos][:, None, None, :])
+        nk, nv = (torch.randn(4, 1, 8, d, generator=g, device=dev).to(bf16)
+                  for _ in range(2))
+
+        def fused(impl):
+            return PA.paged_decode_fused(q, nk, nv, kp.clone(), vp.clone(),
+                                         tables, lens, implementation=impl,
+                                         **kw)
+        ok &= check("paged_decode_fused/d36", lambda: fused(None),
+                    lambda: fused("torch"))
+    finally:
+        logger.removeHandler(catch)
+        logger.setLevel(level)
     return ok
 
 
@@ -1482,13 +1601,21 @@ def _flash_edge_checks(torch, g):
     edges (multiples of 64 but not of 128 with the causal sk - sq offset
     crossing a tile, a 257-row ragged tail under a key-padding bias, GQA
     8/2 at d = 128 with a window and dropout, a per-query bias with a
-    dead row and dropout); fp32, bf16 and fp16 each.
+    dead row and dropout); head_dim 256 (causal GQA; a key-padding bias
+    with dropout) and 70400 batch x heads (b 1100, h 64; MHA at d 64 and
+    causal GQA with dropout at d 128); fp32, bf16 and fp16 each.
     Correctness only, at small shapes."""
     from apex_tpu_torch.ops import attention as A
 
     dev = torch.device("cuda")
     # (b, sq, sk, h, hk, d, causal, window, bias shape, dropout rate)
     cases = [(2, 100, 130, 4, 4, 64, False, None, None, 0.0),
+             # head dim 256 (the FMA kernels' 32-row tiles), and more
+             # than 65535 batch x heads on short sequences
+             (2, 130, 200, 4, 2, 256, True, None, None, 0.0),
+             (2, 96, 160, 4, 4, 256, False, None, (2, 1, 1, 160), 0.1),
+             (1100, 3, 5, 64, 64, 64, False, None, None, 0.0),
+             (1100, 3, 5, 64, 16, 128, True, None, None, 0.1),
              (2, 96, 64, 2, 2, 64, True, None, None, 0.0),
              (2, 200, 200, 4, 1, 128, True, 50, None, 0.0),
              (2, 128, 128, 4, 4, 64, False, None, (2, 1, 1, 128), 0.1),
@@ -2958,6 +3085,7 @@ HOPPER_KINDS = {
     "paged_attention": {"paged_attn_wgmma": _WGMMA_TMA,
                         "paged_attn_split": ("UBLKCP",),
                         "paged_decode_split": ("UBLKCP",)},
+    "fp8_adam": {"fp8_adam_kernel": ("UTMALDG", "UBLKCP")},
 }
 SASS_COUNTS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
 
@@ -2968,7 +3096,7 @@ def _hopper_report(_build, build_logs):
     ``UBLKCP`` and ``LDGSTS`` instructions in the built library's SASS
     (``cuobjdump -sass``), by kind (:data:`HOPPER_KINDS`: the flash
     forward, dq and dk/dv; the paged chunk kernel and the two split-K
-    kernels).  Raises
+    kernels; the fp8 Adam step's TMA and bulk copies).  Raises
     when a kind is missing, when a variant lacks an instruction its kind
     needs, when this build printed no ``-Xptxas -v`` line for one (the
     library was not compiled in this call), or when one spills."""

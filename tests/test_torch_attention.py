@@ -7,8 +7,14 @@ bias, mask, window, GQA and dropout cases; ``fused_attention`` (the
 plain versions of the three kernels behind its autograd function, the
 CPU path) against the JAX ``fused_attention`` with its Pallas kernels in
 interpret mode.  Tolerances: fp32 within 1e-5 (sums in another order);
-the dropout keep-mask exactly equal.  Tests marked ``cuda`` hold the
-CUDA kernels against their plain versions on a GPU and skip without one.
+the dropout keep-mask exactly equal.  ``TestEnvelope`` holds
+``flash_kernel_ok`` (ROADMAP C-8) against the JAX ``fused_attention``'s
+own ``pallas_ok`` (its call of ``resolve_impl`` intercepted) at head dims
+36-264, GQA groups 1-16, batch x heads across 65535 and mixed dtypes,
+the route's log line, and the CPU path at head dims 36-264 against the
+JAX composition.  Tests marked ``cuda`` hold the CUDA kernels against
+their plain versions on a GPU and skip without one (among them head dim
+256 and 70400 batch x heads).
 """
 
 import jax
@@ -332,3 +338,125 @@ def test_hopper_kernels_rerun_bitwise_on_card(cuda_device):
     dk2, dv2 = A.flash_bwd_dkv_kernel(*bw)
     for a, b in ((o, o2), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2)):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------------ #
+# the kernels' envelope (ROADMAP C-8) and the widened shapes
+# ------------------------------------------------------------------ #
+ENVELOPE_DIMS = [36, 64, 80, 96, 128, 256, 264]
+
+
+class _Stop(Exception):
+    pass
+
+
+def _reference_pallas_ok(monkeypatch, q, k, v, **kw):
+    """The JAX ``fused_attention``'s ``pallas_ok`` for these inputs: its
+    call of ``resolve_impl`` is intercepted, and the call ends there."""
+    seen = {}
+
+    def spy(implementation, *, pallas_ok=True, auto_default="pallas"):
+        seen["ok"] = pallas_ok
+        raise _Stop
+
+    monkeypatch.setattr(JA, "resolve_impl", spy)
+    with pytest.raises(_Stop):
+        JA.fused_attention(q, k, v, **kw)
+    return seen["ok"]
+
+
+class TestEnvelope:
+    """``flash_kernel_ok`` routes as the JAX package's ``pallas_ok`` for
+    head dims up to 256 (above it the port routes to its plain versions
+    and says so), any GQA group and any batch x heads: the kernels take
+    ragged sequences, so the JAX tile conditions do not enter."""
+
+    @pytest.mark.parametrize("group", [1, 4, 8, 16])
+    @pytest.mark.parametrize("d", ENVELOPE_DIMS)
+    def test_predicate_routes_as_reference(self, monkeypatch, d, group):
+        q = jnp.zeros((1, 8, 2 * group, d), jnp.bfloat16)
+        k = jnp.zeros((1, 8, 2, d), jnp.bfloat16)
+        ref = _reference_pallas_ok(monkeypatch, q, k, k, causal=True)
+        got = A.flash_kernel_ok(d)
+        assert ref == (d % 8 == 0)
+        assert got == (ref and d <= A.MAX_HEAD_DIM)
+
+    @pytest.mark.parametrize("b,h", [(4095, 16), (4096, 16), (1100, 64)])
+    def test_batch_heads_across_65535(self, monkeypatch, b, h):
+        q = jnp.zeros((b, 1, h, 64), jnp.bfloat16)
+        ref = _reference_pallas_ok(monkeypatch, q, q, q)
+        assert ref and A.flash_kernel_ok(64)
+
+    def test_mixed_dtypes_route_as_reference(self, monkeypatch):
+        q = jnp.zeros((1, 8, 2, 64), jnp.bfloat16)
+        k = jnp.zeros((1, 8, 2, 64), jnp.float32)
+        assert not _reference_pallas_ok(monkeypatch, q, k, k)
+        assert not A.flash_kernel_ok(64, same_dtype=False)
+
+    def test_route_logs_once_and_an_explicit_kernel_raises(self, caplog):
+        import types
+
+        from apex_tpu_torch.ops._dispatch import resolve_impl
+
+        q = types.SimpleNamespace(is_cuda=True, device="cuda:0")
+        kw = dict(inside=A.flash_kernel_ok(264), op="fused_attention",
+                  shape=((2, 8, 4, 264),), why="head_dim 264")
+        with caplog.at_level("INFO", logger="apex_tpu_torch.ops"):
+            assert resolve_impl(None, q, **kw) == "torch"
+            assert resolve_impl("auto", q, **kw) == "torch"
+        lines = [r.getMessage() for r in caplog.records]
+        assert len(lines) == 1 and lines[0].startswith(
+            "fused_attention: falling back to the plain composition")
+        with pytest.raises(ValueError, match="no kernel takes"):
+            resolve_impl("kernel", q, **kw)
+        assert resolve_impl(None, q, inside=True) == "kernel"
+
+    @pytest.mark.parametrize("d", [36, 80, 96, 256, 264])
+    def test_wide_and_odd_heads_match_jax(self, d):
+        """The CPU path (the plain kernels' twins) at the new head dims,
+        forward and gradients, against the JAX composition."""
+        q, k, v, do, _ = _inputs(21, 1, 24, 40, 4, 2, d)
+
+        def jfn(a, b, c):
+            return JA.fused_attention(a, b, c, causal=True,
+                                      implementation="xla")
+
+        def tfn(a, b, c):
+            return A.fused_attention(a, b, c, causal=True)
+        _assert_same(_port_value_and_grads(tfn, q, k, v, do),
+                     _jax_value_and_grads(jfn, q, k, v, do))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", [
+    (2, 130, 200, 4, 2, 256, None, True, None, 0.0),
+    (2, 96, 160, 4, 4, 256, (2, 1, 1, 160), False, None, 0.1),
+    (2, 72, 136, 4, 4, 96, None, True, 40, 0.0),
+    (1100, 3, 5, 64, 64, 64, None, False, None, 0.0),
+    (1100, 3, 5, 64, 16, 128, None, True, None, 0.1)],
+    ids=["d256-causal-gqa", "d256-pad-drop", "d96-window",
+         "bh70400-d64", "bh70400-d128-gqa-drop"])
+def test_widened_kernels_match_plain_on_card(case, dtype, cuda_device):
+    """Head dim 256 (the FMA kernels' 32-row tiles), 96, and 70400 batch
+    x heads (grid.x numbering; the wgmma kernels' items) against the
+    plain versions."""
+    b, sq, sk, h, hk, d, bs, causal, window, rate = case
+    q, k, v, do, bias = (None if a is None else _t(a).to(cuda_device)
+                         for a in _inputs(9, b, sq, sk, h, hk, d, bs))
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    args = (bias, d ** -0.5, causal, window, rate, 5)
+    o, lse = A.flash_fwd_kernel(q, k, v, *args)
+    o2, lse2 = A.flash_fwd_reference(q, k, v, *args)
+    live = lse2 > -1e29
+    ref_dtype = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    _card_close(o, o2, ref_dtype)
+    torch.testing.assert_close(lse[live], lse2[live], rtol=1e-5, atol=1e-5)
+    delta = A.attention_delta(do, o2)
+    bw = (q, k, v, bias, do, lse2, delta) + args[1:]
+    _card_close(A.flash_bwd_dq_kernel(*bw), A.flash_bwd_dq_reference(*bw),
+                ref_dtype)
+    for got, ref in zip(A.flash_bwd_dkv_kernel(*bw),
+                        A.flash_bwd_dkv_reference(*bw)):
+        _card_close(got, ref, ref_dtype)

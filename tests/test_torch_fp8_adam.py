@@ -31,8 +31,12 @@ Where gradients differ by fp32 rounding between the frameworks, a
 code may round the other way: one step from equal states then agrees
 within one e4m3 quantum of the block scale; over three steps a flipped
 code moves the next steps' moments of its block, so each leaf's
-dequantized moments agree within 1% (Frobenius norm).  Tests marked ``cuda`` hold the CUDA kernel against
-the plain version on a GPU and skip without one.
+dequantized moments agree within 1% (Frobenius norm).  ``TestKernelItems``
+models the CUDA kernel's work items (tiles of 256 x 32, runs of 32
+blocks, read from ``Fp8Layout.table``) and checks that they cover every
+block of the padded state once, in the JAX order.  Tests marked
+``cuda`` hold the CUDA kernel against the plain version on a GPU and
+skip without one.
 """
 
 import importlib
@@ -530,4 +534,128 @@ def test_kernel_matches_plain_on_card(wd, adamw, cuda_device):
                      st.exp_avg[0].scale, st.exp_avg_sq[0].q.view(torch.uint8),
                      st.exp_avg_sq[0].scale))
     for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------------ #
+# the kernel's work items (csrc/fp8_adam.cu ``decode``), on the CPU
+# ------------------------------------------------------------------ #
+# layouts of every item kind: buffer-order leaves of odd sizes (the
+# later leaves start off a 16-byte boundary), transposed leaves in tiles
+# of 256 x 32 with padded blocks past them, and transposed leaves that
+# are not whole tiles (rows % 256 or cols % 32), read in JAX order
+ITEM_LAYOUTS = {
+    "mixed": [PFA.Leaf(7), PFA.Leaf(300), PFA.Leaf(16684),
+              PFA.Leaf(512 * 64, (512, 64)), PFA.Leaf(300 * 5, (300, 5)),
+              PFA.Leaf(256 * 48, (256, 48)), PFA.Leaf(3)],
+    "tiles": [PFA.Leaf(1024 * 96, (1024, 96)), PFA.Leaf(256 * 32, (256, 32)),
+              PFA.Leaf(1024)],
+    "runs": [PFA.Leaf(3), PFA.Leaf(40000), PFA.Leaf(256 * 33)],
+}
+
+
+def _kernel_items(lay):
+    """The kernel's decode of every item: ``(state blocks, buffer index
+    of each block's 256 elements, -1 for a pad)``, walking the table with
+    a cursor as the kernel does."""
+    rows = lay.table("cpu")[0].numpy()
+    n_items = lay.table("cpu")[1]
+    items, lf = [], 0
+    for j in range(n_items):
+        while lf + 1 < len(rows) and rows[lf + 1][0] <= j:
+            lf += 1
+        first, kind, n, src, blk0, nblk, R, C = (int(x) for x in rows[lf])
+        u = j - first
+        nrb = R // 256
+        tiles = nrb * (C // 32) if kind == 1 else 0
+        r = np.arange(256)
+        if u < tiles:
+            cb, rb = divmod(u, nrb)
+            blocks = [blk0 + (cb * 32 + c) * nrb + rb for c in range(32)]
+            idx = [src + (rb * 256 + r) * C + cb * 32 + c for c in range(32)]
+        else:
+            b0 = (n // 256 if kind == 1 else 0) + (u - tiles) * 32
+            nb = min(32, nblk - b0)
+            assert nb >= 1
+            blocks = [blk0 + b0 + c for c in range(nb)]
+            idx = []
+            for c in range(nb):
+                jx = (b0 + c) * 256 + r
+                at = (jx % R) * C + jx // R if kind == 2 else jx
+                idx.append(np.where(jx < n, src + at, -1))
+        items.append((blocks, idx))
+    return items
+
+
+class TestKernelItems:
+    @pytest.mark.parametrize("name", list(ITEM_LAYOUTS))
+    def test_items_cover_the_state_in_jax_order(self, name):
+        """Every block of the padded state belongs to exactly one item of
+        at most 32 blocks, and its elements are the buffer's in the JAX
+        package's order (pads where the leaf ends)."""
+        lay = PFA.Fp8Layout(ITEM_LAYOUTS[name])
+        # the buffer index (plus one) at every state position, 0 for pads
+        want = lay.gather(torch.arange(1, lay.numel + 1, dtype=torch.float64)
+                          .float()).double().numpy().astype(np.int64) - 1
+        seen = np.zeros(lay.total // 256, np.int64)
+        for blocks, idx in _kernel_items(lay):
+            assert 1 <= len(blocks) <= 32
+            for blk, at in zip(blocks, idx):
+                seen[blk] += 1
+                np.testing.assert_array_equal(
+                    at, want[blk * 256:(blk + 1) * 256])
+        assert (seen == 1).all()
+
+    def test_tiles_are_256_rows_by_32_columns(self):
+        lay = PFA.Fp8Layout(ITEM_LAYOUTS["tiles"])
+        rows = lay.table("cpu")[0].numpy()
+        assert list(rows[:, 1]) == [1, 1, 0]
+        # 4 x 3 tiles and 4 runs of the 128 padded blocks past them (the
+        # leaf pads to 512 blocks), 1 x 1 tile, one run for the last leaf
+        assert lay.table("cpu")[1] == 12 + 4 + 1 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wd,adamw", [(0.0, True), (0.01, True),
+                                      (0.0, False), (0.01, False)])
+@pytest.mark.parametrize("name", list(ITEM_LAYOUTS))
+def test_item_kinds_bitwise_on_card(name, wd, adamw, dtype, cuda_device):
+    """Every item kind (TMA tiles, bulk runs, tiles and runs read by the
+    consumers: misaligned leaves, tiles that are not whole, bf16
+    parameters) against the plain version: params, codes, scales and the
+    count bitwise over three steps, a rerun bit for bit, and a
+    non-finite step that writes nothing."""
+    leaves = ITEM_LAYOUTS[name]
+    lay = PFA.Fp8Layout(leaves)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    p = torch.randn(lay.numel, generator=g, device=cuda_device).to(dtype)
+    opt = fused_adam(1e-3, weight_decay=wd, adam_w_mode=adamw,
+                     moment_format=FP8)
+    grads = [(1e-3 * torch.randn(lay.numel, generator=g,
+                                 device=cuda_device)).to(dtype)
+             for _ in range(3)]
+
+    def run(impl):
+        pp = p.clone()
+        st = opt.init([pp], [leaves])
+        for grad in grads:
+            opt.step([grad], st, [pp], implementation=impl)
+        return pp, st
+
+    def state_bits(pp, st):
+        return [t.reshape(-1).view(torch.uint8) for t in (
+            pp, st.exp_avg[0].q, st.exp_avg[0].scale, st.exp_avg_sq[0].q,
+            st.exp_avg_sq[0].scale, st.count)]
+
+    got, again, ref = run("kernel"), run("kernel"), run("torch")
+    for a, b, c in zip(state_bits(*got), state_bits(*again),
+                       state_bits(*ref)):
+        assert torch.equal(a, c)
+        assert torch.equal(a, b)
+    before = [t.clone() for t in state_bits(*got)]
+    opt.step([grads[0]], got[1], [got[0]],
+             finite=torch.tensor(False, device=cuda_device),
+             implementation="kernel")
+    for a, b in zip(before, state_bits(*got)):
         assert torch.equal(a, b)

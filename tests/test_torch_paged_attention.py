@@ -29,8 +29,16 @@ a 256-page table with 3 live pages, 1, 4, 5 and 8 lanes, GQA 32/8 at s =
 written row opens a page and where the row is at max_seq_len (1e-5 of
 the largest output entry in fp32, as above: only the order of the sums
 differs; the written pages, codes and scales bitwise).
+``TestEnvelope`` holds ``paged_kernel_ok`` (ROADMAP C-8) against the JAX
+functions' own ``pallas_ok`` (their call of ``resolve_impl`` intercepted)
+at head dims 36-264, GQA groups 1-16 and pool dtypes: equal up to head
+dim 256, the plain route above it; the log line once per shape and the
+error of an explicit ``implementation="kernel"``.  ``TestWideHeads``
+holds the plain versions at head dims 80, 96 and 256 and GQA groups 12
+and 16 against the XLA reference (1e-5; pages, codes, scales bitwise).
 ``cuda``-marked tests hold the CUDA kernels against the plain versions
-and skip without a card.
+and skip without a card (``TestWideKernels``: head dims 72-256 and
+groups above 8).
 """
 
 import importlib
@@ -723,6 +731,233 @@ class TestSplitKernels:
                 dtype if kv_dtype is None else kw["k_pages"].dtype)
             kw["v_pages"] = kw["v_pages"].to(
                 dtype if kv_dtype is None else kw["v_pages"].dtype)
+            return P.paged_decode_fused(
+                *(torch.from_numpy(a).to(cuda_device).to(dtype)
+                  for a in (q, nk, nv)),
+                kw.pop("k_pages"), kw.pop("v_pages"),
+                torch.from_numpy(tables).to(cuda_device),
+                torch.from_numpy(lengths).to(cuda_device), max_seq_len=S,
+                implementation=impl, **kw)
+        got, again, ref = run("kernel"), run("kernel"), run("torch")
+        rel = REL if dtype == torch.float32 else 2 ** -7
+        close(got[0].cpu(), ref[0].cpu().float().numpy(), rel=rel)
+        for a, b in zip(got, again):
+            assert torch.equal(bits_t(a.cpu()), bits_t(b.cpu()))
+        for g, r in zip(got[1:], ref[1:]):
+            np.testing.assert_array_equal(bits(g[:, live].cpu()),
+                                          bits(r[:, live].cpu()))
+
+
+# --------------------------------------------------------------------- #
+# the kernels' envelope (ROADMAP C-8) and the widened shapes
+# --------------------------------------------------------------------- #
+ENVELOPE_DIMS = [36, 64, 80, 96, 128, 256, 264]
+GQA_GROUPS = [1, 4, 8, 16]
+
+
+class _Stop(Exception):
+    pass
+
+
+def reference_pallas_ok(monkeypatch, fn, *args, **kw):
+    """The ``pallas_ok`` of the JAX function ``fn`` for these inputs: its
+    call of ``resolve_impl`` is intercepted, and the call ends there."""
+    seen = {}
+
+    def spy(implementation, *, pallas_ok=True, auto_default="pallas"):
+        seen["ok"] = pallas_ok
+        raise _Stop
+
+    monkeypatch.setattr(J, "resolve_impl", spy)
+    with pytest.raises(_Stop):
+        fn(*args, **kw)
+    return seen["ok"]
+
+
+def envelope_inputs(d, group, *, bs=16, half=None, pages=jnp.bfloat16):
+    """Zero JAX inputs of one decode step: 2 rows, 2 kv heads, ``group``
+    query heads each, head dim ``d``; RoPE tables of ``half`` (default d
+    // 2)."""
+    hk, b, nb, mb = 2, 2, 6, 2
+    half = d // 2 if half is None else half
+    q = jnp.zeros((b, 1, hk * group, d), jnp.bfloat16)
+    kp = jnp.zeros((hk, nb, bs, d), pages)
+    new = jnp.zeros((b, 1, hk, d), jnp.bfloat16)
+    tables = jnp.asarray(np.arange(1, 1 + b * mb).reshape(b, mb), jnp.int32)
+    lens = jnp.asarray([3, 9], jnp.int32)
+    cos = jnp.ones((b, 1, 1, half), jnp.float32)
+    return q, kp, new, tables, lens, cos
+
+
+class TestEnvelope:
+    """``paged_kernel_ok`` routes every shape as the JAX package's
+    ``pallas_ok`` does, for head dims up to 256 (the port's widest; above
+    it the port routes to its plain version and says so), GQA groups of
+    1-16 and both ops; pages and rotary halves that are not multiples of
+    8, which the JAX package composes, stay on the port's kernels (they
+    took them before the envelope)."""
+
+    @pytest.mark.parametrize("group", GQA_GROUPS)
+    @pytest.mark.parametrize("d", ENVELOPE_DIMS)
+    def test_attention_routes_as_reference(self, monkeypatch, d, group):
+        q, kp, _, tables, lens, _ = envelope_inputs(d, group)
+        ref = reference_pallas_ok(monkeypatch, J.paged_attention, q, kp, kp,
+                                  tables, lens)
+        got = P.paged_kernel_ok(d, torch.bfloat16, torch.bfloat16)
+        assert got == (ref and d <= P.MAX_HEAD_DIM)
+        assert ref == (d % 8 == 0)
+
+    @pytest.mark.parametrize("group", GQA_GROUPS)
+    @pytest.mark.parametrize("d", ENVELOPE_DIMS)
+    def test_fused_routes_as_reference(self, monkeypatch, d, group):
+        q, kp, new, tables, lens, cos = envelope_inputs(d, group)
+        ref = reference_pallas_ok(
+            monkeypatch, J.paged_decode_fused, q, new, new, kp, kp, tables,
+            lens, max_seq_len=32, cos_b=cos, sin_b=cos)
+        got = P.paged_kernel_ok(d, torch.bfloat16, torch.bfloat16)
+        if d <= P.MAX_HEAD_DIM:
+            assert got == ref
+        else:
+            assert not got
+
+    @pytest.mark.parametrize("pages,want", [
+        (jnp.float32, False), (jnp.int8, True), (jnp.float8_e4m3fn, True)])
+    def test_pool_dtype_routes_as_reference(self, monkeypatch, pages, want):
+        q, kp, _, tables, lens, _ = envelope_inputs(64, 4, pages=pages)
+        kw = {}
+        if pages != jnp.float32:
+            kw = dict(k_scales=jnp.ones((2, 6), jnp.float32),
+                      v_scales=jnp.ones((2, 6), jnp.float32))
+        ref = reference_pallas_ok(monkeypatch, J.paged_attention, q, kp, kp,
+                                  tables, lens, **kw)
+        tdt = {jnp.float32: torch.float32, jnp.int8: torch.int8,
+               jnp.float8_e4m3fn: torch.float8_e4m3fn}[pages]
+        assert ref == want
+        assert P.paged_kernel_ok(64, torch.bfloat16, tdt) == want
+
+    @pytest.mark.parametrize("bs,half", [(4, 32), (12, 32), (16, 4)])
+    def test_kernels_keep_pages_and_halves_the_reference_composes(
+            self, monkeypatch, bs, half):
+        q, kp, new, tables, lens, cos = envelope_inputs(64, 2, bs=bs,
+                                                        half=half)
+        ref = reference_pallas_ok(
+            monkeypatch, J.paged_decode_fused, q, new, new, kp, kp, tables,
+            lens, max_seq_len=32, cos_b=cos, sin_b=cos)
+        assert not ref
+        assert P.paged_kernel_ok(64, torch.bfloat16, torch.bfloat16)
+
+    @pytest.mark.parametrize("op", ["paged_attention", "paged_decode_fused"])
+    def test_route_logs_once_and_an_explicit_kernel_raises(self, caplog,
+                                                           op):
+        import types
+
+        q = types.SimpleNamespace(is_cuda=True, device="cuda:0",
+                                  shape=(3, 1, 8, 36), dtype=torch.bfloat16)
+        pages = types.SimpleNamespace(dtype=torch.bfloat16)
+        with caplog.at_level("INFO", logger="apex_tpu_torch.ops"):
+            assert P._route(None, q, pages, op) == "torch"
+            assert P._route("auto", q, pages, op) == "torch"
+        lines = [r.getMessage() for r in caplog.records]
+        assert len(lines) == 1 and lines[0].startswith(
+            f"{op}: falling back to the plain composition")
+        assert "head_dim 36" in lines[0]
+        with pytest.raises(ValueError, match="no kernel takes"):
+            P._route("kernel", q, pages, op)
+        q.shape = (3, 1, 8, 96)
+        assert P._route(None, q, pages, op) == "kernel"
+        assert P._route("torch", q, pages, op) == "torch"
+
+
+class TestWideHeads:
+    """The plain versions at the head dims and GQA groups the widened
+    kernels take (80, 96, 256; 16 query heads per kv head) against the
+    JAX XLA reference, fp32 within 1e-5 of the largest output entry and
+    the fused step's pages, codes and scales bitwise."""
+
+    @pytest.mark.parametrize("d", [80, 96, 256])
+    @pytest.mark.parametrize("s,h,hk", [(1, 4, 2), (4, 4, 4), (20, 8, 2),
+                                        (1, 32, 2)])
+    def test_attention_matches_jax(self, d, s, h, hk):
+        rng = np.random.default_rng(60 + d)
+        b, NB, BS, MB = 3, 24, 8, 6
+        lengths = [9, 0, 23]
+        kp, vp, tables = pool(rng, b=b, hk=hk, d=d, NB=NB, BS=BS, MB=MB,
+                              lengths=lengths, s=s, garbage=1e4)
+        q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+        lens = np.asarray(lengths, np.int32)
+        ref = J.paged_attention(jnp.asarray(q), jnp.asarray(kp),
+                                jnp.asarray(vp), jnp.asarray(tables),
+                                jnp.asarray(lens), implementation="xla")
+        got = P.paged_attention(*(torch.from_numpy(a) for a in (
+            q, kp, vp, tables, lens)))
+        close(got, ref)
+
+    @pytest.mark.parametrize("kv_dtype", [None] + KV_DTYPES)
+    @pytest.mark.parametrize("d,h,hk", [(80, 8, 4), (96, 8, 4),
+                                        (256, 8, 4), (64, 32, 2),
+                                        (128, 24, 2)])
+    def test_fused_matches_jax(self, kv_dtype, d, h, hk):
+        rng = np.random.default_rng(70 + d + h)
+        case = fused_case(rng, h=h, hk=hk, d=d, kv_dtype=kv_dtype,
+                          rope=True, pad_rows=(2,) if kv_dtype else ())
+        live = case[-1]
+        ref = run_fused(case, "xla")
+        got = run_fused(case, "torch")
+        close(got[0], ref[0])
+        for g, r in zip(got[1:], ref[1:]):
+            np.testing.assert_array_equal(bits(g[:, live]),
+                                          bits(np.asarray(r[:, live])))
+
+
+@pytest.mark.cuda
+class TestWideKernels:
+    """The widened kernels against their plain versions on the card: head
+    dims 72 (int8 rows not of whole 16-byte vectors), 80 (guarded
+    channels), 96 and 256 through the split (decode, verify), tile (chunk)
+    kernels, and the fused decode step with 12 and 16 query heads per kv
+    head (two lane groups; the written page once); fp32 within 1e-5 and
+    bf16 within 2^-7 of the largest output entry, reruns bit for bit, the
+    fused step's pages, codes and scales bitwise."""
+
+    @pytest.mark.parametrize("kv_dtype", [None] + KV_DTYPES)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("d", [72, 80, 96, 256])
+    @pytest.mark.parametrize("s,h,hk", [(1, 8, 4), (4, 4, 4), (20, 8, 2)])
+    def test_attention(self, cuda_device, s, h, hk, d, dtype, kv_dtype):
+        rng = np.random.default_rng(80)
+        q, kp, vp, tables, lens = split_case(
+            rng, s, h, hk, BS=16, d=d, lengths=[0, 1, 15, 16, 17, 300])
+        dev = cuda_device
+        kpt, vpt = (torch.from_numpy(a).to(dev).to(dtype) for a in (kp, vp))
+        kw = {}
+        if kv_dtype:
+            kpt, vpt, ks, vs = P.quantize_kv_pages(kpt, vpt, kv_dtype)
+            kw = dict(k_scales=ks, v_scales=vs)
+        args = (torch.from_numpy(q).to(dev).to(dtype), kpt, vpt,
+                torch.from_numpy(tables).to(dev),
+                torch.from_numpy(lens).to(dev))
+        got = P.paged_attention(*args, **kw)
+        ref = P.paged_attention(*args, implementation="torch", **kw)
+        rel = REL if dtype == torch.float32 else 2 ** -7
+        close(got.cpu(), ref.cpu().float().numpy(), rel=rel)
+        assert torch.equal(got, P.paged_attention(*args, **kw))
+
+    @pytest.mark.parametrize("kv_dtype", [None] + KV_DTYPES)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("d,h,hk", [(96, 8, 4), (256, 8, 4),
+                                        (80, 8, 4), (128, 64, 4),
+                                        (64, 24, 2)])
+    def test_fused(self, cuda_device, d, h, hk, dtype, kv_dtype):
+        rng = np.random.default_rng(81)
+        case = fused_case(rng, h=h, hk=hk, kv_dtype=kv_dtype, rope=True,
+                          d=d, pad_rows=(3,) if kv_dtype else ())
+        q, nk, nv, tables, lengths, jx, S, live = case
+
+        def run(impl):
+            kw = {k: to_torch(v).to(cuda_device) for k, v in jx.items()}
+            if kv_dtype is None:
+                kw["k_pages"] = kw["k_pages"].to(dtype)
+                kw["v_pages"] = kw["v_pages"].to(dtype)
             return P.paged_decode_fused(
                 *(torch.from_numpy(a).to(cuda_device).to(dtype)
                   for a in (q, nk, nv)),
