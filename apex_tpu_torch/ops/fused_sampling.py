@@ -5,9 +5,10 @@ Counterpart of ``apex_tpu/ops/fused_sampling.py``.  :func:`fused_sample`
 turns ``(rows, vocab)`` logits into one token per row with per-row
 ``temperature`` / ``top_k`` / ``top_p`` tensors and one threefry key per
 row.  For a CUDA tensor it launches ``csrc/fused_sampling.cu`` (one
-block per row, replacing the Pallas ``_sampling_kernel``); for a CPU
-tensor it runs :func:`fused_sample_reference`, the sort-based
-composition of the JAX package, verbatim.
+thread-block cluster per row, replacing the Pallas ``_sampling_kernel``;
+:func:`sample_plan` sizes the clusters); for a CPU tensor it runs
+:func:`fused_sample_reference`, the sort-based composition of the JAX
+package, verbatim.
 
 **Keys and noise.**  Keys are ``(rows, 2)`` int64 tensors holding the
 two uint32 words of a jax threefry key (int64, because PyTorch has no
@@ -30,10 +31,22 @@ argmax of the raw fp32 logits.  Sampled rows agree with the reference
 key for key: the top-k threshold is the exact k-th largest (selection),
 the noise is bit-identical, ties break to the first index.  One caveat,
 as in the JAX module: the nucleus boundary compares a sum of
-exponentials against ``top_p * Z``, and the kernel sums in vocab order
-where the reference cumsums in sorted order, so a token can differ only
-when the boundary lands within float rounding of the mass target and
-the straddling token is the one drawn.
+exponentials against ``top_p * Z``, and the kernel sums in another
+order and precision than the reference's sorted fp32 cumsum, so a token
+can differ only when the boundary lands within rounding of the mass
+target and the straddling token is the one drawn.
+
+**The kernel's mass.**  It finds the boundary by a radix descent over
+a histogram of mass: each ``e = exp(v - m) <= 1`` (``m`` the row's max)
+becomes the integer ``q = round(e * 2^40)`` (round to nearest, even on a
+tie; ``e < 2^-41`` adds nothing), and the sums are 64-bit integer sums,
+exact in any order, so a rerun is bitwise.  Against the exact sum of
+``e``, ``Z`` errs by at most ``vocab * 2^-41`` (5.8e-8 at 128256
+entries), relative to ``Z >= 1``; an fp32 sum of the same terms errs by
+up to ``~log2(vocab) * 2^-24`` relative (1e-6) in a tree, more in
+sequence.  The target is ``ceil(top_p * Z)`` taken in float64.  The
+boundary is the largest key ``E`` with ``sum of q over keys >= E``
+reaching the target; keys below ``E`` leave the nucleus.
 """
 
 from __future__ import annotations
@@ -48,7 +61,8 @@ from apex_tpu_torch import _build
 from apex_tpu_torch.ops._dispatch import resolve_impl
 
 __all__ = ["fused_sample", "fused_sample_reference", "prng_key", "split",
-           "random_bits", "gumbel", "threefry2x32", "sampling_cost_bytes"]
+           "random_bits", "gumbel", "threefry2x32", "sampling_cost_bytes",
+           "sample_plan"]
 
 _NEG_INF = -1e30
 #: smallest positive normal fp32 — jax.random.gumbel's uniform floor
@@ -56,6 +70,12 @@ _TINY = float(np.finfo(np.float32).tiny)
 _MASK = 0xFFFFFFFF
 #: threefry-2x32 round rotations (Salmon et al.; jax.random's cipher)
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+#: the kernel's cluster sizes (CTAs a row), its shared-memory cap a CTA
+#: (``kSmemCap`` in csrc/fused_sampling.cu), and the smallest slice worth
+#: a CTA of its own
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+SMEM_CAP = 200 * 1024
+MIN_SLICE = 1024
 
 
 # --------------------------------------------------------------------- #
@@ -203,6 +223,58 @@ def fused_sample_reference(logits, keys, temperature, top_k, top_p,
     return torch.where(temperature > 0.0, sampled, greedy)
 
 
+def _slice(vocab: int, cluster: int) -> int:
+    """Vocab entries a CTA of a ``cluster``-CTA row: the even share,
+    rounded up to 16 (so every slice starts at the row's 16-byte
+    phase)."""
+    per = -(-int(vocab) // int(cluster))
+    return -(-per // 16) * 16
+
+
+def sample_plan(rows: int, vocab: int, itemsize: int, capacity) -> tuple:
+    """``(cluster, slice, resident)`` of one kernel call.
+
+    ``capacity``: ``{cluster size: clusters the card runs at once}`` (0
+    or absent: that size does not fit).  The row's keys (4 bytes an
+    entry) and its staged logits (``itemsize``) stay in shared memory
+    when a CTA's slice fits under :data:`SMEM_CAP`; the cluster is the
+    fewest CTAs for which it does (16 when none does: the slice then
+    streams and its keys go to a scratch buffer), grown to the most CTAs
+    that keep every row in one wave of clusters and slices of at least
+    :data:`MIN_SLICE` entries."""
+    sizes = [c for c in CLUSTER_SIZES if capacity.get(c, 0) > 0] or [1]
+
+    def resident(c):
+        return _slice(vocab, c) * (4 + itemsize) + 16 <= SMEM_CAP
+
+    cluster = next((c for c in sizes if resident(c)), sizes[-1])
+    for c in sizes:
+        if (c > cluster and _slice(vocab, c) >= MIN_SLICE
+                and rows <= capacity[c]):
+            cluster = c
+    return cluster, _slice(vocab, cluster), resident(cluster)
+
+
+_CAPACITY = {}
+
+
+def _capacity(dev, dtype):
+    """``{cluster size: clusters at once}`` of the kernel on ``dev``
+    (asked of the card once per device and dtype)."""
+    key = (dev.index, dtype)
+    if key not in _CAPACITY:
+        fn = _build.function("fused_sampling", "apex_fused_sample_capacity",
+                             [ctypes.c_int, ctypes.c_void_p])
+        out = (ctypes.c_int * len(CLUSTER_SIZES))()
+        with torch.cuda.device(dev):
+            code = fn(_build.DTYPE_CODES[dtype], ctypes.addressof(out))
+        if code != 0:
+            raise RuntimeError(f"fused_sampling: CUDA error {code} sizing "
+                               f"its clusters")
+        _CAPACITY[key] = dict(zip(CLUSTER_SIZES, list(out)))
+    return _CAPACITY[key]
+
+
 def _sample_kernel(logits, keys, temperature, top_k, top_p):
     if logits.dtype not in _build.FLOAT_CODES:
         raise TypeError(f"unsupported logits dtype {logits.dtype}")
@@ -220,13 +292,19 @@ def _sample_kernel(logits, keys, temperature, top_k, top_p):
     t = temperature.to(torch.float32).contiguous()
     k = top_k.to(torch.int32).contiguous()
     p = top_p.to(torch.float32).contiguous()
+    cluster, slice_, resident = sample_plan(
+        rows, vocab, x.element_size(), _capacity(dev, x.dtype))
+    scratch = None if resident else torch.empty(
+        rows * cluster * slice_, dtype=torch.int32, device=dev)
     fn = _build.function("fused_sampling", "apex_fused_sample", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p])
     code = fn(x.data_ptr(), kk.data_ptr(), t.data_ptr(), k.data_ptr(),
               p.data_ptr(), out.data_ptr(), rows, vocab,
-              _build.DTYPE_CODES[x.dtype],
+              _build.DTYPE_CODES[x.dtype], cluster, slice_, int(resident),
+              None if scratch is None else scratch.data_ptr(),
               torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "fused_sampling")
     return out

@@ -2,7 +2,8 @@
 kernels plus plain PyTorch.
 
 Counterpart of ``apex_tpu/ops/softmax.py``.  The kernels
-(``csrc/softmax.cu``) replace the Pallas ``_softmax_fwd_kernel`` —
+(``csrc/softmax.cu``; the forward a persistent row pipeline) replace the
+Pallas ``_softmax_fwd_kernel`` —
 ``softmax(where(mask, -30000, x * scale))`` over the last axis, with the
 causal fill ``k > q + (sk - sq)``, in fp32, stored in ``x.dtype`` — and
 ``_softmax_bwd_kernel`` — ``dx = (dy - sum(dy * y)) * y * scale`` from
@@ -107,6 +108,24 @@ def _vec(sk, *tensors):
                and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
+def _magic(d: int) -> tuple:
+    """``(m, l)`` with ``x // d == (umulhi(x, m) + x) >> l`` for every
+    ``0 <= x < 2^31`` (Granlund and Montgomery's round-up multiplier: ``l
+    = ceil(log2 d)``, ``m = floor(2^32 (2^l - d) / d) + 1``): the forward
+    kernel's row splits into (batch, head, query)."""
+    d = int(d)
+    if not 1 <= d < 2 ** 31:
+        raise ValueError(f"divisor {d} outside [1, 2^31)")
+    l = (d - 1).bit_length()
+    return ((1 << 32) * ((1 << l) - d)) // d + 1, l
+
+
+def _magic_div(x: int, magic: tuple) -> int:
+    """``x // d`` as the kernel computes it from ``_magic(d)``."""
+    m, l = magic
+    return (((x * m) >> 32) + x) >> l
+
+
 def _mask_view(mask, x):
     """The mask (or None) as a ``(B, heads, sq, sk)`` broadcast view of
     bytes and its element strides."""
@@ -138,10 +157,12 @@ def softmax_fwd_kernel(x, mask=None, scale: float = 1.0,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_uint, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
         ctypes.c_void_p])
     code = fn(x.data_ptr(), None if m4 is None else m4.data_ptr(),
               y.data_ptr(), rows, sk, sq, heads, *strides, int(causal),
               float(scale), _build.DTYPE_CODES[x.dtype], _vec(sk, x, y),
+              *_magic(sq), *_magic(heads),
               torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "softmax_fwd")
     return y

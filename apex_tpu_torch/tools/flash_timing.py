@@ -1,11 +1,11 @@
-"""Time the flash attention, LayerNorm, paged attention and fp8 Adam
-kernels of one checkout of the port.
+"""Time the flash attention, LayerNorm, paged attention, fp8 Adam,
+sampling and softmax kernels of one checkout of the port.
 
 Run on a machine with an NVIDIA Hopper card, as a script:
 
     python3 apex_tpu_torch/tools/flash_timing.py [--root DIR] [--label NAME]
         [--sdpa] [--layer-norm] [--paged] [--split-keys N,...] [--fp8-adam]
-        [--no-flash] [--nvcc] [--out DIR]
+        [--sampling] [--softmax] [--no-flash] [--nvcc] [--out DIR]
 
 It builds the ``flash_attention`` kernel library of the package found
 under ``--root`` (default: the checkout holding this script), and times
@@ -45,6 +45,16 @@ BERT-Large layout (every parameter a leaf, the linear weights
 transposed, 3.36e8 fp32 masters; AdamW, wd 0) and on its small leaves
 (7, 300, 16384 + 300 elements and transposed leaves of 300 x 5, 512 x 64
 and 1024 x 4096, wd 0.01).
+``--sampling`` also builds the ``fused_sampling`` library and times
+``fused_sample`` (one kernel launch) at ``chip_smoke.py``'s sampler rows:
+4 x 32000 in fp32 and bf16 (greedy, temperature, top-k, top-p rows, and
+every filter mixed), 8 x 128256 in fp32 and bf16, 16 x 32000 bf16 (a
+verify step of 4 slots x 4 drafts), 4 x 50257 fp16 and 40 x 128256 bf16,
+with its plain version (``fused_sample_reference``) beside each.
+``--softmax`` also builds the ``softmax`` library and times the forward
+kernel at BERT-Large's scores (16, 16, 512, 512) bf16 with a key-padding
+mask and GPT's causal (4, 16, 1024, 1024) bf16, scale 0.125, beside
+``torch.softmax`` on the same tensor.
 ``--no-flash`` leaves the flash library out
 (neither built nor timed).
 ``--nvcc`` first times ``nvcc`` on ``flash_attention.cu`` alone, once with
@@ -85,13 +95,18 @@ def _profiled(torch, fn, iters=20, warmup=5):
     end.record()
     end.synchronize()
     call = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev = sum(getattr(e, "self_device_time_total", 0)
-              for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    # the profiler now and then reports no kernel at all: profile again
+    # rather than record 0 ms
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = sum(getattr(e, "self_device_time_total", 0)
+                  for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        if dev > 0:
+            break
     return dev / iters / 1e3, call
 
 
@@ -312,6 +327,72 @@ def _fp8_adam_rows(torch, g):
     return rows
 
 
+_G4 = [[(0.0, 0, 0.0), (0.8, 0, 0.0), (1.0, 40, 0.0), (0.9, 0, 0.9)],
+       [(0.7, 50, 0.8), (1.2, 5, 0.5), (1.0, 0, 0.0), (0.0, 0, 0.0)]]
+_G8 = [(0.0, 0, 0.0), (0.0, 0, 0.0), (1.0, 0, 0.0), (0.6, 0, 0.0),
+       (1.0, 100, 0.0), (0.8, 0, 0.95), (0.7, 40, 0.9), (1.1, 1000, 0.5)]
+SAMPLING_CASES = [
+    # tag, rows, vocab, dtype, (temperature, top_k, top_p) a row
+    ("4x32000/fp32/grid0", 4, 32000, "float32", _G4[0]),
+    ("4x32000/fp32/grid1", 4, 32000, "float32", _G4[1]),
+    ("4x32000/bf16/grid0", 4, 32000, "bfloat16", _G4[0]),
+    ("4x32000/bf16/grid1", 4, 32000, "bfloat16", _G4[1]),
+    ("8x128256/fp32", 8, 128256, "float32", _G8),
+    ("8x128256/bf16", 8, 128256, "bfloat16", _G8),
+    ("16x32000/bf16", 16, 32000, "bfloat16",
+     [(0.8, 40, 0.9), (1.0, 0, 0.0), (0.0, 0, 0.0), (0.7, 0, 0.95)] * 4),
+    ("4x50257/fp16", 4, 50257, "float16", _G4[0]),
+    ("40x128256/bf16", 40, 128256, "bfloat16", _G8 * 5),
+]
+
+
+def _sampling_rows(torch, g):
+    """``{tag: {"kernel": (device ms, call ms), "plain": ...,
+    "tokens": [...]}}`` of ``fused_sample`` at :data:`SAMPLING_CASES`."""
+    from apex_tpu_torch.ops import fused_sampling as fs
+
+    dev = torch.device("cuda")
+    rows_out = {}
+    for tag, rows, vocab, dt, cfgs in SAMPLING_CASES:
+        logits = (2.0 * torch.randn(rows, vocab, generator=g, device=dev)).to(
+            getattr(torch, dt))
+        t, k, p = (torch.tensor(c, device=dev) for c in zip(*cfgs))
+        k = k.int()
+        keys = fs.split(torch.stack([fs.prng_key(i, dev)
+                                     for i in range(rows)]))[:, 0]
+        rows_out[f"sampling/{tag}"] = dict(
+            kernel=_profiled(torch, lambda: fs.fused_sample(
+                logits, keys, t, k, p), iters=20),
+            plain=_profiled(torch, lambda: fs.fused_sample_reference(
+                logits, keys, t, k, p, vocab), iters=5),
+            tokens=fs.fused_sample(logits, keys, t, k, p).tolist())
+    return rows_out
+
+
+def _softmax_fwd_rows(torch, g):
+    """``{tag: {"fwd": (device ms, call ms), "torch_softmax": ...}}`` of
+    the softmax forward kernel at phase 1's two shapes."""
+    from apex_tpu_torch.ops import softmax as S
+
+    dev = torch.device("cuda")
+    rows_out = {}
+    for tag, shape, mshape, causal in (
+            ("bert", (16, 16, 512, 512), (16, 1, 1, 512), False),
+            ("gpt_causal", (4, 16, 1024, 1024), None, True)):
+        x = (3 * torch.randn(shape, generator=g, device=dev)).to(
+            torch.bfloat16)
+        m = None if mshape is None else torch.rand(
+            mshape, generator=g, device=dev) < 0.3
+        rows_out[f"softmax_fwd/{tag}"] = dict(
+            fwd=_profiled(torch, lambda: S.softmax_fwd_kernel(
+                x, m, 0.125, causal), iters=50),
+            torch_softmax=_profiled(torch, lambda: torch.softmax(x, -1),
+                                    iters=50))
+        del x
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def main(argv=None):
     here = Path(__file__).resolve().parents[2]
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -324,6 +405,8 @@ def main(argv=None):
                     help="comma-separated split sizes (keys) to time the "
                          "split-K paged rows at besides the default")
     ap.add_argument("--fp8-adam", action="store_true")
+    ap.add_argument("--sampling", action="store_true")
+    ap.add_argument("--softmax", action="store_true")
     ap.add_argument("--no-flash", action="store_true")
     ap.add_argument("--nvcc", action="store_true")
     ap.add_argument("--out", default=os.path.join("build", "flash_timing"))
@@ -346,6 +429,10 @@ def main(argv=None):
         _build.SOURCES["paged_attention"] = "paged_attention.cu"
     if args.fp8_adam:
         _build.SOURCES["fp8_adam"] = "fp8_adam.cu"
+    if args.sampling:
+        _build.SOURCES["fused_sampling"] = "fused_sampling.cu"
+    if args.softmax:
+        _build.SOURCES["softmax"] = "softmax.cu"
     os.makedirs(args.out, exist_ok=True)
     out = dict(label=args.label, root=os.path.abspath(args.root),
                card=torch.cuda.get_device_name(0), rows={})
@@ -410,6 +497,10 @@ def main(argv=None):
         more.append(lambda torch, F, g: _paged_rows(torch, g, splits))
     if args.fp8_adam:
         more.append(lambda torch, F, g: _fp8_adam_rows(torch, g))
+    if args.sampling:
+        more.append(lambda torch, F, g: _sampling_rows(torch, g))
+    if args.softmax:
+        more.append(lambda torch, F, g: _softmax_fwd_rows(torch, g))
     for rows_of in more:
         for tag, r in rows_of(torch, F, g).items():
             out["rows"][tag] = r

@@ -1,0 +1,173 @@
+"""Take the softmax forward kernel apart on the card: where its time goes.
+
+Run on a machine with an NVIDIA Hopper card, as a script:
+
+    python3 apex_tpu_torch/tools/softmax_probe.py [--root DIR] [--out DIR]
+
+It builds variants of the ``softmax`` library of the checkout under
+``--root`` (default: the checkout holding this script), each differing
+from ``csrc/softmax.cu`` in one place, and times the forward of each at
+``chip_smoke.py``'s two shapes — BERT-Large's scores (16, 16, 512, 512)
+bf16 with a key-padding mask and GPT's causal (4, 16, 1024, 1024) bf16,
+scale 0.125 — as device ms per call (torch.profiler) and ms per call
+between CUDA events with the host's enqueue hidden, in turns (every
+variant, then every variant again in reverse order):
+
+- ``kernel``: the source as it is;
+- ``copy``: each row stored as loaded, no arithmetic (the data movement);
+- ``no_store``: the arithmetic, stores skipped;
+- ``no_ring``: rows loaded straight from device memory, not through the
+  warp's ring of shared-memory slots;
+- ``no_mask``: the per-element mask and causal test left out;
+- ``kill_mask``: the test as one bit mask built once a row;
+- ``or_mask``: the test without short-circuit, the causal limit once a row.
+
+``copy``, ``no_store`` and ``no_mask`` compute something else and are
+timing probes only; the others are checked against the plain version
+(one bf16 ulp) before they are timed.  The record goes to
+``<--out>/softmax_probe.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+_TEST = ("        if (((mb >> (c * VEC + t)) & 1u) || (mi.causal && e0 + t > q + qoff))\n"
+         "          val = kNeg;")
+_HEAD = "  const int qoff = sk - mi.sq;\n  float mx = -INFINITY;"
+_STORE = "      store_vec<T, VEC>(yr + e0, &v[c * VEC]);"
+_RING_WAIT = ("      apex::hopper::mbar_wait(&bar[s], (uint32_t)(i / kRing) & 1u);\n"
+              "      const unsigned char* row = slots + s * kSlot;")
+_KILL_HEAD = """  const int qoff = sk - mi.sq;
+  uint32_t kill = mb;
+  if (mi.causal) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int n = min(max(q + qoff - (c * 32 + lane) * VEC + 1, 0), VEC);
+      kill |= ((((1u << VEC) - 1u) >> n) << n) << (c * VEC);
+    }
+  }
+  float mx = -INFINITY;"""
+_COPY = """  if (sk > 0) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int e0 = (c * 32 + lane) * VEC;
+      if (e0 < sk) store_vec<T, VEC>(yr + e0, &v[c * VEC]);
+    }
+    return;
+  }
+""" + _HEAD
+#: variant -> (replacements, computes the function)
+VARIANTS = {
+    "kernel": ([], True),
+    "copy": ([(_HEAD, _COPY)], False),
+    "no_store": ([(_STORE, "      if (v[c * VEC] == 1234.5f) " + _STORE.strip())],
+                 False),
+    "no_ring": ([("  if (VEC > 1 && lane == 0) {\n    for (int i = 0; i < kRing - 1",
+                  "  if (false) {\n    for (int i = 0; i < kRing - 1"),
+                 ("      if (lane == 0 && ahead < r1) {", "      if (false) {"),
+                 (_RING_WAIT, "      const unsigned char* row =\n"
+                  "          reinterpret_cast<const unsigned char*>(x + (size_t)r * sk);")],
+                True),
+    "no_mask": ([(_TEST, "")], False),
+    "kill_mask": ([(_HEAD, _KILL_HEAD),
+                   (_TEST, "        if ((kill >> (c * VEC + t)) & 1u) val = kNeg;")],
+                  True),
+    "or_mask": ([(_HEAD, "  const int lim = mi.causal ? q + (sk - mi.sq) : 0x7fffffff;\n"
+                  "  float mx = -INFINITY;"),
+                 (_TEST, "        if (((mb >> (c * VEC + t)) & 1u) | (e0 + t > lim)) "
+                  "val = kNeg;")],
+                True),
+}
+
+
+def _build_variants(_build, root, out_dir):
+    """Compile every variant (all ``nvcc`` at once); returns their paths."""
+    csrc = Path(root) / "apex_tpu_torch" / "csrc"
+    src = (csrc / "softmax.cu").read_text()
+    procs = {}
+    for name, (subs, _) in VARIANTS.items():
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise RuntimeError(f"{name}: the source no longer has {old[:50]!r}")
+            text = text.replace(old, new)
+        cu = out_dir / f"softmax_{name}.cu"
+        cu.write_text(text)
+        lib = out_dir / f"libsoftmax_{name}.so"
+        procs[name] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), lib)
+    libs = {}
+    for name, (proc, lib) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        libs[name] = lib
+    return libs
+
+
+def main(argv=None):
+    here = Path(__file__).resolve().parents[2]
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(here))
+    ap.add_argument("--out", default=os.path.join("build", "softmax_probe"))
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("softmax_probe: CUDA is not available", file=sys.stderr)
+        return 2
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.ops import softmax as S
+    from apex_tpu_torch.tools.flash_timing import _profiled, _queued
+
+    out_dir = Path(args.out).resolve()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs = _build_variants(_build, args.root, out_dir)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    cases = []
+    for tag, shape, mshape, causal in (
+            ("bert", (16, 16, 512, 512), (16, 1, 1, 512), False),
+            ("gpt_causal", (4, 16, 1024, 1024), None, True)):
+        x = (3 * torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
+        m = None if mshape is None else torch.rand(
+            mshape, generator=g, device=dev) < 0.3
+        ref = S.scale_mask_softmax_reference(x, m, 0.125, causal).float()
+        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-38))) - 7)
+        cases.append((tag, x, m, causal, ref, ulp.clamp_min(2.0 ** -133)))
+    record = dict(card=torch.cuda.get_device_name(0), rows={})
+    names = list(VARIANTS) + list(VARIANTS)[::-1]
+    for name in names:
+        _build._paths["softmax"] = libs[name]
+        _build._libs.pop("softmax", None)
+        _build._fns.pop(("softmax", "apex_softmax_fwd"), None)
+        for tag, x, m, causal, ref, ulp in cases:
+            def fwd():
+                return S.softmax_fwd_kernel(x, m, 0.125, causal)
+            if VARIANTS[name][1]:
+                y = fwd().float()
+                if not bool(((y - ref).abs() <= ulp).all()):
+                    raise RuntimeError(f"{name} disagrees with the plain version "
+                                       f"at {tag}")
+            row = record["rows"].setdefault(f"{name}/{tag}", dict(
+                device_ms=[], queued_ms=[]))
+            row["device_ms"].append(_profiled(torch, fwd, iters=30)[0])
+            row["queued_ms"].append(_queued(torch, fwd, iters=30))
+    for key, row in record["rows"].items():
+        print(key, json.dumps(row), flush=True)
+    with open(out_dir / "softmax_probe.json", "w") as f:
+        json.dump(record, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,7 +11,9 @@ It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (``nvcc``,
 ``sm_90a``), prints each wgmma/TMA kernel's ``-Xptxas -v`` line and its
 ``HGMMA`` / ``UTMALDG`` counts (``cuobjdump -sass``), each split-K
 paged kernel's line and its bulk and ``LDGSTS`` copy counts, and the fp8
-Adam kernel's line and its TMA and bulk copy counts, and then runs
+Adam kernel's line and its TMA and bulk copy counts, checks that the
+sampler's and the softmax forward's variants use no local memory and
+call out of line at most once and never (``_call_report``), and then runs
 fourteen phases, in the order 1, 2, 3, 6, 7,
 4, 5, 10, 12, 11, 8, 9, 13, 14 (Llama-2-7B is built once for 3, 6 and 7
 and dropped before 4); any failure exits non-zero.
@@ -24,7 +26,12 @@ and dropped before 4); any failure exits non-zero.
    alone as yardstick, all three rerunning bitwise in bf16; a causal GQA
    window case at d=128; the flash edge checks, among them the Hopper
    kernels' 128-row tile edges, head_dim 256 and 70400 batch x heads;
-   the RoPE backward), and the paged kernels at the paged path's (decode,
+   the RoPE backward; the fused sampler at 4 x 32000, 8 x 128256, 16 x
+   32000, 4 x 50257 and 40 x 128256 rows, tokens equal to the plain
+   version's but for nucleus ties and bitwise on a rerun, and at its
+   edges: vocabularies 1 to 10^6, top_k 1 to above the vocabulary, top_p
+   1e-4 and 0.9999, ties and flat rows, 200 rows), and the paged kernels
+   at the paged path's (decode,
    chunked prefill, speculative verify; int8/fp8 pools, GQA, garbage in
    dead pages; the fused decode step's written pages, codes and scales
    bitwise; the Hopper chunk kernel's edges — 16 lanes, d 64, fp16,
@@ -47,7 +54,8 @@ and dropped before 4); any failure exits non-zero.
    three steps, a non-finite step writes nothing, ties and subnormals
    of the conversion), and the scale-mask softmax forward and backward
    at BERT-Large's padded and GPT's causal scores (fp32 within 2e-6,
-   half types within one ulp; sq < sk, ragged sk, a fully masked row, a
+   half types within one ulp, the forward bitwise on a rerun at both
+   shapes; sq < sk, ragged sk, a fully masked row, a
    2000-wide row; at sk % 128 != 0 the backward's zeros at every masked
    position), and the GroupNorm(+SiLU) forward and backward at the
    (8, 64x64, 512) cell in bf16 and fp32 (C = 320, odd spatial, no
@@ -145,9 +153,10 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
-# H100 SXM INT32: 64 lanes per SM x 132 SMs x 1.98 GHz, counted as the
-# fp32 rate is (a multiply-add as two operations)
-INT32_OPS_PER_S = 33.5e12
+# H100 SXM INT32: 64 lanes per SM x 132 SMs x 1.98 GHz, one operation a
+# lane a cycle: the int32 work counted here (threefry's adds, xors and
+# rotates) has no multiply-add to count twice
+INT32_OPS_PER_S = 16.7e12
 VOCAB = 32000
 
 _FA = "apex_tpu_torch/csrc/flash_attention.cu"
@@ -212,7 +221,7 @@ PREFILL_GROUPS = {"paged_attention": r"paged_attn_", "layer_norm": r"ln_fwd_",
 # step, cuBLAS's GEMMs; the rest "other"
 DECODE_GROUPS = {"paged_decode_fused": r"paged_decode_",
                  "paged_attention": r"paged_attn_", "layer_norm": r"ln_fwd_",
-                 "rope": r"rope", "fused_sampling": r"sample_kernel",
+                 "rope": r"rope", "fused_sampling": r"sample_cluster_kernel",
                  "gemms": r"nvjet|gemm|cutlass"}
 # ResNet-50: 53 BNs (the stem, 3 per block x 16, 4 bn_down), each one
 # launch of each pass per step (no remat)
@@ -438,15 +447,25 @@ def phase_kernels(torch, rows_out):
         [(0.0, 0, 0.0), (0.8, 0, 0.0), (1.0, 40, 0.0), (0.9, 0, 0.9)],
         [(0.7, 50, 0.8), (1.2, 5, 0.5), (1.0, 0, 0.0), (0.0, 0, 0.0)],
     ]
+    grid_8 = [(0.0, 0, 0.0), (0.0, 0, 0.0), (1.0, 0, 0.0), (0.6, 0, 0.0),
+              (1.0, 100, 0.0), (0.8, 0, 0.95), (0.7, 40, 0.9),
+              (1.1, 1000, 0.5)]
+    # Llama-2's served shape; Llama-3's 128256 entries at 8 slots; phase
+    # 7's verify (4 slots x (1 + 3 drafts)); GPT-2's 50257; 40 rows of
+    # 128256, more clusters than the card runs at once
     grids = [
         ((4, 32000), torch.float32, grid_4),
         ((4, 32000), torch.bfloat16, grid_4),
-        ((8, 128256), torch.float32, [
-            [(0.0, 0, 0.0), (0.0, 0, 0.0), (1.0, 0, 0.0), (0.6, 0, 0.0),
-             (1.0, 100, 0.0), (0.8, 0, 0.95), (0.7, 40, 0.9),
-             (1.1, 1000, 0.5)],
-        ]),
+        ((8, 128256), torch.float32, [grid_8]),
+        ((8, 128256), torch.bfloat16, [grid_8]),
+        ((16, 32000), torch.bfloat16, [
+            [(0.8, 40, 0.9), (1.0, 0, 0.0), (0.0, 0, 0.0), (0.7, 0, 0.95)]
+            * 4]),
+        ((4, 50257), torch.float16, [grid_4[0]]),
+        ((40, 128256), torch.bfloat16, [grid_8 * 5]),
     ]
+    log(f"  sampling: clusters the card runs at once, by size "
+        f"{fs._capacity(dev, torch.float32)}")
     for (rows, vocab), dt, configs in grids:
         for gi, cfgs in enumerate(configs):
             logits = (2.0 * torch.randn(rows, vocab, generator=g,
@@ -462,22 +481,28 @@ def phase_kernels(torch, rows_out):
             def kern(): return fs.fused_sample(logits, keys, t, k, p)
             def plain(): return fs.fused_sample_reference(
                 logits, keys, t, k, p, vocab)
-            y, r = kern(), plain()
+            y, r, y2 = kern(), plain(), kern()
             torch.cuda.synchronize()
             mism = (y != r).nonzero().flatten().tolist()
             ties = [i for i in mism if _nucleus_tie(
                 torch, logits[i], cfgs[i], int(y[i]), int(r[i]))]
-            passed = len(mism) == len(ties)
+            rerun = torch.equal(y, y2)
+            passed = len(mism) == len(ties) and rerun
             err = float((y.long() - r.long()).abs().max())
             nbytes = fs.sampling_cost_bytes(rows, vocab, logits.dtype)
             fp_ops = sum(_sampling_ops(vocab, c)[0] for c in cfgs)
             int_ops = sum(_sampling_ops(vocab, c)[1] for c in cfgs)
-            log(f"  sampling {str(dt)[6:]} grid {gi}: kernel {y.tolist()} "
-                f"plain {r.tolist()} nucleus ties {ties}")
+            plan = fs.sample_plan(rows, vocab, logits.element_size(),
+                                  fs._capacity(dev, logits.dtype))
+            log(f"  sampling {rows}x{vocab} {str(dt)[6:]} grid {gi} "
+                f"(cluster, slice, resident) {plan}: "
+                f"{'kernel == plain' if not mism else 'kernel ' + str(y.tolist()) + ' plain ' + str(r.tolist())}"
+                f", nucleus ties {ties}, rerun bitwise {rerun}")
             ok &= record("fused_sampling", (rows, vocab), logits.dtype,
                          err, passed, kern, plain, nbytes, fp_ops, None,
                          "tokens equal (nucleus-boundary ties excepted)",
                          int_ops=int_ops)
+    ok &= _sampling_edge_checks(torch, g)
     ok &= _rope_backward_rows(torch, g, record)
     ok &= _layer_norm_training_rows(torch, g, record)
     ok &= _flash_rows(torch, g, record)
@@ -1286,6 +1311,12 @@ def _softmax_rows(torch, g, record):
         if tag == "ragged_full_row":
             pb &= bool((dx[0, 0, 3] == 0).all())
         tol = "2e-6" if dt == torch.float32 else "1 ulp"
+        if main:
+            # B-4 reruns bitwise at the main-path shapes
+            rerun = torch.equal(y, S.softmax_fwd_kernel(x, m, 0.125, causal))
+            log(f"  softmax_fwd {tag} {shape} {str(dt)[6:]}: rerun bitwise "
+                f"{rerun}")
+            pf &= rerun
         if not main:
             log(f"  softmax {tag} {shape} {str(dt)[6:]}: fwd err {ef:.3g} "
                 f"{'ok' if pf else 'FAIL'}, bwd err {eb:.3g} "
@@ -1685,6 +1716,77 @@ def _sampling_ops(vocab, cfg):
     if 0 < top_p < 1:
         fp += 3
     return vocab * fp, vocab * 75
+
+
+def _sampling_edge_checks(torch, g):
+    """B-11 at the edges of its envelope, against the plain version
+    (nucleus ties excepted) and bitwise on a rerun: vocabularies 999,
+    1001 and 32001 with top_k 1, 2, vocab - 1 and vocab and top_p 1e-4
+    and 0.9999; top_k above the vocabulary equal to top_k = vocab (no
+    filter; the plain version's gather takes no such index); integer
+    logits with many ties at the k-th place, an all-equal row,
+    bf16-rounded logits; a vocabulary of 1 and of 7; 200 and 150 rows of
+    32000 (one and two CTAs a row, several waves); and rows too wide
+    for a cluster's shared memory (1 x 10^6 fp32, 2 x 1000003 bf16), whose
+    keys go through a scratch buffer."""
+    from apex_tpu_torch.ops import fused_sampling as fs
+
+    dev = torch.device("cuda")
+    ok = True
+
+    def check(tag, logits, cfgs):
+        rows, vocab = logits.shape
+        t = torch.tensor([c[0] for c in cfgs], device=dev)
+        k = torch.tensor([c[1] for c in cfgs], dtype=torch.int32, device=dev)
+        p = torch.tensor([c[2] for c in cfgs], device=dev)
+        keys = fs.split(torch.stack([fs.prng_key(1000 + i, dev)
+                                     for i in range(rows)]))[:, 0]
+        y = fs.fused_sample(logits, keys, t, k, p)
+        y2 = fs.fused_sample(logits, keys, t, k, p)
+        kv = torch.where(k > vocab, torch.zeros_like(k), k)
+        r = fs.fused_sample_reference(logits, keys, t, kv, p, vocab)
+        torch.cuda.synchronize()
+        mism = (y != r).nonzero().flatten().tolist()
+        ties = [i for i in mism if _nucleus_tie(
+            torch, logits[i], cfgs[i], int(y[i]), int(r[i]))]
+        good = len(mism) == len(ties) and torch.equal(y, y2)
+        plan = fs.sample_plan(rows, vocab, logits.element_size(),
+                              fs._capacity(dev, logits.dtype))
+        log(f"  sampling edge {tag} {rows}x{vocab} {str(logits.dtype)[6:]} "
+            f"{plan}: mismatches {mism}, nucleus ties {ties}, rerun "
+            f"{torch.equal(y, y2)} {'ok' if good else 'FAIL'}")
+        return good
+
+    for v in (999, 1001, 32001):
+        logits = 2.0 * torch.randn(8, v, generator=g, device=dev)
+        ok &= check(f"k/p", logits, [
+            (1.0, 1, 0.0), (1.0, 2, 0.3), (1.0, v - 1, 0.0),
+            (1.0, v, 0.9999), (0.9, 0, 1e-4), (1.0, v + 5, 0.0),
+            (0.0, 3, 0.5), (1.3, 7, 1.0)])
+    lg = torch.randint(0, 6, (6, 5000), generator=g, device=dev).float()
+    lg[1] = 0.5
+    lg[2] = (2 * torch.randn(5000, generator=g, device=dev)).to(
+        torch.bfloat16).float()
+    ok &= check("ties", lg, [(1.0, 40, 0.0), (1.0, 7, 0.5), (0.9, 100, 0.9),
+                             (1.0, 4999, 0.0), (1.0, 1, 0.0), (1.0, 0, 0.7)])
+    ok &= check("vocab1", torch.randn(3, 1, generator=g, device=dev),
+                [(1.0, 0, 0.5), (0.0, 0, 0.0), (1.0, 1, 0.0)])
+    ok &= check("vocab7", torch.randn(5, 7, generator=g, device=dev).half(),
+                [(1.0, 2, 0.5)] * 5)
+    # many rows: one CTA a row (bf16), two (fp32), several waves
+    ok &= check("rows", 2.0 * torch.randn(200, 32000, generator=g,
+                                          device=dev).bfloat16(),
+                [(0.0, 0, 0.0), (0.8, 40, 0.0), (1.0, 0, 0.9),
+                 (0.7, 50, 0.8)] * 50)
+    ok &= check("rows", 2.0 * torch.randn(150, 32000, generator=g,
+                                          device=dev),
+                [(1.0, 0, 0.0), (0.9, 20, 0.95), (0.0, 0, 0.0)] * 50)
+    ok &= check("streamed", 2.0 * torch.randn(1, 10 ** 6, generator=g,
+                                              device=dev), [(0.9, 50, 0.9)])
+    ok &= check("streamed", (2.0 * torch.randn(
+        2, 1000003, generator=g, device=dev)).bfloat16(),
+        [(1.0, 0, 0.0), (0.8, 0, 0.8)])
+    return ok
 
 
 def _nucleus_tie(torch, row, cfg, tok_a, tok_b):
@@ -3088,6 +3190,14 @@ HOPPER_KINDS = {
     "fp8_adam": {"fp8_adam_kernel": ("UTMALDG", "UBLKCP")},
 }
 SASS_COUNTS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
+# kernels that must use no local memory (no LDL / STL, no stack frame, no
+# spills) and make at most this many calls: the sampler's one call is the
+# IEEE quotient for the load's rare operands (|x| off [2^-60, 2^60]),
+# never inside the selection passes or the draw; the softmax forward's
+# reciprocal has no slow path.  The sampler stages its slice by bulk
+# copy (UBLKCP)
+CALL_LIMITS = {"fused_sampling": ("sample_cluster_kernel", 1, "UBLKCP"),
+               "softmax": ("softmax_fwd_rows_kernel", 0, None)}
 
 
 def _hopper_report(_build, build_logs):
@@ -3161,6 +3271,59 @@ def _hopper_report(_build, build_logs):
     return out
 
 
+def _call_report(_build, build_logs):
+    """Per variant of the kernels of :data:`CALL_LIMITS`, the counts of
+    ``CALL``, ``LDL``, ``STL`` and ``UBLKCP`` in the built library's SASS
+    and its ``-Xptxas -v`` stack frame and spills.  Raises when a kernel
+    is missing, uses local memory, calls more often than its limit, or
+    lacks the instruction its design needs."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out, bad = {}, []
+    for lib, (kind, limit, need) in CALL_LIMITS.items():
+        frames, fn = {}, None
+        for line in build_logs.get(lib, "").splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1) if kind in m.group(1) else None
+            elif fn and "stack frame" in line:
+                frames[fn] = [int(n) for n in re.findall(r"(\d+) bytes", line)]
+        sass = subprocess.run([tool, "-sass", str(_build._paths[lib])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1) if kind in m.group(1) else None
+                if fn:
+                    counts[fn] = dict.fromkeys(("CALL", "LDL", "STL",
+                                                "UBLKCP"), 0)
+            elif fn:
+                for ins in counts[fn]:
+                    counts[fn][ins] += ins in line
+        if not counts:
+            bad.append(f"{kind}: not in the {lib} library")
+        for fn, c in counts.items():
+            c["frame_spill_bytes"] = frames.get(fn)
+            if (c["LDL"] or c["STL"] or c["CALL"] > limit
+                    or (need and not c[need]) or frames.get(fn) is None
+                    or any(frames[fn])):
+                bad.append(f"{fn}: {c}")
+        out.update(counts)
+        worst = {i: max((c[i] for c in counts.values()), default=0)
+                 for i in ("CALL", "LDL", "STL")}
+        least = min((c["UBLKCP"] for c in counts.values()), default=0)
+        log(f"  {kind} x{len(counts)} variants: CALL <= {worst['CALL']} "
+            f"(limit {limit}), LDL {worst['LDL']}, STL {worst['STL']}, "
+            f"UBLKCP >= {least}, stack frame and spills "
+            f"{'0' if all(not any(c['frame_spill_bytes'] or [1]) for c in counts.values()) else 'NONZERO'}")
+    if bad:
+        raise RuntimeError("local memory or calls in " + "; ".join(bad))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3199,6 +3362,7 @@ def main(argv=None):
             f"{max(regs, default=0)}, smem <= {max(smem, default=0)} "
             f"bytes, spill stores {spills} bytes")
     build["hopper_kernels"] = _hopper_report(_build, build_logs)
+    build["no_local_memory"] = _call_report(_build, build_logs)
 
     rows = []
     t0 = time.monotonic()
