@@ -214,6 +214,18 @@ bool dispatch_vec(int xt, int vec, F&& f) {
   }
 }
 
+// x / d for x < 2^31 by a multiply-high against the magic pair of d
+// (made on the host by ops/softmax.py _magic or csrc/rope.cu magic_of):
+// (umulhi(x, m) + x) >> l
+struct Magic {
+  uint32_t m;
+  int l;
+};
+
+__device__ __forceinline__ uint32_t mdiv(uint32_t x, Magic g) {
+  return (__umulhi(x, g.m) + x) >> g.l;
+}
+
 // Blocks of a persistent grid on the current device: per_sm on each
 // multiprocessor, at most one per item.
 inline int persistent_grid(long long n_items, int per_sm = 1) {

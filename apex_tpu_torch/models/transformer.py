@@ -61,7 +61,7 @@ from apex_tpu_torch.ops.paged_attention import (
     pool_qmax,
     quantize_kv,
 )
-from apex_tpu_torch.ops.rope import fused_rope
+from apex_tpu_torch.ops.rope import _rope_qk
 from apex_tpu_torch.transformer.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -325,7 +325,11 @@ class ParallelAttention(nn.Module):
             cfg.hidden_size, (h + 2 * hk) * d, **kw)
         self.out_proj = RowParallelLinear(h * d, cfg.hidden_size, **kw)
 
-    def _qkv(self, x):
+    def _qkv(self, x, rope=None):
+        """q ``(b, s, h, d)``, k and v ``(b, s, hk, d)`` from the packed
+        projection; with ``rope`` (the cos/sin tables) q and k come back
+        rotated by one kernel launch that reads them through their
+        strides, so neither is copied first."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, hk, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
@@ -333,13 +337,17 @@ class ParallelAttention(nn.Module):
         if cfg.qkv_grouped:
             rep = h // hk
             grouped = qkv.view(b, s, hk, rep + 2, d)
-            q = grouped[..., :rep, :].reshape(b, s, h, d)
+            q = grouped[..., :rep, :]
             k = grouped[..., rep, :]
             v = grouped[..., rep + 1, :]
         else:
             q = qkv[..., :h * d].reshape(b, s, h, d)
             k = qkv[..., h * d:(h + hk) * d].reshape(b, s, hk, d)
             v = qkv[..., (h + hk) * d:].reshape(b, s, hk, d)
+        if rope is not None:
+            q, k = _rope_qk(q, k, *rope)
+        elif cfg.qkv_grouped:
+            q = q.reshape(b, s, h, d)
         return q, k, v
 
     def forward(self, x, cache_k=None, cache_v=None,
@@ -359,10 +367,7 @@ class ParallelAttention(nn.Module):
             return self._decode(x, cache_k, cache_v, step)
         cfg = self.cfg
         b, s, _ = x.shape
-        q, k, v = self._qkv(x)
-        if rope is not None:
-            q = fused_rope(q, *rope)
-            k = fused_rope(k, *rope)
+        q, k, v = self._qkv(x, rope)
         drop = cfg.attention_dropout if attn_seed is not None else 0.0
         o = fused_attention(
             q, k, v, causal=cfg.causal, bias=mask_bias,
@@ -379,10 +384,8 @@ class ParallelAttention(nn.Module):
                 "over the generated prefix)")
         b, s, _ = x.shape
         h, d = cfg.num_heads, cfg.head_dim
-        q, k, v = self._qkv(x)
-        if step.cos is not None:
-            q = fused_rope(q, step.cos, step.sin)
-            k = fused_rope(k, step.cos, step.sin)
+        q, k, v = self._qkv(x, None if step.cos is None else (
+            step.cos, step.sin))
         rows = torch.arange(b, device=x.device)[:, None]
         cache_k[rows, step.positions] = k.to(cache_k.dtype)
         cache_v[rows, step.positions] = v.to(cache_v.dtype)
@@ -423,7 +426,9 @@ class ParallelAttention(nn.Module):
         # the pool's own dtype says whether it holds codes
         qmax = pool_qmax(kp.dtype)
         ks, vs = scales if qmax is not None else (None, None)
-        q, k, v = self._qkv(x)
+        # width 1: the fused decode kernel rotates q and k itself
+        q, k, v = self._qkv(x, None if step.cos is None or s == 1 else (
+            step.cos, step.sin))
         scale = d ** -0.5
         if s == 1:
             rope = {}
@@ -436,9 +441,6 @@ class ParallelAttention(nn.Module):
                 chunk_lens=None if qmax is None else step.chunk_lens,
                 **rope)[0]
             return self.out_proj(o.reshape(b, 1, h * d))
-        if step.cos is not None:
-            q = fused_rope(q, step.cos, step.sin)
-            k = fused_rope(k, step.cos, step.sin)
         pos = step.positions
         tables = step.tables.long()
         phys = tables.gather(1, torch.clamp(pos // BS, max=MB - 1))

@@ -2,7 +2,7 @@
 kernels plus plain PyTorch.
 
 Counterpart of ``apex_tpu/ops/softmax.py``.  The kernels
-(``csrc/softmax.cu``; the forward a persistent row pipeline) replace the
+(``csrc/softmax.cu``, persistent row pipelines) replace the
 Pallas ``_softmax_fwd_kernel`` —
 ``softmax(where(mask, -30000, x * scale))`` over the last axis, with the
 causal fill ``k > q + (sk - sq)``, in fp32, stored in ``x.dtype`` — and
@@ -112,7 +112,7 @@ def _magic(d: int) -> tuple:
     """``(m, l)`` with ``x // d == (umulhi(x, m) + x) >> l`` for every
     ``0 <= x < 2^31`` (Granlund and Montgomery's round-up multiplier: ``l
     = ceil(log2 d)``, ``m = floor(2^32 (2^l - d) / d) + 1``): the forward
-    kernel's row splits into (batch, head, query)."""
+    and backward kernels' row splits into (batch, head, query)."""
     d = int(d)
     if not 1 <= d < 2 ** 31:
         raise ValueError(f"divisor {d} outside [1, 2^31)")
@@ -192,12 +192,13 @@ def softmax_bwd_kernel(dy, y, scale: float = 1.0, mask=None,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_uint,
         ctypes.c_int, ctypes.c_void_p])
     code = fn(dy.data_ptr(), y.data_ptr(),
               None if m4 is None else m4.data_ptr(), dx.data_ptr(),
               dy.numel() // sk, sk, sq, heads, *strides, int(causal),
               float(scale), _build.DTYPE_CODES[dy.dtype],
-              _vec(sk, dy, y, dx),
+              _vec(sk, dy, y, dx), *_magic(sq), *_magic(heads),
               torch.cuda.current_stream(dy.device).cuda_stream)
     _build.check(code, "softmax_bwd")
     return dx

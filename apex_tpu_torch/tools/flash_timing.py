@@ -1,11 +1,11 @@
 """Time the flash attention, LayerNorm, paged attention, fp8 Adam,
-sampling and softmax kernels of one checkout of the port.
+sampling, softmax and RoPE kernels of one checkout of the port.
 
 Run on a machine with an NVIDIA Hopper card, as a script:
 
     python3 apex_tpu_torch/tools/flash_timing.py [--root DIR] [--label NAME]
         [--sdpa] [--layer-norm] [--paged] [--split-keys N,...] [--fp8-adam]
-        [--sampling] [--softmax] [--no-flash] [--nvcc] [--out DIR]
+        [--sampling] [--softmax] [--rope] [--no-flash] [--nvcc] [--out DIR]
 
 It builds the ``flash_attention`` kernel library of the package found
 under ``--root`` (default: the checkout holding this script), and times
@@ -54,7 +54,14 @@ with its plain version (``fused_sample_reference``) beside each.
 ``--softmax`` also builds the ``softmax`` library and times the forward
 kernel at BERT-Large's scores (16, 16, 512, 512) bf16 with a key-padding
 mask and GPT's causal (4, 16, 1024, 1024) bf16, scale 0.125, beside
-``torch.softmax`` on the same tensor.
+``torch.softmax`` on the same tensor, and the backward kernel at both
+shapes beside torch's softmax backward (``_softmax_backward_data``).
+``--rope`` also builds the ``rope`` library and times RoPE as the
+checkout's model calls it on q and k in a packed grouped projection
+(Llama-2-7B, bf16, per-row tables) at the chunked-prefill step's shape
+(8 x 128 tokens) and the dense decode step's (4 x 1) — copies included,
+with the kernels a call launches — the backward of the chunk's rotation
+into the projection, and the one-operand backward at (1, 512, 32, 128).
 ``--no-flash`` leaves the flash library out
 (neither built nor timed).
 ``--nvcc`` first times ``nvcc`` on ``flash_attention.cu`` alone, once with
@@ -369,9 +376,11 @@ def _sampling_rows(torch, g):
     return rows_out
 
 
-def _softmax_fwd_rows(torch, g):
-    """``{tag: {"fwd": (device ms, call ms), "torch_softmax": ...}}`` of
-    the softmax forward kernel at phase 1's two shapes."""
+def _softmax_rows(torch, g):
+    """``{tag: {"fwd" | "bwd": (device ms, call ms), "torch_softmax" |
+    "torch_softmax_bwd": ...}}`` of the softmax forward and backward
+    kernels at phase 1's two shapes (the backward from the plain
+    forward's y, no mask: the widths where it takes none)."""
     from apex_tpu_torch.ops import softmax as S
 
     dev = torch.device("cuda")
@@ -381,15 +390,108 @@ def _softmax_fwd_rows(torch, g):
             ("gpt_causal", (4, 16, 1024, 1024), None, True)):
         x = (3 * torch.randn(shape, generator=g, device=dev)).to(
             torch.bfloat16)
+        dy = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
         m = None if mshape is None else torch.rand(
             mshape, generator=g, device=dev) < 0.3
+        y = S.scale_mask_softmax_reference(x, m, 0.125, causal)
         rows_out[f"softmax_fwd/{tag}"] = dict(
             fwd=_profiled(torch, lambda: S.softmax_fwd_kernel(
                 x, m, 0.125, causal), iters=50),
             torch_softmax=_profiled(torch, lambda: torch.softmax(x, -1),
                                     iters=50))
-        del x
+        rows_out[f"softmax_bwd/{tag}"] = dict(
+            bwd=_profiled(torch, lambda: S.softmax_bwd_kernel(
+                dy, y, 0.125), iters=50),
+            torch_softmax_bwd=_profiled(
+                torch, lambda: torch.ops.aten._softmax_backward_data(
+                    dy, y, -1, torch.bfloat16), iters=50))
+        del x, dy, y
         torch.cuda.empty_cache()
+    return rows_out
+
+
+def _kernel_split(torch, fn, pattern, iters=20):
+    """Per call of ``fn`` (torch.profiler): device ms of the kernels whose
+    name contains ``pattern``, of the others, and the kernels launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    mine = other = count = 0
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", 0)
+        mine += us if pattern in e.key else 0
+        other += 0 if pattern in e.key else us
+        count += e.count
+    return dict(match_ms=mine / iters / 1e3, other_ms=other / iters / 1e3,
+                kernels=count / iters)
+
+
+def _rope_rows(torch, g):
+    """``{tag: {"fwd" | "bwd": (device ms, call ms), "fwd_split" |
+    "bwd_split": {...}}}`` of RoPE as the checkout's model calls it, on q
+    and k viewed in a packed grouped qkv projection (Llama-2-7B: 32
+    heads, d 128, bf16, per-row tables): ``_rope_qk`` where the checkout
+    has it, else q reshaped (a copy) and ``fused_rope`` on each — at the
+    chunked-prefill step's shape (8 x 128) and the dense decode step's (4
+    x 1); the backward of that forward into the projection at the chunk
+    shape; and the one-operand ``fused_rope`` backward at (1, 512, 32,
+    128).  The splits (:func:`_kernel_split`) part the device time into
+    the RoPE kernels' (a step's ``rope`` group is 32 times it) and the
+    rest (the copies), with the kernels a call launches."""
+    from apex_tpu_torch.ops import rope as R
+
+    dev = torch.device("cuda")
+    cos_t, sin_t = R.rope_cos_sin(4096, 128, device=dev)
+    h, d = 32, 128
+
+    def rotate(q5, k, c, s):
+        if hasattr(R, "_rope_qk"):
+            return R._rope_qk(q5, k, c, s)
+        b, n = k.shape[:2]
+        return (R.fused_rope(q5.reshape(b, n, h, d), c, s),
+                R.fused_rope(k, c, s))
+
+    rows_out = {}
+    for tag, b, n in (("chunk", 8, 128), ("decode", 4, 1)):
+        qkv = torch.randn(b, n, 3 * h * d, generator=g, device=dev).to(
+            torch.bfloat16)
+        gv = qkv.view(b, n, h, 3, d)
+        pos = torch.randint(0, 4096 - n, (b, 1), generator=g,
+                            device=dev) + torch.arange(n, device=dev)
+        c, s = cos_t[pos], sin_t[pos]
+        r = dict(fwd=_profiled(torch, lambda: rotate(
+            gv[..., :1, :], gv[..., 1, :], c, s), iters=50),
+            fwd_split=_kernel_split(torch, lambda: rotate(
+                gv[..., :1, :], gv[..., 1, :], c, s), "rope"))
+        if tag == "chunk":
+            leaf = qkv.detach().requires_grad_()
+            lv = leaf.view(b, n, h, 3, d)
+            outs = rotate(lv[..., :1, :], lv[..., 1, :], c, s)
+            grads = tuple(torch.randn(o.shape, generator=g, device=dev).to(
+                torch.bfloat16) for o in outs)
+
+            def bwd():
+                return torch.autograd.grad(outs, leaf, grads,
+                                           retain_graph=True)
+            r["bwd"] = _profiled(torch, bwd, iters=50)
+            r["bwd_split"] = _kernel_split(torch, bwd, "rope")
+        rows_out[f"rope/qk_{tag}"] = r
+    x = torch.randn(1, 512, h, d, generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn(x.shape, generator=g, device=dev).to(torch.bfloat16)
+    xr = x.requires_grad_()
+    y = R.fused_rope(xr, cos_t[:512], sin_t[:512])
+
+    def bwd1():
+        return torch.autograd.grad(y, xr, dy, retain_graph=True)
+    rows_out["rope/bwd"] = dict(bwd=_profiled(torch, bwd1, iters=50),
+                                bwd_split=_kernel_split(torch, bwd1, "rope"))
     return rows_out
 
 
@@ -407,6 +509,7 @@ def main(argv=None):
     ap.add_argument("--fp8-adam", action="store_true")
     ap.add_argument("--sampling", action="store_true")
     ap.add_argument("--softmax", action="store_true")
+    ap.add_argument("--rope", action="store_true")
     ap.add_argument("--no-flash", action="store_true")
     ap.add_argument("--nvcc", action="store_true")
     ap.add_argument("--out", default=os.path.join("build", "flash_timing"))
@@ -433,6 +536,8 @@ def main(argv=None):
         _build.SOURCES["fused_sampling"] = "fused_sampling.cu"
     if args.softmax:
         _build.SOURCES["softmax"] = "softmax.cu"
+    if args.rope:
+        _build.SOURCES["rope"] = "rope.cu"
     os.makedirs(args.out, exist_ok=True)
     out = dict(label=args.label, root=os.path.abspath(args.root),
                card=torch.cuda.get_device_name(0), rows={})
@@ -500,7 +605,9 @@ def main(argv=None):
     if args.sampling:
         more.append(lambda torch, F, g: _sampling_rows(torch, g))
     if args.softmax:
-        more.append(lambda torch, F, g: _softmax_fwd_rows(torch, g))
+        more.append(lambda torch, F, g: _softmax_rows(torch, g))
+    if args.rope:
+        more.append(lambda torch, F, g: _rope_rows(torch, g))
     for rows_of in more:
         for tag, r in rows_of(torch, F, g).items():
             out["rows"][tag] = r

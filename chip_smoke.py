@@ -12,8 +12,10 @@ It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (``nvcc``,
 ``HGMMA`` / ``UTMALDG`` counts (``cuobjdump -sass``), each split-K
 paged kernel's line and its bulk and ``LDGSTS`` copy counts, and the fp8
 Adam kernel's line and its TMA and bulk copy counts, checks that the
-sampler's and the softmax forward's variants use no local memory and
-call out of line at most once and never (``_call_report``), and then runs
+sampler's, the softmax rows kernels' and RoPE's variants use no local
+memory and call out of line at most once and never (``_call_report``),
+logs the registers and occupancy of the RoPE kernel and the softmax
+backward (``_occupancy_report``), and then runs
 fourteen phases, in the order 1, 2, 3, 6, 7,
 4, 5, 10, 12, 11, 8, 9, 13, 14 (Llama-2-7B is built once for 3, 6 and 7
 and dropped before 4); any failure exits non-zero.
@@ -26,7 +28,11 @@ and dropped before 4); any failure exits non-zero.
    alone as yardstick, all three rerunning bitwise in bf16; a causal GQA
    window case at d=128; the flash edge checks, among them the Hopper
    kernels' 128-row tile edges, head_dim 256 and 70400 batch x heads;
-   the RoPE backward; the fused sampler at 4 x 32000, 8 x 128256, 16 x
+   RoPE bit for bit: one operand at the decode and prefill shapes, q and
+   k read from the packed projection in one launch at the chunked-prefill
+   and decode steps' shapes, the backward alone, and its edges (both qkv
+   layouts, GQA, partial spans, head dims 8-256, fp32/bf16/fp16, an
+   unaligned view); the fused sampler at 4 x 32000, 8 x 128256, 16 x
    32000, 4 x 50257 and 40 x 128256 rows, tokens equal to the plain
    version's but for nucleus ties and bitwise on a rerun, and at its
    edges: vocabularies 1 to 10^6, top_k 1 to above the vocabulary, top_p
@@ -54,8 +60,8 @@ and dropped before 4); any failure exits non-zero.
    three steps, a non-finite step writes nothing, ties and subnormals
    of the conversion), and the scale-mask softmax forward and backward
    at BERT-Large's padded and GPT's causal scores (fp32 within 2e-6,
-   half types within one ulp, the forward bitwise on a rerun at both
-   shapes; sq < sk, ragged sk, a fully masked row, a
+   half types within one ulp, both bitwise on a rerun; sq < sk, ragged
+   sk, a fully masked row, a
    2000-wide row; at sk % 128 != 0 the backward's zeros at every masked
    position), and the GroupNorm(+SiLU) forward and backward at the
    (8, 64x64, 512) cell in bf16 and fp32 (C = 320, odd spatial, no
@@ -72,13 +78,16 @@ and dropped before 4); any failure exits non-zero.
    and its sampled requests equal the dense server's.
 3. Serving: Llama-2-7B at full depth in bf16 with random weights from a
    seeded generator, served by ``InferenceServer`` (4 slots, buckets
-   32/128/512) for 8 requests; every kernel of the path must launch.
+   32/128/512) for 8 requests; every kernel of the path must launch;
+   a steady decode step launches RoPE once a layer on q and k read from
+   the packed projection (no copy of either).
 6. Paged serving: the same model from a paged pool of 16384 tokens (8
    slots, pages of 16, chunks of 128) for 16 requests of 20-1000 prompt
    tokens, then steady decode at 4 and 8 slots (and, under ``--profile``,
    B-10's device ms per steady decode step and chunked-prefill steps of 8
    slots, B-9's device ms per step); both paged kernels must launch and
-   every page come back.
+   every page come back; a chunked-prefill step of 8 slots launches
+   RoPE once a layer on q and k read from the projection.
 7. The same on int8 pages with prefix sharing and 3 lookup drafts: 8
    requests, 4 behind one 256-token system prompt, run twice; greedy
    results must repeat; then steady decode at 4 slots (under
@@ -408,7 +417,8 @@ def phase_kernels(torch, rows_out):
                      lib, tol)
 
     # RoPE: decode (4, 1, 32, 128) and prefill (1, 512, 32, 128), shared
-    # and per-row tables
+    # and per-row tables, one operand through fused_rope; equal to the
+    # plain version bit for bit
     cos_t, sin_t = rope_cos_sin(4096, 128, device=dev)
     for shape in ((4, 1, 32, 128), (1, 512, 32, 128)):
         b_, s_, h_, d_ = shape
@@ -427,17 +437,12 @@ def phase_kernels(torch, rows_out):
                 y, r = kern(), plain()
                 torch.cuda.synchronize()
                 err = float((y.float() - r.float()).abs().max())
-                if dt == torch.float32:
-                    passed = bool(torch.allclose(y, r, rtol=1e-5, atol=1e-5))
-                    tol = "rtol 1e-5, atol 1e-5"
-                else:
-                    passed = bf16_ulp_ok(torch, y, r)
-                    tol = "1 bf16 ulp"
                 nbytes = 2 * x.numel() * x.element_size() + 2 * c.numel() * 4
                 ops = 6 * x.numel() // 2
                 ok &= record("rope" + ("/per_row" if per_row else ""),
-                             shape, dt, err, passed, kern, plain, nbytes,
-                             ops, None, tol)
+                             shape, dt, err, torch.equal(y, r), kern, plain,
+                             nbytes, ops, None, "bitwise")
+    ok &= _rope_qk_rows(torch, g, record, cos_t, sin_t)
 
     # fused sampling over a grid of row kinds: fp32 at the served and
     # the 128k-vocab shapes, and bf16 at the served shape, which is what
@@ -503,7 +508,7 @@ def phase_kernels(torch, rows_out):
                          "tokens equal (nucleus-boundary ties excepted)",
                          int_ops=int_ops)
     ok &= _sampling_edge_checks(torch, g)
-    ok &= _rope_backward_rows(torch, g, record)
+    ok &= _rope_edge_checks(torch, g)
     ok &= _layer_norm_training_rows(torch, g, record)
     ok &= _flash_rows(torch, g, record)
     ok &= _flash_edge_checks(torch, g)
@@ -829,36 +834,154 @@ def _close_rel(torch, got, ref, rel):
     return err, err <= rel * max(scale, 1e-30)
 
 
-def _rope_backward_rows(torch, g, record):
-    """The RoPE backward (the same kernel with -sin) through autograd,
-    against the plain version's autograd, at the prefill shape."""
-    from apex_tpu_torch.ops.rope import fused_rope, rope_cos_sin
+def _packed_qk(torch, g, b, s, h, hk, d, dt, grouped=True):
+    """q and k as ``ParallelAttention._qkv`` views them in a packed
+    ``(b, s, (h + 2 hk) d)`` projection: in the grouped layout q is the
+    ``(b, s, hk, h / hk, d)`` view, in the flat one ``(b, s, h, d)``."""
+    dev = torch.device("cuda")
+    qkv = torch.randn(b, s, (h + 2 * hk) * d, generator=g,
+                      device=dev).to(dt)
+    if grouped:
+        rep = h // hk
+        gv = qkv.view(b, s, hk, rep + 2, d)
+        return qkv, gv[..., :rep, :], gv[..., rep, :]
+    return (qkv, qkv[..., :h * d].view(b, s, h, d),
+            qkv[..., h * d:(h + hk) * d].view(b, s, hk, d))
+
+
+def _rope_qk_rows(torch, g, record, cos_t, sin_t):
+    """``_rope_qk`` — q and k read from the packed projection and rotated
+    in one launch, as the model calls it — at the chunked-prefill step's
+    shape (8 slots x 128 tokens, Llama-2-7B's 32 heads at d 128, bf16,
+    per-row tables) and the dense decode step's (4 x 1), against the
+    plain version bit for bit; then its backward alone at the chunk shape
+    (dq and dk by -theta, one launch), and the one-operand backward
+    alone at the prefill shape (1, 512, 32, 128).  Bound: each operand
+    read and written once, the tables read once."""
+    from apex_tpu_torch.ops.rope import (
+        _rope_kernel, _rope_pair, _rope_qk, rope_reference)
 
     dev = torch.device("cuda")
-    cos_t, sin_t = rope_cos_sin(512, 128, device=dev)
     ok = True
+    for b_, s_ in ((8, 128), (4, 1)):
+        _, q, k = _packed_qk(torch, g, b_, s_, 32, 32, 128, torch.bfloat16)
+        pos = torch.randint(0, 4096 - s_, (b_, 1), generator=g,
+                            device=dev) + torch.arange(s_, device=dev)
+        c, sn = cos_t[pos], sin_t[pos]
+        q4 = q.reshape(b_, s_, 32, 128)
+
+        def kern(): return _rope_qk(q, k, c, sn)
+        def plain(): return rope_reference(q4, c, sn), rope_reference(k, c, sn)
+        (yq, yk), (rq, rk) = kern(), plain()
+        torch.cuda.synchronize()
+        passed = torch.equal(yq, rq) and torch.equal(yk, rk)
+        err = max(float((yq.float() - rq.float()).abs().max()),
+                  float((yk.float() - rk.float()).abs().max()))
+        n = q.numel() + k.numel()
+        ok &= record("rope/qk", (b_, s_, 32, 128), torch.bfloat16, err,
+                     passed, kern, plain, 2 * n * 2 + 2 * c.numel() * 4,
+                     3 * n, None, "bitwise; q and k in one launch, read "
+                     "through their strides from the packed projection")
+        if s_ == 1:
+            continue
+        dq = torch.randn(yq.shape, generator=g, device=dev).to(torch.bfloat16)
+        dk = torch.randn(yk.shape, generator=g, device=dev).to(torch.bfloat16)
+
+        def kern_b(): return _rope_pair(dq, dk, c, sn, -1.0, True)
+        def plain_b(): return _rope_pair(dq, dk, c, sn, -1.0, False)
+        (gq, gk), (pq, pk) = kern_b(), plain_b()
+        torch.cuda.synchronize()
+        passed = torch.equal(gq, pq) and torch.equal(gk, pk)
+        err = max(float((gq.float() - pq.float()).abs().max()),
+                  float((gk.float() - pk.float()).abs().max()))
+        ok &= record("rope/qk_bwd", (b_, s_, 32, 128), torch.bfloat16, err,
+                     passed, kern_b, plain_b, 2 * n * 2 + 2 * c.numel() * 4,
+                     3 * n, None, "bitwise; dq and dk in one launch")
+    c, sn = cos_t[:512], sin_t[:512]
     for dt in (torch.bfloat16, torch.float32):
         x = torch.randn(1, 512, 32, 128, generator=g, device=dev).to(dt)
         dy = torch.randn(x.shape, generator=g, device=dev).to(dt)
 
         def grad_of(impl):
+            from apex_tpu_torch.ops.rope import fused_rope
             xr = x.detach().requires_grad_()
-            y = fused_rope(xr, cos_t, sin_t, implementation=impl)
+            y = fused_rope(xr, c, sn, implementation=impl)
             return torch.autograd.grad(y, xr, dy)[0]
         got, ref = grad_of("kernel"), grad_of("torch")
         torch.cuda.synchronize()
         err = float((got.float() - ref.float()).abs().max())
-        if dt == torch.float32:
-            passed = bool(torch.allclose(got, ref, rtol=1e-5, atol=1e-5))
-            tol = "rtol 1e-5, atol 1e-5"
-        else:
-            passed = bf16_ulp_ok(torch, got, ref)
-            tol = "1 bf16 ulp"
-        nbytes = 2 * x.numel() * x.element_size() + 2 * cos_t.numel() * 4
-        ok &= record("rope/bwd", tuple(x.shape), dt, err, passed,
-                     lambda: grad_of("kernel"), lambda: grad_of("torch"),
-                     nbytes, 3 * x.numel(), None, tol)
+        nbytes = 2 * x.numel() * x.element_size() + 2 * c.numel() * 4
+        ok &= record("rope/bwd", tuple(x.shape), dt, err,
+                     torch.equal(got, ref),
+                     lambda: _rope_kernel(dy, c, sn, -1.0),
+                     lambda: rope_reference(dy, c, -sn),
+                     nbytes, 3 * x.numel(), None,
+                     "bitwise (through autograd); timed: the backward "
+                     "alone")
     return ok
+
+
+def _rope_edge_checks(torch, g):
+    """The RoPE kernel on the card at its edges, each against the plain
+    version bit for bit, forward and backward (sign -1), ``_rope_qk``
+    against two ``fused_rope`` calls too: both qkv layouts, GQA 32/8 and
+    4/1, shared and per-row tables, a partial rotary span (rot 64 of d
+    128; rot 48 of d 80, whose tail is four vectors, at 8 x 160
+    positions: blocks of several positions), d 8, 72 (a span of
+    36, not whole vectors: one element a thread), 256, fp32, bf16 and
+    fp16, a view one element off 16-byte alignment, and a 3-D (s, h, d)
+    input."""
+    from apex_tpu_torch.ops.rope import (
+        _rope_pair, _rope_qk, fused_rope, rope_cos_sin, rope_reference)
+
+    dev = torch.device("cuda")
+    cases = [  # b, s, h, hk, d, rot, dtype, per_row, grouped
+        (2, 33, 32, 8, 128, 128, torch.bfloat16, True, True),
+        (2, 33, 32, 8, 128, 128, torch.float16, False, False),
+        (3, 5, 4, 1, 128, 64, torch.float32, True, True),
+        (8, 160, 6, 2, 80, 48, torch.bfloat16, False, True),
+        (2, 9, 4, 4, 8, 8, torch.float32, True, False),
+        (1, 17, 8, 2, 72, 72, torch.bfloat16, True, True),
+        (2, 3, 16, 16, 256, 256, torch.float16, False, True),
+    ]
+    ok = True
+    for b_, s_, h, hk, d, rot, dt, per_row, grouped in cases:
+        ct, st = rope_cos_sin(256, rot, device=dev)
+        if per_row:
+            pos = torch.randint(0, 256 - s_, (b_, 1), generator=g,
+                                device=dev) + torch.arange(s_, device=dev)
+            c, sn = ct[pos], st[pos]
+        else:
+            c, sn = ct[7:7 + s_], st[7:7 + s_]
+        _, q, k = _packed_qk(torch, g, b_, s_, h, hk, d, dt, grouped)
+        q4 = q.reshape(b_, s_, h, d)
+        good = True
+        for sign in (1.0, -1.0):
+            yq, yk = _rope_pair(q, k, c, sn, sign, True)
+            rq, rk = _rope_pair(q, k, c, sn, sign, False)
+            good &= torch.equal(yq, rq) and torch.equal(yk, rk)
+        yq, yk = _rope_qk(q, k, c, sn)
+        good &= torch.equal(yq, fused_rope(q4, c, sn))
+        good &= torch.equal(yk, fused_rope(k, c, sn))
+        torch.cuda.synchronize()
+        log(f"  rope edge b{b_} s{s_} h{h}/{hk} d{d} rot{rot} "
+            f"{str(dt)[6:]} {'per-row' if per_row else 'shared'} "
+            f"{'grouped' if grouped else 'flat'}: "
+            f"{'bitwise' if good else 'FAIL'}")
+        ok &= good
+    # one element off 16-byte alignment, and (s, h, d)
+    ct, st = rope_cos_sin(64, 128, device=dev)
+    base = torch.randn(2, 16, 4, 129, generator=g, device=dev).to(
+        torch.bfloat16)
+    x = base[..., 1:]
+    good = torch.equal(fused_rope(x, ct[:16], st[:16]),
+                       rope_reference(x, ct[:16], st[:16]))
+    x3 = torch.randn(16, 4, 128, generator=g, device=dev).to(torch.float16)
+    good &= torch.equal(fused_rope(x3, ct[:16], st[:16]),
+                        rope_reference(x3, ct[:16], st[:16]))
+    log(f"  rope edge unaligned view, (s, h, d): "
+        f"{'bitwise' if good else 'FAIL'}")
+    return ok and good
 
 
 def _layer_norm_training_rows(torch, g, record):
@@ -1233,6 +1356,7 @@ def _softmax_rows(torch, g, record):
     2e-6, half types within one ulp; the backward from the same saved y,
     plus what the other order of its row sum moves dx by (where ``dy -
     sum(dy*y)`` cancels, that outweighs an ulp of dx).
+    The backward reruns bitwise at every case.
     Yardsticks: ``torch.softmax`` and its backward
     (``_softmax_backward_data``) on the same tensor — no scale, no mask,
     so they cover part of the function only."""
@@ -1310,12 +1434,15 @@ def _softmax_rows(torch, g, record):
             pb &= bool((dx[dead] == 0).all()) and bool((dxp[dead] == 0).all())
         if tag == "ragged_full_row":
             pb &= bool((dx[0, 0, 3] == 0).all())
+        # B-5 reruns bitwise everywhere
+        rerun_b = torch.equal(dx, S.softmax_bwd_kernel(dy, yp, 0.125, bm, bc))
+        pb &= rerun_b
         tol = "2e-6" if dt == torch.float32 else "1 ulp"
         if main:
             # B-4 reruns bitwise at the main-path shapes
             rerun = torch.equal(y, S.softmax_fwd_kernel(x, m, 0.125, causal))
-            log(f"  softmax_fwd {tag} {shape} {str(dt)[6:]}: rerun bitwise "
-                f"{rerun}")
+            log(f"  softmax {tag} {shape} {str(dt)[6:]}: rerun bitwise "
+                f"fwd {rerun}, bwd {rerun_b}")
             pf &= rerun
         if not main:
             log(f"  softmax {tag} {shape} {str(dt)[6:]}: fwd err {ef:.3g} "
@@ -1983,6 +2110,46 @@ def _steady_decode(eng, prompts, n_windows=3, window=16):
     return step_ms, windows, tokens
 
 
+def _rope_step_check(torch, eng, steps=2):
+    """RoPE over ``steps`` engine steps: its kernel launches a step, the
+    ``_rope_qk`` calls a step, and whether every call got q and k as
+    views of one storage — the packed qkv projection — with contiguous
+    channels, so that neither was copied between ``qkv_proj`` and the
+    kernel."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.models import transformer as T
+
+    seen, orig = [], T._rope_qk
+
+    def spy(q, k, cos, sin, **kw):
+        seen.append(q.untyped_storage().data_ptr()
+                    == k.untyped_storage().data_ptr()
+                    and q.stride(-1) == 1 and k.stride(-1) == 1)
+        return orig(q, k, cos, sin, **kw)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    T._rope_qk = spy
+    try:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    finally:
+        T._rope_qk = orig
+    return dict(rope_launches_per_step=_build.launches["rope"] / steps,
+                rope_qk_calls_per_step=len(seen) / steps,
+                qk_views_of_projection=bool(seen) and all(seen))
+
+
+def _rope_step_ok(rope, layers):
+    """One RoPE launch a layer, every call on views of the projection."""
+    good = (rope["rope_launches_per_step"] == layers
+            and rope["qk_views_of_projection"])
+    log(f"  rope: {rope['rope_launches_per_step']:g} launches a step "
+        f"({layers} layers), q and k read from the projection: "
+        f"{rope['qk_views_of_projection']} {'ok' if good else 'FAIL'}")
+    return good
+
+
 def phase_serve(torch, model, profile=False):
     from apex_tpu_torch import _build
     from apex_tpu_torch.models import init_cache, prefill_tokens
@@ -2030,7 +2197,9 @@ def phase_serve(torch, model, profile=False):
     step_ms, windows, dec_tok = _steady_decode(
         eng, [prompts[-1 - slot] for slot in range(eng.max_slots)])
     decode_s = sum(step_ms) / 1e3
-    prof = _profile_steps(torch, eng) if profile else None
+    rope = _rope_step_check(torch, eng)
+    prof = _profile_steps(torch, eng, groups=DECODE_GROUPS) if profile \
+        else None
     for slot in range(eng.max_slots):
         eng.release(slot)
     stats = dict(requests=len(results), tokens=ntok, steps=steps,
@@ -2041,12 +2210,14 @@ def phase_serve(torch, model, profile=False):
                  decode_step_ms_windows=windows,
                  decode_step_ms_min=min(step_ms),
                  decode_step_ms_max=max(step_ms),
-                 peak_bytes=peak, logits_finite=finite, **lat)
+                 peak_bytes=peak, logits_finite=finite,
+                 decode_rope=rope, **lat)
     log(f"  {json.dumps(stats)}")
     if prof is not None:
         stats["profile"] = prof
         log(f"  profile: {json.dumps(prof)}")
     ok &= all(launches[n] > 0 for n in SERVING_KERNELS)
+    ok &= _rope_step_ok(rope, model.cfg.num_layers)
     del one, eng, srv
     torch.cuda.empty_cache()
     return ok, stats
@@ -2126,16 +2297,18 @@ def phase_paged(torch, model, profile=False):
         prof["slots_8"] = _profile_steps(torch, eng, groups=DECODE_GROUPS)
     for slot in range(8):
         eng.release(slot)
+    # chunked prefill: 8 prompts of 1000 tokens, every slot prefilling in
+    # every step: RoPE's launches and inputs over the 1st-2nd chunks of
+    # 128, then (under --profile) the device time over the 4th-7th
+    long = [torch.randint(0, VOCAB, (1000,), generator=gen).numpy()
+            for _ in range(8)]
+    for slot, p in enumerate(long):
+        eng.admit(slot, p, max_new_tokens=1)
+    rope = _rope_step_check(torch, eng)
     if profile:
-        # chunked prefill: 8 prompts of 1000 tokens, profiled over their
-        # 2nd-5th chunks of 128 (every slot prefilling in every step)
-        long = [torch.randint(0, VOCAB, (1000,), generator=gen).numpy()
-                for _ in range(8)]
-        for slot, p in enumerate(long):
-            eng.admit(slot, p, max_new_tokens=1)
         prof["prefill_8"] = _profile_steps(torch, eng, groups=PREFILL_GROUPS)
-        for slot in range(8):
-            eng.release(slot)
+    for slot in range(8):
+        eng.release(slot)
     ok &= eng.blocks_in_use == 0
     stats = dict(requests=len(results), prompt_lens=lens, tokens=ntok,
                  steps=steps, wall_s=wall, warmup_s=warm_s,
@@ -2148,12 +2321,13 @@ def phase_paged(torch, model, profile=False):
                  decode4_step_ms_max=max(s4),
                  decode8_tokens_per_s=t8 / (sum(s8) / 1e3),
                  decode8_step_ms_windows=w8, decode8_step_ms_min=min(s8),
-                 decode8_step_ms_max=max(s8), **lat)
+                 decode8_step_ms_max=max(s8), chunk_rope=rope, **lat)
     log(f"  {json.dumps(stats)}")
     if prof:
         stats["profile"] = prof
         log(f"  profile: {json.dumps(prof)}")
     ok &= all(launches[n] > 0 for n in PAGED_KERNELS)
+    ok &= _rope_step_ok(rope, model.cfg.num_layers)
     del eng, srv
     torch.cuda.empty_cache()
     return ok, stats
@@ -3162,6 +3336,7 @@ def _profile_summary(rows, n, wall_us, groups=None):
     rows = sorted(rows, reverse=True)
     busy = sum(r[0] for r in rows)
     out = dict(steps=n, wall_ms_per_step=wall_us / n / 1e3,
+               kernels_per_step=sum(r[2] for r in rows) / n,
                device_busy_ms_per_step=busy / n / 1e3,
                device_idle_share=max(0.0, 1 - busy / wall_us),
                top=[dict(kernel=k[:90], ms_per_step=us / n / 1e3,
@@ -3191,13 +3366,16 @@ HOPPER_KINDS = {
 }
 SASS_COUNTS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
 # kernels that must use no local memory (no LDL / STL, no stack frame, no
-# spills) and make at most this many calls: the sampler's one call is the
-# IEEE quotient for the load's rare operands (|x| off [2^-60, 2^60]),
-# never inside the selection passes or the draw; the softmax forward's
+# spills) and make at most this many calls, (library, kind, calls, an
+# instruction every variant needs): the sampler's one call is the IEEE
+# quotient for the load's rare operands (|x| off [2^-60, 2^60]), never
+# inside the selection passes or the draw; the softmax forward's
 # reciprocal has no slow path.  The sampler stages its slice by bulk
 # copy (UBLKCP)
-CALL_LIMITS = {"fused_sampling": ("sample_cluster_kernel", 1, "UBLKCP"),
-               "softmax": ("softmax_fwd_rows_kernel", 0, None)}
+CALL_LIMITS = (("fused_sampling", "sample_cluster_kernel", 1, "UBLKCP"),
+               ("softmax", "softmax_fwd_rows_kernel", 0, None),
+               ("softmax", "softmax_bwd_rows_kernel", 0, None),
+               ("rope", "rope_kernel", 0, None))
 
 
 def _hopper_report(_build, build_logs):
@@ -3281,7 +3459,7 @@ def _call_report(_build, build_logs):
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out, bad = {}, []
-    for lib, (kind, limit, need) in CALL_LIMITS.items():
+    for lib, kind, limit, need in CALL_LIMITS:
         frames, fn = {}, None
         for line in build_logs.get(lib, "").splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -3324,6 +3502,41 @@ def _call_report(_build, build_logs):
     return out
 
 
+def _occupancy_report(torch, _build):
+    """Registers a thread and blocks an SM of the main path's variants of
+    two kernels, from the CUDA runtime: the RoPE kernel (bf16, 16-byte vectors, 32-bit offsets, 256 threads — the
+    block of a chunk or decode step) and the softmax backward's rows
+    kernel (bf16 vectorised at sk 512 and 1024, and the VEC = 1 variant at
+    sk 1024); a persistent grid launches that many CTAs an SM."""
+    import ctypes
+
+    ci = ctypes.c_int
+    out = {}
+    rope = _build.function("rope", "apex_rope_occupancy", [
+        ci, ci, ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)])
+    blocks, regs, smem = ci(), ci(), ci()
+
+    def check(code):
+        if code != 0:
+            raise RuntimeError(f"occupancy query: CUDA error {code}")
+    check(rope(1, 8, 0, 256, ctypes.byref(blocks), ctypes.byref(regs)))
+    out["rope_kernel<bf16, 8, int>"] = dict(
+        registers=regs.value, blocks_per_sm=blocks.value,
+        warps_per_sm=blocks.value * 8)
+    bwd = _build.function("softmax", "apex_softmax_bwd_occupancy", [
+        ci, ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci),
+        ctypes.POINTER(ci)])
+    for sk, vec in ((512, 8), (1024, 8), (1024, 1)):
+        check(bwd(sk, 1, vec, ctypes.byref(blocks), ctypes.byref(smem),
+                  ctypes.byref(regs)))
+        out[f"softmax_bwd_rows_kernel<bf16, {vec}> sk {sk}"] = dict(
+            registers=regs.value, blocks_per_sm=blocks.value,
+            warps_per_sm=blocks.value * 8, smem_bytes=smem.value)
+    for name, r in out.items():
+        log(f"  {name}: {r}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3363,6 +3576,7 @@ def main(argv=None):
             f"bytes, spill stores {spills} bytes")
     build["hopper_kernels"] = _hopper_report(_build, build_logs)
     build["no_local_memory"] = _call_report(_build, build_logs)
+    build["occupancy"] = _occupancy_report(torch, _build)
 
     rows = []
     t0 = time.monotonic()
@@ -3448,7 +3662,8 @@ def main(argv=None):
         "layer_norm": ("layer_norm/stats", (8192, 1024), "torch.bfloat16"),
         "layer_norm_bwd": ("layer_norm_bwd", (8192, 1024),
                            "torch.bfloat16"),
-        "rope": ("rope/per_row", (4, 1, 32, 128), "torch.bfloat16"),
+        # q and k in one launch at the chunked-prefill step's shape
+        "rope": ("rope/qk", (8, 128, 32, 128), "torch.bfloat16"),
         "fused_sampling": ("fused_sampling", (4, 32000), "torch.bfloat16"),
         # bench.py's step runs no attention mask and no dropout
         "flash_attention_fwd": ("flash_fwd/bert", (16, 512, 16, 16, 64),
@@ -3476,7 +3691,7 @@ def main(argv=None):
     }
     family = {"layer_norm": ("rms_norm", "layer_norm", "layer_norm/stats"),
               "layer_norm_bwd": ("layer_norm_bwd",),
-              "rope": ("rope", "rope/per_row", "rope/bwd"),
+              "rope": ("rope",),
               "fused_sampling": ("fused_sampling",),
               "flash_attention_fwd": ("flash_fwd",),
               "flash_attention_bwd_dq": ("flash_bwd_dq",),

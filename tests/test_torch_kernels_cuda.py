@@ -1,5 +1,5 @@
-"""The fused sampler (B-11) and the softmax forward (B-4) held against
-their plain versions on a card.
+"""The fused sampler (B-11), the softmax forward and backward (B-4, B-5)
+and RoPE (B-3) held against their plain versions on a card.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so on a machine without it run it alone with
@@ -7,13 +7,18 @@ imports no JAX, so on a machine without it run it alone with
 Sampled tokens equal the plain version's except on a nucleus-boundary
 tie (the exclusive cumulative mass at the boundary within 1e-5 of
 top_p, as ``chip_smoke.py`` allows); a rerun is bitwise.  The softmax is
-within 2e-6 in fp32 and one ulp in the half types, and reruns bitwise.
+within 2e-6 in fp32 and one ulp in the half types (the backward plus
+what another order of its row sum moves dx by), and reruns bitwise.
+RoPE equals its plain version bit for bit.
 """
+
+import math
 
 import pytest
 import torch
 
 from apex_tpu_torch.ops import fused_sampling as fs
+from apex_tpu_torch.ops import rope as R
 from apex_tpu_torch.ops import softmax as S
 
 _MANT = {torch.float32: 23, torch.bfloat16: 7, torch.float16: 10}
@@ -85,3 +90,104 @@ def test_softmax_forward_reruns_bitwise(shape, mshape, causal, dtype,
         ulp = torch.exp2(torch.floor(torch.log2(r)) - _MANT[dtype])
         assert bool(((y.float() - ref.float()).abs()
                      <= ulp.clamp_min(_SUB[dtype])).all())
+
+
+def _within(got, ref, dtype, extra=0.0):
+    """fp32 within 2e-6, half types within one ulp, plus ``extra``."""
+    if dtype == torch.float32:
+        return bool(((got - ref).abs() <= 2e-6 + extra).all())
+    r = ref.float().abs().clamp_min(1e-38)
+    ulp = torch.exp2(torch.floor(torch.log2(r)) - _MANT[dtype])
+    return bool(((got.float() - ref.float()).abs()
+                 <= ulp.clamp_min(_SUB[dtype]) + extra).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,mshape,causal", [
+    ((4, 16, 128, 512), None, False),
+    ((2, 4, 64, 1024), None, False),
+    ((2, 8, 64, 320), None, True),
+    ((2, 4, 16, 200), (2, 1, 16, 200), True),
+    ((3, 2, 16, 77), (16, 77), False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_softmax_backward_reruns_bitwise(shape, mshape, causal, dtype,
+                                         cuda_device):
+    """At the main-path widths (512, 1024: the kernel formula) and at the
+    where() widths (sk % 128 != 0: zeros at every masked position), in
+    16-byte vectors and one element a lane (sk 77)."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = (3 * torch.randn(shape, generator=g, device=cuda_device)).to(dtype)
+    dy = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    m = None if mshape is None else torch.rand(
+        mshape, generator=g, device=cuda_device) < 0.3
+    y = S.scale_mask_softmax_reference(x, m, 0.125, causal)
+    zero = S._zero_masked(shape[-1])
+    bm, bc = (m, causal) if zero else (None, False)
+    dx = S.softmax_bwd_kernel(dy, y, 0.125, bm, bc)
+    assert torch.equal(dx, S.softmax_bwd_kernel(dy, y, 0.125, bm, bc))
+    ref = S.softmax_bwd_reference(dy, y, 0.125, bm, bc)
+    mag = (dy.float() * y.float()).abs().sum(-1, keepdim=True)
+    order = (2 * math.ceil(math.log2(shape[-1])) * 2.0 ** -24 * mag
+             * y.float().abs() * 0.125)
+    assert _within(dx, ref, dtype, order)
+    if zero:
+        dead = S._masked(shape, bm, bc, cuda_device).expand(shape)
+        assert bool((dx[dead] == 0).all())
+
+
+def _packed_qk(g, b, s, h, hk, d, dtype, grouped, dev):
+    """A packed projection leaf and q, k as ``ParallelAttention._qkv``
+    views them: q is ``(b, s, hk, h / hk, d)`` in the grouped layout."""
+    qkv = torch.randn(b, s, (h + 2 * hk) * d, generator=g, device=dev).to(
+        dtype).requires_grad_()
+    if grouped:
+        gv = qkv.view(b, s, hk, h // hk + 2, d)
+        return qkv, gv[..., :h // hk, :], gv[..., h // hk, :]
+    return (qkv, qkv[..., :h * d].view(b, s, h, d),
+            qkv[..., h * d:(h + hk) * d].view(b, s, hk, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hk,d,rot,grouped,per_row", [
+    (32, 32, 128, 128, True, True),
+    (32, 8, 128, 128, False, True),
+    (4, 1, 128, 64, True, False),
+    (6, 2, 80, 48, True, True),
+    (8, 2, 72, 72, False, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b,s", [(3, 19), (8, 150)])
+def test_rope_kernel_equals_plain_on_strided_views(h, hk, d, rot, grouped,
+                                                   per_row, dtype, b, s,
+                                                   cuda_device):
+    """q and k read through their strides from a packed projection, both
+    layouts, GQA, a partial span, a tail of whole vectors (d 80, rot 48)
+    and a span of 36 (one element a thread), at few positions (the heads
+    spread over the grid) and many: forward and backward equal the plain
+    version, and ``_rope_qk`` two ``fused_rope`` calls."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    ct, st = R.rope_cos_sin(256, rot, device=cuda_device)
+    if per_row:
+        pos = torch.randint(0, 256 - s, (b, 1), generator=g,
+                            device=cuda_device) + torch.arange(
+                                s, device=cuda_device)
+        c, sn = ct[pos], st[pos]
+    else:
+        c, sn = ct[5:5 + s], st[5:5 + s]
+    dq = torch.randn(b, s, h, d, generator=g, device=cuda_device).to(dtype)
+    dk = torch.randn(b, s, hk, d, generator=g, device=cuda_device).to(dtype)
+    outs = []
+    for impl in ("kernel", "torch"):
+        qkv, q, k = _packed_qk(torch.Generator(device=cuda_device).manual_seed(
+            8), b, s, h, hk, d, dtype, grouped, cuda_device)
+        yq, yk = R._rope_qk(q, k, c, sn, implementation=impl)
+        torch.autograd.backward((yq, yk), (dq, dk))
+        outs.append((yq.detach(), yk.detach(), qkv.grad))
+        if impl == "kernel":
+            with torch.no_grad():
+                assert torch.equal(yq, R.fused_rope(
+                    q.reshape(b, s, h, d), c, sn))
+                assert torch.equal(yk, R.fused_rope(k, c, sn))
+    for got, ref in zip(*outs):
+        assert torch.equal(got, ref)

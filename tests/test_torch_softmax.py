@@ -3,7 +3,8 @@
 The plain forward and its gradient (torch autograd through the port's
 ``_SoftmaxFn``) against ``apex_tpu.ops.fused_scale_mask_softmax`` and
 ``jax.vjp`` of it: with the Pallas kernels in interpret mode at
-``sk`` in {128, 256}, and against the JAX XLA reference at ragged ``sk``
+``sk`` in {128, 256, 512} (512: BERT's scores, the backward's 16-value
+rows), and against the JAX XLA reference at ragged ``sk``
 (37, 100), where the JAX dispatch itself takes the reference.  Cases:
 masks of shape (b,1,1,sk), (b,1,sq,sk) and (sq,sk); causal with
 ``sq == sk`` and ``sq < sk``; a fully masked row (uniform ``1/sk``, not
@@ -144,7 +145,7 @@ def _fill(t, sk):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("sk", [128, 256])
+@pytest.mark.parametrize("sk", [128, 256, 512])
 @pytest.mark.parametrize("ci", range(len(_CASES)))
 def test_matches_the_pallas_kernel(ci, sk, dtype):
     shape, mshape, causal = _CASES[ci]
