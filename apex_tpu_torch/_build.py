@@ -55,7 +55,8 @@ ENTRIES = ("layer_norm", "layer_norm_bwd", "rope", "fused_sampling",
            "flash_attention_bwd_dkv", "paged_attention",
            "paged_decode_fused", "bn_reduce", "bn_apply", "bn_bwd_reduce",
            "bn_bwd_dx", "fp8_adam", "softmax_fwd", "softmax_bwd",
-           "group_norm_fwd", "group_norm_bwd")
+           "group_norm_fwd", "group_norm_bwd", "group_norm_fwd_3pass",
+           "group_norm_bwd_3pass")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "--split-compile=0", "-Xcompiler", "-fPIC")
 

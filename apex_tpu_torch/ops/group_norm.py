@@ -19,6 +19,15 @@ fp32, then the affine and the optional SiLU, cast once to ``x.dtype``.
   the kernel's formulas (:func:`group_norm_fwd_reference`,
   :func:`group_norm_bwd_reference`), which the kernels are held against
   on the card.
+- Each direction has two routes, both hand kernels, chosen before any
+  launch by :func:`cluster_plan` from the shape, the dtype and the card's
+  cluster capacity: the cluster route (one launch; persistent
+  thread-block clusters, each holding a slab — a sample's rows of a span
+  of whole groups — in its CTAs' shared memory, so each operand is read
+  once; launches counted under ``group_norm_fwd`` / ``group_norm_bwd``)
+  where a sample's slab fits 16 CTAs and a group is a power-of-two count
+  of 16-byte vectors, else the three-pass route
+  (``group_norm_fwd_3pass`` / ``group_norm_bwd_3pass``).
 
 The JAX kernels' envelope (``C % 128 == 0``, ``C <= 1024``, an 8-aligned
 divisor of the spatial extent) is a TPU tiling rule: the port's kernels
@@ -32,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -42,14 +51,36 @@ from apex_tpu_torch.ops._dispatch import resolve_device, resolve_impl
 
 __all__ = ["group_norm", "group_norm_reference", "GroupNorm",
            "group_norm_fwd_reference", "group_norm_bwd_reference",
-           "group_norm_fwd_kernel", "group_norm_bwd_kernel"]
+           "group_norm_fwd_kernel", "group_norm_bwd_kernel",
+           "ClusterPlan", "cluster_plan"]
 
 _ACTS = (None, "silu")
 _THREADS = 256
-# blocks per SM the grids aim for: the statistics passes write one
-# partial row per block, so they take fewer
+# blocks per SM the three-pass grids aim for: the statistics passes write
+# one partial row per block, so they take fewer
 _REDUCE_BLOCKS_PER_SM = 4
 _MAP_BLOCKS_PER_SM = 8
+
+# the cluster route (csrc/group_norm.cu kClusterThreads, kMaxCluster):
+# threads a CTA, CTAs a cluster
+CLUSTER_THREADS = 512
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+#: bytes of each row a slab spans at least, where whole groups allow,
+#: forward / backward: the narrowest spans make the smallest clusters
+#: (more of them fit the card at once); the backward, which stages dy and
+#: x, ran fastest at 64 bytes in bf16 on the H100
+SPAN_BYTES = {False: 32, True: 64}
+#: a thread's 16-byte vectors (K) each direction's variants take: a
+#: CTA's ring holds two stages of K x 8 KB an operand (x; dy and x)
+FWD_KS = (1, 2, 4, 8)
+BWD_KS = (1, 2, 4)
+#: shared memory a CTA may hold on an H100
+SMEM_CAP = 227 * 1024
+#: ring stages a CTA holds (csrc/group_norm.cu kStages), and the dynamic
+#: shared memory its ring (and the backward's per-warp sums) may take:
+#: the cap less the kernels' static shared memory (under 10 KB)
+STAGES = 3
+RING_CAP = SMEM_CAP - 12 * 1024
 
 
 def _check(c: int, num_groups: int, act) -> None:
@@ -173,6 +204,150 @@ def _geometry(x3, *others):
     return vec, chunks(_REDUCE_BLOCKS_PER_SM), chunks(_MAP_BLOCKS_PER_SM)
 
 
+class ClusterPlan(NamedTuple):
+    """Geometry of a cluster-route launch: ``span`` channels (whole
+    groups) a slab, ``k`` 16-byte vectors a thread, ``cluster`` CTAs of
+    :data:`CLUSTER_THREADS` a slab (``cluster * rows_per_cta`` ≥ the rows),
+    ``clusters`` persistent clusters walking the slabs, the bytes of a
+    CTA's share of a slab (``tile_bytes``, one ring stage's data) and of
+    the CTA's dynamic shared memory (``ring_bytes``: :data:`STAGES`
+    stages, and the backward's per-warp sums)."""
+    span: int
+    k: int
+    cluster: int
+    rows_per_cta: int
+    tile_bytes: int
+    clusters: int
+    ring_bytes: int = 0
+
+
+def _ring_bytes(backward: bool, k: int, span: int) -> int:
+    """csrc/group_norm.cu ``ring_bytes``: STAGES stages of K rows of
+    16-byte vectors a thread (dy and x, or x), and 16 warps' per-channel
+    sums in the backward."""
+    ops = 2 if backward else 1
+    return (STAGES * ops * k * CLUSTER_THREADS * 16
+            + (16 * span * 8 if backward else 0))
+
+
+def _pow2(v: int) -> bool:
+    return v > 0 and v & (v - 1) == 0
+
+
+def _spans(c: int, cg: int, itemsize: int, backward: bool):
+    """Spans of whole groups a slab may take, in the order tried: the
+    fewest groups reaching :data:`SPAN_BYTES` of each row (or the widest
+    where none does), then narrower ones, whose CTAs hold more rows.  A
+    span is a power-of-two count of 16-byte vectors, at most a warp's 32
+    (the kernels' shuffle trees)."""
+    vec = 16 // itemsize
+    spans = [s for s in range(cg, min(c, 32 * vec) + 1, cg)
+             if c % s == 0 and _pow2(s // vec)]
+    if not spans:
+        return []
+    first = next((s for s in spans
+                  if s * itemsize >= SPAN_BYTES[backward]), spans[-1])
+    return [first] + [s for s in reversed(spans) if s < first]
+
+
+def _row_lanes(tx: int) -> int:
+    """Row lanes of a CTA ``tx`` column vectors wide (csrc/group_norm.cu
+    ``row_lanes``): the largest power of two that fits the block, so a
+    CTA's rows are whole TMA boxes."""
+    return 1 << ((CLUSTER_THREADS // tx).bit_length() - 1)
+
+
+def cluster_plan(batch: int, rows: int, c: int, num_groups: int,
+                 itemsize: int, backward: bool,
+                 capacity) -> Optional[ClusterPlan]:
+    """The route of one GroupNorm kernel call: a :class:`ClusterPlan`
+    for the cluster route, or None for the three-pass route.
+
+    The cluster route takes a sample's ``rows`` x ``span`` slab in one
+    cluster of at most 16 CTAs, each thread holding ``k`` 16-byte vectors
+    of one group: a group's channels must be a power-of-two count of
+    whole vectors (``C / G`` of ``16 / itemsize`` channels each), and the
+    slab must fit ``cluster * k`` rows of vectors a thread.
+    ``capacity``: ``{cluster size: clusters the card runs at once}`` of
+    the direction's largest variant (0 or absent: that size does not
+    fit).  Spans in the order of :func:`_spans`; for each, the smallest
+    cluster that holds the slab, then the fewest vectors a thread."""
+    vec = 16 // itemsize
+    cg = c // num_groups
+    if (rows <= 0 or batch <= 0 or c % num_groups or cg % vec
+            or not _pow2(cg // vec)):
+        return None
+    ks = BWD_KS if backward else FWD_KS
+    ops = 2 if backward else 1   # operands a stage holds: dy and x, or x
+    for span in _spans(c, cg, itemsize, backward):
+        ty = _row_lanes(span // vec)
+        slabs = batch * (c // span)
+        for cl in CLUSTER_SIZES:
+            if capacity.get(cl, 0) <= 0 or slabs * cl >= 2 ** 31:
+                continue
+            for k in ks:
+                per = k * ty
+                ring = _ring_bytes(backward, k, span)
+                if cl * per >= rows and ring <= RING_CAP:
+                    return ClusterPlan(span, k, cl, per,
+                                       per * span * itemsize * ops,
+                                       min(slabs, capacity[cl]), ring)
+    return None
+
+
+_CAPACITY = {}
+
+
+def _capacity(dev, dtype, backward: bool):
+    """``{cluster size: clusters at once}`` of the cluster route's largest
+    variant of a direction on ``dev`` (asked of the card once per device,
+    dtype and direction)."""
+    key = (dev.index, dtype, backward)
+    if key not in _CAPACITY:
+        fn = _build.function("group_norm", "apex_gn_cluster_capacity",
+                             [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        out = (ctypes.c_int * len(CLUSTER_SIZES))()
+        with torch.cuda.device(dev):
+            code = fn(int(backward), _build.FLOAT_CODES[dtype],
+                      ctypes.addressof(out))
+        if code != 0:
+            raise RuntimeError(f"group_norm: CUDA error {code} sizing its "
+                               f"clusters")
+        _CAPACITY[key] = dict(zip(CLUSTER_SIZES, list(out)))
+    return _CAPACITY[key]
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_cached(dev_index, dtype, backward, batch, rows, c, num_groups):
+    dev = torch.device("cuda", dev_index)
+    return cluster_plan(batch, rows, c, num_groups, dtype.itemsize,
+                        backward, _capacity(dev, dtype, backward))
+
+
+def _route(x3, num_groups, backward, *others):
+    """The plan of a call on the card, or None (three-pass): the cluster
+    route also needs every (N, R, C) operand 16-byte aligned."""
+    if any(t.data_ptr() % 16 for t in (x3,) + others):
+        return None
+    n, rows, c = x3.shape
+    return _plan_cached(x3.device.index or 0, x3.dtype, backward, n, rows,
+                        c, num_groups)
+
+
+#: (device, stream) -> the backward's int32 tickets, one a span, zero
+#: between calls (the kernel leaves them zero)
+_TICKETS = {}
+
+
+def _tickets(dev, spans):
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < spans:
+        t = torch.zeros(max(spans, 64), dtype=torch.int32, device=dev)
+        _TICKETS[key] = t
+    return t
+
+
 def _check_kernel_operands(name, x3, num_groups, *same):
     if not x3.is_cuda:
         raise ValueError(f"{name}: needs a CUDA tensor, got one on "
@@ -223,30 +398,43 @@ _I64, _I32, _F32, _PTR = (ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
 def group_norm_fwd_kernel(x3, weight, bias, num_groups: int,
                           eps: float = 1e-5, silu: bool = False):
     """B-16 on a CUDA ``(N, R, C)`` tensor: ``(y, mean, rstd)`` as the
-    plain version's."""
+    plain version's, by the route :func:`cluster_plan` picks."""
     _check_kernel_operands("group_norm_fwd", x3, num_groups)
     n, rows, c = x3.shape
     w, b = _vecs(x3, weight, bias)
     y = torch.empty_like(x3)
+    mean = torch.empty(n, num_groups, dtype=torch.float32, device=x3.device)
+    rstd = torch.empty_like(mean)
+    xt = _build.FLOAT_CODES[x3.dtype]
+    plan = _route(x3, num_groups, False, y)
+    if plan is not None:
+        fn = _build.function("group_norm", "apex_gn_fwd_cluster",
+                             [_PTR] * 6 + [_I64] + [_I32] * 7 + [
+                                 _F32, _I32, _I32, _PTR])
+        code = fn(x3.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                  mean.data_ptr(), rstd.data_ptr(), n, rows, c, num_groups,
+                  plan.span, plan.k, plan.cluster, plan.clusters, float(eps),
+                  int(silu), xt, _stream(x3))
+        _build.check(code, "group_norm_fwd")
+        return y, mean, rstd
     vec, chunks, map_chunks = _geometry(x3, y)
     part = torch.empty(n, chunks, 2, c, dtype=torch.float32,
                        device=x3.device)
-    mean = torch.empty(n, num_groups, dtype=torch.float32, device=x3.device)
-    rstd = torch.empty_like(mean)
     fn = _build.function("group_norm", "apex_gn_fwd",
                          [_PTR] * 7 + [_I64, _I64, _I32, _I32, _I32, _I32,
                                        _I32, _F32, _I32, _I32, _PTR])
     code = fn(x3.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
               mean.data_ptr(), rstd.data_ptr(), part.data_ptr(), n, rows, c,
               num_groups, vec, chunks, map_chunks, float(eps), int(silu),
-              _build.FLOAT_CODES[x3.dtype], _stream(x3))
-    _build.check(code, "group_norm_fwd")
+              xt, _stream(x3))
+    _build.check(code, "group_norm_fwd_3pass")
     return y, mean, rstd
 
 
 def group_norm_bwd_kernel(dy3, x3, weight, bias, mean, rstd,
                           num_groups: int, silu: bool = False):
-    """B-17: ``(dx, dγ, dβ)`` as the plain version's (dγ, dβ fp32)."""
+    """B-17: ``(dx, dγ, dβ)`` as the plain version's (dγ, dβ fp32), by
+    the route :func:`cluster_plan` picks."""
     dy3 = dy3.to(x3.dtype).contiguous()
     _check_kernel_operands("group_norm_bwd", x3, num_groups, dy3)
     n, rows, c = x3.shape
@@ -254,14 +442,30 @@ def group_norm_bwd_kernel(dy3, x3, weight, bias, mean, rstd,
     mean = _stat_operand(mean, n, num_groups, x3.device)
     rstd = _stat_operand(rstd, n, num_groups, x3.device)
     dx = torch.empty_like(x3)
+    dw = torch.empty(c, dtype=torch.float32, device=x3.device)
+    db = torch.empty_like(dw)
+    inv = 1.0 / float(rows * (c // num_groups))
+    xt = _build.FLOAT_CODES[x3.dtype]
+    plan = _route(x3, num_groups, True, dy3, dx)
+    if plan is not None:
+        ws = torch.empty(n, c, 2, dtype=torch.float32, device=x3.device)
+        tickets = _tickets(x3.device, c // plan.span)
+        fn = _build.function("group_norm", "apex_gn_bwd_cluster",
+                             [_PTR] * 11 + [_I64] + [_I32] * 7 + [
+                                 _F32, _I32, _I32, _PTR])
+        code = fn(dy3.data_ptr(), x3.data_ptr(), w.data_ptr(), b.data_ptr(),
+                  mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+                  dw.data_ptr(), db.data_ptr(), ws.data_ptr(),
+                  tickets.data_ptr(), n, rows, c, num_groups, plan.span,
+                  plan.k, plan.cluster, plan.clusters, inv, int(silu), xt,
+                  _stream(x3))
+        _build.check(code, "group_norm_bwd")
+        return dx, dw, db
     vec, chunks, map_chunks = _geometry(x3, dy3, dx)
     part = torch.empty(n, chunks, 2, c, dtype=torch.float32,
                        device=x3.device)
     coef = torch.empty(n, num_groups, 2, dtype=torch.float32,
                        device=x3.device)
-    dw = torch.empty(c, dtype=torch.float32, device=x3.device)
-    db = torch.empty_like(dw)
-    inv = 1.0 / float(rows * (c // num_groups))
     fn = _build.function("group_norm", "apex_gn_bwd",
                          [_PTR] * 11 + [_I64, _I64, _I32, _I32, _I32, _I32,
                                         _I32, _F32, _I32, _I32, _PTR])
@@ -269,8 +473,8 @@ def group_norm_bwd_kernel(dy3, x3, weight, bias, mean, rstd,
               mean.data_ptr(), rstd.data_ptr(), part.data_ptr(),
               coef.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
               n, rows, c, num_groups, vec, chunks, map_chunks, inv,
-              int(silu), _build.FLOAT_CODES[x3.dtype], _stream(x3))
-    _build.check(code, "group_norm_bwd")
+              int(silu), xt, _stream(x3))
+    _build.check(code, "group_norm_bwd_3pass")
     return dx, dw, db
 
 

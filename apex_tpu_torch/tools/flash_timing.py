@@ -1,11 +1,12 @@
 """Time the flash attention, LayerNorm, paged attention, fp8 Adam,
-sampling, softmax and RoPE kernels of one checkout of the port.
+sampling, softmax, RoPE and GroupNorm kernels of one checkout of the port.
 
 Run on a machine with an NVIDIA Hopper card, as a script:
 
     python3 apex_tpu_torch/tools/flash_timing.py [--root DIR] [--label NAME]
         [--sdpa] [--layer-norm] [--paged] [--split-keys N,...] [--fp8-adam]
-        [--sampling] [--softmax] [--rope] [--no-flash] [--nvcc] [--out DIR]
+        [--sampling] [--softmax] [--rope] [--group-norm] [--no-flash]
+        [--nvcc] [--out DIR]
 
 It builds the ``flash_attention`` kernel library of the package found
 under ``--root`` (default: the checkout holding this script), and times
@@ -62,6 +63,16 @@ checkout's model calls it on q and k in a packed grouped projection
 (8 x 128 tokens) and the dense decode step's (4 x 1) — copies included,
 with the kernels a call launches — the backward of the chunk's rotation
 into the projection, and the one-operand backward at (1, 512, 32, 128).
+``--group-norm`` also builds the ``group_norm`` library and times the
+GroupNorm(+SiLU) forward (B-16) and backward (B-17, from the plain
+version's statistics) as the checkout's wrappers launch them, at
+(8, 64x64, 512), 32 groups, fp32 affine, in bf16 and fp32 (the cluster
+route where the checkout has one) and at a VAE decoder's (1, 512x512,
+128) bf16 (the three-pass route): device ms (torch.profiler) and call ms
+(CUDA events), the CUDA kernels a call and the launch counts by entry;
+beside them ``F.silu(F.group_norm)`` on an NCHW copy of the same data,
+forward and forward + backward, as the yardstick (the port never calls
+it).
 ``--no-flash`` leaves the flash library out
 (neither built nor timed).
 ``--nvcc`` first times ``nvcc`` on ``flash_attention.cu`` alone, once with
@@ -410,6 +421,67 @@ def _softmax_rows(torch, g):
     return rows_out
 
 
+def _group_norm_rows(torch, F, g):
+    """``{tag: {"fwd" | "bwd": (device ms, call ms), "fwd_kernels" |
+    "bwd_kernels": CUDA kernels a call, "fwd_launches" | "bwd_launches":
+    launches by entry, "library_fwd" | "library_fwd_bwd": ...}}`` of the
+    GroupNorm kernels at the main shape in bf16 and fp32 and at a VAE
+    decoder's bf16 shape."""
+    import importlib
+
+    from apex_tpu_torch import _build
+
+    GN = importlib.import_module("apex_tpu_torch.ops.group_norm")
+    dev = torch.device("cuda")
+    rows_out = {}
+    for tag, shape, dt in (("main", (8, 64, 64, 512), torch.bfloat16),
+                           ("main", (8, 64, 64, 512), torch.float32),
+                           ("vae", (1, 512, 512, 128), torch.bfloat16)):
+        c = shape[-1]
+        x = torch.randn(shape, generator=g, device=dev).to(dt)
+        dy = torch.randn(shape, generator=g, device=dev).to(dt)
+        w = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
+        b = 0.1 * torch.randn(c, generator=g, device=dev)
+        x3, dy3 = x.view(shape[0], -1, c), dy.view(shape[0], -1, c)
+        _, mean, rstd = GN.group_norm_fwd_reference(x3, w, b, 32, 1e-5, True)
+
+        def fwd():
+            return GN.group_norm_fwd_kernel(x3, w, b, 32, 1e-5, True)
+
+        def bwd():
+            return GN.group_norm_bwd_kernel(dy3, x3, w, b, mean, rstd, 32,
+                                            True)
+        launches = {}
+        for name, fn in (("fwd", fwd), ("bwd", bwd)):
+            _build.reset_launches()
+            fn()
+            launches[name] = {k: v for k, v in _build.launches.items() if v}
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        dy_nchw = dy.permute(0, 3, 1, 2).contiguous()
+        wl, bl = w.to(dt), b.to(dt)
+
+        def lib_fwd():
+            return F.silu(F.group_norm(x_nchw, 32, wl, bl, 1e-5))
+
+        def lib_fwd_bwd():
+            xr, wr, br = (t.detach().requires_grad_()
+                          for t in (x_nchw, wl, bl))
+            out = F.silu(F.group_norm(xr, 32, wr, br, 1e-5))
+            return torch.autograd.grad(out, (xr, wr, br), dy_nchw)
+        rows_out[f"group_norm/{tag}/{str(dt)[6:]}"] = dict(
+            shape=list(x3.shape),
+            fwd=_profiled(torch, fwd, iters=30),
+            bwd=_profiled(torch, bwd, iters=30),
+            fwd_kernels=_kernel_split(torch, fwd, "gn_")["kernels"],
+            bwd_kernels=_kernel_split(torch, bwd, "gn_")["kernels"],
+            fwd_launches=launches["fwd"], bwd_launches=launches["bwd"],
+            library_fwd=_profiled(torch, lib_fwd, iters=30),
+            library_fwd_bwd=_profiled(torch, lib_fwd_bwd, iters=30))
+        del x, dy, x_nchw, dy_nchw
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def _kernel_split(torch, fn, pattern, iters=20):
     """Per call of ``fn`` (torch.profiler): device ms of the kernels whose
     name contains ``pattern``, of the others, and the kernels launched."""
@@ -510,6 +582,7 @@ def main(argv=None):
     ap.add_argument("--sampling", action="store_true")
     ap.add_argument("--softmax", action="store_true")
     ap.add_argument("--rope", action="store_true")
+    ap.add_argument("--group-norm", action="store_true")
     ap.add_argument("--no-flash", action="store_true")
     ap.add_argument("--nvcc", action="store_true")
     ap.add_argument("--out", default=os.path.join("build", "flash_timing"))
@@ -538,6 +611,8 @@ def main(argv=None):
         _build.SOURCES["softmax"] = "softmax.cu"
     if args.rope:
         _build.SOURCES["rope"] = "rope.cu"
+    if args.group_norm:
+        _build.SOURCES["group_norm"] = "group_norm.cu"
     os.makedirs(args.out, exist_ok=True)
     out = dict(label=args.label, root=os.path.abspath(args.root),
                card=torch.cuda.get_device_name(0), rows={})
@@ -608,6 +683,8 @@ def main(argv=None):
         more.append(lambda torch, F, g: _softmax_rows(torch, g))
     if args.rope:
         more.append(lambda torch, F, g: _rope_rows(torch, g))
+    if args.group_norm:
+        more.append(_group_norm_rows)
     for rows_of in more:
         for tag, r in rows_of(torch, F, g).items():
             out["rows"][tag] = r

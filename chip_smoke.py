@@ -13,7 +13,8 @@ It builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (``nvcc``,
 paged kernel's line and its bulk and ``LDGSTS`` copy counts, and the fp8
 Adam kernel's line and its TMA and bulk copy counts, checks that the
 sampler's, the softmax rows kernels' and RoPE's variants use no local
-memory and call out of line at most once and never (``_call_report``),
+memory and call out of line at most once and never, as the GroupNorm
+cluster kernels must, which also need TMA loads (``_call_report``),
 logs the registers and occupancy of the RoPE kernel and the softmax
 backward (``_occupancy_report``), and then runs
 fourteen phases, in the order 1, 2, 3, 6, 7,
@@ -64,9 +65,11 @@ and dropped before 4); any failure exits non-zero.
    sk, a fully masked row, a
    2000-wide row; at sk % 128 != 0 the backward's zeros at every masked
    position), and the GroupNorm(+SiLU) forward and backward at the
-   (8, 64x64, 512) cell in bf16 and fp32 (C = 320, odd spatial, no
-   affine, 2-D, a mean offset of 100; fp32 within 2e-5, bf16 reruns
-   bitwise), with times: the kernel, its plain version, the one
+   (8, 64x64, 512) cell in bf16 and fp32 on the cluster route and a VAE
+   decoder's (1, 512x512, 128) bf16 on the three-pass route (C = 320,
+   odd spatial, no affine, 2-D, a mean offset of 100; fp32 within 2e-5,
+   bf16 reruns bitwise on both routes), with times: the kernel, its
+   plain version, the one
    PyTorch call computing the same function where there is one (a
    yardstick only), and the bound — the larger of bytes over 3.35 TB/s
    and operations over the card's peak rate for their type.
@@ -129,8 +132,10 @@ and dropped before 4); any failure exits non-zero.
    differ reported), masters within 1e-6.
 13. GroupNorm and the attention block at full width: the
    ``GroupNorm(32, 512, act="silu")`` module at (8, 64, 64, 512) bf16
-   forward and backward (ms per call, one launch of each GroupNorm
-   kernel per call); ``SelfMultiheadAttn`` at BERT-Large width (b=16,
+   forward and backward (ms per call, device ms and CUDA kernels per
+   call, one launch of each cluster-route GroupNorm kernel per call), and
+   ``GroupNorm(32, 128, act="silu")`` at (1, 512, 512, 128) bf16 on the
+   three-pass route; ``SelfMultiheadAttn`` at BERT-Large width (b=16,
    s=512, bias, norm-add, key padding; then causal), and
    ``EncdecMultiheadAttn`` and ``FusedDenseGeluDense(4096, 1024)`` on
    the same activations: gradients against the plain path on the card
@@ -205,6 +210,10 @@ KERNELS = {
                            replaces="apex_tpu/ops/group_norm.py:95"),
     "group_norm_bwd": dict(source=_GN,
                            replaces="apex_tpu/ops/group_norm.py:142"),
+    "group_norm_fwd_3pass": dict(source=_GN,
+                                 replaces="apex_tpu/ops/group_norm.py:95"),
+    "group_norm_bwd_3pass": dict(source=_GN,
+                                 replaces="apex_tpu/ops/group_norm.py:142"),
 }
 SERVING_KERNELS = ("layer_norm", "rope", "fused_sampling")
 PAGED_KERNELS = ("paged_attention", "paged_decode_fused")
@@ -1477,40 +1486,53 @@ def _softmax_rows(torch, g, record):
 
 def _group_norm_rows(torch, g, record):
     """B-16 / B-17 against their plain versions on the card: the main
-    shape (8, 64x64, 512), 32 groups, SiLU, fp32 affine, in bf16 and fp32;
-    SD-1.5's C = 320 (cg = 10); odd spatial (3, 7, 9, 96) with 3 groups;
-    no affine and no activation; the 2-D (N, C) case; a mean offset of
-    100 in fp32.  The backward runs from the plain version's statistics.
-    Tolerances: fp32 y and dx within 2e-5; half types within one ulp plus
-    2^-16 of the largest magnitude (near zero the fp32 values' last bits
-    outweigh an ulp of the tiny result); mean within 1e-6 of max(|mean|,
-    1), rstd within 1e-5 relative; dγ, dβ within 2e-5 of their largest
-    entry (sums over the batch in another order).  The bf16 main row is
-    run twice: y, the statistics, dx, dγ and dβ bitwise equal.
+    shape (8, 64x64, 512), 32 groups, SiLU, fp32 affine, in bf16 and fp32,
+    which must take the cluster route (one ``group_norm_fwd`` and one
+    ``group_norm_bwd`` launch); a VAE decoder's (1, 512x512, 128) bf16,
+    whose slab no cluster holds, on the three-pass route
+    (``group_norm_fwd_3pass`` / ``group_norm_bwd_3pass``); SD-1.5's C =
+    320 (cg = 10); odd spatial (3, 7, 9, 96) with 3 groups; no affine and
+    no activation; the 2-D (N, C) case; a mean offset of 100 in fp32.
+    The backward runs from the plain version's statistics.  Tolerances:
+    fp32 y and dx within 2e-5; half types within one ulp plus 2^-16 of
+    the largest magnitude (near zero the fp32 values' last bits outweigh
+    an ulp of the tiny result); mean within 1e-6 of max(|mean|, 1), rstd
+    within 1e-5 relative; dγ, dβ within 2e-5 of their largest entry (sums
+    over the batch in another order).  The bf16 main and VAE rows are run
+    twice: y, the statistics, dx, dγ and dβ bitwise equal, on both routes.
     Yardstick: ``F.silu(F.group_norm(x, 32, w, b))`` on an NCHW-contiguous
     copy of the same data (the copy untimed) — forward, and forward +
     backward for B-17's row; the port never calls it."""
     import torch.nn.functional as F
 
+    from apex_tpu_torch import _build
     from apex_tpu_torch.ops.group_norm import (
         group_norm_bwd_kernel, group_norm_bwd_reference,
         group_norm_fwd_kernel, group_norm_fwd_reference)
 
     dev = torch.device("cuda")
-    cases = [  # tag, shape, groups, silu, affine, dtype, offset, recorded
-        ("main", (8, 64, 64, 512), 32, True, True, torch.bfloat16, 0.0, True),
-        ("main", (8, 64, 64, 512), 32, True, True, torch.float32, 0.0, True),
+    cluster = {"group_norm_fwd": 1, "group_norm_bwd": 1}
+    three = {"group_norm_fwd_3pass": 1, "group_norm_bwd_3pass": 1}
+    cases = [  # tag, shape, groups, silu, affine, dtype, offset, recorded,
+        # the launches of one forward and backward (None: either route)
+        ("main", (8, 64, 64, 512), 32, True, True, torch.bfloat16, 0.0, True,
+         cluster),
+        ("main", (8, 64, 64, 512), 32, True, True, torch.float32, 0.0, True,
+         cluster),
+        ("vae", (1, 512, 512, 128), 32, True, True, torch.bfloat16, 0.0,
+         True, three),
         ("c320", (8, 32, 32, 320), 32, True, True, torch.bfloat16, 0.0,
-         False),
-        ("odd", (3, 7, 9, 96), 3, True, True, torch.float32, 0.0, False),
+         False, three),
+        ("odd", (3, 7, 9, 96), 3, True, True, torch.float32, 0.0, False,
+         None),
         ("plain_norm", (8, 32, 32, 512), 32, False, False, torch.bfloat16,
-         0.0, False),
-        ("2d", (64, 512), 32, True, True, torch.float32, 0.0, False),
+         0.0, False, None),
+        ("2d", (64, 512), 32, True, True, torch.float32, 0.0, False, None),
         ("offset100", (8, 64, 64, 512), 32, True, True, torch.float32, 100.0,
-         False),
+         False, cluster),
     ]
     ok = True
-    for tag, shape, grp, silu, affine, dt, off, main in cases:
+    for tag, shape, grp, silu, affine, dt, off, main, expect in cases:
         c = shape[-1]
         x = (off + torch.randn(shape, generator=g, device=dev)).to(dt)
         dy = torch.randn(shape, generator=g, device=dev).to(dt)
@@ -1521,10 +1543,12 @@ def _group_norm_rows(torch, g, record):
         x3 = x.view(shape[0], -1, c)
         dy3 = dy.view(x3.shape)
         fargs = (x3, w, b, grp, 1e-5, silu)
+        _build.reset_launches()
         y, mean, rstd = group_norm_fwd_kernel(*fargs)
         y_p, mean_p, rstd_p = group_norm_fwd_reference(*fargs)
         bargs = (dy3, x3, w, b, mean_p, rstd_p, grp, silu)
         dx, dw, db = group_norm_bwd_kernel(*bargs)
+        fired = {k: v for k, v in _build.launches.items() if v}
         dx_p, dw_p, db_p = group_norm_bwd_reference(*bargs)
         rerun = True
         if main and dt != torch.float32:
@@ -1533,6 +1557,7 @@ def _group_norm_rows(torch, g, record):
             rerun = all(torch.equal(a, r) for a, r in zip(
                 again, (y, mean, rstd, dx, dw, db)))
         torch.cuda.synchronize()
+        routed = expect is None or fired == expect
 
         def close(got, ref):
             if dt == torch.float32:
@@ -1542,10 +1567,10 @@ def _group_norm_rows(torch, g, record):
         stats_ok = (bool(((mean - mean_p).abs() <= 1e-6 * torch.clamp_min(
             mean_p.abs(), 1.0)).all())
             and bool(((rstd - rstd_p).abs() <= 1e-5 * rstd_p).all()))
-        pf = close(y, y_p) and stats_ok and rerun
+        pf = close(y, y_p) and stats_ok and rerun and routed
         red = all(float((a - r).abs().max()) <= 2e-5 * float(r.abs().max())
                   for a, r in ((dw, dw_p), (db, db_p)))
-        pb = close(dx, dx_p) and red and rerun
+        pb = close(dx, dx_p) and red and rerun and routed
         ef = max(float((y.float() - y_p.float()).abs().max()),
                  float((mean - mean_p).abs().max()))
         eb = max(float((dx.float() - dx_p.float()).abs().max()),
@@ -1555,8 +1580,9 @@ def _group_norm_rows(torch, g, record):
         tol = ("2e-5" if dt == torch.float32 else half) + (
             "; mean 1e-6 of max(|mean|, 1), rstd 1e-5 relative; dγ, dβ "
             "2e-5 of the largest entry")
-        log(f"  group_norm {tag} {shape} {str(dt)[6:]}: fwd err {ef:.3g} "
-            f"{'ok' if pf else 'FAIL'}, bwd err {eb:.3g} "
+        log(f"  group_norm {tag} {shape} {str(dt)[6:]}: launches {fired}"
+            f"{'' if routed else ' (expected ' + str(expect) + ')'}, "
+            f"fwd err {ef:.3g} {'ok' if pf else 'FAIL'}, bwd err {eb:.3g} "
             f"{'ok' if pb else 'FAIL'}" + (f", rerun bitwise {rerun}"
                                            if main else ""))
         if not main:
@@ -1577,19 +1603,20 @@ def _group_norm_rows(torch, g, record):
                           for t in (x_nchw, wl, bl))
             out = F.silu(F.group_norm(xr, grp, wr, br, 1e-5))
             return torch.autograd.grad(out, (xr, wr, br), dy_nchw)
-        ok &= record("group_norm_fwd/main", tuple(x3.shape), dt, ef, pf,
-                     lambda: group_norm_fwd_kernel(*fargs),
+        route = "" if tag == "main" else "_3pass"
+        ok &= record(f"group_norm_fwd{route}/{tag}", tuple(x3.shape), dt, ef,
+                     pf, lambda: group_norm_fwd_kernel(*fargs),
                      lambda: group_norm_fwd_reference(*fargs),
                      2 * n * isz + 2 * c * 4 + stat_bytes, 12 * n, lib_fwd,
                      tol + "; library: F.silu(F.group_norm) forward, NCHW",
-                     iters=20)
-        ok &= record("group_norm_bwd/main", tuple(x3.shape), dt, eb, pb,
-                     lambda: group_norm_bwd_kernel(*bargs),
+                     iters=20, extra=dict(launches=fired))
+        ok &= record(f"group_norm_bwd{route}/{tag}", tuple(x3.shape), dt, eb,
+                     pb, lambda: group_norm_bwd_kernel(*bargs),
                      lambda: group_norm_bwd_reference(*bargs),
                      3 * n * isz + 4 * c * 4 + stat_bytes, 20 * n,
                      lib_fwd_bwd,
                      tol + "; library: F.silu(F.group_norm) forward + "
-                     "backward, NCHW", iters=20)
+                     "backward, NCHW", iters=20, extra=dict(launches=fired))
         del x_nchw, dy_nchw
     torch.cuda.empty_cache()
     return ok
@@ -2891,7 +2918,8 @@ def phase_fp8_identity(torch, steps=3):
 # ------------------------------------------------------------------ #
 # phase 13: GroupNorm and the attention block at full width
 # ------------------------------------------------------------------ #
-GN_KERNELS = ("group_norm_fwd", "group_norm_bwd")
+GN_KERNELS = ("group_norm_fwd", "group_norm_bwd", "group_norm_fwd_3pass",
+              "group_norm_bwd_3pass")
 MHA_KERNELS = ("layer_norm", "layer_norm_bwd", "flash_attention_fwd",
                "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
@@ -2904,6 +2932,22 @@ def _fwd_bwd(torch, module, inputs, dy, **kw):
     params = [p for _, p in module.named_parameters()]
     grads = torch.autograd.grad(out, ins + params, dy)
     return out.detach(), grads
+
+
+def _kernels_per_call(torch, fn, reps=50):
+    """Device ms per call of ``fn`` between CUDA events with the host's
+    enqueue hidden (:func:`queued_event_ms`), and the CUDA kernels a call
+    (torch.profiler over ``reps`` calls; a short window of module calls
+    lost about a third of its kernel events on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = queued_event_ms(torch, fn, 15)   # ~1 ms of enqueue a call
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if _is_kernel(e)]
+    return ms, sum(e.count for e in events) / reps
 
 
 def _grad_rel(torch, got, ref):
@@ -2924,7 +2968,11 @@ def _plain_twin(module, cls, *args, **kw):
 def phase_group_norm_block(torch, reps=10, warmup=3):
     """(a) ``GroupNorm(32, 512, act="silu")`` at (8, 64, 64, 512) bf16,
     forward and backward: ms per call over 10 timed calls after 3 warm-up
-    ones, launches of each GroupNorm kernel per call (one each).  (b)
+    ones, launches of each GroupNorm kernel per call (one each, on the
+    cluster route), device ms per call (CUDA events, the enqueue hidden)
+    and CUDA kernels per call (torch.profiler);
+    then ``GroupNorm(32, 128, act="silu")`` at a VAE decoder's (1, 512,
+    512, 128) bf16, on the three-pass route, the same way.  (b)
     ``SelfMultiheadAttn`` at BERT-Large width (E = 1024, 16 heads, d = 64),
     bias, ``include_norm_add``, a boolean key-padding mask, b = 16, s =
     512, bf16, forward and backward; then one causal call.  (c)
@@ -2999,9 +3047,36 @@ def phase_group_norm_block(torch, reps=10, warmup=3):
                                         device=dev),
           [x], dy, 1e-2, {"group_norm_fwd": 1, "group_norm_bwd": 1})
     ms, host, per = timed_calls(lambda: _fwd_bwd(torch, gn, [x], dy))
+    dev_ms, kernels = _kernels_per_call(
+        torch, lambda: _fwd_bwd(torch, gn, [x], dy))
     stats["group_norm"].update(ms_per_call=ms, host_ms_per_call=host,
-                               launches_timed=per, shape=list(x.shape))
+                               launches_timed=per, shape=list(x.shape),
+                               device_ms_per_call=dev_ms,
+                               cuda_kernels_per_call=kernels)
     log(f"  group_norm fwd+bwd: {ms:.4f} ms per call (host {host:.4f}), "
+        f"device {dev_ms:.5f} ms in {kernels:g} CUDA kernels, launches "
+        f"per call {per}")
+    del x, dy
+    # a VAE decoder's last GroupNorm: no cluster holds its slab
+    vae = GroupNorm(32, 128, act="silu", device=dev)
+    with torch.no_grad():
+        vae.scale.copy_(1 + 0.2 * torch.randn(128, generator=g, device=dev))
+        vae.bias.copy_(0.1 * torch.randn(128, generator=g, device=dev))
+    x = torch.randn(1, 512, 512, 128, generator=g, device=dev).to(bf)
+    dy = torch.randn(x.shape, generator=g, device=dev).to(bf)
+    check("group_norm_vae", vae, _plain_twin(vae, GroupNorm, 32, 128,
+                                             act="silu", device=dev),
+          [x], dy, 1e-2, {"group_norm_fwd_3pass": 1,
+                          "group_norm_bwd_3pass": 1})
+    ms, host, per = timed_calls(lambda: _fwd_bwd(torch, vae, [x], dy))
+    dev_ms, kernels = _kernels_per_call(
+        torch, lambda: _fwd_bwd(torch, vae, [x], dy))
+    stats["group_norm_vae"].update(ms_per_call=ms, host_ms_per_call=host,
+                                   launches_timed=per, shape=list(x.shape),
+                                   device_ms_per_call=dev_ms,
+                                   cuda_kernels_per_call=kernels)
+    log(f"  group_norm_vae fwd+bwd: {ms:.4f} ms per call (host "
+        f"{host:.4f}), device {dev_ms:.5f} ms in {kernels:g} CUDA kernels, "
         f"launches per call {per}")
     del x, dy
 
@@ -3370,12 +3445,16 @@ SASS_COUNTS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
 # instruction every variant needs): the sampler's one call is the IEEE
 # quotient for the load's rare operands (|x| off [2^-60, 2^60]), never
 # inside the selection passes or the draw; the softmax forward's
-# reciprocal has no slow path.  The sampler stages its slice by bulk
-# copy (UBLKCP)
+# reciprocal has no slow path; the GroupNorm cluster kernels' quotients
+# and sigmoid take CUDA's fast paths.  The sampler stages its slice by
+# bulk copy (UBLKCP), the GroupNorm cluster kernels their slabs by TMA
+# (UTMALDG)
 CALL_LIMITS = (("fused_sampling", "sample_cluster_kernel", 1, "UBLKCP"),
                ("softmax", "softmax_fwd_rows_kernel", 0, None),
                ("softmax", "softmax_bwd_rows_kernel", 0, None),
-               ("rope", "rope_kernel", 0, None))
+               ("rope", "rope_kernel", 0, None),
+               ("group_norm", "gn_fwd_cluster_kernel", 0, "UTMALDG"),
+               ("group_norm", "gn_bwd_cluster_kernel", 0, "UTMALDG"))
 
 
 def _hopper_report(_build, build_logs):
@@ -3451,8 +3530,8 @@ def _hopper_report(_build, build_logs):
 
 def _call_report(_build, build_logs):
     """Per variant of the kernels of :data:`CALL_LIMITS`, the counts of
-    ``CALL``, ``LDL``, ``STL`` and ``UBLKCP`` in the built library's SASS
-    and its ``-Xptxas -v`` stack frame and spills.  Raises when a kernel
+    ``CALL``, ``LDL``, ``STL``, ``UBLKCP`` and ``UTMALDG`` in the built
+    library's SASS and its ``-Xptxas -v`` stack frame and spills.  Raises when a kernel
     is missing, uses local memory, calls more often than its limit, or
     lacks the instruction its design needs."""
     import shutil
@@ -3477,7 +3556,7 @@ def _call_report(_build, build_logs):
                 fn = m.group(1) if kind in m.group(1) else None
                 if fn:
                     counts[fn] = dict.fromkeys(("CALL", "LDL", "STL",
-                                                "UBLKCP"), 0)
+                                                "UBLKCP", "UTMALDG"), 0)
             elif fn:
                 for ins in counts[fn]:
                     counts[fn][ins] += ins in line
@@ -3492,10 +3571,11 @@ def _call_report(_build, build_logs):
         out.update(counts)
         worst = {i: max((c[i] for c in counts.values()), default=0)
                  for i in ("CALL", "LDL", "STL")}
-        least = min((c["UBLKCP"] for c in counts.values()), default=0)
+        least = min((c[need] for c in counts.values()), default=0) \
+            if need else 0
         log(f"  {kind} x{len(counts)} variants: CALL <= {worst['CALL']} "
             f"(limit {limit}), LDL {worst['LDL']}, STL {worst['STL']}, "
-            f"UBLKCP >= {least}, stack frame and spills "
+            f"{need or 'copies'} >= {least}, stack frame and spills "
             f"{'0' if all(not any(c['frame_spill_bytes'] or [1]) for c in counts.values()) else 'NONZERO'}")
     if bad:
         raise RuntimeError("local memory or calls in " + "; ".join(bad))
@@ -3683,11 +3763,17 @@ def main(argv=None):
                         "torch.bfloat16"),
         "softmax_bwd": ("softmax_bwd/bert", (16, 16, 512, 512),
                         "torch.bfloat16"),
-        # the GN cell of bench_configs.py: (8, 64x64, 512) bf16, SiLU
+        # the GN cell of bench_configs.py: (8, 64x64, 512) bf16, SiLU, on
+        # the cluster route; a VAE decoder's last GroupNorm (1, 512x512,
+        # 128) bf16 on the three-pass route
         "group_norm_fwd": ("group_norm_fwd/main", (8, 4096, 512),
                            "torch.bfloat16"),
         "group_norm_bwd": ("group_norm_bwd/main", (8, 4096, 512),
                            "torch.bfloat16"),
+        "group_norm_fwd_3pass": ("group_norm_fwd_3pass/vae", (1, 262144, 128),
+                                 "torch.bfloat16"),
+        "group_norm_bwd_3pass": ("group_norm_bwd_3pass/vae", (1, 262144, 128),
+                                 "torch.bfloat16"),
     }
     family = {"layer_norm": ("rms_norm", "layer_norm", "layer_norm/stats"),
               "layer_norm_bwd": ("layer_norm_bwd",),
@@ -3702,7 +3788,9 @@ def main(argv=None):
               "fp8_adam": ("fp8_adam",), "softmax_fwd": ("softmax_fwd",),
               "softmax_bwd": ("softmax_bwd",),
               "group_norm_fwd": ("group_norm_fwd",),
-              "group_norm_bwd": ("group_norm_bwd",)}
+              "group_norm_bwd": ("group_norm_bwd",),
+              "group_norm_fwd_3pass": ("group_norm_fwd_3pass",),
+              "group_norm_bwd_3pass": ("group_norm_bwd_3pass",)}
     kernels = []
     for name, (kname, shape, dt) in pick.items():
         match = [r for r in rows if r["kernel"] == kname and r["dtype"] == dt

@@ -15,6 +15,11 @@
 - A mean offset of 100: the two-pass variance against float64.
 - The checks, the ``GroupNorm`` module against the JAX module with its
   parameters carried over by ``group_norm_params_from_jax``.
+- The route predicate ``cluster_plan``: the main shapes take the cluster
+  route within a CTA's 227 KB and 16 CTAs a cluster, a VAE decoder's
+  512 × 512 slab and SD-1.5's cg = 10 the three-pass route, and every C
+  divisible by the groups gets a route whose geometry the cluster kernels
+  take.
 
 Inputs come from numpy with fixed seeds; JAX gets the values the port's
 dtype rounds them to.  Tolerances: fp32 rtol 2e-5, atol 1e-5 (sums in
@@ -24,6 +29,8 @@ round once; near zero, plus 2^-20 of the largest magnitude).  Tests
 marked ``cuda`` hold the kernels against the plain
 versions on a GPU and skip without one.
 """
+
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -38,11 +45,18 @@ from apex_tpu_torch import _build
 from apex_tpu_torch.models import group_norm_params_from_jax
 from apex_tpu_torch.ops import GroupNorm, group_norm
 from apex_tpu_torch.ops.group_norm import (
+    CLUSTER_SIZES,
+    CLUSTER_THREADS,
+    SMEM_CAP,
+    cluster_plan,
     group_norm_bwd_kernel,
     group_norm_bwd_reference,
     group_norm_fwd_kernel,
     group_norm_fwd_reference,
 )
+
+# the module (the package attribute ``ops.group_norm`` is the function)
+_gn_ops = importlib.import_module("apex_tpu_torch.ops.group_norm")
 
 _JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
@@ -246,7 +260,8 @@ def test_checks():
     with pytest.raises(ValueError, match="not divisible"):
         GroupNorm(3, 10, device="cpu")
     assert _build.SOURCES["group_norm"] == "group_norm.cu"
-    assert {"group_norm_fwd", "group_norm_bwd"} <= set(_build.launches)
+    assert {"group_norm_fwd", "group_norm_bwd", "group_norm_fwd_3pass",
+            "group_norm_bwd_3pass"} <= set(_build.launches)
     # the JAX package raises the same way
     with pytest.raises(ValueError, match="not divisible"):
         jax_group_norm(jnp.zeros((1, 2, 2, 10)), 3)
@@ -288,6 +303,131 @@ def test_module_defaults_match_jax():
 
 
 # ------------------------------------------------------------------ #
+# the route predicate (plain Python: which kernels a call launches)
+# ------------------------------------------------------------------ #
+# clusters at once by size on a card that runs every size (the H100 runs
+# 7 clusters of 16 CTAs that fill an SM each, 15 of 8, 30 of 4)
+_CAPACITY = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+
+
+def _pow2(v):
+    return v > 0 and v & (v - 1) == 0
+
+
+def _plan_ok(plan, batch, rows, c, g, itemsize, backward):
+    """The geometry the cluster kernels take (csrc/group_norm.cu
+    ``cluster_ok``): whole groups of 16-byte vectors, a span dividing C,
+    every row of a sample in the cluster, the tile within a CTA."""
+    vec, cg = 16 // itemsize, c // g
+    assert cg % vec == 0 and _pow2(cg // vec)
+    assert plan.span % cg == 0 and c % plan.span == 0
+    # a power-of-two count of vectors a row, at most a warp's
+    assert _pow2(plan.span // vec) and plan.span // vec <= 32
+    assert plan.cluster in CLUSTER_SIZES and plan.cluster <= 16
+    ty = CLUSTER_THREADS // (plan.span // vec)
+    ty = 1 << (ty.bit_length() - 1)      # whole TMA boxes: a power of two
+    assert plan.rows_per_cta == plan.k * ty
+    assert plan.cluster * plan.rows_per_cta >= rows
+    # the ring's stages of the CTA's share of a slab fit a CTA
+    assert plan.tile_bytes <= SMEM_CAP
+    assert 3 * plan.tile_bytes <= plan.ring_bytes <= SMEM_CAP - 12 * 1024
+    assert plan.k in ((1, 2, 4) if backward else (1, 2, 4, 8))
+    slabs = batch * (c // plan.span)
+    assert slabs * plan.cluster < 2 ** 31
+    assert 1 <= plan.clusters <= min(slabs, _CAPACITY[plan.cluster])
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_main_shape_takes_the_cluster_route(itemsize, backward):
+    """(8, 64×64, 512), 32 groups: one cluster of at most 16 CTAs a slab,
+    a CTA's tile and ring within 227 KB."""
+    plan = cluster_plan(8, 4096, 512, 32, itemsize, backward, _CAPACITY)
+    assert plan is not None
+    _plan_ok(plan, 8, 4096, 512, 32, itemsize, backward)
+    # the narrowest whole groups of at least 32 (forward) or 64 (backward)
+    # bytes a row: one group of 16 channels, or two in the bf16 backward
+    assert plan.span == (32 if backward and itemsize == 2 else 16)
+    assert plan.tile_bytes == plan.rows_per_cta * plan.span * itemsize * (
+        2 if backward else 1)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_vae_decoder_slab_takes_the_three_pass_route(itemsize, backward):
+    """(1, 512×512, 128): a slab of 262144 rows exceeds 16 CTAs."""
+    assert cluster_plan(1, 512 * 512, 128, 32, itemsize, backward,
+                        _CAPACITY) is None
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape,g,route", [
+    ((8, 32 * 32, 320), 32, None),        # SD-1.5: cg = 10, not whole vectors
+    ((3, 7 * 9, 96), 3, "cluster"),
+    ((64, 1, 512), 32, "cluster"),        # the 2-D (N, C) case
+    ((2, 16 * 16, 512), 32, "cluster"),
+])
+def test_edge_shapes_get_a_route(shape, g, route, itemsize, backward):
+    n, rows, c = shape
+    plan = cluster_plan(n, rows, c, g, itemsize, backward, _CAPACITY)
+    assert (plan is not None) == (route == "cluster")
+    if plan is not None:
+        _plan_ok(plan, n, rows, c, g, itemsize, backward)
+
+
+def test_capacity_decides_the_cluster_size():
+    """The smallest cluster the card runs that holds the slab: without
+    clusters of 8 the bf16 backward at the main shape takes a narrower
+    span, whose CTAs hold more rows; with no cluster at all, nothing takes
+    the cluster route."""
+    no8 = {k: v for k, v in _CAPACITY.items() if k != 8}
+    bwd = cluster_plan(8, 4096, 512, 32, 2, True, _CAPACITY)
+    assert (bwd.span, bwd.cluster) == (32, 8)
+    bwd = cluster_plan(8, 4096, 512, 32, 2, True, no8)
+    assert (bwd.span, bwd.cluster) == (32, 16)
+    bwd = cluster_plan(8, 4096, 512, 32, 2, True, {4: 30})
+    assert (bwd.span, bwd.cluster) == (16, 4)
+    fwd = cluster_plan(8, 4096, 512, 32, 2, False, no8)
+    assert fwd is not None and (fwd.span, fwd.cluster) == (16, 2)
+    assert cluster_plan(8, 4096, 512, 32, 4, False, {}) is None
+    small = cluster_plan(2, 63, 96, 3, 4, True, {1: 1})
+    assert small is not None and (small.cluster, small.clusters) == (1, 1)
+
+
+_SWEEP = [(c, g) for c in (8, 16, 24, 32, 40, 64, 96, 128, 192, 256, 320,
+                           384, 512, 640, 768, 960, 1024, 1280, 2048, 2560)
+          for g in (1, 2, 4, 8, 16, 32) if c % g == 0]
+
+
+@pytest.mark.parametrize("c,g", _SWEEP)
+def test_every_divisible_channel_count_gets_a_route(c, g):
+    """Every C divisible by the groups: the cluster route with a geometry
+    the kernels take, or the three-pass route (which takes any such C)
+    exactly where a group is not a power-of-two count of 16-byte vectors
+    or no span of whole groups fits a slab."""
+    for itemsize in (2, 4):
+        vec, cg = 16 // itemsize, c // g
+        spans = [s for s in range(cg, min(c, 32 * vec) + 1, cg)
+                 if c % s == 0 and _pow2(s // vec)]
+        for backward in (False, True):
+            kmax = 4 if backward else 8
+            for rows in (1, 63, 4096, 512 * 512):
+                plan = cluster_plan(3, rows, c, g, itemsize, backward,
+                                    _CAPACITY)
+                whole = cg % vec == 0 and _pow2(cg // vec)
+                if plan is None and whole and spans:
+                    # no span's slab fits 16 CTAs, the narrowest included
+                    ty = CLUSTER_THREADS // (min(spans) // vec)
+                    ty = 1 << (ty.bit_length() - 1)
+                    assert rows > 16 * kmax * ty
+                elif plan is None:
+                    assert not whole or not spans
+                else:
+                    _plan_ok(plan, 3, rows, c, g, itemsize, backward)
+
+
+# ------------------------------------------------------------------ #
 # the CUDA kernels against their plain versions (GPU only)
 # ------------------------------------------------------------------ #
 @pytest.fixture
@@ -304,6 +444,8 @@ def cuda_device():
     ((2, 8, 8, 320), 32, "silu"),
     ((3, 7, 9, 96), 3, None),
     ((16, 64), 8, "silu"),
+    ((8, 64, 64, 512), 32, "silu"),       # the main shape: cluster route
+    ((1, 512, 512, 128), 32, "silu"),     # a VAE decoder's: three-pass
 ])
 def test_kernels_match_plain_on_card(shape, g, act, dtype, cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(1)
@@ -313,12 +455,26 @@ def test_kernels_match_plain_on_card(shape, g, act, dtype, cuda_device):
     w = 1 + 0.2 * torch.randn(c, generator=gen, device=cuda_device)
     b = 0.1 * torch.randn(c, generator=gen, device=cuda_device)
     silu = act == "silu"
+    _build.reset_launches()
     y, m, r = group_norm_fwd_kernel(_x3(x), w, b, g, 1e-5, silu)
     y2, m2, r2 = group_norm_fwd_reference(_x3(x), w, b, g, 1e-5, silu)
     dx, dw, db = group_norm_bwd_kernel(_x3(dy), _x3(x), w, b, m2, r2, g,
                                        silu)
     dx2, dw2, db2 = group_norm_bwd_reference(_x3(dy), _x3(x), w, b, m2, r2,
                                              g, silu)
+    # the route cluster_plan picks is the one that launched
+    n, rows = _x3(x).shape[:2]
+    for name, backward in (("group_norm_fwd", False),
+                           ("group_norm_bwd", True)):
+        cluster = _gn_ops._route(_x3(x), g, backward) is not None
+        assert _build.launches[name] == int(cluster)
+        assert _build.launches[name + "_3pass"] == int(not cluster)
+    if shape == (8, 64, 64, 512):
+        assert _build.launches["group_norm_fwd"] == 1
+        assert _build.launches["group_norm_bwd"] == 1
+    if shape == (1, 512, 512, 128):
+        assert _build.launches["group_norm_fwd_3pass"] == 1
+        assert _build.launches["group_norm_bwd_3pass"] == 1
     torch.testing.assert_close(m, m2, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(r, r2, rtol=1e-5, atol=0)
     for got, ref in ((y, y2), (dx, dx2)):
@@ -330,3 +486,8 @@ def test_kernels_match_plain_on_card(shape, g, act, dtype, cuda_device):
     for got, ref in ((dw, dw2), (db, db2)):
         torch.testing.assert_close(got, ref, rtol=0,
                                    atol=2e-5 * float(ref.abs().max()))
+    # a rerun gives the same bits on either route
+    again = group_norm_fwd_kernel(_x3(x), w, b, g, 1e-5, silu) + \
+        group_norm_bwd_kernel(_x3(dy), _x3(x), w, b, m2, r2, g, silu)
+    for a, ref in zip(again, (y, m, r, dx, dw, db)):
+        assert torch.equal(a, ref)
