@@ -27,7 +27,9 @@ fp32, then the affine and the optional SiLU, cast once to ``x.dtype``.
   once; launches counted under ``group_norm_fwd`` / ``group_norm_bwd``)
   where a sample's slab fits 16 CTAs and a group is a power-of-two count
   of 16-byte vectors, else the three-pass route
-  (``group_norm_fwd_3pass`` / ``group_norm_bwd_3pass``).
+  (``group_norm_fwd_3pass`` / ``group_norm_bwd_3pass``), which takes
+  every GroupNorm of SD-1.5's and SDXL's UNets (groups of 10, 20 and 40
+  channels) and a VAE decoder's large maps.
 
 The JAX kernels' envelope (``C % 128 == 0``, ``C <= 1024``, an 8-aligned
 divisor of the spatial extent) is a TPU tiling rule: the port's kernels
@@ -52,7 +54,7 @@ from apex_tpu_torch.ops._dispatch import resolve_device, resolve_impl
 __all__ = ["group_norm", "group_norm_reference", "GroupNorm",
            "group_norm_fwd_reference", "group_norm_bwd_reference",
            "group_norm_fwd_kernel", "group_norm_bwd_kernel",
-           "ClusterPlan", "cluster_plan"]
+           "ClusterPlan", "cluster_plan", "rows_per_cta"]
 
 _ACTS = (None, "silu")
 _THREADS = 256
@@ -60,6 +62,13 @@ _THREADS = 256
 # one partial row per block, so they take fewer
 _REDUCE_BLOCKS_PER_SM = 4
 _MAP_BLOCKS_PER_SM = 8
+# the fold after a statistics pass merges chunks x cg partials of a
+# (sample, group) in one warp, whose merges are serial: at most this many
+# a lane (fewer chunks), unless a thread of the statistics pass would then
+# walk more than _MAX_THREAD_ROWS rows (the sweep on the H100: SD-1.5's
+# UNet widths fastest near 8 a lane, larger maps near 16-32 rows a thread)
+_FOLD_PER_LANE = 8
+_MAX_THREAD_ROWS = 32
 
 # the cluster route (csrc/group_norm.cu kClusterThreads, kMaxCluster):
 # threads a CTA, CTAs a cluster
@@ -70,17 +79,15 @@ CLUSTER_SIZES = (1, 2, 4, 8, 16)
 #: (more of them fit the card at once); the backward, which stages dy and
 #: x, ran fastest at 64 bytes in bf16 on the H100
 SPAN_BYTES = {False: 32, True: 64}
-#: a thread's 16-byte vectors (K) each direction's variants take: a
-#: CTA's ring holds two stages of K x 8 KB an operand (x; dy and x)
-FWD_KS = (1, 2, 4, 8)
-BWD_KS = (1, 2, 4)
-#: shared memory a CTA may hold on an H100
-SMEM_CAP = 227 * 1024
-#: ring stages a CTA holds (csrc/group_norm.cu kStages), and the dynamic
-#: shared memory its ring (and the backward's per-warp sums) may take:
-#: the cap less the kernels' static shared memory (under 10 KB)
-STAGES = 3
-RING_CAP = SMEM_CAP - 12 * 1024
+#: 16-byte vectors a thread holds of a slab, forward / backward
+#: (csrc/group_norm.cu kFwdK, kBwdK): a CTA's ring holds three stages of
+#: K x 8 KB an operand (x; dy and x)
+THREAD_VECTORS = {False: 8, True: 4}
+#: the widest span a slab may take: 32 vectors, and 128 channels in the
+#: backward, whose per-warp sums share the CTA's shared memory with the
+#: ring (kMaxSpan, kMaxBwdSpan)
+MAX_SPAN_VECTORS = 32
+MAX_BWD_SPAN = 128
 
 
 def _check(c: int, num_groups: int, act) -> None:
@@ -183,11 +190,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _geometry(x3, *others):
+def _geometry(x3, num_groups, *others):
     """``(vec, chunks, map_chunks)`` of csrc/group_norm.cu's layout:
     16-byte vectors of channels when C and every pointer allow it, and
-    enough row chunks per sample for the statistics and the map passes to
-    fill every SM."""
+    enough row chunks per sample for the map pass to fill every SM; the
+    statistics passes fill the SMs too, but take no more chunks than keep
+    their fold within :data:`_FOLD_PER_LANE` merges a lane, unless a
+    thread would then walk more than :data:`_MAX_THREAD_ROWS` rows."""
     n, rows, c = x3.shape
     vec = 16 // x3.element_size()
     if c % vec or any(t.data_ptr() % 16 for t in (x3,) + others):
@@ -197,37 +206,24 @@ def _geometry(x3, *others):
     ty = _THREADS // tx
     tiles = -(-cv // tx)
     sms = _sm_count(x3.device.index or 0)
+    steps = -(-rows // ty)
 
     def chunks(per_sm):
         want = -(-per_sm * sms // (tiles * n))
-        return max(1, min(-(-rows // ty), want))
-    return vec, chunks(_REDUCE_BLOCKS_PER_SM), chunks(_MAP_BLOCKS_PER_SM)
+        return max(1, min(steps, want))
+    fold = max(1, 32 * _FOLD_PER_LANE // (c // num_groups))
+    reduce = max(-(-steps // _MAX_THREAD_ROWS),
+                 min(chunks(_REDUCE_BLOCKS_PER_SM), fold))
+    return vec, reduce, chunks(_MAP_BLOCKS_PER_SM)
 
 
 class ClusterPlan(NamedTuple):
     """Geometry of a cluster-route launch: ``span`` channels (whole
-    groups) a slab, ``k`` 16-byte vectors a thread, ``cluster`` CTAs of
-    :data:`CLUSTER_THREADS` a slab (``cluster * rows_per_cta`` ≥ the rows),
-    ``clusters`` persistent clusters walking the slabs, the bytes of a
-    CTA's share of a slab (``tile_bytes``, one ring stage's data) and of
-    the CTA's dynamic shared memory (``ring_bytes``: :data:`STAGES`
-    stages, and the backward's per-warp sums)."""
+    groups) a slab, ``cluster`` CTAs of :data:`CLUSTER_THREADS` a slab,
+    ``clusters`` persistent clusters walking the slabs."""
     span: int
-    k: int
     cluster: int
-    rows_per_cta: int
-    tile_bytes: int
     clusters: int
-    ring_bytes: int = 0
-
-
-def _ring_bytes(backward: bool, k: int, span: int) -> int:
-    """csrc/group_norm.cu ``ring_bytes``: STAGES stages of K rows of
-    16-byte vectors a thread (dy and x, or x), and 16 warps' per-channel
-    sums in the backward."""
-    ops = 2 if backward else 1
-    return (STAGES * ops * k * CLUSTER_THREADS * 16
-            + (16 * span * 8 if backward else 0))
 
 
 def _pow2(v: int) -> bool:
@@ -239,9 +235,11 @@ def _spans(c: int, cg: int, itemsize: int, backward: bool):
     fewest groups reaching :data:`SPAN_BYTES` of each row (or the widest
     where none does), then narrower ones, whose CTAs hold more rows.  A
     span is a power-of-two count of 16-byte vectors, at most a warp's 32
-    (the kernels' shuffle trees)."""
+    (the kernels' shuffle trees) and :data:`MAX_BWD_SPAN` channels in the
+    backward."""
     vec = 16 // itemsize
-    spans = [s for s in range(cg, min(c, 32 * vec) + 1, cg)
+    top = min(c, MAX_SPAN_VECTORS * vec, MAX_BWD_SPAN if backward else c)
+    spans = [s for s in range(cg, top + 1, cg)
              if c % s == 0 and _pow2(s // vec)]
     if not spans:
         return []
@@ -250,11 +248,14 @@ def _spans(c: int, cg: int, itemsize: int, backward: bool):
     return [first] + [s for s in reversed(spans) if s < first]
 
 
-def _row_lanes(tx: int) -> int:
-    """Row lanes of a CTA ``tx`` column vectors wide (csrc/group_norm.cu
-    ``row_lanes``): the largest power of two that fits the block, so a
-    CTA's rows are whole TMA boxes."""
-    return 1 << ((CLUSTER_THREADS // tx).bit_length() - 1)
+def rows_per_cta(span: int, itemsize: int, backward: bool) -> int:
+    """Rows of a slab a cluster-route CTA holds: K vectors a thread times
+    its row lanes (csrc/group_norm.cu ``row_lanes``: the largest power of
+    two of rows ``span`` channels wide that fits the block, so a CTA's
+    rows are whole TMA boxes)."""
+    tx = span * itemsize // 16
+    lanes = 1 << ((CLUSTER_THREADS // tx).bit_length() - 1)
+    return THREAD_VECTORS[backward] * lanes
 
 
 def cluster_plan(batch: int, rows: int, c: int, num_groups: int,
@@ -264,34 +265,25 @@ def cluster_plan(batch: int, rows: int, c: int, num_groups: int,
     for the cluster route, or None for the three-pass route.
 
     The cluster route takes a sample's ``rows`` x ``span`` slab in one
-    cluster of at most 16 CTAs, each thread holding ``k`` 16-byte vectors
-    of one group: a group's channels must be a power-of-two count of
-    whole vectors (``C / G`` of ``16 / itemsize`` channels each), and the
-    slab must fit ``cluster * k`` rows of vectors a thread.
-    ``capacity``: ``{cluster size: clusters the card runs at once}`` of
-    the direction's largest variant (0 or absent: that size does not
-    fit).  Spans in the order of :func:`_spans`; for each, the smallest
-    cluster that holds the slab, then the fewest vectors a thread."""
+    cluster of at most 16 CTAs of :func:`rows_per_cta` rows each, each
+    thread holding 16-byte vectors of one group: a group's channels must
+    be a power-of-two count of whole vectors (``C / G`` of ``16 /
+    itemsize`` channels each).  ``capacity``: ``{cluster size: clusters
+    the card runs at once}`` of the direction's kernel (0 or absent: that
+    size does not fit).  Spans in the order of :func:`_spans`; for each,
+    the smallest cluster that holds the slab."""
     vec = 16 // itemsize
     cg = c // num_groups
     if (rows <= 0 or batch <= 0 or c % num_groups or cg % vec
             or not _pow2(cg // vec)):
         return None
-    ks = BWD_KS if backward else FWD_KS
-    ops = 2 if backward else 1   # operands a stage holds: dy and x, or x
     for span in _spans(c, cg, itemsize, backward):
-        ty = _row_lanes(span // vec)
+        per = rows_per_cta(span, itemsize, backward)
         slabs = batch * (c // span)
         for cl in CLUSTER_SIZES:
-            if capacity.get(cl, 0) <= 0 or slabs * cl >= 2 ** 31:
-                continue
-            for k in ks:
-                per = k * ty
-                ring = _ring_bytes(backward, k, span)
-                if cl * per >= rows and ring <= RING_CAP:
-                    return ClusterPlan(span, k, cl, per,
-                                       per * span * itemsize * ops,
-                                       min(slabs, capacity[cl]), ring)
+            if (capacity.get(cl, 0) > 0 and cl * per >= rows
+                    and slabs * cl < 2 ** 31):
+                return ClusterPlan(span, cl, min(slabs, capacity[cl]))
     return None
 
 
@@ -299,8 +291,8 @@ _CAPACITY = {}
 
 
 def _capacity(dev, dtype, backward: bool):
-    """``{cluster size: clusters at once}`` of the cluster route's largest
-    variant of a direction on ``dev`` (asked of the card once per device,
+    """``{cluster size: clusters at once}`` of a direction's cluster
+    kernel on ``dev`` (asked of the card once per device,
     dtype and direction)."""
     key = (dev.index, dtype, backward)
     if key not in _CAPACITY:
@@ -409,15 +401,15 @@ def group_norm_fwd_kernel(x3, weight, bias, num_groups: int,
     plan = _route(x3, num_groups, False, y)
     if plan is not None:
         fn = _build.function("group_norm", "apex_gn_fwd_cluster",
-                             [_PTR] * 6 + [_I64] + [_I32] * 7 + [
+                             [_PTR] * 6 + [_I64] + [_I32] * 6 + [
                                  _F32, _I32, _I32, _PTR])
         code = fn(x3.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                   mean.data_ptr(), rstd.data_ptr(), n, rows, c, num_groups,
-                  plan.span, plan.k, plan.cluster, plan.clusters, float(eps),
+                  plan.span, plan.cluster, plan.clusters, float(eps),
                   int(silu), xt, _stream(x3))
         _build.check(code, "group_norm_fwd")
         return y, mean, rstd
-    vec, chunks, map_chunks = _geometry(x3, y)
+    vec, chunks, map_chunks = _geometry(x3, num_groups, y)
     part = torch.empty(n, chunks, 2, c, dtype=torch.float32,
                        device=x3.device)
     fn = _build.function("group_norm", "apex_gn_fwd",
@@ -451,17 +443,17 @@ def group_norm_bwd_kernel(dy3, x3, weight, bias, mean, rstd,
         ws = torch.empty(n, c, 2, dtype=torch.float32, device=x3.device)
         tickets = _tickets(x3.device, c // plan.span)
         fn = _build.function("group_norm", "apex_gn_bwd_cluster",
-                             [_PTR] * 11 + [_I64] + [_I32] * 7 + [
+                             [_PTR] * 11 + [_I64] + [_I32] * 6 + [
                                  _F32, _I32, _I32, _PTR])
         code = fn(dy3.data_ptr(), x3.data_ptr(), w.data_ptr(), b.data_ptr(),
                   mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
                   dw.data_ptr(), db.data_ptr(), ws.data_ptr(),
                   tickets.data_ptr(), n, rows, c, num_groups, plan.span,
-                  plan.k, plan.cluster, plan.clusters, inv, int(silu), xt,
+                  plan.cluster, plan.clusters, inv, int(silu), xt,
                   _stream(x3))
         _build.check(code, "group_norm_bwd")
         return dx, dw, db
-    vec, chunks, map_chunks = _geometry(x3, dy3, dx)
+    vec, chunks, map_chunks = _geometry(x3, num_groups, dy3, dx)
     part = torch.empty(n, chunks, 2, c, dtype=torch.float32,
                        device=x3.device)
     coef = torch.empty(n, num_groups, 2, dtype=torch.float32,

@@ -67,12 +67,14 @@ into the projection, and the one-operand backward at (1, 512, 32, 128).
 GroupNorm(+SiLU) forward (B-16) and backward (B-17, from the plain
 version's statistics) as the checkout's wrappers launch them, at
 (8, 64x64, 512), 32 groups, fp32 affine, in bf16 and fp32 (the cluster
-route where the checkout has one) and at a VAE decoder's (1, 512x512,
-128) bf16 (the three-pass route): device ms (torch.profiler) and call ms
-(CUDA events), the CUDA kernels a call and the launch counts by entry;
-beside them ``F.silu(F.group_norm)`` on an NCHW copy of the same data,
-forward and forward + backward, as the yardstick (the port never calls
-it).
+route where the checkout has one), at a VAE decoder's (1, 512x512, 128)
+bf16 and at the UNet widths of SD-1.5 (batch 2 at 64x64x320, 32x32x640,
+16x16x1280) and SDXL (2, 128x128, 320), bf16, whose groups of 10, 20 and
+40 channels take the three-pass route: device ms (torch.profiler) and
+call ms (CUDA events), the byte bound (each operand once at 3.35 TB/s),
+the CUDA kernels a call and the launch counts by entry; beside them
+``F.silu(F.group_norm)`` on an NCHW copy of the same data, forward and
+forward + backward, as the yardstick (the port never calls it).
 ``--no-flash`` leaves the flash library out
 (neither built nor timed).
 ``--nvcc`` first times ``nvcc`` on ``flash_attention.cu`` alone, once with
@@ -422,11 +424,12 @@ def _softmax_rows(torch, g):
 
 
 def _group_norm_rows(torch, F, g):
-    """``{tag: {"fwd" | "bwd": (device ms, call ms), "fwd_kernels" |
-    "bwd_kernels": CUDA kernels a call, "fwd_launches" | "bwd_launches":
+    """``{tag: {"fwd" | "bwd": (device ms, call ms), "fwd_split" |
+    "bwd_split": CUDA kernels a call and device ms by kernel
+    (:func:`_kernel_split`), "fwd_launches" | "bwd_launches":
     launches by entry, "library_fwd" | "library_fwd_bwd": ...}}`` of the
-    GroupNorm kernels at the main shape in bf16 and fp32 and at a VAE
-    decoder's bf16 shape."""
+    GroupNorm kernels at the main shape in bf16 and fp32, at a VAE
+    decoder's bf16 shape and at SD-1.5's and SDXL's UNet widths."""
     import importlib
 
     from apex_tpu_torch import _build
@@ -436,7 +439,11 @@ def _group_norm_rows(torch, F, g):
     rows_out = {}
     for tag, shape, dt in (("main", (8, 64, 64, 512), torch.bfloat16),
                            ("main", (8, 64, 64, 512), torch.float32),
-                           ("vae", (1, 512, 512, 128), torch.bfloat16)):
+                           ("vae", (1, 512, 512, 128), torch.bfloat16),
+                           ("sd15_320", (2, 64, 64, 320), torch.bfloat16),
+                           ("sd15_640", (2, 32, 32, 640), torch.bfloat16),
+                           ("sd15_1280", (2, 16, 16, 1280), torch.bfloat16),
+                           ("sdxl_320", (2, 128, 128, 320), torch.bfloat16)):
         c = shape[-1]
         x = torch.randn(shape, generator=g, device=dev).to(dt)
         dy = torch.randn(shape, generator=g, device=dev).to(dt)
@@ -468,12 +475,17 @@ def _group_norm_rows(torch, F, g):
                           for t in (x_nchw, wl, bl))
             out = F.silu(F.group_norm(xr, 32, wr, br, 1e-5))
             return torch.autograd.grad(out, (xr, wr, br), dy_nchw)
+        # each operand read or written once: x and y (dy, x and dx), the
+        # fp32 affine (and dγ, dβ) and the statistics
+        n_el, isz, stat = x.numel(), x.element_size(), 2 * shape[0] * 32 * 4
         rows_out[f"group_norm/{tag}/{str(dt)[6:]}"] = dict(
             shape=list(x3.shape),
+            bound_fwd=(2 * n_el * isz + 2 * c * 4 + stat) / 3.35e9,
+            bound_bwd=(3 * n_el * isz + 4 * c * 4 + stat) / 3.35e9,
             fwd=_profiled(torch, fwd, iters=30),
             bwd=_profiled(torch, bwd, iters=30),
-            fwd_kernels=_kernel_split(torch, fwd, "gn_")["kernels"],
-            bwd_kernels=_kernel_split(torch, bwd, "gn_")["kernels"],
+            fwd_split=_kernel_split(torch, fwd, "gn_"),
+            bwd_split=_kernel_split(torch, bwd, "gn_"),
             fwd_launches=launches["fwd"], bwd_launches=launches["bwd"],
             library_fwd=_profiled(torch, lib_fwd, iters=30),
             library_fwd_bwd=_profiled(torch, lib_fwd_bwd, iters=30))
@@ -484,7 +496,8 @@ def _group_norm_rows(torch, F, g):
 
 def _kernel_split(torch, fn, pattern, iters=20):
     """Per call of ``fn`` (torch.profiler): device ms of the kernels whose
-    name contains ``pattern``, of the others, and the kernels launched."""
+    name contains ``pattern``, of the others, of each kernel by name (its
+    first 60 characters), and the kernels launched."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -494,6 +507,7 @@ def _kernel_split(torch, fn, pattern, iters=20):
             fn()
         torch.cuda.synchronize()
     mine = other = count = 0
+    by_kernel = {}
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
             continue
@@ -501,8 +515,10 @@ def _kernel_split(torch, fn, pattern, iters=20):
         mine += us if pattern in e.key else 0
         other += 0 if pattern in e.key else us
         count += e.count
+        name = e.key[:60]
+        by_kernel[name] = by_kernel.get(name, 0.0) + us / iters / 1e3
     return dict(match_ms=mine / iters / 1e3, other_ms=other / iters / 1e3,
-                kernels=count / iters)
+                kernels=count / iters, by_kernel=by_kernel)
 
 
 def _rope_rows(torch, g):

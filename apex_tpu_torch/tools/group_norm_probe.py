@@ -5,27 +5,25 @@ Run on a machine with an NVIDIA Hopper card, from the root of a checkout:
 
     python3 apex_tpu_torch/tools/group_norm_probe.py [--out DIR]
 
-1. Phase trace.  An instrumented copy of ``csrc/group_norm.cu`` (thread 0
-   of every CTA writes ``clock64()`` at the phase boundaries of each slab
-   round into a device array; the marks are inserted by string
-   replacement, as ``softmax_probe.py`` builds its variants) is built
-   beside the package and run at (8, 64x64, 512), 32 groups, SiLU, fp32
-   affine, bf16 and fp32, forward and backward, on the plan
-   ``cluster_plan`` picks.  Per direction: mean cycles of each phase a
-   round, rounds a CTA, the wait for the staged slab by round, and the
-   cycles a CTA runs.  Forward phases: round start to the staged slab
+1. Phase trace.  ``csrc/group_norm.cu`` is built once more with its
+   ``GN_MARK`` phase marks defined (thread 0 of every CTA writes
+   ``clock64()`` at the phase boundaries of each slab round into a device
+   array), under ``build/group_norm_probe``, and run at (8, 64x64, 512),
+   32 groups, SiLU, fp32 affine, bf16 and fp32, forward and backward, on
+   the plan ``cluster_plan`` picks.  Per direction: mean cycles of each
+   phase a round, rounds a CTA, the wait for the staged slab by round,
+   and the cycles a CTA runs.  Forward phases: round start to the staged slab
    (wait), the thread statistics and the warps' trees, the cross-warp
    tree, the cluster barrier, the ranks' merge, normalise and store.
    Backward: wait, pass 1 (dy' and xhat), the per-channel trees, the
    cluster barrier, the ranks' gather and c1 / c2, dx, the ticket and
    dgamma / dbeta.
 2. Plan sweep.  Device ms (torch.profiler) of the uninstrumented kernels
-   at the same shape on other slab geometries (span, vectors a thread,
-   cluster size; as many clusters as the card runs at once), beside the
-   three-pass route, with the largest difference from the plain version.
+   at the same shape on other slab geometries (span, cluster size; as
+   many clusters as the card runs at once), beside the three-pass route,
+   with the largest difference from the plain version.
 
-Update the replacement strings when the source changes (the script
-fails on a missing one).  The record goes to ``<--out>/group_norm_probe.json``.
+The record goes to ``<--out>/group_norm_probe.json``.
 """
 
 from __future__ import annotations
@@ -43,107 +41,53 @@ ROUNDS = 8          # rounds traced a CTA
 MARKS = 9           # clock64 slots a round (the last holds the SM id)
 MAX_CTAS = 4096
 
-FWD_MARKS = [  # (anchor, mark, before / after the anchor)
-    ("    const int st = it % kStages;\n"
-     "    const int n = q / spans, s0 = (q % spans) * span;\n", 0, "after"),
-    ("    const T* tile = reinterpret_cast<const T*>(ring + st * kOp);\n", 1,
-     "before"),
-    ("    if (t < 16 * l.gs) {\n      acc = wp[t & 15][t >> 4];", 2,
-     "before"),
-    ("    // part[it & 1] was last read two slabs ago", 3, "before"),
-    ("    // every CTA merges the ranks' partials by one fixed tree", 4,
-     "before"),
-    ("    if (l.live) {\n      // z = (x - mean) * (rstd * w) + b", 5,
-     "before"),
-    ("    __syncthreads();   // the stage, sw, sb, shift, stat and wp are "
-     "free again\n", 6, "before"),
-    ("    __syncthreads();   // the stage, sw, sb, shift, stat and wp are "
-     "free again\n", 7, "after"),
-]
 FWD_PHASES = ["wait", "stats_and_warp_trees", "cross_warp_tree",
               "cluster_barrier", "rank_merge", "normalise_store", "end_sync"]
-BWD_MARKS = [
-    ("    const int st = it % kStages;\n"
-     "    const int n = q / spans, sp = q % spans, s0 = sp * span;\n", 0,
-     "after"),
-    ("    T* tdy = reinterpret_cast<T*>(ring + st * 2 * kOp);\n", 1,
-     "before"),
-    ("    // the CTA's per-channel sums by fixed trees", 2, "before"),
-    ("    cluster.sync();\n    // the sample's per-channel sums", 3,
-     "before"),
-    ("    // the sample's per-channel sums, the ranks in order", 4, "before"),
-    ("    // pass 2: dx from the resident dy' and xhat\n", 5, "before"),
-    ("    // the last sample of the span to arrive sums dgamma / dbeta", 6,
-     "before"),
-    ("    __syncthreads();   // the stage, red, sw, sb, tot, coef, last "
-     "free again\n", 7, "after"),
-]
 BWD_PHASES = ["wait", "pass1", "channel_trees", "cluster_barrier",
               "rank_gather_c1_c2", "dx", "ticket_dgamma_dbeta"]
-HEAD = f"""
-__device__ long long gn_trace[{MAX_CTAS} * {ROUNDS} * {MARKS}];
-#define GN_MARK(i) if (threadIdx.x == 0 && it < {ROUNDS}) \\
-    gn_trace[((size_t)blockIdx.x * {ROUNDS} + it) * {MARKS} + (i)] = clock64();
-"""
-TAIL = f"""
-extern "C" int gn_trace_read(void* host, long long n) {{
+# the trace buffer and the marks (thread 0 of a CTA, the first ROUNDS
+# rounds; mark 0 also records the SM), then the kernels' source
+HEAD = """
+__device__ long long gn_trace[MAX_CTAS * ROUNDS * MARKS];
+#define GN_MARK(i) do { if (threadIdx.x == 0 && it < ROUNDS) { \\
+    long long* m_ = gn_trace + ((size_t)blockIdx.x * ROUNDS + it) * MARKS; \\
+    m_[(i)] = clock64(); \\
+    if ((i) == 0) { unsigned sm_; \\
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(sm_)); \\
+      m_[MARKS - 1] = sm_; } } } while (0)
+#include "SOURCE"
+extern "C" int gn_trace_read(void* host, long long n) {
   return (int)cudaMemcpyFromSymbol(host, gn_trace, n * sizeof(long long));
-}}
-extern "C" int gn_trace_clear() {{
-  static long long z[{MAX_CTAS} * {ROUNDS} * {MARKS}];
+}
+extern "C" int gn_trace_clear() {
+  static long long z[MAX_CTAS * ROUNDS * MARKS];
   return (int)cudaMemcpyToSymbol(gn_trace, z, sizeof(z));
-}}
+}
 """
-# slab geometries (span, vectors a thread, cluster size) of the sweep
+# slab geometries (span, cluster size) of the sweep
 SWEEP = {
-    ("bfloat16", False): [(16, 8, 2), (32, 8, 4), (64, 8, 8)],
-    ("bfloat16", True): [(32, 4, 8), (16, 4, 4), (64, 4, 16)],
-    ("float32", False): [(16, 8, 4), (32, 8, 8)],
-    ("float32", True): [(16, 4, 8), (32, 4, 16)],
+    ("bfloat16", False): [(16, 2), (32, 4), (64, 8)],
+    ("bfloat16", True): [(32, 8), (16, 4), (64, 16)],
+    ("float32", False): [(16, 4), (32, 8)],
+    ("float32", True): [(16, 8), (32, 16)],
 }
 
 
-def instrument(src: str) -> str:
-    """``src`` with the clock64 marks of both cluster kernels."""
-    fwd_at = src.index("gn_fwd_cluster_kernel(const __grid_constant__")
-    bwd_at = src.index("gn_bwd_cluster_kernel(const __grid_constant__")
-    parts = [src[:fwd_at], src[fwd_at:bwd_at], src[bwd_at:]]
-    for i, marks in ((1, FWD_MARKS), (2, BWD_MARKS)):
-        text = parts[i]
-        for anchor, mark, where in marks:
-            if anchor not in text:
-                raise RuntimeError(f"anchor of mark {mark} not in the "
-                                   f"source:\n{anchor}")
-            at = text.index(anchor)
-            line = f"    GN_MARK({mark});\n"
-            if where == "after":
-                at += len(anchor)
-            text = text[:at] + line + text[at:]
-        parts[i] = text
-    head = "namespace coop = cooperative_groups;\n"
-    out = "".join(parts).replace(head, head + HEAD, 1)
-    # the SM of each round, beside mark 0
-    smid = ("    if (threadIdx.x == 0 && it < %d) { unsigned sm; "
-            "asm(\"mov.u32 %%0, %%%%smid;\" : \"=r\"(sm)); gn_trace[((size_t)"
-            "blockIdx.x * %d + it) * %d + %d] = sm; }\n"
-            % (ROUNDS, ROUNDS, MARKS, MARKS - 1))
-    out = out.replace("    GN_MARK(0);\n", "    GN_MARK(0);\n" + smid)
-    return out + TAIL
-
-
 def build_instrumented(_build, root: Path) -> Path:
-    src = (root / "apex_tpu_torch" / "csrc" / "group_norm.cu").read_text()
+    """A library of ``csrc/group_norm.cu`` with its ``GN_MARK`` phase
+    marks defined, built under ``build/group_norm_probe``."""
     out_dir = root / "build" / "group_norm_probe"
     out_dir.mkdir(parents=True, exist_ok=True)
-    # beside the original, so its headers resolve
-    cu = root / "apex_tpu_torch" / "csrc" / "group_norm_probe.cu"
+    src = root / "apex_tpu_torch" / "csrc" / "group_norm.cu"
+    cu = out_dir / "group_norm_probe.cu"
     lib = out_dir / "libgroup_norm_probe.so"
-    cu.write_text(instrument(src))
-    try:
-        r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                            str(cu)], capture_output=True, text=True)
-    finally:
-        cu.unlink()
+    text = HEAD
+    for name, v in (("MAX_CTAS", MAX_CTAS), ("ROUNDS", ROUNDS),
+                    ("MARKS", MARKS), ("SOURCE", src)):
+        text = text.replace(name, str(v))
+    cu.write_text(text)
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                        str(cu)], capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError("nvcc failed:\n" + r.stdout + r.stderr)
     return lib
@@ -249,11 +193,10 @@ def sweep(torch, GN, dt, backward, g):
     try:
         GN._route = lambda *a: None
         rows["three_pass"] = dict(ms=_device_ms(torch, call), err=err(call()))
-        for span, k, cl in SWEEP[(str(dt)[6:], backward)]:
-            plan = GN.ClusterPlan(span, k, cl, 0, 0,
-                                  min(8 * 512 // span, cap[cl]))
+        for span, cl in SWEEP[(str(dt)[6:], backward)]:
+            plan = GN.ClusterPlan(span, cl, min(8 * 512 // span, cap[cl]))
             GN._route = lambda *a, plan=plan: plan
-            rows[f"span {span}, k {k}, cluster {cl}"] = dict(
+            rows[f"span {span}, cluster {cl}"] = dict(
                 ms=_device_ms(torch, call), err=err(call()),
                 clusters=plan.clusters)
     finally:

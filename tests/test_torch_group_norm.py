@@ -17,9 +17,9 @@
   parameters carried over by ``group_norm_params_from_jax``.
 - The route predicate ``cluster_plan``: the main shapes take the cluster
   route within a CTA's 227 KB and 16 CTAs a cluster, a VAE decoder's
-  512 × 512 slab and SD-1.5's cg = 10 the three-pass route, and every C
-  divisible by the groups gets a route whose geometry the cluster kernels
-  take.
+  512 × 512 slab and SD-1.5's and SDXL's UNet widths (cg = 10, 20, 40) the
+  three-pass route, and every C divisible by the groups gets a route
+  whose geometry the cluster kernels take.
 
 Inputs come from numpy with fixed seeds; JAX gets the values the port's
 dtype rounds them to.  Tolerances: fp32 rtol 2e-5, atol 1e-5 (sums in
@@ -46,13 +46,12 @@ from apex_tpu_torch.models import group_norm_params_from_jax
 from apex_tpu_torch.ops import GroupNorm, group_norm
 from apex_tpu_torch.ops.group_norm import (
     CLUSTER_SIZES,
-    CLUSTER_THREADS,
-    SMEM_CAP,
     cluster_plan,
     group_norm_bwd_kernel,
     group_norm_bwd_reference,
     group_norm_fwd_kernel,
     group_norm_fwd_reference,
+    rows_per_cta,
 )
 
 # the module (the package attribute ``ops.group_norm`` is the function)
@@ -316,22 +315,20 @@ def _pow2(v):
 
 def _plan_ok(plan, batch, rows, c, g, itemsize, backward):
     """The geometry the cluster kernels take (csrc/group_norm.cu
-    ``cluster_ok``): whole groups of 16-byte vectors, a span dividing C,
-    every row of a sample in the cluster, the tile within a CTA."""
+    ``cluster_ok``): whole groups of a power-of-two count of 16-byte
+    vectors, a span of whole groups dividing C, every row of a sample in
+    the smallest cluster that holds it."""
     vec, cg = 16 // itemsize, c // g
     assert cg % vec == 0 and _pow2(cg // vec)
     assert plan.span % cg == 0 and c % plan.span == 0
-    # a power-of-two count of vectors a row, at most a warp's
+    # a power-of-two count of vectors a row, at most a warp's; the
+    # backward's per-warp sums take at most 128 channels
     assert _pow2(plan.span // vec) and plan.span // vec <= 32
+    assert not backward or plan.span <= 128
     assert plan.cluster in CLUSTER_SIZES and plan.cluster <= 16
-    ty = CLUSTER_THREADS // (plan.span // vec)
-    ty = 1 << (ty.bit_length() - 1)      # whole TMA boxes: a power of two
-    assert plan.rows_per_cta == plan.k * ty
-    assert plan.cluster * plan.rows_per_cta >= rows
-    # the ring's stages of the CTA's share of a slab fit a CTA
-    assert plan.tile_bytes <= SMEM_CAP
-    assert 3 * plan.tile_bytes <= plan.ring_bytes <= SMEM_CAP - 12 * 1024
-    assert plan.k in ((1, 2, 4) if backward else (1, 2, 4, 8))
+    per = rows_per_cta(plan.span, itemsize, backward)
+    assert plan.cluster * per >= rows
+    assert plan.cluster == 1 or plan.cluster // 2 * per < rows
     slabs = batch * (c // plan.span)
     assert slabs * plan.cluster < 2 ** 31
     assert 1 <= plan.clusters <= min(slabs, _CAPACITY[plan.cluster])
@@ -348,8 +345,10 @@ def test_main_shape_takes_the_cluster_route(itemsize, backward):
     # the narrowest whole groups of at least 32 (forward) or 64 (backward)
     # bytes a row: one group of 16 channels, or two in the bf16 backward
     assert plan.span == (32 if backward and itemsize == 2 else 16)
-    assert plan.tile_bytes == plan.rows_per_cta * plan.span * itemsize * (
-        2 if backward else 1)
+    # a CTA's ring, three stages of its rows of x (and dy), within 227 KB
+    tile = rows_per_cta(plan.span, itemsize, backward) * plan.span * (
+        itemsize * (2 if backward else 1))
+    assert 3 * tile <= 227 * 1024
 
 
 @pytest.mark.parametrize("backward", [False, True])
@@ -367,6 +366,13 @@ def test_vae_decoder_slab_takes_the_three_pass_route(itemsize, backward):
     ((3, 7 * 9, 96), 3, "cluster"),
     ((64, 1, 512), 32, "cluster"),        # the 2-D (N, C) case
     ((2, 16 * 16, 512), 32, "cluster"),
+    # SD-1.5's and SDXL's UNet widths (cg = 10, 20, 40): three passes
+    ((2, 64 * 64, 320), 32, None),
+    ((2, 32 * 32, 640), 32, None),
+    ((2, 16 * 16, 1280), 32, None),
+    ((2, 128 * 128, 320), 32, None),
+    ((1, 64 * 64, 512), 32, "cluster"),   # an SD VAE's 512-channel level
+    ((1, 256 * 256, 512), 32, None),      # and a level past 16 CTAs
 ])
 def test_edge_shapes_get_a_route(shape, g, route, itemsize, backward):
     n, rows, c = shape
@@ -403,28 +409,52 @@ _SWEEP = [(c, g) for c in (8, 16, 24, 32, 40, 64, 96, 128, 192, 256, 320,
 @pytest.mark.parametrize("c,g", _SWEEP)
 def test_every_divisible_channel_count_gets_a_route(c, g):
     """Every C divisible by the groups: the cluster route with a geometry
-    the kernels take, or the three-pass route (which takes any such C)
-    exactly where a group is not a power-of-two count of 16-byte vectors
-    or no span of whole groups fits a slab."""
+    the kernels take exactly where a group is a power-of-two count of
+    16-byte vectors, at most 32 (128 channels in the backward), and a
+    sample's rows fit 16 CTAs at a span of one group; else the three-pass
+    route (which takes any such C)."""
     for itemsize in (2, 4):
         vec, cg = 16 // itemsize, c // g
-        spans = [s for s in range(cg, min(c, 32 * vec) + 1, cg)
-                 if c % s == 0 and _pow2(s // vec)]
+        whole = cg % vec == 0 and _pow2(cg // vec) and cg // vec <= 32
         for backward in (False, True):
-            kmax = 4 if backward else 8
+            fits = whole and (not backward or cg <= 128)
             for rows in (1, 63, 4096, 512 * 512):
                 plan = cluster_plan(3, rows, c, g, itemsize, backward,
                                     _CAPACITY)
-                whole = cg % vec == 0 and _pow2(cg // vec)
-                if plan is None and whole and spans:
-                    # no span's slab fits 16 CTAs, the narrowest included
-                    ty = CLUSTER_THREADS // (min(spans) // vec)
-                    ty = 1 << (ty.bit_length() - 1)
-                    assert rows > 16 * kmax * ty
-                elif plan is None:
-                    assert not whole or not spans
-                else:
+                cluster = fits and rows <= 16 * rows_per_cta(
+                    cg, itemsize, backward)
+                assert (plan is not None) == cluster, (itemsize, backward,
+                                                       rows)
+                if plan is not None:
                     _plan_ok(plan, 3, rows, c, g, itemsize, backward)
+
+
+@pytest.mark.parametrize("shape,g", [
+    ((2, 64 * 64, 320), 32),      # SD-1.5's UNet widths
+    ((2, 32 * 32, 640), 32),
+    ((2, 16 * 16, 1280), 32),
+    ((2, 128 * 128, 320), 32),    # SDXL's
+    ((1, 512 * 512, 128), 32),    # a VAE decoder's
+    ((3, 7 * 9, 96), 3),
+    ((64, 1, 512), 32),
+])
+def test_three_pass_statistics_chunks_bound_the_fold(shape, g, monkeypatch):
+    """The three-pass statistics chunks: at most 8 partials a lane of the
+    one-warp fold (chunks x cg <= 256) unless a thread would then walk
+    more than 32 rows, never more rows' chunks than there are rows; the
+    map pass keeps filling the card (132 SMs, as an H100)."""
+    monkeypatch.setattr(_gn_ops, "_sm_count", lambda index: 132)
+    x3 = torch.zeros(shape, dtype=torch.bfloat16)
+    n, rows, c = shape
+    vec, chunks, map_chunks = _gn_ops._geometry(x3, g)
+    assert vec == 8
+    tx = min(c // vec, 32)
+    steps = -(-rows // (256 // tx))
+    floor = -(-steps // 32)
+    assert 1 <= chunks <= steps and chunks >= floor
+    assert chunks <= max(floor, 256 // (c // g))
+    tiles = -(-(c // vec) // tx)
+    assert map_chunks == max(1, min(steps, -(-8 * 132 // (tiles * n))))
 
 
 # ------------------------------------------------------------------ #
