@@ -29,11 +29,14 @@ def initialize(model, optimizer, opt_level: str = "O1", *,
                **policy_overrides: Any):
     """Build a mixed-precision train state from an opt level.
 
-    ``model``: the ``nn.Module`` to train (its parameters are cast in
-    place by the policy); ``optimizer``: a :class:`~apex_tpu_torch.
-    optim.FusedAdam`.  The list form ``initialize([m1, m2], [o1, o2])``
-    returns one independently scaled state per pair.  O1's per-op
-    casting and ``zero`` raise ``NotImplementedError`` naming their
+    ``model``: the ``nn.Module`` to train (O2 / O3 cast its parameters
+    in place; O1, the default, keeps them fp32 and casts a compute copy
+    as each module is called — run the forward under
+    :func:`~apex_tpu_torch.amp.o1.o1_intercept` for per-op casting of a
+    model built with ``dtype=None``); ``optimizer``: an optimizer of
+    :mod:`apex_tpu_torch.optim` (``init`` / ``step``).  The list form
+    ``initialize([m1, m2], [o1, o2])`` returns one independently scaled
+    state per pair.  ``zero`` raises ``NotImplementedError`` naming its
     ``ROADMAP.md`` item.
     """
     if type(optimizer) in (list, tuple):

@@ -2,11 +2,11 @@
 implementations live in the port's core package.
 
 Counterpart of the re-exports of ``apex_tpu/contrib/__init__.py``: only
-the aliases that resolve onto ported ops, and the class-shaped
-``SoftmaxCrossEntropyLoss``.  The contrib submodules themselves
-(bottleneck, conv_bias_relu, fmha, focal_loss, groupbn, index_mul_2d,
-peer_memory, sparsity, transducer) and ``clip_grad_norm`` are not ported
-yet (ROADMAP items 7 and 12).  The JAX contrib exports no ``group_norm``
+the aliases that resolve onto ported ops (``clip_grad_norm``: ``optim.
+clip``), and the class-shaped ``SoftmaxCrossEntropyLoss``.  The contrib
+submodules themselves (bottleneck, conv_bias_relu, fmha, focal_loss,
+groupbn, index_mul_2d, peer_memory, sparsity, transducer) are not ported
+yet (ROADMAP item 12).  The JAX contrib exports no ``group_norm``
 alias (its docstring points at ``ops.group_norm``), so neither does this
 one.
 """
@@ -18,6 +18,7 @@ from apex_tpu_torch.ops.multihead_attn import (
     SelfMultiheadAttn,
 )
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy
+from apex_tpu_torch.optim.clip import clip_grad_norm
 
 
 class SoftmaxCrossEntropyLoss:
@@ -36,4 +37,4 @@ class SoftmaxCrossEntropyLoss:
 
 __all__ = ["fused_attention", "fast_layer_norm", "softmax_cross_entropy",
            "SoftmaxCrossEntropyLoss", "SelfMultiheadAttn",
-           "EncdecMultiheadAttn"]
+           "EncdecMultiheadAttn", "clip_grad_norm"]

@@ -81,6 +81,33 @@ def tree_cast(tree: Any, dtype, *,
     return cast((), tree)
 
 
+def tree_leaves(tree: Any) -> list:
+    """The tensors of ``tree`` (nested dicts, lists and tuples; anything
+    else is dropped), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, Mapping):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return []
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the tensors of ``tree`` and the matching leaves of
+    ``rest``, keeping the containers; anything else passes through."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    return tree
+
+
 @dataclasses.dataclass(frozen=True)
 class PrecisionPolicy:
     """Immutable mixed-precision configuration (apex ``Properties``)."""

@@ -9,6 +9,14 @@ holds
   (apex's master weights), else the module's own parameters;
 - the optimizer state and the loss-scale state, on the device.
 
+Under O1 (``policy.per_op_casting``) the module keeps fp32 parameters,
+which are views of the flat fp32 buffer, with no masters; the forward
+runs on a compute copy (:class:`ComputeCopy`): each module's parameters
+cast to the half dtype by a differentiable cast as the module is called,
+norm parameters kept fp32 — the JAX package's ``compute_params()`` (the
+policy's ``cast_to_compute``), whose gradients arrive in the half dtype
+and are upcast by the cast's backward.
+
 The stored parameters live in one flat buffer per dtype (the module's
 parameters are views into it when there are no masters), so unscaling,
 the overflow check and the optimizer update each run once over every
@@ -27,6 +35,7 @@ module.  Nothing in it reads the device from the host: the returned
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -40,7 +49,7 @@ from apex_tpu_torch.core.loss_scale import (
 from apex_tpu_torch.core.precision import PrecisionPolicy
 from apex_tpu_torch.optim.fused_adam import Leaf, adam_state_from_jax
 
-__all__ = ["MixedPrecisionTrainState", "parameter_leaves"]
+__all__ = ["MixedPrecisionTrainState", "ComputeCopy", "parameter_leaves"]
 
 
 def parameter_leaves(model: nn.Module) -> List[Tuple[str, Leaf]]:
@@ -75,6 +84,82 @@ class _Group:
             off += n
 
 
+class ComputeCopy:
+    """O1's compute copy of ``model``'s parameters (see the module
+    docstring), made by module hooks that this object owns.
+
+    Each parameter the policy casts (``policy.dtype_for(name,
+    compute_dtype)`` differs from its dtype) is shadowed by ``param.
+    to(dtype)`` in its module's ``__dict__`` under its name, so
+    ``module.weight`` reads the cast while ``named_parameters()`` and
+    ``state_dict()`` keep the parameter.  The model's forward puts every
+    cast in place as it starts and takes them away as it returns, as the
+    JAX package's forward takes ``compute_params()`` whole; a submodule
+    called on its own — or recomputed in the backward by ``torch.utils.
+    checkpoint``, outside the model's forward — casts its own parameters
+    for its call.  :meth:`remove` takes the hooks away."""
+
+    def __init__(self, model: nn.Module, policy: PrecisionPolicy):
+        self._depth = 0
+        self._casts = []
+        self._handles = [
+            model.register_forward_pre_hook(self._enter),
+            model.register_forward_hook(self._leave, always_call=True)]
+        for prefix, mod in model.named_modules():
+            own = []
+            for pname, p in mod.named_parameters(recurse=False):
+                name = f"{prefix}.{pname}" if prefix else pname
+                dt = policy.dtype_for(name, policy.compute_dtype)
+                if torch.is_floating_point(p) and dt != p.dtype:
+                    own.append((pname, dt))
+            if own:
+                self._casts.append((mod, own))
+                self._handles += [
+                    mod.register_forward_pre_hook(functools.partial(
+                        self._own_call, own)),
+                    mod.register_forward_hook(functools.partial(
+                        self._own_return, own), always_call=True)]
+
+    @staticmethod
+    def _install(mod, own):
+        for pname, dt in own:
+            mod.__dict__[pname] = mod._parameters[pname].to(dt)
+
+    @staticmethod
+    def _drop(mod, own):
+        for pname, _ in own:
+            mod.__dict__.pop(pname, None)
+
+    def _own_call(self, own, mod, args):
+        if not self._depth:
+            self._install(mod, own)
+
+    def _own_return(self, own, mod, args, out):
+        if not self._depth:
+            self._drop(mod, own)
+
+    def _enter(self, mod, args):
+        self._depth += 1
+        if self._depth == 1:
+            for m, own in self._casts:
+                self._install(m, own)
+
+    def _leave(self, mod, args, out):
+        self._depth -= 1
+        if not self._depth:
+            for m, own in self._casts:
+                self._drop(m, own)
+
+    def remove(self) -> None:
+        """Take the hooks away (the module's forward then reads its fp32
+        parameters)."""
+        for h in self._handles:
+            h.remove()
+        self._handles = []
+        for m, own in self._casts:
+            self._drop(m, own)
+
+
 class MixedPrecisionTrainState:
     """Train state over ``model`` (see the module docstring); build it
     with :meth:`create` or ``amp.initialize``."""
@@ -101,7 +186,11 @@ class MixedPrecisionTrainState:
         for dt in dict.fromkeys(stored):
             idx = [i for i, s in enumerate(stored) if s == dt]
             self.groups.append(_Group(dt, idx, self.module_params))
-        policy.cast_to_compute(model)
+        # O1 casts on the way into each module, O2 / O3 once, here
+        self.compute_copy = (ComputeCopy(model, policy)
+                             if policy.per_op_casting else None)
+        if not policy.per_op_casting:
+            policy.cast_to_compute(model)
         if not policy.master_weights:
             # the module trains its stored params directly: make them
             # views of the flat buffers
@@ -127,9 +216,6 @@ class MixedPrecisionTrainState:
             raise NotImplementedError(
                 "ZeRO-sharded optimizer state comes with ROADMAP.md A-5")
         policy = policy or PrecisionPolicy.O0()
-        if policy.per_op_casting:
-            raise NotImplementedError(
-                "O1 per-op casting comes with ROADMAP.md A-6")
         return cls(model, optimizer, policy,
                    loss_scaler or policy.make_loss_scale())
 

@@ -155,9 +155,9 @@ __device__ __forceinline__ void store_f(T* p, const float (&o)[V]) {
 }
 
 // The tile a thread works on: thread (lane_r, lane_c) of a block with tx
-// column vectors by ty rows owns column vector cvi (grid column
-// blockIdx.y) and the rows r0 + lane_r, r0 + lane_r + ty, ... below r1 of
-// row chunk blockIdx.x.
+// column vectors by ty rows owns column vector cvi (column tile `tile`,
+// grid column blockIdx.y) and the rows r0 + lane_r, r0 + lane_r + ty, ...
+// below r1 of row chunk `chunk` (blockIdx.x).
 struct Tile {
   int tx, ty, lane_c, lane_r, cvi, c0;
   bool live;
@@ -169,20 +169,26 @@ __device__ __forceinline__ long long chunk_rows(long long rows, int chunks) {
 }
 
 template <int V>
-__device__ __forceinline__ Tile tile_of(long long rows, int c, int chunks) {
+__device__ __forceinline__ Tile tile_at(long long rows, int c, int chunks,
+                                        int tile, long long chunk) {
   Tile t;
   const int cv = c / V;
   t.tx = cv < 32 ? cv : 32;
   t.ty = kRowThreads / t.tx;
   t.lane_c = threadIdx.x % t.tx;
   t.lane_r = threadIdx.x / t.tx;
-  t.cvi = blockIdx.y * t.tx + t.lane_c;
+  t.cvi = tile * t.tx + t.lane_c;
   t.c0 = t.cvi * V;
   t.live = t.lane_r < t.ty && t.cvi < cv;
   const long long per = chunk_rows(rows, chunks);
-  t.r0 = (long long)blockIdx.x * per;
+  t.r0 = chunk * per;
   t.r1 = t.r0 + per < rows ? t.r0 + per : rows;
   return t;
+}
+
+template <int V>
+__device__ __forceinline__ Tile tile_of(long long rows, int c, int chunks) {
+  return tile_at<V>(rows, c, chunks, (int)blockIdx.y, (long long)blockIdx.x);
 }
 
 // Calls f((T*)nullptr, std::integral_constant<int, V>{}) for dtype code xt

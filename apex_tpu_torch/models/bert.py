@@ -137,8 +137,10 @@ class BertModel(nn.Module):
                 token_type_ids = torch.zeros_like(input_ids)
             x = x + F.embedding(token_type_ids,
                                 self.token_type_embedding).to(x.dtype)
+        # dtype None (O1) keeps fp32 here, as jnp's astype(None)
+        act = cfg.dtype or torch.float32
         x = fused_layer_norm(x, self.emb_norm_scale, self.emb_norm_bias,
-                             eps=cfg.layernorm_eps).to(cfg.dtype)
+                             eps=cfg.layernorm_eps).to(act)
         mask_bias = None
         if attention_mask is not None:
             # (b, 1, 1, s) key padding: rides the flash kernel
@@ -152,7 +154,7 @@ class BertModel(nn.Module):
                 -1, -1, x.shape[-1])
             x_mlm = torch.gather(x, 1, idx)
         hmid = F.gelu(self.mlm_dense(x_mlm), approximate="tanh")
-        hmid = self.mlm_norm(hmid).to(cfg.dtype)
+        hmid = self.mlm_norm(hmid).to(act)
         logits = self.embedding.attend(hmid)
         logits = logits + self.mlm_bias.to(logits.dtype)
         pooled = torch.tanh(self.pooler(x[:, 0]))

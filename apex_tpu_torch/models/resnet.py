@@ -137,14 +137,16 @@ class _Conv(nn.Module):
             pads = [_same_pads(n, self.k, self.stride) for n in x.shape[2:]]
         else:
             pads = [self.padding] * 2
-        x = x.to(self.dtype)
+        # dtype None promotes input and kernel, as flax's nn.Conv
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        x = x.to(dt)
         if all(lo == hi for lo, hi in pads):
             padding = tuple(lo for lo, _ in pads)
         else:
             (hl, hh), (wl, wh) = pads
             x = F.pad(x, (wl, wh, hl, hh))
             padding = 0
-        return F.conv2d(x, self.weight.to(self.dtype), stride=self.stride,
+        return F.conv2d(x, self.weight.to(dt), stride=self.stride,
                         padding=padding)
 
 

@@ -51,6 +51,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from apex_tpu_torch.amp import o1
 from apex_tpu_torch.ops.attention import fused_attention
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm, fused_rms_norm
 from apex_tpu_torch.ops.mlp import resolve_activation
@@ -590,7 +591,9 @@ class ParallelTransformer(nn.Module):
             kw = dict(mask_bias=mask_bias, rope=rope,
                       seeds=None if seeds is None else seeds[i])
             if remat:
-                x = checkpoint(layer, x, use_reentrant=False, **kw)
+                # the recomputation reruns under an O1 intercept active now
+                x = checkpoint(layer, x, use_reentrant=False,
+                               context_fn=o1.checkpoint_context_fn(), **kw)
             else:
                 x = layer(x, **kw)
         return x

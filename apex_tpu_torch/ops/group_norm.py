@@ -34,9 +34,10 @@ fp32, then the affine and the optional SiLU, cast once to ``x.dtype``.
 The JAX kernels' envelope (``C % 128 == 0``, ``C <= 1024``, an 8-aligned
 divisor of the spatial extent) is a TPU tiling rule: the port's kernels
 take any C divisible by the groups (SD-1.5's 320 channels, more than
-1024), any spatial extent and the 2-D ``(N, C)`` case.  The input must be
-laid out densely in the order of its shape (``x.permute(0, 2, 3, 1)`` of
-a ``torch.channels_last`` NCHW tensor), else ValueError.
+1024), any batch, any spatial extent and the 2-D ``(N, C)`` case.  An
+input not laid out densely in the order of its shape is copied first
+(none is for ``x.permute(0, 2, 3, 1)`` of a ``torch.channels_last`` NCHW
+tensor).
 """
 
 from __future__ import annotations
@@ -215,6 +216,7 @@ def _geometry(x3, num_groups, *others):
     reduce = max(-(-steps // _MAX_THREAD_ROWS),
                  min(chunks(_REDUCE_BLOCKS_PER_SM), fold))
     return vec, reduce, chunks(_MAP_BLOCKS_PER_SM)
+
 
 
 class ClusterPlan(NamedTuple):
@@ -512,12 +514,10 @@ def group_norm(x, num_groups: int, weight=None, bias=None, *,
     if not kernel:
         return group_norm_reference(x, num_groups, weight, bias, eps=eps,
                                     act=act)
-    if not x.is_contiguous():
-        raise ValueError(
-            f"group_norm: x of shape {tuple(x.shape)} has strides "
-            f"{x.stride()}; it must be channels-last and dense (hand it "
-            "x.permute(0, 2, 3, 1) of a torch.channels_last NCHW tensor)")
-    x3 = x.view(x.shape[0], -1, c)
+    # a strided x (say x.permute(0, 2, 3, 1) of a contiguous NCHW tensor)
+    # is copied first, and its gradient flows back through the copy; that
+    # of a torch.channels_last NCHW tensor is already dense
+    x3 = x.contiguous().view(x.shape[0], -1, c)
     y = _GroupNormFn.apply(x3, weight, bias, int(num_groups), float(eps),
                            act == "silu")
     return y.view(x.shape)

@@ -20,6 +20,8 @@ from typing import Any, Callable, List, Optional, Union
 
 import torch
 
+from apex_tpu_torch.optim._multi_tensor import commit_
+
 __all__ = ["fused_sgd", "FusedSGD", "FusedSgdState"]
 
 
@@ -68,14 +70,8 @@ class FusedSGD:
             else:
                 buf_new = buf
                 d = gf
-            p_new = p + (-lr * d).to(p.dtype)
-            for old, new in ((p, p_new), (buf, buf_new)):
-                if new is old:
-                    continue
-                if finite is None:
-                    old.copy_(new)
-                else:
-                    torch.where(finite, new.to(old.dtype), old, out=old)
+            commit_(((p, p + (-lr * d).to(p.dtype)), (buf, buf_new)),
+                    finite)
         state.count = count if finite is None else torch.where(
             finite, count, state.count)
 

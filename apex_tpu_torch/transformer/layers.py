@@ -9,9 +9,11 @@ they are built on ``device`` (default ``"cuda"``; raises when CUDA is
 unavailable unless ``device="cpu"``).
 
 Numerics follow the JAX layers: the product runs in the compute
-``dtype`` with fp32 accumulation (``torch.nn.functional.linear``), the
-bias (in the compute dtype) is added to the fp32 accumulator by the
-product itself, and the result is rounded once to ``dtype``.  Weights
+``dtype`` (``None``: the input's, or under :func:`~apex_tpu_torch.amp.
+o1.o1_intercept` the dtype O1 gives the layer) with fp32 accumulation
+(``torch.nn.functional.linear``), the bias (in the compute dtype) is
+added to the fp32 accumulator by the product itself, and the result is
+rounded once to ``dtype``.  Weights
 use PyTorch's ``(out_features, in_features)`` layout; the JAX kernels'
 ``(in, out)`` layout is transposed by
 :func:`apex_tpu_torch.models.jax_import.params_from_jax`.
@@ -26,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from apex_tpu_torch.amp import o1
 from apex_tpu_torch.ops._dispatch import resolve_device
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
@@ -81,7 +84,7 @@ class VocabParallelEmbedding(nn.Module):
     def __init__(self, num_embeddings: int, features: int, *, dtype=None,
                  param_dtype=torch.float32, device=None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.param_dtype = dtype, param_dtype
         self.weight = nn.Parameter(torch.empty(
             num_embeddings, features, dtype=param_dtype,
             device=resolve_device(device)))
@@ -91,9 +94,15 @@ class VocabParallelEmbedding(nn.Module):
         self.weight.normal_(0.0, 0.02, generator=generator)
 
     def forward(self, ids):
-        dtype = self.dtype or self.weight.dtype
-        return F.embedding(ids, self.weight).to(dtype)
+        # the JAX layer's take(table.astype(dtype), ids): under O1 the
+        # table's gradient is summed in dtype before one cast back
+        dtype = self.dtype or self.param_dtype
+        return F.embedding(ids, self.weight.to(dtype))
 
     def attend(self, x):
+        # the JAX interceptor casts every method's inputs, this one's too
+        dtype = o1.module_dtype(self)
+        if dtype is not None:
+            x = x.to(dtype)
         y = F.linear(x, self.weight.to(x.dtype))
         return y.to(x.dtype)

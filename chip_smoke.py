@@ -17,9 +17,9 @@ memory and call out of line at most once and never, as the GroupNorm
 cluster kernels must, which also need TMA loads (``_call_report``),
 logs the registers and occupancy of the RoPE kernel and the softmax
 backward (``_occupancy_report``), and then runs
-fourteen phases, in the order 1, 2, 3, 6, 7,
-4, 5, 10, 12, 11, 8, 9, 13, 14 (Llama-2-7B is built once for 3, 6 and 7
-and dropped before 4); any failure exits non-zero.
+nineteen phases, in the order 1, 2, 3, 6, 7,
+4, 5, 17, 10, 12, 18, 11, 8, 9, 15, 16, 13, 14, 19 (Llama-2-7B is built
+once for 3, 6 and 7 and dropped before 4); any failure exits non-zero.
 
 1. Kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (Llama-2-7B width) and the training path's
@@ -144,6 +144,34 @@ and dropped before 4); any failure exits non-zero.
    norm-add over the 16x16 tokens, dense-GELU-dense at C = 512, b = 2,
    fp32, TF32 off: output and every gradient on the card equal the CPU's
    plain path within 1e-4 of their largest entry.
+15. ResNet training under amp O1 (``bench_configs.py``'s ``resnet50_o1``):
+   phase 8's model, batch, FusedSGD and figures with fp32 parameters and
+   a bf16 compute copy (the BN parameters fp32), no masters; 53 launches
+   per step of each BN kernel, a falling loss, and the stored parameters
+   the module's own fp32 views of one flat buffer.
+16. ResNet O1 identity: phase 9's tiny ResNet (both stems), one O1 +
+   FusedSGD step on the card and on the CPU: loss and logits within 1e-4
+   of their largest entry, running statistics within 1e-5; gradients and
+   parameter changes within 1e-4 unless a ReLU or max-pool decision
+   differs between the devices (counted); on each device O1's gradients
+   equal, bit for bit, the O0 step's on weights rounded to bf16
+   beforehand.
+17. BERT-Large amp O1 (``bench_configs.py``'s ``bert_o1``): ``dtype=None``
+   and remat under ``amp.o1.o1_intercept(bfloat16)``, FusedAdam(1e-4),
+   b=16, s=512: 3 warm-up and 10 timed steps with samples/s, host ms a
+   step, peak memory and phase 4's launch counts; the profiler's record
+   shows every product of the half classes in bf16 (the tied decoder's
+   one product in fp32, the embedding's class), every LayerNorm kernel in
+   its fp32 variant and every flash kernel in bf16.
+18. The optimizers of ``optim`` (FusedLAMB, FusedMixedPrecisionLamb,
+   FusedNovoGrad, FusedAdagrad, LARC around FusedSGD) and
+   ``clip_grad_norm`` over BERT-Large's 3.36e8 parameters, ms a step;
+   one step at BERT-base's shapes on the card equal to the CPU's within
+   rtol 1e-6 / atol 1e-7.
+19. GroupNorm at a batch of 65537 (three passes, (65537, 4x4, 320) bf16,
+   forward and backward against the plain versions) and on a permuted
+   NCHW view (output and the NCHW gradient equal to the contiguous
+   call's bit for bit).
 
 The last lines of standard output are the card's name and power limit,
 the ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
@@ -3209,15 +3237,21 @@ def _resnet_loss(torch, logits, onehot):
         -1).mean()
 
 
-def phase_resnet(torch, profile=False, steps=10, warmup=3, b=128, size=224):
+def phase_resnet(torch, profile=False, steps=10, warmup=3, b=128, size=224,
+                 opt_level="O2"):
+    """Phase 8 (amp O2) and phase 15 (``opt_level="O1"``, amp's default
+    level, as ``bench_configs.py``'s ``resnet50_o1``): the same model,
+    batch and step; under O1 the stored parameters must be the module's
+    own fp32 ones, with no masters."""
     import torch.nn.functional as F
 
     from apex_tpu_torch import _build, amp
     from apex_tpu_torch.models import resnet50
     from apex_tpu_torch.optim import fused_sgd
 
-    log(f"phase 8: ResNet-50 amp O2 training (bf16, fused BN, s2d stem, "
-        f"FusedSGD), b={b}, {size}x{size}")
+    log(f"phase {8 if opt_level == 'O2' else 15}: ResNet-50 amp "
+        f"{opt_level} training (bf16, fused BN, s2d stem, FusedSGD), "
+        f"b={b}, {size}x{size}")
     dev = torch.device("cuda")
     # the reference's examples/imagenet sets cudnn.benchmark; the warm-up
     # steps pay its search
@@ -3226,7 +3260,7 @@ def phase_resnet(torch, profile=False, steps=10, warmup=3, b=128, size=224):
     model = resnet50(dtype=torch.bfloat16, fused_bn=True, stem="s2d")
     model.init_weights(torch.Generator(device=dev).manual_seed(9))
     state = amp.initialize(model, fused_sgd(0.1, momentum=0.9,
-                                            weight_decay=1e-4), "O2")
+                                            weight_decay=1e-4), opt_level)
     g = torch.Generator(device=dev).manual_seed(10)
     images = torch.randn(b, size, size, 3, generator=g, device=dev)
     labels = torch.randint(0, 1000, (b,), generator=g, device=dev)
@@ -3294,6 +3328,10 @@ def phase_resnet(torch, profile=False, steps=10, warmup=3, b=128, size=224):
     # training brought the loss below its value at initialisation
     ok = (all(finite) and all(np.isfinite(warm_losses + losses))
           and min(warm_losses[1:] + losses) < warm_losses[0])
+    if opt_level == "O1":
+        stats["stored_fp32_views_no_masters"] = _fp32_views_no_masters(
+            torch, state, model)
+        ok &= stats["stored_fp32_views_no_masters"]
     for name in BN_KERNELS:
         if per_step[name] != RESNET_BN_LAUNCHES:
             log(f"  launches of {name}: {per_step[name]} per step, "
@@ -3303,6 +3341,20 @@ def phase_resnet(torch, profile=False, steps=10, warmup=3, b=128, size=224):
     torch.backends.cudnn.benchmark = bench_was
     torch.cuda.empty_cache()
     return ok, stats
+
+
+def _fp32_views_no_masters(torch, state, model):
+    """O1's storage: one fp32 flat buffer, no masters, and every module
+    parameter an fp32 view of it that the state's params alias."""
+    if state.policy.master_weights or len(state.groups) != 1:
+        return False
+    flat = state.groups[0].flat
+    lo = flat.data_ptr()
+    hi = lo + flat.numel() * flat.element_size()
+    return all(p.dtype == flat.dtype == torch.float32
+               and lo <= p.data_ptr() < hi
+               and state.params[n].data_ptr() == p.data_ptr()
+               for n, p in model.named_parameters())
 
 
 def _optimizer_device_ms(torch, make_grads, apply, n=2):
@@ -3380,6 +3432,499 @@ def phase_resnet_identity(torch):
         del gpu, cpu, out
     torch.cuda.empty_cache()
     return ok, stats
+
+
+# ------------------------------------------------------------------ #
+# phase 16: ResNet O1 identity, card against CPU
+# ------------------------------------------------------------------ #
+def _resnet_o1_step(torch, cfg, sd, x, onehot, dev, level="O1"):
+    """One amp ``level`` + FusedSGD step of a ResNet of ``cfg`` loaded with
+    ``sd`` on ``dev``: the loss, logits, gradients, parameter changes,
+    running statistics, each ReLU'd BN output's sign mask and the stem's
+    max-pool choices (where the pooled value is positive), on the CPU."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import ResNet
+    from apex_tpu_torch.optim import fused_sgd
+
+    model = ResNet(cfg, device=dev)
+    model.load_state_dict(sd)
+    state = amp.initialize(model, fused_sgd(0.1, momentum=0.9,
+                                            weight_decay=1e-4), level)
+    before = {n: v.detach().cpu().clone() for n, v in state.params.items()}
+    outs = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, a, o, n=n: outs.__setitem__(n, o.detach()))
+        for n, m in model.named_modules()
+        if getattr(m, "block_act", None) == "relu"]
+    logits = model(x.to(dev))
+    for h in hooks:
+        h.remove()
+    loss = _resnet_loss(torch, logits, onehot.to(dev))
+    state.scale_loss(loss).backward()
+    grads = {n: q.grad.detach().cpu().clone()
+             for n, q in model.named_parameters()}
+    finite = bool(state.apply_gradients())
+    pooled, idx = F.max_pool2d(outs["bn_stem"], 3, 2, 1,
+                               return_indices=True)
+    return dict(
+        loss=float(loss.detach()), logits=logits.detach().cpu(),
+        grads=grads, finite=finite,
+        change={n: v.detach().cpu() - before[n]
+                for n, v in state.params.items()},
+        stats={n: b.cpu() for n, b in model.named_buffers()},
+        masks={n: (o > 0).cpu() for n, o in outs.items()},
+        pool=(pooled > 0).cpu(), pool_idx=idx.cpu(),
+        views=(_fp32_views_no_masters(torch, state, model)
+               if level == "O1" else None))
+
+
+def phase_resnet_o1_identity(torch):
+    """One amp O1 + FusedSGD step (lr 0.1, momentum 0.9, weight decay
+    1e-4) of phase 9's tiny ResNet (fused BN, fp32 compute, TF32 off, b=4,
+    64x64, both stems) on the card and on the CPU from the same weights:
+    O1's compute copy rounds the convs' and the classifier's weights to
+    bf16 in the forward, the BN parameters stay fp32, the gradients land
+    on the fp32 parameters, which FusedSGD updates in place.
+
+    - Card against CPU: loss and logits within phase 9's 1e-4 of the
+      largest entry, the running statistics within 1e-5.  Every ReLU and
+      the stem's max pool decide alike on both, or the decisions that
+      differ are counted: a value within fp32 noise (~1e-6) of a ReLU's
+      zero or of its pool window's maximum goes one way on each device,
+      and moves whole weight gradients by up to a few percent (one such
+      flip moved 2.3% at this size, on pre-rounded weights under O0
+      too).  Without a flip, every gradient and every parameter's change
+      within 1e-4 of the largest entry.
+    - O1 against O0 on each device: with cuDNN deterministic, the O0
+      step on weights rounded to bf16 beforehand runs the same forward
+      bit for bit, so each O1 gradient equals the O0 one rounded to bf16
+      (the cast's backward) bit for bit, and the norm parameters' equal
+      it.  With phase 9 (O0 card against CPU) this holds the O1 step of
+      the card to the CPU's."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.core.precision import norm_param_filter
+    from apex_tpu_torch.models import ResNet, ResNetConfig
+
+    log("phase 16: ResNet O1 identity (stages (1, 1), width 64, 10 "
+        "classes, fused BN, bf16 compute copy over fp32 compute, b=4, "
+        "64x64)")
+    dev = torch.device("cuda")
+    rel = 1e-4
+    det_was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ok, stats = True, {}
+    for stem in ("s2d", "conv"):
+        cfg = ResNetConfig(stage_sizes=(1, 1), width=64, num_classes=10,
+                           fused_bn=True, stem=stem)
+        gpu = ResNet(cfg, device=dev)
+        gpu.init_weights(torch.Generator(device=dev).manual_seed(11))
+        sd = {k: v.cpu() for k, v in gpu.state_dict().items()}
+        del gpu
+        rounded = {k: (v.bfloat16().float() if v.is_floating_point()
+                       and not norm_param_filter(k) else v)
+                   for k, v in sd.items()}
+        gen = torch.Generator().manual_seed(12)
+        x = torch.rand(4, 64, 64, 3, generator=gen)
+        onehot = F.one_hot(torch.randint(0, 10, (4,), generator=gen),
+                           10).float()
+        _build.reset_launches()
+        g = _resnet_o1_step(torch, cfg, sd, x, onehot, dev)
+        launched = all(_build.launches[k] == 9 for k in BN_KERNELS)
+        c = _resnet_o1_step(torch, cfg, sd, x, onehot, "cpu")
+        o0 = _resnet_o1_step(torch, cfg, rounded, x, onehot, dev, "O0")
+
+        def worst(a, b):
+            errs = {n: float((a[n] - v).abs().max()
+                             / max(float(v.abs().max()), 1e-30))
+                    for n, v in b.items()}
+            return max(errs.items(), key=lambda kv: kv[1])
+        flips = sum(int((g["masks"][n] != m).sum())
+                    for n, m in c["masks"].items())
+        flips += int(((g["pool_idx"] != c["pool_idx"])
+                      & (g["pool"] | c["pool"])).sum())
+        grad_w, change_w = worst(g["grads"], c["grads"]), \
+            worst(g["change"], c["change"])
+        o0c = _resnet_o1_step(torch, cfg, rounded, x, onehot, "cpu", "O0")
+
+        def o1_is_rounded_o0(o1, o0):
+            return all(torch.equal(v, o0["grads"][n] if norm_param_filter(n)
+                                   else o0["grads"][n].bfloat16().float())
+                       for n, v in o1["grads"].items())
+        o1_o0 = o1_is_rounded_o0(g, o0) and o1_is_rounded_o0(c, o0c)
+        st = dict(
+            loss_cuda=g["loss"], loss_cpu=c["loss"],
+            loss_rel_err=abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+            logits_rel_err=float((g["logits"] - c["logits"]).abs().max()
+                                 / c["logits"].abs().max()),
+            running_stats_abs_err=max(float((g["stats"][n] - v).abs().max())
+                                      for n, v in c["stats"].items()),
+            decisions_that_differ=flips,
+            worst_grad=grad_w[0], worst_grad_rel_err=grad_w[1],
+            worst_change=change_w[0], worst_change_rel_err=change_w[1],
+            o1_grads_bf16_rounded_o0_bitwise=o1_o0,
+            bn_kernels_launched_9_each=launched,
+            stored_fp32_views_no_masters=g["views"] and c["views"],
+            tolerance=f"loss, logits {rel} of the largest entry, stats "
+                      f"1e-5; grads and changes {rel} where no ReLU or "
+                      "pool decision differs")
+        good = (launched and g["finite"] and c["finite"] and o1_o0
+                and st["stored_fp32_views_no_masters"]
+                and st["loss_rel_err"] <= rel and st["logits_rel_err"] <= rel
+                and st["running_stats_abs_err"] <= 1e-5
+                and (flips > 0 or (grad_w[1] <= rel and change_w[1] <= rel)))
+        ok &= good
+        stats[stem] = st
+        log(f"  {stem}: {json.dumps(st)}")
+    torch.backends.cudnn.deterministic = det_was
+    torch.cuda.empty_cache()
+    return ok, stats
+
+
+# ------------------------------------------------------------------ #
+# phase 17: BERT-Large amp O1 training
+# ------------------------------------------------------------------ #
+_GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def _forward_gemm_types(torch, forward, path):
+    """The input dtypes and shapes of every cuBLAS product (``aten::mm``,
+    ``addmm``, ``bmm``, ``baddbmm``) of one ``forward()``, read from the
+    profiler's trace (``record_shapes``), and the CUDA kernels it
+    launched, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as pr:
+        forward()
+        torch.cuda.synchronize()
+    pr.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    gemms = [(e["name"], e["args"].get("Input type", []),
+              e["args"].get("Input Dims", []))
+             for e in events if e.get("cat") == "cpu_op"
+             and e.get("name") in _GEMM_OPS]
+    kernels = sorted({e.key for e in pr.key_averages() if _is_kernel(e)})
+    return gemms, kernels
+
+
+def phase_train_o1(torch, profile=False, steps=10, warmup=3):
+    """``bench_configs.py``'s ``bert_o1`` leg: BERT-Large with
+    ``dtype=None`` and remat, amp O1 (fp32 parameters, no masters, a bf16
+    compute copy with fp32 norms) under ``amp.o1.o1_intercept(bfloat16)``,
+    FusedAdam(1e-4), b=16, s=512, 80 masked positions; 3 warm-up and 10
+    timed steps with samples/s, host ms a step and peak memory, and the
+    launches of phase 4's kernels a step (the same counts).  Gates, from
+    the profiler's record of one forward and one training step: every
+    product of the half classes (Dense / attention / MLP) runs in bf16 and
+    the tied decoder's in fp32 (the embedding's class, as the JAX
+    interceptor gives it: its one product takes the vocabulary); every
+    LayerNorm kernel, forward and backward, is its fp32 variant and every
+    flash kernel its bf16 one; the loss falls."""
+    from apex_tpu_torch import _build, amp
+    from apex_tpu_torch.models import BertConfig, BertModel, bert_mlm_loss_fn
+    from apex_tpu_torch.optim import fused_adam
+
+    log("phase 17: BERT-Large amp O1 training (dtype=None, o1_intercept "
+        "bf16, remat, FusedAdam), b=16 s=512 P=80")
+    dev = torch.device("cuda")
+    b, s, p = 16, 512, 80
+    cfg = BertConfig.bert_large(dtype=None, remat=True)
+    model = BertModel(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(5))
+    state = amp.initialize(model, fused_adam(1e-4), "O1")
+    ids, pos, labels = _bert_batch(torch, cfg, b, s, p, 6, dev)
+
+    def loss_of():
+        with amp.o1.o1_intercept(torch.bfloat16):
+            logits, _ = model(ids, mlm_positions=pos)
+        return bert_mlm_loss_fn(logits.float(), labels)
+
+    def train_step():
+        loss = loss_of()
+        state.scale_loss(loss).backward()
+        finite = state.apply_gradients()
+        return loss.detach(), finite
+
+    warm = [float(train_step()[0]) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    step_ms, outs, host_ms = _event_times(torch, train_step, steps)
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(o[0]) for o in outs]
+    finite = [bool(o[1]) for o in outs]
+    per_step = {k: v / steps for k, v in launches.items()}
+    trace = os.path.join("build", "chip_smoke_bert_o1_trace.json")
+    os.makedirs("build", exist_ok=True)
+
+    def fwd():
+        with torch.no_grad():
+            loss_of()
+    gemms, fwd_kernels = _forward_gemm_types(torch, fwd, trace)
+    _, step_kernels = _forward_gemm_types(torch, train_step, trace)
+    vocab = str(cfg.vocab_size)
+    half = [t for _, t, d in gemms if vocab not in str(d)]
+    decoder = [t for _, t, d in gemms if vocab in str(d)]
+    def all_of(types, want):      # the tensor operands (addmm: the bias)
+        return all(x == want for x in types if x != "Scalar")
+    bf16_gemms = sum(all_of(t, "c10::BFloat16") for t in half)
+    fp32_decoder = sum(all_of(t, "float") for t in decoder)
+    ln = [k for k in step_kernels
+          if re.search(r"\bln_(fwd|bwd)\w*kernel", k)]
+    flash = [k for k in step_kernels
+             if re.search(r"\bfa_(fwd|bwd)\w*kernel", k)]
+    ln_fp32 = bool(ln) and all(re.search(r"ln_\w*kernel<float,", k)
+                               for k in ln)
+    flash_bf16 = bool(flash) and all("__nv_bfloat16" in k for k in flash)
+    stats = dict(
+        samples_per_s=b * steps / (sum(step_ms) / 1e3), step_ms=step_ms,
+        step_ms_min=min(step_ms), step_ms_max=max(step_ms),
+        host_ms_per_step=sum(host_ms) / len(host_ms), peak_bytes=peak,
+        loss_init=warm[0], warmup_losses=warm, loss_first=losses[0],
+        loss_last=losses[-1], losses=losses, finite=finite,
+        launches_per_step=per_step, launches=launches,
+        forward_gemms=len(gemms), forward_gemms_bf16=bf16_gemms,
+        forward_gemms_half_classes=len(half),
+        decoder_gemms_fp32=fp32_decoder, decoder_gemms=len(decoder),
+        layer_norm_kernels=ln, flash_kernels=flash,
+        layer_norm_fp32=ln_fp32, flash_bf16=flash_bf16,
+        forward_kernels=len(fwd_kernels),
+        stored_fp32_views_no_masters=_fp32_views_no_masters(torch, state,
+                                                            model))
+    log(f"  {json.dumps(stats)}")
+    if profile:
+        stats["profile"] = _profile_train(torch, train_step,
+                                          groups=BERT_GROUPS)
+        log(f"  profile: {json.dumps(stats['profile'])}")
+    ok = (all(finite) and all(np.isfinite(warm + losses))
+          and min(losses) < warm[0] and bool(half)
+          and bf16_gemms == len(half) and len(decoder) == 1
+          and fp32_decoder == 1 and ln_fp32 and flash_bf16
+          and stats["stored_fp32_views_no_masters"])
+    for name, want in TRAIN_LAUNCHES.items():
+        if per_step.get(name) != want:
+            log(f"  launches of {name}: {per_step.get(name)} per step, "
+                f"expected {want}")
+            ok = False
+    state.compute_copy.remove()
+    del model, state, outs
+    torch.cuda.empty_cache()
+    return ok, stats
+
+
+# ------------------------------------------------------------------ #
+# phase 18: the optimizers of optim, at BERT's sizes
+# ------------------------------------------------------------------ #
+def _bert_leaves(cfg):
+    """The per-parameter leaves of a BERT of ``cfg`` (the train state's
+    layout), from a model whose parameters are never initialised."""
+    from apex_tpu_torch.core.train_state import parameter_leaves
+    from apex_tpu_torch.models import BertModel
+
+    return [lf for _, lf in parameter_leaves(BertModel(cfg, device="cpu"))]
+
+
+def phase_optimizers(torch, steps=3):
+    """FusedLAMB, FusedMixedPrecisionLamb (bf16 parameters, fp32
+    masters), FusedNovoGrad, FusedAdagrad, LARC around FusedSGD and
+    ``clip_grad_norm``, each over one flat buffer of BERT-Large's 3.36e8
+    parameters with their leaves (the train state's layout): ms a step by
+    CUDA events over 3 steps.  Then one step at BERT-base's parameter
+    shapes on the card and on the CPU from the same parameters and
+    gradients: parameters (MP-LAMB's masters) and the optimizers' state
+    within the tests' rtol 1e-6 / atol 1e-7, MP-LAMB's bf16 parameters
+    within one bf16 ulp past that, the clipped gradients and the norm
+    within rtol 1e-6."""
+    from apex_tpu_torch import optim
+    from apex_tpu_torch.models import BertConfig
+
+    log("phase 18: optimizers over BERT-Large's parameters (3 steps each) "
+        "and one BERT-base step card vs CPU")
+    dev = torch.device("cuda")
+    makers = {
+        "fused_lamb": (lambda: optim.fused_lamb(1e-3), torch.float32),
+        "fused_mixed_precision_lamb": (
+            lambda: optim.fused_mixed_precision_lamb(1e-3), torch.bfloat16),
+        "fused_novograd": (lambda: optim.fused_novograd(1e-3),
+                           torch.float32),
+        "fused_adagrad": (lambda: optim.fused_adagrad(1e-2), torch.float32),
+        "larc(fused_sgd)": (lambda: optim.larc(optim.fused_sgd(
+            0.1, momentum=0.9, weight_decay=1e-4)), torch.float32),
+    }
+
+    def init(opt, p, leaves):
+        if getattr(opt, "per_leaf", False):
+            return opt.init([p], [leaves])
+        return opt.init([p])
+
+    large = _bert_leaves(BertConfig.bert_large())
+    n = sum(lf.numel for lf in large)
+    g = torch.Generator(device=dev).manual_seed(31)
+    stats = dict(params=n, ms_per_step={})
+    for name, (make, dt) in makers.items():
+        opt = make()
+        p = (0.02 * torch.randn(n, generator=g, device=dev)).to(dt)
+        state = init(opt, p, large)
+        grads = [torch.randn(n, generator=g, device=dev).to(dt)
+                 for _ in range(steps)]
+        it = iter(grads)
+        opt.step([grads[0]], state, [p])        # warm-up
+        ms = _event_times(torch, lambda: opt.step([next(it)], state, [p]),
+                          steps)[0]
+        stats["ms_per_step"][name] = ms
+        del p, state, grads
+        torch.cuda.empty_cache()
+    gf = torch.randn(n, generator=g, device=dev)
+    optim.clip_grad_norm([gf], 1.0)             # warm-up
+    ms = _event_times(torch, lambda: optim.clip_grad_norm([gf], 1.0),
+                      steps)[0]
+    stats["ms_per_step"]["clip_grad_norm"] = ms
+    del gf
+    torch.cuda.empty_cache()
+    log(f"  ms per step: {json.dumps(stats['ms_per_step'])}")
+
+    base = _bert_leaves(BertConfig.bert_large(hidden_size=768, num_layers=12,
+                                              num_heads=12))
+    nb = sum(lf.numel for lf in base)
+    gen = torch.Generator().manual_seed(32)
+    p0 = 0.02 * torch.randn(nb, generator=gen)
+    g0 = torch.randn(nb, generator=gen)
+    ok, errs = True, {}
+
+    def worst(a, b):
+        return float(((a.float().cpu() - b.float()).abs()
+                      / (1e-7 + 1e-6 * b.float().abs())).max())
+    for name, (make, dt) in makers.items():
+        res = {}
+        for d in (dev, "cpu"):
+            opt = make()
+            p = p0.to(dt).to(d)
+            state = init(opt, p, base)
+            opt.step([g0.to(dt).to(d)], state, [p])
+            tensors = [p]
+            if name == "fused_mixed_precision_lamb":
+                tensors = [state.master_params[0],
+                           state.inner.exp_avg[0], state.inner.exp_avg_sq[0]]
+            elif name in ("fused_lamb", "fused_novograd"):
+                tensors += [state.exp_avg[0], state.exp_avg_sq[0]]
+            elif name == "fused_adagrad":
+                tensors += [state.sum_sq[0]]
+            else:
+                tensors += [state.inner.momentum_buf[0]]
+            res[str(d)] = (p, tensors)
+        (pg, tg), (pc, tc) = res["cuda"], res["cpu"]
+        # ratio to the tolerance atol + rtol |ref|: at most 1 passes
+        errs[name] = max(worst(a, b) for a, b in zip(tg, tc))
+        ok &= errs[name] <= 1.0
+        if dt == torch.bfloat16:
+            # the masters rounded: one bf16 ulp (of the larger magnitude)
+            # past the masters' own tolerance (near zero it is the atol)
+            got, ref = pg.cpu().float(), pc.float()
+            mag = torch.maximum(got.abs(), ref.abs())
+            ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(
+                min=2.0 ** -126))) - 7)
+            errs[name + " bf16 params"] = float(((got - ref).abs() / (
+                ulp + 1e-7 + 1e-6 * ref.abs())).max())
+            ok &= errs[name + " bf16 params"] <= 1.0
+        del res
+    gg, gc = g0.to(dev), g0.clone()
+    (cg,), ng = optim.clip_grad_norm([gg], 1.0)
+    (cc,), nc = optim.clip_grad_norm([gc], 1.0)
+    errs["clip_grad_norm"] = max(worst(cg, cc), worst(ng, nc))
+    ok &= errs["clip_grad_norm"] <= 1.0
+    stats.update(base_params=nb, card_vs_cpu_err_over_tolerance=errs,
+                 tolerance="|card - cpu| <= 1e-7 + 1e-6 |cpu| (ratio <= 1); "
+                           "MP-LAMB's bf16 params one ulp past it")
+    log(f"  card vs CPU (error / tolerance): {json.dumps(errs)}")
+    torch.cuda.empty_cache()
+    return ok, stats
+
+
+# ------------------------------------------------------------------ #
+# phase 19: GroupNorm at any batch and on strided inputs
+# ------------------------------------------------------------------ #
+def phase_group_norm_faults(torch):
+    """The three-pass kernels at a batch past a grid's 65535 (65537, 4x4,
+    320) bf16 — about 0.7 GB an operand, groups of 10 channels — forward
+    and backward against their plain versions (phase 1's tolerances, the
+    plain backward from the plain statistics); then ``group_norm`` on a
+    permuted NCHW view ``x.permute(0, 2, 3, 1)`` of (8, 320, 64, 64) bf16
+    against the call on a contiguous copy: the output and the gradient
+    reaching the NCHW tensor bit for bit, the kernels launched (one
+    forward and one backward a call)."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.ops import group_norm
+    from apex_tpu_torch.ops.group_norm import (
+        group_norm_bwd_kernel, group_norm_bwd_reference,
+        group_norm_fwd_kernel, group_norm_fwd_reference)
+
+    log("phase 19: GroupNorm at batch 65537 (three passes) and on a "
+        "permuted NCHW view")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(41)
+    n, rows, c, grp = 65537, 16, 320, 32
+    x = torch.randn(n, rows, c, generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn(n, rows, c, generator=g, device=dev).to(torch.bfloat16)
+    w = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
+    b = 0.1 * torch.randn(c, generator=g, device=dev)
+    _build.reset_launches()
+    y, mean, rstd = group_norm_fwd_kernel(x, w, b, grp, 1e-5, True)
+    y_p, mean_p, rstd_p = group_norm_fwd_reference(x, w, b, grp, 1e-5, True)
+    dx, dw, db = group_norm_bwd_kernel(dy, x, w, b, mean_p, rstd_p, grp,
+                                       True)
+    fired = {k: v for k, v in _build.launches.items() if v}
+    dx_p, dw_p, db_p = group_norm_bwd_reference(dy, x, w, b, mean_p,
+                                                rstd_p, grp, True)
+    floor = 2 ** -16
+    big = dict(
+        shape=[n, rows, c], launches=fired,
+        y_ok=bf16_ulp_ok(torch, y, y_p, floor * float(
+            y_p.float().abs().max())),
+        stats_ok=bool(((mean - mean_p).abs() <= 1e-6 * torch.clamp_min(
+            mean_p.abs(), 1.0)).all()) and bool(
+                ((rstd - rstd_p).abs() <= 1e-5 * rstd_p).all()),
+        dx_ok=bf16_ulp_ok(torch, dx, dx_p, floor * float(
+            dx_p.float().abs().max())),
+        dgamma_dbeta_err=max(float((a - r).abs().max() / r.abs().max())
+                             for a, r in ((dw, dw_p), (db, db_p))))
+    del x, dy, y, y_p, dx, dx_p
+    torch.cuda.empty_cache()
+    good_big = (big["y_ok"] and big["stats_ok"] and big["dx_ok"]
+                and big["dgamma_dbeta_err"] <= 2e-5
+                and fired == {"group_norm_fwd_3pass": 1,
+                              "group_norm_bwd_3pass": 1})
+    nchw = torch.randn(8, 320, 64, 64, generator=g,
+                       device=dev).to(torch.bfloat16)
+    dyv = torch.randn(8, 64, 64, 320, generator=g,
+                      device=dev).to(torch.bfloat16)
+    _build.reset_launches()
+    a = nchw.clone().requires_grad_()
+    yv = group_norm(a.permute(0, 2, 3, 1), grp, w, b, act="silu")
+    (ga,) = torch.autograd.grad(yv, a, dyv)
+    view_launches = {k: v for k, v in _build.launches.items() if v}
+    cc = nchw.permute(0, 2, 3, 1).contiguous().requires_grad_()
+    yc = group_norm(cc, grp, w, b, act="silu")
+    (gc,) = torch.autograd.grad(yc, cc, dyv)
+    view = dict(shape=list(nchw.shape), launches=view_launches,
+                y_bitwise=torch.equal(yv, yc),
+                grad_bitwise=torch.equal(ga, gc.permute(0, 3, 1, 2)))
+    good_view = (view["y_bitwise"] and view["grad_bitwise"]
+                 and sum(view_launches.values()) == 2)
+    stats = dict(batch_65537=big, permuted_view=view,
+                 tolerance="bf16 one ulp + 2^-16 of max|.|; mean 1e-6, "
+                           "rstd 1e-5; dγ/dβ 2e-5 of the largest entry")
+    log(f"  {json.dumps(stats)}")
+    del nchw, dyv, a, cc
+    torch.cuda.empty_cache()
+    return good_big and good_view, stats
 
 
 def _profile_steps(torch, eng, n=4, groups=None):
@@ -3623,7 +4168,8 @@ def main(argv=None):
                     help="build the kernels and run phase 1 only")
     ap.add_argument("--profile", action="store_true",
                     help="also profile steady decode steps in phases 3, 6 "
-                         "and 7 and training steps in phases 4 and 8")
+                         "and 7 and training steps in phases 4, 8, 15 "
+                         "and 17")
     ap.add_argument("--out", default=os.path.join("build", "chip_smoke"),
                     help="directory for the detailed JSON record")
     args = ap.parse_args(argv)
@@ -3687,15 +4233,20 @@ def main(argv=None):
         ("", drop_model),
         ("4", lambda: phase_train(torch, args.profile)),
         ("5", lambda: phase_train_identity(torch)),
+        ("17", lambda: phase_train_o1(torch, args.profile)),
         ("10", lambda: phase_train_fp8(
             torch, args.profile,
             dense_peak=(results.get("4") or {}).get("peak_bytes"))),
         ("12", lambda: phase_fp8_identity(torch)),
+        ("18", lambda: phase_optimizers(torch)),
         ("11", lambda: phase_softmax_chain(torch)),
         ("8", lambda: phase_resnet(torch, args.profile)),
         ("9", lambda: phase_resnet_identity(torch)),
+        ("15", lambda: phase_resnet(torch, args.profile, opt_level="O1")),
+        ("16", lambda: phase_resnet_o1_identity(torch)),
         ("13", lambda: phase_group_norm_block(torch)),
         ("14", lambda: phase_block_identity(torch)),
+        ("19", lambda: phase_group_norm_faults(torch)),
     ]
     results = {}
     for name, run in phases:
@@ -3712,8 +4263,10 @@ def main(argv=None):
             log(f"phase {name} {'passed' if ok else 'FAILED'} "
                 f"({time.monotonic() - t0:.0f}s)")
     (serve, paged, paged8, train, ident, resnet, resnet_ident, train_fp8,
-     chain, fp8_ident, gn_block, block_ident) = (results.get(n) for n in (
-         "3", "6", "7", "4", "5", "8", "9", "10", "11", "12", "13", "14"))
+     chain, fp8_ident, gn_block, block_ident, resnet_o1, resnet_o1_ident,
+     train_o1, optimizers, gn_faults) = (results.get(n) for n in (
+         "3", "6", "7", "4", "5", "8", "9", "10", "11", "12", "13", "14",
+         "15", "16", "17", "18", "19"))
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3727,7 +4280,10 @@ def main(argv=None):
                        resnet_identity=resnet_ident, train_fp8=train_fp8,
                        softmax_chain=chain, fp8_identity=fp8_ident,
                        group_norm_block=gn_block,
-                       block_identity=block_ident), f, indent=1)
+                       block_identity=block_ident, resnet_o1=resnet_o1,
+                       resnet_o1_identity=resnet_o1_ident,
+                       train_o1=train_o1, optimizers=optimizers,
+                       group_norm_faults=gn_faults), f, indent=1)
     if not ok:
         log("chip_smoke: FAILED")
         return 1
@@ -3737,7 +4293,7 @@ def main(argv=None):
     # stage-0 bn3 (residual and ReLU) bf16 for the BatchNorm passes,
     # BERT-Large's masters for the fp8 Adam step and its scores for the
     # softmax; launches are the counts of the main-path runs (phases 3,
-    # 6, 7, 4, 8, 10 and 11)
+    # 6, 7, 4, 8, 10, 11 and 13, and the O1 runs 15 and 17)
     pick = {
         "layer_norm": ("layer_norm/stats", (8192, 1024), "torch.bfloat16"),
         "layer_norm_bwd": ("layer_norm_bwd", (8192, 1024),
@@ -3801,7 +4357,7 @@ def main(argv=None):
         r = match[0]
         n = sum((st or {}).get("launches", {}).get(name, 0)
                 for st in (serve, paged, paged8, train, resnet, train_fp8,
-                           chain, gn_block))
+                           chain, gn_block, resnet_o1, train_o1))
         kernels.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"], launches=n,

@@ -335,10 +335,45 @@ class TestTrainState:
         assert model.fc1.weight.data_ptr() == \
             state.params["fc1.weight"].data_ptr()
 
+    def test_o1_trains_fp32_params_on_a_half_compute_copy(self):
+        """O1 (amp's default level): the module keeps fp32 parameters,
+        views of the flat buffer, with no masters; its forward runs on
+        an fp16 copy with the norm fp32; fp16 gets the dynamic scale; the
+        gradients land fp32 and the steps train."""
+        model, state = _tiny_state("O1", torch.float16)
+        assert state.policy.opt_level == "O1"
+        assert state.policy.loss_scale == "dynamic"
+        assert not state.policy.master_weights and len(state.groups) == 1
+        seen = {}
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args, n=n:
+            seen.setdefault(n, mod.weight.dtype) and None)
+            for n, m in model.named_children()]
+        x = torch.randn(4, 8).half()
+        losses = []
+        for _ in range(3):
+            loss = model(x).float().square().mean()
+            state.scale_loss(loss).backward()
+            assert model.fc1.weight.grad.dtype == torch.float32
+            assert bool(state.apply_gradients())
+            losses.append(loss.item())
+        for h in hooks:
+            h.remove()
+        assert seen == {"fc1": torch.float16, "mid_norm": torch.float32,
+                        "fc2": torch.float16}
+        assert losses[-1] < losses[0]
+        for name, p in model.named_parameters():
+            assert p.dtype == torch.float32
+            assert p.data_ptr() == state.params[name].data_ptr()
+        assert "weight" not in model.fc1.__dict__
+        cp = state.compute_params()
+        assert cp["fc1.weight"].dtype == torch.float16
+        assert cp["mid_norm.weight"].dtype == torch.float32
+        # the default opt level is O1, as the reference's
+        assert amp.initialize(_Tiny(), fused_adam()).policy.opt_level == "O1"
+
     def test_deferred_features_name_their_roadmap_items(self):
         model = torch.nn.Linear(2, 2)
-        with pytest.raises(NotImplementedError, match="A-6"):
-            amp.initialize(model, fused_adam(), "O1")
         with pytest.raises(NotImplementedError, match="A-5"):
             MixedPrecisionTrainState.create(model=model,
                                             optimizer=fused_adam(),

@@ -46,6 +46,7 @@ from apex_tpu_torch.models import group_norm_params_from_jax
 from apex_tpu_torch.ops import GroupNorm, group_norm
 from apex_tpu_torch.ops.group_norm import (
     CLUSTER_SIZES,
+    CLUSTER_THREADS,
     cluster_plan,
     group_norm_bwd_kernel,
     group_norm_bwd_reference,
@@ -458,6 +459,77 @@ def test_three_pass_statistics_chunks_bound_the_fold(shape, g, monkeypatch):
 
 
 # ------------------------------------------------------------------ #
+# any batch (C-10) and strided inputs (C-11)
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("n", [65536, 65537, 70000])
+@pytest.mark.parametrize("rows,c,g,itemsize", [
+    (16, 320, 32, 2),       # cg 10: the three-pass route at any size
+    (64, 640, 32, 2),
+    (1, 1280, 32, 4),
+    (16, 512, 32, 2),       # cg 16: the cluster route
+    (4096, 512, 32, 4),
+])
+def test_launch_geometry_stays_in_range_at_large_batches(n, rows, c, g,
+                                                         itemsize,
+                                                         monkeypatch):
+    """Past 65535 samples (a grid's z limit) both routes launch: the
+    three-pass grids are 1-D, at most 2^31 - 1 blocks (csrc/group_norm.cu
+    ``grid_of``), with chunks x C under 2^31 for the folds' 32-bit
+    indices; a cluster plan's slabs x cluster stay under 2^31 and its
+    grid within the card's clusters."""
+    monkeypatch.setattr(_gn_ops, "_sm_count", lambda index: 132)
+    dtype = torch.bfloat16 if itemsize == 2 else torch.float32
+    # an expanded tensor: the shape and alignment, without the bytes
+    x3 = torch.zeros(1, 1, c, dtype=dtype).expand(n, rows, c)
+    vec, chunks, map_chunks = _gn_ops._geometry(x3, g)
+    assert vec == 16 // itemsize
+    for k in (chunks, map_chunks):
+        assert 1 <= k <= max(1, rows)
+        assert k * c < 2 ** 31
+        # csrc/group_norm.cu grid_of: one block a chunk, column tile of
+        # up to 32 vectors and sample, on a 1-D grid
+        blocks = n * k * -(-(c // vec) // 32)
+        assert n <= blocks < 2 ** 31
+    for backward in (False, True):
+        plan = cluster_plan(n, rows, c, g, itemsize, backward, _CAPACITY)
+        if plan is not None:
+            slabs = n * (c // plan.span)
+            assert slabs * plan.cluster < 2 ** 31
+            assert plan.clusters <= _CAPACITY[plan.cluster]
+            assert plan.clusters * plan.cluster * CLUSTER_THREADS < 2 ** 31
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_permuted_view_equals_the_contiguous_call(dtype, act):
+    """``x.permute(0, 2, 3, 1)`` of an NCHW tensor, not dense in its
+    shape's order: the output and the gradient that reaches the NCHW
+    tensor equal the contiguous call's (fp32 within 1e-6: the plain
+    composition reduces the strided tensor in another order; bf16 within
+    one ulp)."""
+    rng = np.random.default_rng(21)
+    nchw = torch.from_numpy(rng.normal(size=(2, 40, 5, 6)).astype(
+        np.float32)).to(dtype)
+    dy = torch.from_numpy(rng.normal(size=(2, 5, 6, 40)).astype(
+        np.float32)).to(dtype)
+    w = torch.from_numpy((1 + 0.3 * rng.normal(size=40)).astype(np.float32))
+    b = torch.from_numpy((0.1 * rng.normal(size=40)).astype(np.float32))
+    a = nchw.clone().requires_grad_()
+    view = a.permute(0, 2, 3, 1)
+    assert not view.is_contiguous()
+    y = group_norm(view, 4, w, b, act=act)
+    (ga,) = torch.autograd.grad(y, a, dy)
+    c = nchw.permute(0, 2, 3, 1).contiguous().requires_grad_()
+    y2 = group_norm(c, 4, w, b, act=act)
+    (gc,) = torch.autograd.grad(y2, c, dy)
+    tol = dict(rtol=1e-6, atol=1e-6) if dtype == torch.float32 else \
+        dict(rtol=2 ** -8, atol=1e-6)
+    torch.testing.assert_close(y, y2, **tol)
+    assert ga.shape == nchw.shape and ga.dtype == dtype
+    torch.testing.assert_close(ga, gc.permute(0, 3, 1, 2), **tol)
+
+
+# ------------------------------------------------------------------ #
 # the CUDA kernels against their plain versions (GPU only)
 # ------------------------------------------------------------------ #
 @pytest.fixture
@@ -521,3 +593,51 @@ def test_kernels_match_plain_on_card(shape, g, act, dtype, cuda_device):
         group_norm_bwd_kernel(_x3(dy), _x3(x), w, b, m2, r2, g, silu)
     for a, ref in zip(again, (y, m, r, dx, dw, db)):
         assert torch.equal(a, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [320, 512])
+def test_large_batch_runs_on_card(c, cuda_device):
+    """65537 samples (C-10): the three-pass route (C = 320, groups of 10
+    channels) and the cluster route (C = 512) launch and match the plain
+    versions."""
+    n, rows, g = 65537, 16, 32
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(n, rows, c, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+    w = 1 + 0.2 * torch.randn(c, generator=gen, device=cuda_device)
+    b = 0.1 * torch.randn(c, generator=gen, device=cuda_device)
+    y, m, r = group_norm_fwd_kernel(x, w, b, g, 1e-5, True)
+    y2, m2, r2 = group_norm_fwd_reference(x, w, b, g, 1e-5, True)
+    torch.testing.assert_close(m, m2, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(y.float(), y2.float(), rtol=2 ** -7,
+                               atol=2 ** -7)
+    dx, dw, db = group_norm_bwd_kernel(dy, x, w, b, m2, r2, g, True)
+    dx2, dw2, db2 = group_norm_bwd_reference(dy, x, w, b, m2, r2, g, True)
+    torch.testing.assert_close(dx.float(), dx2.float(), rtol=2 ** -7,
+                               atol=2 ** -7)
+    for got, ref in ((dw, dw2), (db, db2)):
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=2e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_permuted_view_on_card_equals_the_contiguous_call(cuda_device):
+    """A permuted NCHW view (C-11) runs the kernels on a dense copy: the
+    output and the gradient reaching the NCHW tensor equal the contiguous
+    call's bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    nchw = torch.randn(8, 320, 64, 64, generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    dy = torch.randn(8, 64, 64, 320, generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+    a = nchw.clone().requires_grad_()
+    y = group_norm(a.permute(0, 2, 3, 1), 32, act="silu")
+    (ga,) = torch.autograd.grad(y, a, dy)
+    c = nchw.permute(0, 2, 3, 1).contiguous().requires_grad_()
+    y2 = group_norm(c, 32, act="silu")
+    (gc,) = torch.autograd.grad(y2, c, dy)
+    assert torch.equal(y, y2)
+    assert torch.equal(ga, gc.permute(0, 3, 1, 2))

@@ -280,10 +280,33 @@ def test_o2_fused_sgd_two_steps_match_jax():
     assert int(state.opt_state.count) == 2
 
 
-def test_o1_is_refused_naming_a6():
-    model = ResNet(ResNetConfig(**TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match="A-6"):
-        amp.initialize(model, fused_sgd(0.1), "O1")
+def test_o1_keeps_fp32_params_and_runs_bf16_convs():
+    """amp O1 on the bf16 ResNet: the stored parameters are the module's
+    own, fp32 views of one flat buffer with no masters; in the forward
+    each conv reads a bf16 copy of its weight, each BN fp32 parameters;
+    a FusedSGD step trains them in place."""
+    model = ResNet(ResNetConfig(dtype=torch.bfloat16, **TINY), device="cpu")
+    model.init_weights(torch.Generator().manual_seed(3))
+    state = amp.initialize(model, fused_sgd(0.1, momentum=0.9), "O1")
+    assert len(state.groups) == 1 and not state.policy.master_weights
+    seen = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, n=n:
+            seen.setdefault(n, mod.weight.dtype) and None)
+        for n, m in model.named_modules() if n in ("stem", "bn_stem", "fc")]
+    x, y = (_t(a) for a in _batch())
+    before = state.params["stem.weight"].clone()
+    loss = _port_loss(model(x), y)
+    state.scale_loss(loss).backward()
+    assert bool(state.apply_gradients())
+    for h in hooks:
+        h.remove()
+    assert seen == {"stem": torch.bfloat16, "bn_stem": torch.float32,
+                    "fc": torch.bfloat16}
+    assert not torch.equal(state.params["stem.weight"], before)
+    for name, p in model.named_parameters():
+        assert p.dtype == torch.float32
+        assert p.data_ptr() == state.params[name].data_ptr()
 
 
 # ------------------------------------------------------------------ #
