@@ -1,5 +1,6 @@
-"""Models of the port: GPT/Llama decoders (full sequence, dense and
-paged KV-cached decode), the BERT encoder and ResNet."""
+"""Models of the port: GPT/Llama/Mistral/Mixtral decoders (full
+sequence; dense, ring and paged KV-cached decode), the BERT encoder,
+ViT, ResNet, and the importers of JAX and HF/torchvision checkpoints."""
 
 from apex_tpu_torch.models.bert import BertConfig, BertModel, bert_mlm_loss_fn
 from apex_tpu_torch.models.generate import (
@@ -10,7 +11,12 @@ from apex_tpu_torch.models.generate import (
     prefill_tokens,
     sample_logits,
 )
-from apex_tpu_torch.models.gpt import GPTConfig, GPTModel, gpt_loss_fn
+from apex_tpu_torch.models.gpt import (
+    GPTConfig,
+    GPTModel,
+    gpt_loss_fn,
+    moe_aux_loss,
+)
 from apex_tpu_torch.models.jax_import import (
     group_norm_params_from_jax,
     mha_params_from_jax,
@@ -29,6 +35,11 @@ from apex_tpu_torch.models.resnet import (
     space_to_depth,
     stem_conv_to_s2d,
 )
+from apex_tpu_torch.models.torch_import import (
+    load_torch_gpt2,
+    load_torch_llama,
+    load_torch_resnet,
+)
 from apex_tpu_torch.models.transformer import (
     ParallelAttention,
     ParallelMLP,
@@ -36,12 +47,15 @@ from apex_tpu_torch.models.transformer import (
     ParallelTransformerLayer,
     TransformerConfig,
 )
+from apex_tpu_torch.models.vit import ViTConfig, ViTModel
 
 __all__ = [
     "apply_decode", "generate", "init_cache", "init_paged_cache", "prefill_tokens",
     "sample_logits",
     "BertConfig", "BertModel", "bert_mlm_loss_fn",
-    "GPTConfig", "GPTModel", "gpt_loss_fn", "LlamaConfig", "LlamaModel",
+    "GPTConfig", "GPTModel", "gpt_loss_fn", "moe_aux_loss",
+    "LlamaConfig", "LlamaModel", "ViTConfig", "ViTModel",
+    "load_torch_gpt2", "load_torch_llama", "load_torch_resnet",
     "named_leaves_from_jax", "params_from_jax", "resnet_params_from_jax",
     "group_norm_params_from_jax", "mha_params_from_jax",
     "mlp_params_from_jax",

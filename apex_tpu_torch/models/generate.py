@@ -31,17 +31,28 @@ _NEG_INF = -1e30
 def init_cache(model, batch_size: int) -> Dict[str, torch.Tensor]:
     """An all-zero dense KV cache on the model's device: ``key`` and
     ``value`` ``(layers, batch, max_seq_len, kv_heads, head_dim)`` in
-    ``cfg.dtype``, and the per-row ``index`` ``(batch,)`` int32."""
+    ``cfg.dtype``, and the per-row ``index`` ``(batch,)`` int32.
+
+    With a ``sliding_window`` below ``max_seq_len`` the cache is a ring
+    of that many slots: ``key`` / ``value`` ``(layers, batch, window,
+    kv_heads, head_dim)`` and ``slot_positions`` ``(batch, window)``
+    int32, each slot's position + 1 (0 = empty; one table for every
+    layer, which all write the same slots)."""
     cfg = model.cfg
-    shape = (cfg.num_layers, int(batch_size), cfg.max_seq_len,
-             cfg.kv_heads, cfg.head_dim)
+    ring = cfg.ring_window
+    b = int(batch_size)
+    shape = (cfg.num_layers, b, ring or cfg.max_seq_len, cfg.kv_heads,
+             cfg.head_dim)
     dev = model.device
-    return {
+    cache = {
         "key": torch.zeros(shape, dtype=cfg.dtype, device=dev),
         "value": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-        "index": torch.zeros((int(batch_size),), dtype=torch.int32,
-                             device=dev),
+        "index": torch.zeros((b,), dtype=torch.int32, device=dev),
     }
+    if ring is not None:
+        cache["slot_positions"] = torch.zeros((b, ring), dtype=torch.int32,
+                                              device=dev)
+    return cache
 
 
 def init_paged_cache(model, batch_size: int, *,

@@ -35,7 +35,7 @@ from apex_tpu_torch.transformer.layers import (
     VocabParallelEmbedding,
 )
 
-__all__ = ["GPTConfig", "GPTModel", "gpt_loss_fn"]
+__all__ = ["GPTConfig", "GPTModel", "gpt_loss_fn", "moe_aux_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +142,9 @@ class GPTModel(nn.Module):
         clamped = positions.clamp(max=cfg.max_seq_len - 1)
         step = DecodeStep(index=index.long(), positions=positions,
                           kv_len=int(kv_len or cfg.max_seq_len))
+        ring = cache.get("slot_positions")
+        if ring is not None:
+            self._ring_step(step, ring, s)
         if cfg.position_embedding == "rope":
             step.cos = self.rope_cos[clamped]
             step.sin = self.rope_sin[clamped]
@@ -150,8 +153,29 @@ class GPTModel(nn.Module):
             x = x + self.position_embedding[clamped].to(x.dtype)
         x = x.to(cfg.dtype)
         x = self.transformer(x, cache, step)
+        if ring is not None:
+            rows = torch.arange(b, device=ring.device)[:, None]
+            tail = step.slots.shape[1]
+            ring[rows, step.slots] = (positions[:, s - tail:] + 1).to(
+                ring.dtype)
         index += s
         return self._head(x, last_index)
+
+    @staticmethod
+    def _ring_step(step: DecodeStep, ring, s: int):
+        """The ring slots this call writes and the slot positions the
+        layers read (``DecodeStep``): after the write for one token,
+        before it for a chunk."""
+        W = ring.shape[1]
+        tail = min(s, W)
+        written = step.positions[:, s - tail:]
+        step.slots = written % W
+        key_pos = ring.long() - 1
+        if s == 1:
+            rows = torch.arange(ring.shape[0], device=ring.device)[:, None]
+            key_pos = key_pos.clone()
+            key_pos[rows, step.slots] = written
+        step.key_positions = key_pos
 
     def _paged(self, input_ids, cache, last_index):
         cfg = self.cfg
@@ -202,3 +226,21 @@ class GPTModel(nn.Module):
 def gpt_loss_fn(logits, labels, *, ignore_index: int = -100):
     """Next-token CE averaged over valid tokens (fp32)."""
     return mean_cross_entropy(logits, labels, ignore_index=ignore_index)
+
+
+def moe_aux_loss(model: nn.Module) -> torch.Tensor:
+    """The sum of the load-balance terms the MoE layers of ``model``
+    recorded in their last forward (each already carries
+    ``moe_aux_loss_weight``); fp32, 0 for a model without MoE layers.
+
+    Usage with ``num_moe_experts`` configs::
+
+        logits = model(ids)
+        loss = gpt_loss_fn(logits, labels) + moe_aux_loss(model)
+    """
+    terms = [m.moe_aux.float() for m in model.modules()
+             if getattr(m, "moe_aux", None) is not None]
+    if not terms:
+        dev = next(iter(model.parameters())).device
+        return torch.zeros((), dtype=torch.float32, device=dev)
+    return torch.stack(terms).sum()

@@ -1,9 +1,10 @@
 """Load the JAX package's parameters into the port's models.
 
 :func:`params_from_jax` turns the flax parameter tree of an
-``apex_tpu.models.GPTModel`` / ``LlamaModel`` / ``BertModel`` — numpy
-leaves, as ``jax.device_get`` gives them — into a ``state_dict`` for
-the port's model of the same class under the same config.  Both
+``apex_tpu.models.GPTModel`` / ``LlamaModel`` / ``BertModel`` /
+``ViTModel`` — numpy leaves, as ``jax.device_get`` gives them, MoE
+layers included — into a ``state_dict`` for the port's model of the
+same class under the same config.  Both
 layer layouts load: the scanned stack (``scan_layers=True``: one
 ``transformer/layers/layer`` subtree whose leaves carry a leading layer
 axis) and the unrolled one (``transformer/layer_<i>`` subtrees).  Dense
@@ -36,6 +37,8 @@ _LINEARS = {
     "mlp": ("dense_h_to_4h", "dense_h_to_4h_gate", "dense_4h_to_h"),
 }
 _NORMS = ("input_norm", "post_attention_norm")
+#: MoE leaves, in the JAX module's layout on both sides
+_MOE = ("gate", "w1", "w2", "wg", "b1", "b2")
 
 
 def _arr(leaf) -> np.ndarray:
@@ -69,16 +72,28 @@ def _linear(out: Dict[str, Any], prefix: str, tree: Mapping) -> None:
 
 
 def params_from_jax(params_np: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """State dict for ``GPTModel(cfg)`` or ``BertModel(cfg)`` (a tree
-    with ``emb_norm_scale``) from the JAX model's params.
+    """State dict for ``GPTModel(cfg)``, ``BertModel(cfg)`` (a tree
+    with ``emb_norm_scale``) or ``ViTModel(cfg)`` (a tree with
+    ``patch_embed``: the conv kernel HWIO → OIHW, the class token,
+    positions and head) from the JAX model's params.  A layer's
+    ``moe_mlp`` leaves (``gate``, ``w1``, ``w2``, ``wg``, ``b1``, ``b2``)
+    keep their layout.
 
     ``params_np``: the ``params`` collection (or a dict holding it under
     ``"params"``) with array leaves.  Returns CPU tensors in the JAX
     arrays' dtypes; ``load_state_dict`` casts them to the module's.
     """
     p = params_np.get("params", params_np)
-    out: Dict[str, Any] = {
-        "embedding.weight": _arr(p["embedding"]["embedding"])}
+    out: Dict[str, Any] = {}
+    if "patch_embed" in p:                      # ViT
+        kernel = _arr(p["patch_embed"]["kernel"])
+        out["patch_embed.weight"] = (kernel.transpose(3, 2, 0, 1)
+                                     if kernel.ndim == 4 else kernel)
+        out["patch_embed.bias"] = _arr(p["patch_embed"]["bias"])
+        out["cls_token"] = _arr(p["cls_token"])
+        _linear(out, "head", p["head"])
+    else:
+        out["embedding.weight"] = _arr(p["embedding"]["embedding"])
     if "position_embedding" in p:
         out["position_embedding"] = _arr(p["position_embedding"])
     for i, layer in enumerate(_layer_trees(p["transformer"],
@@ -88,9 +103,12 @@ def params_from_jax(params_np: Mapping, cfg) -> Dict[str, torch.Tensor]:
             _norm(out, f"{pre}.{name}", layer[name])
         for block, names in _LINEARS.items():
             for name in names:
-                if name in layer[block]:
+                if name in layer.get(block, {}):
                     _linear(out, f"{pre}.{block}.{name}",
                             layer[block][name])
+        for name in _MOE:
+            if name in layer.get("moe_mlp", {}):
+                out[f"{pre}.moe_mlp.{name}"] = _arr(layer["moe_mlp"][name])
     if "emb_norm_scale" in p:                   # BERT
         for name in ("token_type_embedding", "emb_norm_scale",
                      "emb_norm_bias", "mlm_bias"):

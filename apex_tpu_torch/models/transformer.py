@@ -9,12 +9,19 @@ backward, LayerNorm forward and backward); the products are
 ``torch.nn.functional.linear``, as the JAX package leaves them to XLA.
 
 Full sequence (``decode=False`` in JAX): every layer attends over the
-whole input with ``fused_attention`` — causal or not, with an optional
-additive ``mask_bias`` and attention/hidden dropout.  ``remat=True``
-recomputes each layer in the backward (``torch.utils.checkpoint``,
-non-reentrant: the ``nothing_saveable`` policy).  Dropout masks come
+whole input with ``fused_attention`` — causal or not, banded under
+``sliding_window``, with an optional additive ``mask_bias`` and
+attention/hidden dropout.  ``remat=True`` recomputes each layer in the
+backward (``torch.utils.checkpoint``, non-reentrant) under
+``remat_policy``: a selective-checkpoint policy keeps the outputs of
+the ops it names — the 2-D products, or the flash forward (one
+dispatcher op, ``apex_tpu_torch::flash_fwd``, whose ``(o, lse)`` are the
+JAX kernel's ``attn_out`` / ``attn_lse`` residuals) — and
+``remat_skip_every`` exempts every k-th layer.  Dropout masks come
 from integer seeds drawn once per step outside the checkpointed layer,
-so the recomputed forward draws the same masks.
+so the recomputed forward draws the same masks.  Under
+``num_moe_experts`` the MLP is a mixture of experts and each layer keeps
+its load-balance term (``moe_aux``).
 
 Decode: the cache index is per row — every row of a batch sits at its
 own position, which the JAX serving engine gets from its ``vmap`` over
@@ -22,7 +29,10 @@ slots.  The cache is a dict of tensors (``apex_tpu_torch.models.
 generate.init_cache``): ``key`` / ``value`` of ``(layers, batch,
 max_seq_len, kv_heads, head_dim)`` and ``index`` ``(batch,)`` — tokens
 already cached per row.  A forward writes its tokens' K/V at
-``index + i`` in place and advances ``index``.
+``index + i`` in place and advances ``index``.  With a
+``sliding_window`` below ``max_seq_len`` the cache is a ring of that
+many slots (``(layers, batch, window, kv_heads, head_dim)``) plus
+``slot_positions`` ``(batch, window)`` (position + 1, 0 = empty).
 
 Paged decode (a cache from ``init_paged_cache``, the serving engine's
 layout; ``cfg.kv_cache == "paged"`` marks a model configured for it):
@@ -36,20 +46,22 @@ a wider step (chunked prefill, the speculative verify) rotates with the
 per-row RoPE kernel, scatters its K/V into the pool and attends with the
 paged attention kernel.  The pool is updated in place.
 
-Not in this slice (each raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings it): sliding-window attention and
-mixture-of-experts layers (A-4), remat policies other than
-``nothing_saveable`` (A-6); a tensor-parallel paged pool is A-5.
+Not in this slice: a tensor-parallel paged pool (``ROADMAP.md`` A-5).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from apex_tpu_torch.amp import o1
 from apex_tpu_torch.ops.attention import fused_attention
@@ -67,8 +79,10 @@ from apex_tpu_torch.transformer.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
 )
+from apex_tpu_torch.transformer.moe import MoEConfig, MoEMLP
 
 __all__ = ["TransformerConfig", "DecodeStep", "PagedStep",
+           "REMAT_POLICIES", "remat_saves", "remat_context_fn",
            "ParallelAttention",
            "ParallelMLP", "ParallelTransformerLayer", "ParallelTransformer",
            "dropout_seeds", "init_module_weights"]
@@ -98,12 +112,31 @@ class TransformerConfig:
     attention_dropout: float = 0.0
     activation: str = "gelu"
     add_bias_linear: bool = True
+    # sliding-window attention (Mistral; requires causal): each query
+    # attends to the last `sliding_window` positions.  Below max_seq_len
+    # the decode cache is a ring of that many slots.
     sliding_window: Optional[int] = None
     gated_mlp: bool = False
+    # Mixture-of-Experts FFN (Mixtral): every layer's MLP becomes
+    # `num_moe_experts` experts under top-k token-choice routing
+    # (transformer/moe.py); each MoE layer records its weighted
+    # load-balance term, summed by models.moe_aux_loss(model)
     num_moe_experts: Optional[int] = None
-    # recompute each layer in the backward (full-sequence path)
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_weight: float = 1e-2
+    moe_expert_axis: Optional[str] = "tensor"
+    # recompute each layer in the backward (full-sequence path) under
+    # `remat_policy`: "nothing_saveable" (recompute all),
+    # "everything_saveable" (no recomputation),
+    # "dots_with_no_batch_dims_saveable" (keep the outputs of the 2-D
+    # products) or "save_only:<name>[,<name>...]" with the flash
+    # forward's residuals "attn_out" and "attn_lse"
     remat: bool = False
     remat_policy: str = "nothing_saveable"
+    # with remat: layer i with i % remat_skip_every == 0 keeps its
+    # activations (no recomputation); 0 disables
+    remat_skip_every: int = 0
     # flash-attention tiles; None = the kernels' tile (64, the only one)
     attention_block_q: Optional[int] = None
     attention_block_k: Optional[int] = None
@@ -155,6 +188,13 @@ class TransformerConfig:
         if self.norm not in ("layernorm", "rmsnorm"):
             raise ValueError(
                 f"norm={self.norm!r} not in ('layernorm', 'rmsnorm')")
+        if self.sliding_window is not None:
+            if not self.causal:
+                raise ValueError("sliding_window requires causal=True")
+            if self.sliding_window < 1:
+                raise ValueError(
+                    f"sliding_window must be >= 1, got "
+                    f"{self.sliding_window}")
         if self.decode_attn not in ("auto", "einsum", "blocked"):
             raise ValueError(
                 f"decode_attn={self.decode_attn!r} not in "
@@ -185,17 +225,64 @@ class TransformerConfig:
                     "pages live in the paged pool; the dense slab stores "
                     "K/V in the compute dtype")
             kv_quant_spec(self.kv_dtype)
-        if self.remat_policy != "nothing_saveable":
-            raise NotImplementedError(
-                f"remat_policy={self.remat_policy!r}: only "
-                "'nothing_saveable' is ported; the others come with "
-                "ROADMAP.md A-6")
-        if self.sliding_window is not None:
-            raise NotImplementedError(
-                "sliding_window comes with ROADMAP.md A-4")
         if self.num_moe_experts is not None:
-            raise NotImplementedError(
-                "mixture-of-experts layers come with ROADMAP.md A-4")
+            if self.num_moe_experts < 2:
+                raise ValueError(
+                    f"num_moe_experts must be >= 2, got "
+                    f"{self.num_moe_experts}")
+            if self.moe_top_k < 1:
+                raise ValueError(
+                    f"moe_top_k must be >= 1, got {self.moe_top_k}")
+            if self.moe_top_k > self.num_moe_experts:
+                raise ValueError(
+                    f"moe_top_k ({self.moe_top_k}) cannot exceed "
+                    f"num_moe_experts ({self.num_moe_experts})")
+        remat_saves(self.remat_policy)
+        if self.remat_skip_every < 0:
+            raise ValueError(
+                f"remat_skip_every must be >= 0, got {self.remat_skip_every}")
+
+    @property
+    def ring_window(self) -> Optional[int]:
+        """Slots of the decode cache's ring: ``sliding_window`` when it
+        is below ``max_seq_len``, else None (the dense cache)."""
+        w = self.sliding_window
+        return w if w is not None and w < self.max_seq_len else None
+
+
+REMAT_POLICIES = ("nothing_saveable", "everything_saveable",
+                  "dots_with_no_batch_dims_saveable",
+                  "save_only:<name>[,<name>...]")
+#: the residuals the flash forward names (``apex_tpu/ops/attention.py``)
+SAVEABLE_NAMES = ("attn_out", "attn_lse")
+
+
+def remat_saves(policy: str):
+    """What a remat policy keeps for the backward: None (nothing: the
+    whole layer is recomputed), ``"all"`` (no recomputation), or the
+    tuple of dispatcher ops whose outputs are kept.  Raises
+    ``ValueError`` for any other policy."""
+    if policy == "nothing_saveable":
+        return None
+    if policy == "everything_saveable":
+        return "all"
+    if policy == "dots_with_no_batch_dims_saveable":
+        return (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+    if policy.startswith("save_only:"):
+        names = [n for n in policy[len("save_only:"):].split(",") if n]
+        bad = [n for n in names if n not in SAVEABLE_NAMES]
+        if not names or bad:
+            raise ValueError(
+                f"remat_policy={policy!r}: save_only takes names among "
+                f"{SAVEABLE_NAMES}")
+        # the flash forward is one op producing both residuals: kept
+        # when both are named; with one, the backward needs the other,
+        # so the recomputation reruns the op either way
+        if set(names) == set(SAVEABLE_NAMES):
+            return (torch.ops.apex_tpu_torch.flash_fwd.default,)
+        return None
+    raise ValueError(
+        f"remat_policy={policy!r} not in {REMAT_POLICIES}")
 
 
 @dataclasses.dataclass
@@ -208,6 +295,13 @@ class DecodeStep:
     (a host-side bound, so attention reads only the live prefix);
     ``cos`` / ``sin``: per-row RoPE tables ``(b, s, rot/2)`` or
     ``None``.
+
+    A ring cache (``cfg.ring_window``) adds ``slots`` ``(b, n)``: the
+    ring slots this call writes (one when ``s == 1``, else the chunk's
+    last ``min(s, window)`` tokens), and ``key_positions`` ``(b,
+    window)``: each slot's absolute position (-1 empty) as the layers
+    read the ring — after the write when ``s == 1``, before it for a
+    chunk, as in the JAX module.
     """
 
     index: torch.Tensor
@@ -215,6 +309,8 @@ class DecodeStep:
     kv_len: int
     cos: Optional[torch.Tensor] = None
     sin: Optional[torch.Tensor] = None
+    slots: Optional[torch.Tensor] = None
+    key_positions: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -259,18 +355,36 @@ class Norm(nn.Module):
         return fused_layer_norm(x, self.weight, self.bias, eps=self.eps)
 
 
-def _cache_attention(q, keys, values, idx, scale):
+def _visible(pos_q, k_pos, window):
+    """``(b, s, S)`` True where a query at ``pos_q`` ``(b, s)`` sees a
+    key at ``k_pos`` (``(S,)`` slot indices or ``(b, S)`` per-slot
+    positions, -1 empty): at or before the query and, with ``window``,
+    less than ``window`` positions back."""
+    k_pos = k_pos if k_pos.dim() == 2 else k_pos[None]
+    k_pos = k_pos[:, None, :]
+    vis = (k_pos >= 0) & (k_pos <= pos_q[:, :, None])
+    if window is not None:
+        vis = vis & (k_pos > pos_q[:, :, None] - window)
+    return vis
+
+
+def _cache_attention(q, keys, values, idx, scale, window=None,
+                     key_positions=None):
     """Attention of ``q`` (b, s, h, d) over cached ``keys`` / ``values``
     (b, S, hk, d): grouped (GQA) products in fp32, positions past each
-    row's ``idx + i`` masked, fp32 softmax."""
+    row's ``idx + i`` (and, with ``window``, at or before ``idx + i -
+    window``) masked, fp32 softmax.  ``key_positions`` ``(b, S)``: each
+    slot's absolute position (a ring cache; -1 empty), else the slot
+    index is the position."""
     b, s, h, d = q.shape
     S, hk = keys.shape[1], keys.shape[2]
     rep = h // hk
     qg = q.reshape(b, s, hk, rep, d).float()
     scores = torch.einsum("bsgrd,bkgd->bsgrk", qg, keys.float()) * scale
     pos_q = idx[:, None] + torch.arange(s, device=q.device)       # (b, s)
-    k_pos = torch.arange(S, device=q.device)
-    visible = k_pos[None, None, :] <= pos_q[:, :, None]           # (b, s, S)
+    k_pos = (torch.arange(S, device=q.device) if key_positions is None
+             else key_positions)
+    visible = _visible(pos_q, k_pos, window)                      # (b, s, S)
     scores = torch.where(visible[:, :, None, None, :], scores,
                          torch.full_like(scores, -1e30))
     p = torch.softmax(scores, dim=-1)
@@ -278,7 +392,8 @@ def _cache_attention(q, keys, values, idx, scale):
     return o.reshape(b, s, h, d).to(q.dtype)
 
 
-def _cache_attention_blocked(q, keys, values, idx, scale, block=1024):
+def _cache_attention_blocked(q, keys, values, idx, scale, window=None,
+                             key_positions=None, block=1024):
     """The same attention as an online-softmax sweep over key blocks of
     ``block`` slots, so score temporaries stay ``(b, s, h, block)``."""
     b, s, h, d = q.shape
@@ -294,8 +409,10 @@ def _cache_attention_blocked(q, keys, values, idx, scale, block=1024):
         kb = keys[:, start:start + block].float()
         vb = values[:, start:start + block].float()
         sc = torch.einsum("bsgrd,bkgd->bsgrk", qg, kb)
-        k_pos = start + torch.arange(kb.shape[1], device=dev)
-        vis = k_pos[None, None, :] <= pos_q[:, :, None]
+        k_pos = (start + torch.arange(kb.shape[1], device=dev)
+                 if key_positions is None
+                 else key_positions[:, start:start + block])
+        vis = _visible(pos_q, k_pos, window)
         sc = torch.where(vis[:, :, None, None, :], sc,
                          torch.full_like(sc, -1e30))
         m_new = torch.maximum(m, sc.amax(dim=-1))
@@ -388,11 +505,14 @@ class ParallelAttention(nn.Module):
         q, k, v = self._qkv(x, None if step.cos is None else (
             step.cos, step.sin))
         rows = torch.arange(b, device=x.device)[:, None]
+        scale = d ** -0.5
+        if step.slots is not None:
+            o = self._ring_decode(q, k, v, cache_k, cache_v, step, scale)
+            return self.out_proj(o.reshape(b, s, h * d))
         cache_k[rows, step.positions] = k.to(cache_k.dtype)
         cache_v[rows, step.positions] = v.to(cache_v.dtype)
         keys = cache_k[:, :step.kv_len]
         values = cache_v[:, :step.kv_len]
-        scale = d ** -0.5
         S = cfg.max_seq_len
         if s == 1:
             mode = cfg.decode_attn
@@ -404,6 +524,41 @@ class ParallelAttention(nn.Module):
         else:
             o = _cache_attention_blocked(q, keys, values, step.index, scale)
         return self.out_proj(o.reshape(b, s, h * d))
+
+    def _ring_decode(self, q, k, v, ring_k, ring_v, step: DecodeStep,
+                     scale):
+        """Attention over the sliding-window ring ``(b, W, hk, d)``.
+
+        ``s == 1``: write the token into its slot, then attend over the
+        ring by per-slot positions.  A chunk: only its first ``min(W,
+        s)`` queries can see ring entries, so they attend over ``[ring ‖
+        chunk head]`` by the blocked online softmax; the rest see only
+        the chunk and go through the banded flash kernel; then the
+        chunk's last ``min(s, W)`` tokens overwrite their slots."""
+        W = ring_k.shape[1]
+        b, s = q.shape[:2]
+        rows = torch.arange(b, device=q.device)[:, None]
+        if s == 1:
+            ring_k[rows, step.slots] = k.to(ring_k.dtype)
+            ring_v[rows, step.slots] = v.to(ring_v.dtype)
+            return _cache_attention(q, ring_k, ring_v, step.index, scale,
+                                    window=W,
+                                    key_positions=step.key_positions)
+        hlen = min(W, s)
+        cat_k = torch.cat([ring_k, k[:, :hlen].to(ring_k.dtype)], dim=1)
+        cat_v = torch.cat([ring_v, v[:, :hlen].to(ring_v.dtype)], dim=1)
+        cat_pos = torch.cat([step.key_positions,
+                             step.positions[:, :hlen]], dim=1)
+        o = _cache_attention_blocked(q[:, :hlen], cat_k, cat_v, step.index,
+                                     scale, window=W, key_positions=cat_pos)
+        if s > hlen:
+            o_tail = fused_attention(q[:, hlen:], k, v, causal=True,
+                                     scale=scale, window=W)
+            o = torch.cat([o, o_tail], dim=1)
+        tail = step.slots.shape[1]
+        ring_k[rows, step.slots] = k[:, s - tail:].to(ring_k.dtype)
+        ring_v[rows, step.slots] = v[:, s - tail:].to(ring_v.dtype)
+        return o
 
     def _paged_decode(self, x, kp, vp, scales, step: PagedStep):
         """Write-then-attend over the paged pool (updated in place).
@@ -533,7 +688,11 @@ def dropout_seeds(cfg: TransformerConfig, deterministic: bool,
 
 
 class ParallelTransformerLayer(nn.Module):
-    """Pre-norm block: x + attn(norm(x)), then x + mlp(norm(x))."""
+    """Pre-norm block: x + attn(norm(x)), then x + mlp(norm(x)); the MLP
+    is a :class:`~apex_tpu_torch.transformer.moe.MoEMLP` under
+    ``num_moe_experts``, and the layer then keeps the weighted
+    load-balance term of its last forward in ``moe_aux`` (the
+    counterpart of flax's ``sow("losses", ...)``)."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
@@ -541,7 +700,19 @@ class ParallelTransformerLayer(nn.Module):
         self.input_norm = Norm(cfg, device)
         self.attention = ParallelAttention(cfg, device)
         self.post_attention_norm = Norm(cfg, device)
-        self.mlp = ParallelMLP(cfg, device)
+        self.moe_aux: Optional[torch.Tensor] = None
+        if cfg.num_moe_experts:
+            self.moe_mlp = MoEMLP(MoEConfig(
+                num_experts=cfg.num_moe_experts, top_k=cfg.moe_top_k,
+                capacity_factor=cfg.moe_capacity_factor,
+                hidden_size=cfg.hidden_size, ffn_hidden_size=cfg.ffn_size,
+                activation=cfg.activation, gated=cfg.gated_mlp,
+                use_bias=cfg.add_bias_linear,
+                expert_axis=cfg.moe_expert_axis,
+                aux_loss_weight=cfg.moe_aux_loss_weight, dtype=cfg.dtype,
+                param_dtype=cfg.param_dtype), device)
+        else:
+            self.mlp = ParallelMLP(cfg, device)
 
     def forward(self, x, cache_k=None, cache_v=None,
                 step: Optional[DecodeStep] = None, *, mask_bias=None,
@@ -550,6 +721,19 @@ class ParallelTransformerLayer(nn.Module):
         """``seeds``: this layer's (attention, hidden, hidden) dropout
         seeds, or None without dropout; ``scales``: the layer's paged
         pool scales (quantized pools)."""
+        x, aux = self.block(x, cache_k, cache_v, step, mask_bias=mask_bias,
+                            rope=rope, seeds=seeds, scales=scales)
+        if aux is not None:
+            self.moe_aux = aux
+        return x
+
+    def block(self, x, cache_k=None, cache_v=None,
+              step: Optional[DecodeStep] = None, *, mask_bias=None,
+              rope=None, seeds: Optional[Sequence[int]] = None,
+              scales=None):
+        """The layer as ``(x, aux)``, ``aux`` the MoE term or None; it
+        records nothing, so a recomputation under remat leaves
+        ``moe_aux`` alone."""
         rate = self.cfg.hidden_dropout
         a = self.attention(self.input_norm(x), cache_k, cache_v, step,
                            mask_bias=mask_bias, rope=rope,
@@ -558,15 +742,51 @@ class ParallelTransformerLayer(nn.Module):
         if seeds is not None and rate > 0.0:
             a = _dropout(a, rate, seeds[1])
         x = x + a.to(x.dtype)
-        m = self.mlp(self.post_attention_norm(x))
+        h = self.post_attention_norm(x)
+        aux = None
+        if self.cfg.num_moe_experts:
+            m, aux = self.moe_mlp(h)
+        else:
+            m = self.mlp(h)
         if seeds is not None and rate > 0.0:
             m = _dropout(m, rate, seeds[2])
-        return x + m.to(x.dtype)
+        return x + m.to(x.dtype), aux
+
+
+@contextlib.contextmanager
+def _stacked(*contexts):
+    """One context entering ``contexts`` in order when it is entered."""
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
+
+
+def remat_context_fn(policy: str) -> Callable:
+    """A ``context_fn`` for non-reentrant ``torch.utils.checkpoint``:
+    the selective-checkpoint pair of ``policy`` (ops whose outputs are
+    kept rather than recomputed), composed with the O1 intercept active
+    now, under which the recomputation reruns."""
+    o1_fn = o1.checkpoint_context_fn()
+    saves = remat_saves(policy)
+    if saves is None:
+        return o1_fn
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saves
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    def context_fn():
+        fwd, rec = create_selective_checkpoint_contexts(policy_fn)
+        o1_fwd, o1_rec = o1_fn()
+        return _stacked(fwd, o1_fwd), _stacked(rec, o1_rec)
+    return context_fn
 
 
 class ParallelTransformer(nn.Module):
-    """``num_layers`` stacked layers: over the full sequence (each layer
-    recomputed in the backward under ``remat``), or over a stacked KV
+    """``num_layers`` stacked layers: over the full sequence (under
+    ``remat`` each layer recomputed in the backward as ``remat_policy``
+    says, but for every ``remat_skip_every``-th), or over a stacked KV
     cache in decode."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
@@ -586,14 +806,21 @@ class ParallelTransformer(nn.Module):
                                   cache["value_scales"][i])
                           if quantized else None)
             return x
-        remat = self.cfg.remat and torch.is_grad_enabled()
+        cfg = self.cfg
+        remat = (cfg.remat and torch.is_grad_enabled()
+                 and remat_saves(cfg.remat_policy) != "all")
+        context_fn = remat_context_fn(cfg.remat_policy) if remat else None
+        k = cfg.remat_skip_every
         for i, layer in enumerate(self.layers):
             kw = dict(mask_bias=mask_bias, rope=rope,
                       seeds=None if seeds is None else seeds[i])
-            if remat:
-                # the recomputation reruns under an O1 intercept active now
-                x = checkpoint(layer, x, use_reentrant=False,
-                               context_fn=o1.checkpoint_context_fn(), **kw)
+            if remat and not (k and i % k == 0):
+                # the recomputation reruns `block`, which records
+                # nothing: the MoE term stays the first forward's
+                x, aux = checkpoint(layer.block, x, use_reentrant=False,
+                                    context_fn=context_fn, **kw)
+                if aux is not None:
+                    layer.moe_aux = aux
             else:
                 x = layer(x, **kw)
         return x

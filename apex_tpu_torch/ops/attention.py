@@ -33,6 +33,10 @@ computes it in the JAX package.  Beside each kernel is its plain version
 CPU path and the yardstick the kernels are held against on the card.
 :func:`attention_reference` is the JAX package's differentiable
 composition, the golden semantics of the whole function.
+:func:`flash_fwd` is the forward as one dispatcher op
+(``torch.ops.apex_tpu_torch.flash_fwd``) with the saved-logsumexp
+backward registered on it, so a selective checkpoint policy can keep
+its ``(o, lse)``.
 
 Attention-probability dropout is the JAX package's counter hash
 (murmur3 ``fmix32`` of seed, lane, query and key position), so
@@ -44,7 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import logging
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -56,6 +60,7 @@ __all__ = ["fused_attention", "attention_reference", "mask_to_bias",
            "dropout_keep_mask", "flash_fwd_reference",
            "flash_bwd_dq_reference", "flash_bwd_dkv_reference",
            "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+           "flash_fwd",
            "attention_delta"]
 
 _NEG_INF = -1e30
@@ -395,34 +400,57 @@ def flash_bwd_dkv_kernel(q, k, v, bias, dout, lse, delta, scale, causal,
 # ------------------------------------------------------------------ #
 # autograd
 # ------------------------------------------------------------------ #
-class _FlashFn(torch.autograd.Function):
-    """Flash attention with the saved-logsumexp backward of
-    ``_fa_pallas_fwd`` / ``_fa_pallas_bwd``; the bias is a constant."""
+@torch.library.custom_op("apex_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: Optional[torch.Tensor], scale: float, causal: bool,
+              window: Optional[int], rate: float, seed: int,
+              kernel: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flash forward as one dispatcher op, ``(o, lse)`` — the JAX
+    kernel's residuals ``attn_out`` and ``attn_lse``: a selective
+    checkpoint policy can keep both and skip the forward in the
+    recomputation (``TransformerConfig.remat_policy``).  ``kernel``
+    picks :func:`flash_fwd_kernel` or :func:`flash_fwd_reference`."""
+    fwd = flash_fwd_kernel if kernel else flash_fwd_reference
+    return fwd(q, k, v, bias, scale, causal, window, rate, seed)
 
-    @staticmethod
-    def forward(ctx, q, k, v, bias, scale, causal, window, rate, seed,
-                kernel):
-        fwd = flash_fwd_kernel if kernel else flash_fwd_reference
-        o, lse = fwd(q, k, v, bias, scale, causal, window, rate, seed)
-        ctx.save_for_backward(q, k, v, bias, o, lse)
-        ctx.cfg = (scale, causal, window, rate, seed)
-        ctx.kernel = kernel
-        return o
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, bias, o, lse = ctx.saved_tensors
-        delta = attention_delta(dout, o)
-        if ctx.kernel:
-            dq_fn, dkv_fn = flash_bwd_dq_kernel, flash_bwd_dkv_kernel
-        else:
-            dq_fn, dkv_fn = flash_bwd_dq_reference, flash_bwd_dkv_reference
-        args = (q, k, v, bias, dout, lse, delta, *ctx.cfg)
-        dq = dq_fn(*args) if ctx.needs_input_grad[0] else None
-        dk = dv = None
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dk, dv = dkv_fn(*args)
-        return dq, dk, dv, None, None, None, None, None, None, None
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, bias, scale, causal, window, rate, seed,
+                    kernel):
+    b, sq, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b * h, sq),
+                                            dtype=torch.float32)
+
+
+def _flash_setup(ctx, inputs, output):
+    """Saved-logsumexp backward of ``_fa_pallas_fwd`` / ``_fa_pallas_bwd``;
+    the bias is a constant."""
+    q, k, v, bias, scale, causal, window, rate, seed, kernel = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, bias, o, lse)
+    ctx.cfg = (scale, causal, window, rate, seed)
+    ctx.kernel = kernel
+    ctx.set_materialize_grads(False)
+
+
+def _flash_backward(ctx, dout, _dlse):
+    q, k, v, bias, o, lse = ctx.saved_tensors
+    if dout is None:
+        return (None,) * 10
+    delta = attention_delta(dout, o)
+    if ctx.kernel:
+        dq_fn, dkv_fn = flash_bwd_dq_kernel, flash_bwd_dkv_kernel
+    else:
+        dq_fn, dkv_fn = flash_bwd_dq_reference, flash_bwd_dkv_reference
+    args = (q, k, v, bias, dout, lse, delta, *ctx.cfg)
+    dq = dq_fn(*args) if ctx.needs_input_grad[0] else None
+    dk = dv = None
+    if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+        dk, dv = dkv_fn(*args)
+    return dq, dk, dv, None, None, None, None, None, None, None
+
+
+flash_fwd.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def fused_attention(q, k, v, *, causal: bool = False,
@@ -493,5 +521,5 @@ def fused_attention(q, k, v, *, causal: bool = False,
                                    dropout_rate=rate, dropout_seed=seed)
     if bias is not None:
         bias = bias.detach()
-    return _FlashFn.apply(q, k, v, bias, scale, bool(causal), window, rate,
-                          seed, kernel)
+    return flash_fwd(q, k, v, bias, scale, bool(causal), window, rate,
+                     seed, kernel)[0]

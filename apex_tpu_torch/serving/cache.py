@@ -36,11 +36,26 @@ import torch
 
 from apex_tpu_torch.ops.fused_sampling import prng_key
 
-__all__ = ["SlotState", "init_slot_state", "admit_slot", "release_slot",
-           "write_slot", "reset_slot", "rewind_index", "BlockExhausted",
-           "blocks_for", "BlockAllocator", "chain_digests", "PrefixTrie"]
+__all__ = ["validate_cache_tree", "SlotState", "init_slot_state",
+           "admit_slot", "release_slot", "write_slot", "reset_slot",
+           "rewind_index", "BlockExhausted", "blocks_for", "BlockAllocator",
+           "chain_digests", "PrefixTrie"]
 
 Cache = Dict[str, torch.Tensor]
+_RING_LEAF = "slot_positions"
+
+
+def validate_cache_tree(cache: Cache) -> None:
+    """Reject caches the slot pool cannot manage: raises ``ValueError``
+    for the sliding-window ring cache (its slots are not positions)."""
+    if _RING_LEAF in cache:
+        raise ValueError(
+            "the serving engine requires the dense KV-cache layout; "
+            "this model uses the sliding-window ring-buffer cache "
+            f"(found a {_RING_LEAF!r} leaf).  Serve sliding-window "
+            "models with sliding_window=None (or >= max_seq_len) — "
+            "the dense cache computes the same function whenever "
+            "sequences stay within the window")
 
 
 @dataclasses.dataclass

@@ -159,8 +159,9 @@ class Engine:
                 f"hold prompt + generated tokens")
         self.prompt_buckets = tuple(buckets)
         self._prefill_chunk = int(prefill_chunk)
-        self.cache = init_cache(model, self.max_slots)
         self._scratch = init_cache(model, 1)
+        slot_cache.validate_cache_tree(self._scratch)
+        self.cache = init_cache(model, self.max_slots)
         self.state = slot_cache.init_slot_state(self.max_slots, self.device)
         # host mirrors: each slot's cache cursor and occupancy
         self._cursor = np.zeros(self.max_slots, np.int64)
@@ -370,7 +371,9 @@ class PagedEngine:
             raise ValueError("PagedEngine requires a causal model")
         if getattr(cfg, "sliding_window", None) is not None:
             raise ValueError(
-                "PagedEngine does not support sliding-window models")
+                "PagedEngine does not support sliding-window models — "
+                "the paged pool already bounds decode memory to live "
+                "tokens; serve with sliding_window=None")
         if mesh is not None:
             raise NotImplementedError(
                 "a tensor-parallel paged pool (mesh=) comes with "

@@ -11,6 +11,8 @@ from apex_tpu_torch.transformer.functional import (
     fused_apply_rotary_pos_emb,
     fused_apply_rotary_pos_emb_cached,
 )
+from apex_tpu_torch.transformer import moe
+from apex_tpu_torch.transformer.moe import MoEConfig, MoEMLP
 from apex_tpu_torch.transformer.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -20,4 +22,5 @@ from apex_tpu_torch.transformer.layers import (
 __all__ = ["AttnMaskType", "AttnType", "LayerType", "ModelType",
            "FusedScaleMaskSoftmax", "fused_apply_rotary_pos_emb",
            "fused_apply_rotary_pos_emb_cached", "ColumnParallelLinear",
-           "RowParallelLinear", "VocabParallelEmbedding"]
+           "RowParallelLinear", "VocabParallelEmbedding", "moe",
+           "MoEConfig", "MoEMLP"]

@@ -17,9 +17,10 @@ memory and call out of line at most once and never, as the GroupNorm
 cluster kernels must, which also need TMA loads (``_call_report``),
 logs the registers and occupancy of the RoPE kernel and the softmax
 backward (``_occupancy_report``), and then runs
-nineteen phases, in the order 1, 2, 3, 6, 7,
-4, 5, 17, 10, 12, 18, 11, 8, 9, 15, 16, 13, 14, 19 (Llama-2-7B is built
-once for 3, 6 and 7 and dropped before 4); any failure exits non-zero.
+twenty-three phases, in the order 1, 2, 3, 6, 7,
+4, 5, 17, 10, 12, 18, 11, 8, 9, 15, 16, 13, 14, 19, 20, 21, 22, 23
+(Llama-2-7B is built once for 3, 6 and 7 and dropped before 4); any
+failure exits non-zero.
 
 1. Kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (Llama-2-7B width) and the training path's
@@ -27,7 +28,7 @@ once for 3, 6 and 7 and dropped before 4); any failure exits non-zero.
    backward rerunning bitwise in bf16, flash attention forward, dq and
    dk/dv, each against its own bound and with SDPA's forward or backward
    alone as yardstick, all three rerunning bitwise in bf16; a causal GQA
-   window case at d=128; the flash edge checks, among them the Hopper
+   window case at d=128; ViT-Huge's (32, 257, 16 heads, d=80); the flash edge checks, among them the Hopper
    kernels' 128-row tile edges, head_dim 256 and 70400 batch x heads;
    RoPE bit for bit: one operand at the decode and prefill shapes, q and
    k read from the packed projection in one launch at the chunked-prefill
@@ -172,6 +173,30 @@ once for 3, 6 and 7 and dropped before 4); any failure exits non-zero.
    forward and backward against the plain versions) and on a permuted
    NCHW view (output and the NCHW gradient equal to the contiguous
    call's bit for bit).
+20. Remat policies: phase 4's BERT-Large O2 step, 3 steps under each of
+   ``nothing_saveable``, ``save_only:attn_out,attn_lse``,
+   ``dots_with_no_batch_dims_saveable`` and ``remat_skip_every=2``:
+   losses and every gradient bit for bit equal to ``nothing_saveable``'s,
+   flash-forward launches a step 48 / 24 / 48 / 36, and the peak memory
+   of each (the prediction for ``save_only`` printed first).
+21. Mistral-7B ``generate`` at its published widths and 32 layers,
+   bf16, seeded random weights: b = 2 prompts of 6144 tokens prefilled in
+   one call (4096 rows through the ring cache's blocked path, 2048
+   through the banded flash forward), 64 greedy tokens, TTFT, decode
+   tokens/s and peak memory; each step's logits against a full-sequence
+   windowed forward over the same ids, ``prefill_chunk=2048`` against
+   the single call, a sampled run, the ring's 1.07 GB against a dense
+   cache's 2.15 GB, and the banded kernel at the ring's shape.
+22. Mixtral-8x7B at its published widths with 8 of 32 layers (all 32
+   need ~93 GB of bf16 weights): b = 2 prompts of 1024 tokens, 32 greedy
+   tokens and a sampled run with the drop-free capacity, logits checked
+   as in 21, ``moe_aux_loss`` finite; a tiny MoE model's amp O2 step on
+   the card against the CPU.
+23. ViT-Huge amp O2 + FusedLAMB (``bench_configs.py``'s ViT row, b = 32
+   at 224, remat): 3 warm-up and 10 timed steps with samples/s, host ms,
+   the fwd/bwd/opt split, peak memory and the LayerNorm and flash
+   launches a step; a falling loss; ViT-tiny's O2 + FusedLAMB step on
+   the card against the CPU.
 
 The last lines of standard output are the card's name and power limit,
 the ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
@@ -1686,6 +1711,9 @@ def _flash_rows(torch, g, record):
                            window=None, bias=False, rate=0.1)),
         ("gqa/window", dict(b=2, s=2048, h=32, hk=8, d=128, causal=True,
                             window=512, bias=False, rate=0.0)),
+        # ViT-H/14 at 224: 257 tokens, head dim 80 (the FMA kernels)
+        ("vit_huge", dict(b=32, s=257, h=16, hk=16, d=80, causal=False,
+                          window=None, bias=False, rate=0.0)),
     ]
     ok = True
     for tag, c in cases:
@@ -3927,6 +3955,620 @@ def phase_group_norm_faults(torch):
     return good_big and good_view, stats
 
 
+# ------------------------------------------------------------------ #
+# phase 20: remat policies, BERT-Large amp O2
+# ------------------------------------------------------------------ #
+REMAT_POLICIES = (
+    # (name, config fields, flash-forward launches a step over 24 layers)
+    ("nothing_saveable", dict(remat_policy="nothing_saveable"), 48),
+    ("save_only:attn_out,attn_lse",
+     dict(remat_policy="save_only:attn_out,attn_lse"), 24),
+    ("dots_with_no_batch_dims_saveable",
+     dict(remat_policy="dots_with_no_batch_dims_saveable"), 48),
+    ("remat_skip_every=2", dict(remat_skip_every=2), 36),
+)
+
+
+def phase_remat(torch, steps=3):
+    """Phase 4's BERT-Large amp O2 step (model, weights, batch,
+    FusedAdam) for ``steps`` steps under each remat policy: losses and
+    every gradient of every step bit for bit equal to
+    ``nothing_saveable``'s (the kernels and cuBLAS rerun bitwise on the
+    same inputs; a difference is reported with its size), flash-forward
+    launches a step 48 / 24 / 48 / 36, and each policy's peak memory.
+    The prediction for ``save_only`` is stated before the runs: 24
+    layers keep the forward's ``o`` (b·s·h·d bf16) and ``lse`` (b·h·s
+    fp32)."""
+    from apex_tpu_torch import _build, amp
+    from apex_tpu_torch.models import BertConfig, BertModel, bert_mlm_loss_fn
+    from apex_tpu_torch.optim import fused_adam
+
+    b, s, p = 16, 512, 80
+    predicted = 24 * b * s * (1024 * 2 + 16 * 4)
+    log(f"phase 20: remat policies, BERT-Large amp O2, b={b} s={s} P={p}, "
+        f"{steps} steps each; predicted: save_only:attn_out,attn_lse keeps "
+        f"{predicted / 1e9:.4f} GB more than nothing_saveable (24 x "
+        f"{b}*{s}*(1024*2 + 16*4) B)")
+    dev = torch.device("cuda")
+    ok, stats, ref = True, {}, None
+    for name, kw, want in REMAT_POLICIES:
+        cfg = BertConfig.bert_large(dtype=torch.bfloat16, remat=True, **kw)
+        model = BertModel(cfg, device=dev)
+        model.init_weights(torch.Generator(device=dev).manual_seed(5))
+        state = amp.initialize(model, fused_adam(1e-4), "O2",
+                               half_dtype=torch.bfloat16)
+        ids, pos, labels = _bert_batch(torch, cfg, b, s, p, 6, dev)
+        _build.reset_launches()
+        losses, grads, held, fb_peak, step_peak, wall = [], [], [], [], [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            logits, _ = model(ids, mlm_positions=pos)
+            loss = bert_mlm_loss_fn(logits.float(), labels)
+            held.append(torch.cuda.memory_allocated() - before)
+            state.scale_loss(loss).backward()
+            fb_peak.append(torch.cuda.max_memory_allocated())
+            grads.append({n: q.grad.detach().to("cpu")
+                          for n, q in model.named_parameters()
+                          if q.grad is not None})
+            state.apply_gradients()
+            losses.append(loss.detach().cpu())
+            step_peak.append(torch.cuda.max_memory_allocated())
+            wall.append((time.perf_counter() - t0) * 1e3)
+        peak = max(step_peak)
+        launches = dict(_build.launches)
+        flash = launches.get("flash_attention_fwd", 0) / steps
+        # the step's peak is the optimizer's (its flat fp32 temporaries,
+        # the same under every policy); what a policy keeps shows in the
+        # bytes the forward leaves allocated and the fwd+bwd peak
+        st = dict(peak_bytes=peak, fwd_bwd_peak_bytes=max(fb_peak),
+                  held_after_forward_bytes=max(held),
+                  flash_fwd_launches_per_step=flash,
+                  expected_flash_fwd=want,
+                  # the first step of the first policy pays first calls
+                  ms_per_step_incl_copies=wall,
+                  losses=[float(x) for x in losses], launches=launches)
+        if ref is None:
+            ref = (losses, grads, st)
+        else:
+            same_loss = all(torch.equal(a, c) for a, c in zip(losses, ref[0]))
+            diff = max(float((g[n].float() - r[n].float()).abs().max())
+                       for g, r in zip(grads, ref[1]) for n in r)
+            same = same_loss and diff == 0.0 and all(
+                set(g) == set(r) for g, r in zip(grads, ref[1]))
+            st.update(bitwise_equal_to_nothing_saveable=same,
+                      largest_grad_difference=diff,
+                      peak_above_nothing_saveable=peak
+                      - ref[2]["peak_bytes"],
+                      held_above_nothing_saveable=st[
+                          "held_after_forward_bytes"]
+                      - ref[2]["held_after_forward_bytes"],
+                      fwd_bwd_peak_above_nothing_saveable=st[
+                          "fwd_bwd_peak_bytes"]
+                      - ref[2]["fwd_bwd_peak_bytes"])
+            if not same:
+                log(f"  {name}: NOT bitwise equal to nothing_saveable "
+                    f"(losses equal {same_loss}, largest gradient "
+                    f"difference {diff:g})")
+            ok &= same
+        ok &= flash == want
+        stats[name] = st
+        log(f"  {name}: {json.dumps({k: v for k, v in st.items() if k != 'launches'})}")
+        del model, state, grads, logits, loss
+        torch.cuda.empty_cache()
+    stats["predicted_save_only_extra_bytes"] = predicted
+    stats["launches"] = stats["nothing_saveable"]["launches"]
+    return ok, stats
+
+
+# ------------------------------------------------------------------ #
+# phases 21, 22: Mistral-7B and Mixtral-8x7B generate
+# ------------------------------------------------------------------ #
+LOGIT_REL = 0.05    # bf16 through 32 layers, two attention paths
+
+
+def _decode_run(torch, model, ids, new):
+    """Prefill ``ids`` in one call, then ``new - 1`` greedy decode steps,
+    timed: (tokens (b, new), step logits (b, new, vocab) fp32, TTFT s,
+    decode s, launches of the run)."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.models import apply_decode, init_cache, prefill_tokens
+
+    cache = init_cache(model, ids.shape[0])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    last, cache = prefill_tokens(model, cache, ids, 0)
+    tok = torch.argmax(last.float(), dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    prefill = dict(_build.launches)
+    steps, toks = [last.float()], [tok]
+    t1 = time.perf_counter()
+    for _ in range(new - 1):
+        lg, cache = apply_decode(model, cache, tok[:, None])
+        steps.append(lg[:, -1].float())
+        tok = torch.argmax(steps[-1], dim=-1).to(torch.int32)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    dec = time.perf_counter() - t1
+    return (torch.stack(toks, 1), torch.stack(steps, 1), ttft, dec,
+            prefill, dict(_build.launches))
+
+
+def _first_flip(torch, a, b, step_logits, tie_rel=0.02):
+    """Rows whose greedy tokens ``a`` and ``b`` part, with whether each
+    first parting is a near tie in ``step_logits`` (the top logit and
+    the other run's choice within ``tie_rel`` of the row's largest
+    magnitude)."""
+    out = []
+    for r in range(a.shape[0]):
+        diff = (a[r] != b[r]).nonzero()
+        if diff.numel() == 0:
+            continue
+        j = int(diff[0])
+        row = step_logits[r, j]
+        gap = float(row.max() - row[int(b[r, j])])
+        out.append(dict(row=r, step=j, gap=gap,
+                        near_tie=gap <= tie_rel * float(row.abs().max())))
+    return out
+
+
+class _Routes:
+    """Forward hooks on a model's MoE layers recording, per layer, the
+    ``top_k`` experts each token is routed to (sorted): a list of
+    ``(b, s, k)`` tensors a layer, one a call."""
+
+    def __init__(self, torch, model):
+        self.torch = torch
+        self.layers = [m for m in model.modules() if hasattr(m, "moe_mlp")]
+        self.calls = [[] for _ in self.layers]
+
+    def __enter__(self):
+        torch = self.torch
+
+        def hook(i):
+            def record(m, args, out):
+                lg = torch.einsum("gsh,he->gse", args[0].float(),
+                                  m.gate.float())
+                self.calls[i].append(lg.topk(m.cfg.top_k, dim=-1).indices
+                                     .sort(dim=-1).values)
+            return record
+        self.handles = [layer.moe_mlp.register_forward_hook(hook(i))
+                        for i, layer in enumerate(self.layers)]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+    def stacked(self):
+        """``(layers, b, s, k)`` over the recorded calls in order."""
+        return self.torch.stack([self.torch.cat(c, dim=1)
+                                 for c in self.calls])
+
+
+def _logits_check(torch, model, ids, toks, steps, routes, rel):
+    """A greedy decode of ``ids`` (its tokens, step logits and router
+    decisions, a :class:`_Routes`) against a full-sequence forward over
+    the same ids: each step's logits within ``rel`` of the full
+    forward's largest entry.  Under MoE a router decision that differs
+    between the two (noise on a near tie of two experts) sends a token
+    to another expert and changes every later step of its row, so the
+    gate holds the steps before a row's first differing decision, counts
+    the decisions that differ, and needs at least one step to hold."""
+    (b, plen), new, dev = ids.shape, toks.shape[1], ids.device
+    out = torch.cat([ids, toks], dim=1)
+    with torch.no_grad(), _Routes(torch, model) as full_routes:
+        full = model(out[:, :-1])[:, plen - 1:].float()
+    clean = torch.ones(b, new, dtype=torch.bool, device=dev)
+    flips = 0
+    if full_routes.layers:
+        differ = (routes.stacked() != full_routes.stacked()).any(-1)
+        flips = int(differ.sum())
+        row = differ.any(0)                                   # (b, S)
+        first = torch.where(row.any(1), row.float().argmax(1),
+                            torch.full((b,), row.shape[1], device=dev))
+        clean = (plen - 1 + torch.arange(new, device=dev))[None] \
+            < first[:, None]
+    pick = clean[..., None].expand_as(steps)
+    err, within = (_close_rel(torch, steps[pick], full[pick], rel)
+                   if bool(clean.any()) else (float("nan"), False))
+    return dict(max_abs_err=err, full_forward_max_abs_logit=float(
+                    full.abs().max()), tol=f"{rel} x max |ref|",
+                steps_checked=int(clean.sum()), steps=b * new,
+                routing_decisions_that_differ=flips,
+                argmax_agreement=float((steps.argmax(-1) == full.argmax(-1))
+                                       .float().mean()),
+                passed=within)
+
+
+def _generate_phase(torch, model, plen, new, seed, tag, chunk=None,
+                    check_model=None, check_rel=LOGIT_REL):
+    """Greedy decode of seeded prompts (b = 2), timed (router decisions
+    recorded under MoE), checked against ``generate()`` and by
+    :func:`_logits_check`, then a sampled run; with ``chunk``,
+    ``generate(prefill_chunk=chunk)`` too.  ``check_model``, a function
+    building a model to check, moves the logits gate onto a decode of
+    what it builds."""
+    from apex_tpu_torch.models import generate, init_cache
+    from apex_tpu_torch.ops import prng_key
+
+    cfg = model.cfg
+    dev = model.device
+    b = 2
+    ids = torch.randint(0, cfg.vocab_size, (b, plen), dtype=torch.int32,
+                        generator=torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    cache = init_cache(model, b)
+    kv_bytes = sum(cache[k].numel() * cache[k].element_size()
+                   for k in ("key", "value"))
+    del cache
+    dense_bytes = (2 * cfg.num_layers * b * cfg.max_seq_len * cfg.kv_heads
+                   * cfg.head_dim * 2)
+    _decode_run(torch, model, ids, 2)           # first calls, not timed
+    torch.cuda.reset_peak_memory_stats()
+    with _Routes(torch, model) as routes:
+        toks, steps, ttft, dec, prefill, launches = _decode_run(
+            torch, model, ids, new)
+    peak = torch.cuda.max_memory_allocated()
+    gen = generate(model, ids, max_new_tokens=new)
+    logits = _logits_check(torch, model, ids, toks, steps, routes, LOGIT_REL)
+    st = dict(ttft_s=ttft, decode_tokens_per_s=b * (new - 1) / dec,
+              decode_ms_per_step=dec / (new - 1) * 1e3, peak_bytes=peak,
+              kv_cache_bytes=kv_bytes, dense_cache_bytes=dense_bytes,
+              generate_equals_loop=bool(torch.equal(
+                  gen, torch.cat([ids, toks], dim=1))),
+              logits_vs_full_forward=logits,
+              prefill_launches=prefill, launches=launches)
+    ok = st["generate_equals_loop"]
+    if check_model is None:
+        ok &= logits["passed"]
+    else:
+        twin = check_model()
+        with _Routes(torch, twin) as twin_routes:
+            t_toks, t_steps = _decode_run(torch, twin, ids, new)[:2]
+        st["logits_vs_full_forward_check_model"] = _logits_check(
+            torch, twin, ids, t_toks, t_steps, twin_routes, check_rel)
+        ok &= st["logits_vs_full_forward_check_model"]["passed"]
+        del twin
+        torch.cuda.empty_cache()
+    if chunk:
+        chunked = generate(model, ids, max_new_tokens=new,
+                           prefill_chunk=chunk)
+        parted = _first_flip(torch, toks, chunked[:, plen:], steps)
+        st["chunked_prefill"] = dict(chunk=chunk, tokens_equal=not parted,
+                                     first_flips=parted)
+        ok &= all(f["near_tie"] for f in parted)
+    sampled = generate(model, ids, max_new_tokens=new, temperature=0.8,
+                       top_k=50, top_p=0.95, rng=prng_key(7, dev))
+    st["sampled_prompt_kept"] = bool(torch.equal(sampled[:, :plen], ids))
+    st["sampled_in_vocab"] = bool(((sampled >= 0)
+                                   & (sampled < cfg.vocab_size)).all())
+    ok &= st["sampled_prompt_kept"] and st["sampled_in_vocab"]
+    ok &= launches.get("layer_norm", 0) > 0 and launches.get("rope", 0) > 0
+    log(f"  {tag}: {json.dumps({k: v for k, v in st.items() if 'launches' not in k})}")
+    log(f"  {tag} launches: prefill {json.dumps(prefill)}, whole run "
+        f"{json.dumps(launches)}")
+    return ok, st, ids
+
+
+def phase_mistral(torch, new=64):
+    """Mistral-7B at its published widths and 32 layers, bf16, seeded
+    random weights: b = 2 prompts of 6144 tokens prefilled in one call
+    (4096 rows through the ring's blocked path, 2048 through the banded
+    flash forward), 64 greedy tokens and a sampled run.  Gates: each
+    step's logits within 0.05 of the largest entry of a full-sequence
+    windowed forward over the same ids; ``prefill_chunk=2048`` gives the
+    same tokens or parts only at a near tie (counted); the ring holds
+    32·2·4096·8·128·2·2 B; the banded kernel at the ring's shape against
+    its plain version; 32 flash-forward launches in the prefill."""
+    from apex_tpu_torch.models import LlamaConfig, LlamaModel
+    from apex_tpu_torch.ops import attention as A
+
+    log("phase 21: Mistral-7B generate (32 layers, bf16, window 4096, "
+        "b=2, 6144-token prompts, 64 new tokens)")
+    dev = torch.device("cuda")
+    cfg = LlamaConfig.mistral_7b(dtype=torch.bfloat16,
+                                 param_dtype=torch.bfloat16)
+    t0 = time.monotonic()
+    model = LlamaModel(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(21))
+    torch.cuda.synchronize()
+    log(f"  Mistral-7B weights: {sum(q.numel() for q in model.parameters())}"
+        f" params in {time.monotonic() - t0:.1f}s")
+    ok, st, _ = _generate_phase(torch, model, 6144, new, 22, "mistral",
+                                chunk=2048)
+    ring = 32 * 2 * 4096 * 8 * 128 * 2 * 2
+    ok &= st["kv_cache_bytes"] == ring and st["dense_cache_bytes"] == 2 * ring
+    ok &= st["prefill_launches"].get("flash_attention_fwd", 0) == 32
+    # the ring chunk path's banded forward at its own shape
+    g = torch.Generator(device=dev).manual_seed(23)
+    q = torch.randn(2, 2048, 32, 128, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(2, 6144, 8, 128, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    args = (None, 128 ** -0.5, True, 4096, 0.0, 0)
+    o, lse = A.flash_fwd_kernel(q, k, v, *args)
+    o2, lse2 = A.flash_fwd_reference(q, k, v, *args)
+    e_o, p_o = _close_rel(torch, o, o2, 2 ** -7)
+    e_l, p_l = _close_rel(torch, lse, lse2, 1e-5)
+    st["ring_banded_kernel"] = dict(shape=[2, 2048, 6144, 32, 8, 128],
+                                    max_abs_err=max(e_o, e_l),
+                                    tol="2^-7 (o), 1e-5 (lse) x max |ref|",
+                                    passed=p_o and p_l)
+    log(f"  ring banded kernel: {json.dumps(st['ring_banded_kernel'])}")
+    ok &= p_o and p_l
+    del model, q, k, v, o, o2, lse, lse2
+    torch.cuda.empty_cache()
+    return ok, st
+
+
+def phase_mixtral(torch, new=32, layers=8):
+    """Mixtral-8x7B at its published widths with the depth cut to 8 of
+    32 layers (all 32 hold ~93 GB of bf16 weights, more than the card's
+    80 GB), bf16, seeded random weights, the drop-free capacity
+    (cf = E/k = 4): b = 2 prompts of 1024 tokens, 32 greedy tokens and a
+    sampled run, timed in bf16; the logits checked as in phase 21 on a
+    twin computing in fp32 with the same bf16 weights (within 1e-3 of
+    the largest entry; in bf16 the router's near ties flip between the
+    decode and the full forward, which the bf16 check counts), and
+    ``moe_aux_loss`` of one forward finite.  Then a tiny MoE model's amp O2 step (bf16
+    parameters over fp32 compute, as phase 16's step) on the card
+    against the CPU."""
+    import dataclasses
+
+    from apex_tpu_torch.models import LlamaConfig, LlamaModel, moe_aux_loss
+
+    log(f"phase 22: Mixtral-8x7B generate ({layers} of 32 layers, bf16, "
+        f"b=2, 1024-token prompts, {new} new tokens)")
+    dev = torch.device("cuda")
+    cfg = LlamaConfig.mixtral_8x7b(num_layers=layers, dtype=torch.bfloat16,
+                                   param_dtype=torch.bfloat16)
+    t0 = time.monotonic()
+    model = LlamaModel(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(31))
+    torch.cuda.synchronize()
+    log(f"  Mixtral weights ({layers} layers): "
+        f"{sum(q.numel() for q in model.parameters())} params in "
+        f"{time.monotonic() - t0:.1f}s")
+    def twin():
+        # the same weights computing in fp32: bf16 noise flips near ties
+        # of the router between the decode and the full forward (a flip
+        # changes the rest of its row), fp32 noise almost never does
+        m = LlamaModel(dataclasses.replace(cfg, dtype=torch.float32),
+                       device=dev)
+        m.load_state_dict(model.state_dict())
+        return m
+    ok, st, ids = _generate_phase(torch, model, 1024, new, 32, "mixtral",
+                                  check_model=twin, check_rel=1e-3)
+    with torch.no_grad():
+        model(ids)
+        aux = moe_aux_loss(model)
+    st["moe_aux_loss"] = float(aux)
+    ok &= bool(torch.isfinite(aux)) and float(aux) > 0
+    st["capacity_factor"] = cfg.moe_capacity_factor
+    del model
+    torch.cuda.empty_cache()
+    good, st["tiny_o2_identity"] = _tiny_o2_identity(torch, "moe")
+    return ok and good, st
+
+
+# ------------------------------------------------------------------ #
+# O2 step identity, card against CPU
+# ------------------------------------------------------------------ #
+TINY_MOE = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+                num_kv_heads=2, ffn_hidden_size=128, max_seq_len=64,
+                sliding_window=16, num_moe_experts=4, moe_top_k=2,
+                moe_capacity_factor=1.25)
+
+
+def _o2_step(torch, cfg, sd, data, dev):
+    """One amp O2 step (bf16 parameters, fp32 masters, fp32 compute) of
+    the tiny MoE decoder + FusedAdam or ViT-tiny + FusedLAMB on ``dev``:
+    loss, logits, the gradients (stored bf16), the masters' change, and
+    the two experts each token was routed to (MoE)."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import (
+        LlamaModel,
+        ViTConfig,
+        ViTModel,
+        moe_aux_loss,
+    )
+    from apex_tpu_torch.optim import fused_adam, fused_lamb
+
+    vit = isinstance(cfg, ViTConfig)
+    model = (ViTModel if vit else LlamaModel)(cfg, device=dev)
+    model.load_state_dict(sd)
+    state = amp.initialize(model, fused_lamb(1e-3) if vit
+                           else fused_adam(1e-3), "O2",
+                           half_dtype=torch.bfloat16)
+    x, y = (t.to(dev) for t in data)
+    routes = []
+    hooks = [layer.moe_mlp.register_forward_hook(
+        lambda m, i, o: routes.append(torch.einsum(
+            "gsh,he->gse", i[0].float(), m.gate.float()).argsort(
+                -1, descending=True)[..., :2].cpu()))
+        for layer in model.modules() if hasattr(layer, "moe_mlp")]
+    logits = model(x)
+    for hk in hooks:
+        hk.remove()
+    if vit:
+        loss = F.cross_entropy(logits.float(), y.long())
+    else:
+        loss = F.cross_entropy(logits.float().flatten(0, 1),
+                               y.flatten().long()) + moe_aux_loss(model)
+    state.scale_loss(loss).backward()
+    grads = {n: q.grad.detach().float().cpu()
+             for n, q in model.named_parameters()}
+    before = {n: v.detach().clone().cpu() for n, v in state.params.items()}
+    finite = bool(state.apply_gradients())
+    change = {n: state.params[n].detach().cpu() - v
+              for n, v in before.items()}
+    return dict(loss=loss.item(), logits=logits.detach().float().cpu(),
+                grads=grads, change=change, routes=routes, finite=finite)
+
+
+def _tiny_o2_identity(torch, kind):
+    """Card against CPU for one O2 step: loss and logits within phase
+    16's 1e-4 of the largest entry; each gradient (stored bf16) within
+    one bf16 ulp of its element or 1e-4 of the largest entry; for the
+    MoE, routing decisions that differ are counted (a flip moves whole
+    expert gradients, so the gradient gate then stands aside, as phase
+    16's does for ReLU flips).  The masters' change is reported, not
+    gated: Adam and LAMB normalise the update, so a gradient entry at
+    noise level (inside the 1e-4 clause) moves its parameter by up to the
+    learning rate either way; phases 12 and 18 hold the optimizers on
+    the card to the CPU's on the same gradients."""
+    from apex_tpu_torch.models import LlamaConfig, LlamaModel, ViTConfig, ViTModel
+
+    rel = 1e-4
+    gen = torch.Generator().manual_seed(41)
+    if kind == "moe":
+        cfg = LlamaConfig(**TINY_MOE)
+        ref = LlamaModel(cfg, device="cpu")
+        x = torch.randint(0, 256, (2, 48), generator=gen, dtype=torch.int32)
+        data = (x, torch.roll(x, -1, dims=1))
+    else:
+        cfg = ViTConfig.tiny()
+        ref = ViTModel(cfg, device="cpu")
+        data = (torch.randn(4, 32, 32, 3, generator=gen),
+                torch.randint(0, 10, (4,), generator=gen))
+    ref.init_weights(gen)
+    sd = ref.state_dict()
+    g = _o2_step(torch, cfg, sd, data, torch.device("cuda"))
+    c = _o2_step(torch, cfg, sd, data, "cpu")
+
+    def worst(a, b):
+        """(worst name, its max |err|, all within): each element within
+        one bf16 ulp of the reference element (2^-7 of it at the bottom
+        of its binade: the gradients are stored bf16, each device rounds
+        its fp32 sum once) or ``rel`` of the tensor's largest entry."""
+        errs = {}
+        for n, v in b.items():
+            d = (a[n] - v).abs()
+            bound = torch.clamp(2 ** -7 * v.abs(),
+                                min=rel * max(float(v.abs().max()), 1e-30))
+            errs[n] = (float((d / bound).max()), float(d.max()))
+        name = max(errs, key=lambda n: errs[n][0])
+        return name, errs[name][1], errs[name][0] <= 1.0
+    flips = sum(int((a != b).any(-1).sum()) for a, b in
+                zip(g["routes"], c["routes"]))
+    gw, ge, g_ok = worst(g["grads"], c["grads"])
+    cw, ce, c_ok = worst(g["change"], c["change"])
+    st = dict(loss_cuda=g["loss"], loss_cpu=c["loss"],
+              loss_rel_err=abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+              logits_rel_err=float((g["logits"] - c["logits"]).abs().max()
+                                   / c["logits"].abs().max()),
+              routing_decisions_that_differ=flips,
+              grads_within=g_ok, worst_grad=gw, worst_grad_abs_err=ge,
+              changes_within=c_ok, worst_change=cw,
+              worst_change_abs_err=ce,
+              tolerance=f"loss, logits {rel} of the largest entry; grads "
+                        f"one bf16 ulp of the element or {rel} of the "
+                        "largest entry, where no routing decision "
+                        "differs; changes reported")
+    ok = (g["finite"] and c["finite"] and st["loss_rel_err"] <= rel
+          and st["logits_rel_err"] <= rel
+          and (flips > 0 or g_ok))
+    log(f"  {kind} O2 identity: {json.dumps(st)}")
+    return ok, st
+
+
+# ------------------------------------------------------------------ #
+# phase 23: ViT-Huge amp O2 + FusedLAMB
+# ------------------------------------------------------------------ #
+VIT_LAUNCHES = {"layer_norm": 129, "layer_norm_bwd": 65,
+                "flash_attention_fwd": 64, "flash_attention_bwd_dq": 32,
+                "flash_attention_bwd_dkv": 32}
+
+
+def phase_vit(torch, steps=10, warmup=3, b=32):
+    """``bench_configs.py``'s ViT-Huge row: ViT-H/14 at 224x224 (257
+    tokens, head dim 80), amp O2 (bf16, fp32 masters), FusedLAMB(1e-3),
+    remat, b = 32 on one seeded batch: 3 warm-up and 10 timed steps with
+    samples/s, host ms a step, the fwd/bwd/opt split and peak memory; the
+    loss must fall and each step launch the LayerNorm and flash kernels
+    ``VIT_LAUNCHES`` times (32 layers, recomputed once).  Then ViT-tiny's
+    O2 + FusedLAMB step on the card against the CPU."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch import _build, amp
+    from apex_tpu_torch.models import ViTConfig, ViTModel
+    from apex_tpu_torch.optim import fused_lamb
+
+    log(f"phase 23: ViT-Huge amp O2 + FusedLAMB, b={b} at 224x224, remat")
+    dev = torch.device("cuda")
+    cfg = ViTConfig.vit_huge(dtype=torch.bfloat16, remat=True)
+    model = ViTModel(cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(51)
+    model.init_weights(g)
+    state = amp.initialize(model, fused_lamb(1e-3), "O2",
+                           half_dtype=torch.bfloat16)
+    x = torch.randn(b, 224, 224, 3, generator=g, device=dev)
+    y = torch.randint(0, cfg.num_classes, (b,), generator=g, device=dev)
+
+    def loss_of():
+        return F.cross_entropy(model(x).float(), y)
+
+    def train_step():
+        loss = loss_of()
+        state.scale_loss(loss).backward()
+        finite = state.apply_gradients()
+        return loss.detach(), finite
+
+    def fwd_only():
+        with torch.no_grad():
+            return loss_of()
+
+    def fwd_bwd():
+        loss = loss_of()
+        state.scale_loss(loss).backward()
+        for q in model.parameters():
+            q.grad = None
+        return loss.detach()
+
+    for _ in range(warmup):
+        train_step()
+    torch.cuda.synchronize()
+    t_fwd = sorted(_event_times(torch, fwd_only, 5)[0])[2]
+    t_fb = sorted(_event_times(torch, fwd_bwd, 5)[0])[2]
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    step_ms, outs, host_ms = _event_times(torch, train_step, steps)
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(o[0]) for o in outs]
+    finite = [bool(o[1]) for o in outs]
+    t_step = sum(step_ms) / len(step_ms)
+    per_step = {k: v / steps for k, v in launches.items()}
+    torch.cuda.reset_peak_memory_stats()
+    fwd_bwd()
+    fb_peak = torch.cuda.max_memory_allocated()
+    stats = dict(
+        samples_per_s=b * steps / (sum(step_ms) / 1e3), step_ms=step_ms,
+        host_ms_per_step=sum(host_ms) / len(host_ms), fwd_ms=t_fwd,
+        bwd_ms=max(t_fb - t_fwd, 0.0), opt_ms=max(t_step - t_fb, 0.0),
+        peak_bytes=peak, fwd_bwd_peak_bytes=fb_peak, losses=losses,
+        finite=finite,
+        params=sum(q.numel() for q in model.parameters()),
+        launches_per_step=per_step, launches=launches)
+    log(f"  {json.dumps({k: v for k, v in stats.items() if k != 'launches'})}")
+    ok = all(finite) and losses[-1] < losses[0]
+    for name, want in VIT_LAUNCHES.items():
+        if per_step.get(name) != want:
+            log(f"  launches of {name}: {per_step.get(name)} per step, "
+                f"expected {want}")
+            ok = False
+    del model, state, outs, x
+    torch.cuda.empty_cache()
+    good, stats["tiny_o2_identity"] = _tiny_o2_identity(torch, "vit")
+    return ok and good, stats
+
+
 def _profile_steps(torch, eng, n=4, groups=None):
     """Device time by kernel over ``n`` engine steps after one more, and
     the share of the window the device was idle (torch.profiler,
@@ -4170,6 +4812,10 @@ def main(argv=None):
                     help="also profile steady decode steps in phases 3, 6 "
                          "and 7 and training steps in phases 4, 8, 15 "
                          "and 17")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run after the build, "
+                         "phase 1 and the kernels record left out (a "
+                         "debugging aid; the full run takes no flag)")
     ap.add_argument("--out", default=os.path.join("build", "chip_smoke"),
                     help="directory for the detailed JSON record")
     args = ap.parse_args(argv)
@@ -4206,9 +4852,11 @@ def main(argv=None):
 
     rows = []
     t0 = time.monotonic()
-    ok = phase_kernels(torch, rows)
-    log(f"phase 1 {'passed' if ok else 'FAILED'} "
-        f"({time.monotonic() - t0:.0f}s)")
+    only = None if args.phases is None else set(args.phases.split(","))
+    ok = True if only else phase_kernels(torch, rows)
+    if not only:
+        log(f"phase 1 {'passed' if ok else 'FAILED'} "
+            f"({time.monotonic() - t0:.0f}s)")
     shared = {}
 
     def with_model(run):
@@ -4247,7 +4895,13 @@ def main(argv=None):
         ("13", lambda: phase_group_norm_block(torch)),
         ("14", lambda: phase_block_identity(torch)),
         ("19", lambda: phase_group_norm_faults(torch)),
+        ("20", lambda: phase_remat(torch)),
+        ("21", lambda: phase_mistral(torch)),
+        ("22", lambda: phase_mixtral(torch)),
+        ("23", lambda: phase_vit(torch)),
     ]
+    if only:
+        phases = [(n, r) for n, r in phases if n in only]
     results = {}
     for name, run in phases:
         if not ok:
@@ -4264,9 +4918,10 @@ def main(argv=None):
                 f"({time.monotonic() - t0:.0f}s)")
     (serve, paged, paged8, train, ident, resnet, resnet_ident, train_fp8,
      chain, fp8_ident, gn_block, block_ident, resnet_o1, resnet_o1_ident,
-     train_o1, optimizers, gn_faults) = (results.get(n) for n in (
+     train_o1, optimizers, gn_faults, remat, mistral, mixtral,
+     vit) = (results.get(n) for n in (
          "3", "6", "7", "4", "5", "8", "9", "10", "11", "12", "13", "14",
-         "15", "16", "17", "18", "19"))
+         "15", "16", "17", "18", "19", "20", "21", "22", "23"))
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4283,17 +4938,22 @@ def main(argv=None):
                        block_identity=block_ident, resnet_o1=resnet_o1,
                        resnet_o1_identity=resnet_o1_ident,
                        train_o1=train_o1, optimizers=optimizers,
-                       group_norm_faults=gn_faults), f, indent=1)
+                       group_norm_faults=gn_faults, remat=remat,
+                       mistral=mistral, mixtral=mixtral, vit=vit), f,
+                  indent=1)
     if not ok:
         log("chip_smoke: FAILED")
         return 1
+    if only:
+        log(f"chip_smoke: phases {sorted(only)} passed (no kernels record)")
+        return 0
 
     # one row per kernel entry at its main-path shape: decode for the
     # serving kernels, BERT-Large bf16 for the training ones, ResNet-50's
     # stage-0 bn3 (residual and ReLU) bf16 for the BatchNorm passes,
     # BERT-Large's masters for the fp8 Adam step and its scores for the
     # softmax; launches are the counts of the main-path runs (phases 3,
-    # 6, 7, 4, 8, 10, 11 and 13, and the O1 runs 15 and 17)
+    # 6, 7, 4, 8, 10, 11 and 13, the O1 runs 15 and 17, and 20-23)
     pick = {
         "layer_norm": ("layer_norm/stats", (8192, 1024), "torch.bfloat16"),
         "layer_norm_bwd": ("layer_norm_bwd", (8192, 1024),
@@ -4357,7 +5017,8 @@ def main(argv=None):
         r = match[0]
         n = sum((st or {}).get("launches", {}).get(name, 0)
                 for st in (serve, paged, paged8, train, resnet, train_fp8,
-                           chain, gn_block, resnet_o1, train_o1))
+                           chain, gn_block, resnet_o1, train_o1, remat,
+                           mistral, mixtral, vit))
         kernels.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"], launches=n,

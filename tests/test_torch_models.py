@@ -183,8 +183,15 @@ def test_generate_validation(llama):
 
 
 def test_slice_boundaries_raise_not_implemented(llama):
+    """The boundaries that remain, each with the JAX package's message:
+    an unknown remat policy, a sliding window on the paged cache, a
+    ring-cache model given to either serving engine, BERT given to the
+    HF importer, and the tensor-parallel paged pool (A-5)."""
+    from apex_tpu_torch.models import BertConfig, BertModel, load_torch_gpt2
+    from apex_tpu_torch.serving import Engine, PagedEngine
+
     _, _, model = llama
-    with pytest.raises(NotImplementedError, match="A-6"):
+    with pytest.raises(ValueError, match="not in .*nothing_saveable"):
         GPTConfig.tiny(remat=True, remat_policy="dots_saveable")
     with pytest.raises(ValueError, match="causal"):
         enc = GPTModel(GPTConfig.tiny(causal=False), device="cpu")
@@ -194,10 +201,20 @@ def test_slice_boundaries_raise_not_implemented(llama):
         LlamaConfig.tiny(kv_cache="paged")
     with pytest.raises(ValueError, match="kv_cache='paged'"):
         LlamaConfig.tiny(kv_dtype="int8")
-    with pytest.raises(NotImplementedError, match="A-4"):
-        LlamaConfig.tiny(sliding_window=16)
-    with pytest.raises(NotImplementedError, match="A-4"):
-        LlamaConfig.tiny(num_moe_experts=4)
+    with pytest.raises(ValueError, match="does not support sliding_window"):
+        LlamaConfig.tiny(sliding_window=16, kv_cache="paged",
+                         kv_pool_blocks=8)
+    ring = GPTModel(LlamaConfig.tiny(sliding_window=16, num_layers=1),
+                    device="cpu")
+    with pytest.raises(ValueError, match="ring-buffer cache"):
+        Engine(ring, max_slots=1, prompt_buckets=(8,))
+    with pytest.raises(ValueError, match="sliding-window models"):
+        PagedEngine(ring, max_slots=1)
+    with pytest.raises(ValueError, match="post-LN"):
+        load_torch_gpt2(BertModel(BertConfig.tiny(num_layers=1),
+                                  device="cpu"), {})
+    with pytest.raises(NotImplementedError, match="A-5"):
+        PagedEngine(model, max_slots=1, mesh=object())
 
 
 def test_model_defaults_to_cuda_and_raises_without_it():

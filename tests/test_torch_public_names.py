@@ -120,3 +120,43 @@ class TestAmpNames:
         assert amp.PrecisionPolicy is PrecisionPolicy
         assert "PrecisionPolicy" in amp.__all__
         assert "PrecisionPolicy" in jax_amp.__all__
+
+
+class TestModelZooNames:
+    """The names of the ViT, MoE and importer modules, exported where
+    the JAX package exports them, and the Mistral / Mixtral presets
+    field for field."""
+
+    @pytest.mark.parametrize("name", [
+        "ViTConfig", "ViTModel", "moe_aux_loss", "load_torch_gpt2",
+        "load_torch_llama", "generate", "init_cache"])
+    def test_models_exports(self, name):
+        import apex_tpu.models as jax_models
+        import apex_tpu_torch.models as models
+
+        assert name in jax_models.__all__
+        assert name in models.__all__ and hasattr(models, name)
+
+    @pytest.mark.parametrize("name", ["moe", "MoEConfig", "MoEMLP"])
+    def test_transformer_exports(self, name):
+        import apex_tpu.transformer as jax_transformer
+        import apex_tpu_torch.transformer as transformer
+
+        assert name in jax_transformer.__all__
+        assert name in transformer.__all__ and hasattr(transformer, name)
+
+    @pytest.mark.parametrize("preset", ["mistral_7b", "mixtral_8x7b"])
+    def test_presets_equal_jax(self, preset):
+        import dataclasses
+
+        from apex_tpu.models import LlamaConfig as JaxLlamaConfig
+        from apex_tpu_torch.models import LlamaConfig
+
+        mine, ref = (getattr(c, preset)() for c in (LlamaConfig,
+                                                    JaxLlamaConfig))
+        shared = {f.name for f in dataclasses.fields(mine)} & {
+            f.name for f in dataclasses.fields(ref)}
+        shared -= {"dtype", "param_dtype"}
+        assert len(shared) > 30
+        for name in sorted(shared):
+            assert getattr(mine, name) == getattr(ref, name), name
