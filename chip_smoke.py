@@ -195,8 +195,11 @@ failure exits non-zero.
 23. ViT-Huge amp O2 + FusedLAMB (``bench_configs.py``'s ViT row, b = 32
    at 224, remat): 3 warm-up and 10 timed steps with samples/s, host ms,
    the fwd/bwd/opt split, peak memory and the LayerNorm and flash
-   launches a step; a falling loss; ViT-tiny's O2 + FusedLAMB step on
-   the card against the CPU.
+   launches a step; every timed loss below the loss at initialisation;
+   ViT-tiny's O2 + FusedLAMB step on the card against the CPU.
+
+A failed phase is also reported on standard error, last: its name, the
+lines it logged that name a failed check, and its last lines.
 
 The last lines of standard output are the card's name and power limit,
 the ``{"kernels": [...]}`` record and ``{"ok": true, "device": {...}}``.
@@ -300,8 +303,33 @@ BN_KERNELS = ("bn_reduce", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx")
 RESNET_BN_LAUNCHES = 53
 
 
+#: the lines the running phase has logged, repeated on standard error if
+#: it fails (a caller that keeps only the end of that stream sees why)
+PHASE_LINES: list = []
+
+
 def log(*a):
     print(*a, flush=True)
+    PHASE_LINES.append(" ".join(str(x) for x in a))
+
+
+def gate(name, passed):
+    """``passed`` as a bool; a failed check logs its ``name``."""
+    if not passed:
+        log(f"  FAIL: {name}")
+    return bool(passed)
+
+
+def report_failure(name, lines, limit=16000):
+    """Write phase ``name``'s failure to standard error: its lines that
+    name a failed check, then its last lines, within ``limit`` chars."""
+    marks = ("FAIL", "NOT ", "False", "expected", "Traceback", "Error")
+    picked = [ln for ln in lines if any(m in ln for m in marks)]
+    picked += ["  ... last lines of the phase:"] + lines[-8:]
+    text = "\n".join(ln if len(ln) <= 1500 else ln[:1500] + " ..."
+                     for ln in picked)
+    print(f"chip_smoke: phase {name} FAILED\n{text[-limit:]}",
+          file=sys.stderr, flush=True)
 
 
 def timed(torch, fn, iters=50, warmup=5):
@@ -4052,8 +4080,9 @@ def phase_remat(torch, steps=3):
                 log(f"  {name}: NOT bitwise equal to nothing_saveable "
                     f"(losses equal {same_loss}, largest gradient "
                     f"difference {diff:g})")
-            ok &= same
-        ok &= flash == want
+            ok &= gate(f"{name} bitwise equal to nothing_saveable", same)
+        ok &= gate(f"{name} flash-forward launches a step {flash}, "
+                   f"expected {want}", flash == want)
         stats[name] = st
         log(f"  {name}: {json.dumps({k: v for k, v in st.items() if k != 'launches'})}")
         del model, state, grads, logits, loss
@@ -4223,16 +4252,20 @@ def _generate_phase(torch, model, plen, new, seed, tag, chunk=None,
                   gen, torch.cat([ids, toks], dim=1))),
               logits_vs_full_forward=logits,
               prefill_launches=prefill, launches=launches)
-    ok = st["generate_equals_loop"]
+    ok = gate(f"{tag}: generate() equals the decode loop",
+              st["generate_equals_loop"])
     if check_model is None:
-        ok &= logits["passed"]
+        ok &= gate(f"{tag}: step logits vs the full forward",
+                   logits["passed"])
     else:
         twin = check_model()
         with _Routes(torch, twin) as twin_routes:
             t_toks, t_steps = _decode_run(torch, twin, ids, new)[:2]
         st["logits_vs_full_forward_check_model"] = _logits_check(
             torch, twin, ids, t_toks, t_steps, twin_routes, check_rel)
-        ok &= st["logits_vs_full_forward_check_model"]["passed"]
+        ok &= gate(f"{tag}: the check model's step logits vs its full "
+                   "forward", st["logits_vs_full_forward_check_model"][
+                       "passed"])
         del twin
         torch.cuda.empty_cache()
     if chunk:
@@ -4241,14 +4274,18 @@ def _generate_phase(torch, model, plen, new, seed, tag, chunk=None,
         parted = _first_flip(torch, toks, chunked[:, plen:], steps)
         st["chunked_prefill"] = dict(chunk=chunk, tokens_equal=not parted,
                                      first_flips=parted)
-        ok &= all(f["near_tie"] for f in parted)
+        ok &= gate(f"{tag}: chunked prefill parts only at near ties",
+                   all(f["near_tie"] for f in parted))
     sampled = generate(model, ids, max_new_tokens=new, temperature=0.8,
                        top_k=50, top_p=0.95, rng=prng_key(7, dev))
     st["sampled_prompt_kept"] = bool(torch.equal(sampled[:, :plen], ids))
     st["sampled_in_vocab"] = bool(((sampled >= 0)
                                    & (sampled < cfg.vocab_size)).all())
-    ok &= st["sampled_prompt_kept"] and st["sampled_in_vocab"]
-    ok &= launches.get("layer_norm", 0) > 0 and launches.get("rope", 0) > 0
+    ok &= gate(f"{tag}: sampled run keeps the prompt, tokens in vocab",
+               st["sampled_prompt_kept"] and st["sampled_in_vocab"])
+    ok &= gate(f"{tag}: LayerNorm and RoPE kernels launched",
+               launches.get("layer_norm", 0) > 0
+               and launches.get("rope", 0) > 0)
     log(f"  {tag}: {json.dumps({k: v for k, v in st.items() if 'launches' not in k})}")
     log(f"  {tag} launches: prefill {json.dumps(prefill)}, whole run "
         f"{json.dumps(launches)}")
@@ -4282,8 +4319,10 @@ def phase_mistral(torch, new=64):
     ok, st, _ = _generate_phase(torch, model, 6144, new, 22, "mistral",
                                 chunk=2048)
     ring = 32 * 2 * 4096 * 8 * 128 * 2 * 2
-    ok &= st["kv_cache_bytes"] == ring and st["dense_cache_bytes"] == 2 * ring
-    ok &= st["prefill_launches"].get("flash_attention_fwd", 0) == 32
+    ok &= gate("ring cache bytes", st["kv_cache_bytes"] == ring
+               and st["dense_cache_bytes"] == 2 * ring)
+    ok &= gate("32 flash-forward launches in the prefill",
+               st["prefill_launches"].get("flash_attention_fwd", 0) == 32)
     # the ring chunk path's banded forward at its own shape
     g = torch.Generator(device=dev).manual_seed(23)
     q = torch.randn(2, 2048, 32, 128, generator=g, device=dev).bfloat16()
@@ -4299,7 +4338,7 @@ def phase_mistral(torch, new=64):
                                     tol="2^-7 (o), 1e-5 (lse) x max |ref|",
                                     passed=p_o and p_l)
     log(f"  ring banded kernel: {json.dumps(st['ring_banded_kernel'])}")
-    ok &= p_o and p_l
+    ok &= gate("ring banded kernel vs its plain version", p_o and p_l)
     del model, q, k, v, o, o2, lse, lse2
     torch.cuda.empty_cache()
     return ok, st
@@ -4347,7 +4386,8 @@ def phase_mixtral(torch, new=32, layers=8):
         model(ids)
         aux = moe_aux_loss(model)
     st["moe_aux_loss"] = float(aux)
-    ok &= bool(torch.isfinite(aux)) and float(aux) > 0
+    ok &= gate("moe_aux_loss finite and positive",
+               bool(torch.isfinite(aux)) and float(aux) > 0)
     st["capacity_factor"] = cfg.moe_capacity_factor
     del model
     torch.cuda.empty_cache()
@@ -4454,26 +4494,29 @@ def _tiny_o2_identity(torch, kind):
                                 min=rel * max(float(v.abs().max()), 1e-30))
             errs[n] = (float((d / bound).max()), float(d.max()))
         name = max(errs, key=lambda n: errs[n][0])
-        return name, errs[name][1], errs[name][0] <= 1.0
+        return name, errs[name][1], errs[name][0] <= 1.0, errs[name][0]
     flips = sum(int((a != b).any(-1).sum()) for a, b in
                 zip(g["routes"], c["routes"]))
-    gw, ge, g_ok = worst(g["grads"], c["grads"])
-    cw, ce, c_ok = worst(g["change"], c["change"])
+    gw, ge, g_ok, g_frac = worst(g["grads"], c["grads"])
+    cw, ce, c_ok, _ = worst(g["change"], c["change"])
     st = dict(loss_cuda=g["loss"], loss_cpu=c["loss"],
               loss_rel_err=abs(g["loss"] - c["loss"]) / abs(c["loss"]),
               logits_rel_err=float((g["logits"] - c["logits"]).abs().max()
                                    / c["logits"].abs().max()),
               routing_decisions_that_differ=flips,
               grads_within=g_ok, worst_grad=gw, worst_grad_abs_err=ge,
+              worst_grad_share_of_tolerance=g_frac,
               changes_within=c_ok, worst_change=cw,
               worst_change_abs_err=ce,
               tolerance=f"loss, logits {rel} of the largest entry; grads "
                         f"one bf16 ulp of the element or {rel} of the "
                         "largest entry, where no routing decision "
                         "differs; changes reported")
-    ok = (g["finite"] and c["finite"] and st["loss_rel_err"] <= rel
-          and st["logits_rel_err"] <= rel
-          and (flips > 0 or g_ok))
+    ok = gate(f"{kind} O2 identity: finite steps", g["finite"]
+              and c["finite"])
+    ok &= gate(f"{kind} O2 identity: loss and logits within {rel}",
+               st["loss_rel_err"] <= rel and st["logits_rel_err"] <= rel)
+    ok &= gate(f"{kind} O2 identity: gradients", flips > 0 or g_ok)
     log(f"  {kind} O2 identity: {json.dumps(st)}")
     return ok, st
 
@@ -4490,8 +4533,9 @@ def phase_vit(torch, steps=10, warmup=3, b=32):
     """``bench_configs.py``'s ViT-Huge row: ViT-H/14 at 224x224 (257
     tokens, head dim 80), amp O2 (bf16, fp32 masters), FusedLAMB(1e-3),
     remat, b = 32 on one seeded batch: 3 warm-up and 10 timed steps with
-    samples/s, host ms a step, the fwd/bwd/opt split and peak memory; the
-    loss must fall and each step launch the LayerNorm and flash kernels
+    samples/s, host ms a step, the fwd/bwd/opt split and peak memory;
+    every timed loss must lie below the loss at initialisation and each
+    step launch the LayerNorm and flash kernels
     ``VIT_LAUNCHES`` times (32 layers, recomputed once).  Then ViT-tiny's
     O2 + FusedLAMB step on the card against the CPU."""
     import torch.nn.functional as F
@@ -4531,9 +4575,7 @@ def phase_vit(torch, steps=10, warmup=3, b=32):
             q.grad = None
         return loss.detach()
 
-    for _ in range(warmup):
-        train_step()
-    torch.cuda.synchronize()
+    warm_losses = [float(train_step()[0]) for _ in range(warmup)]
     t_fwd = sorted(_event_times(torch, fwd_only, 5)[0])[2]
     t_fb = sorted(_event_times(torch, fwd_bwd, 5)[0])[2]
     torch.cuda.reset_peak_memory_stats()
@@ -4552,12 +4594,22 @@ def phase_vit(torch, steps=10, warmup=3, b=32):
         samples_per_s=b * steps / (sum(step_ms) / 1e3), step_ms=step_ms,
         host_ms_per_step=sum(host_ms) / len(host_ms), fwd_ms=t_fwd,
         bwd_ms=max(t_fb - t_fwd, 0.0), opt_ms=max(t_step - t_fb, 0.0),
-        peak_bytes=peak, fwd_bwd_peak_bytes=fb_peak, losses=losses,
+        peak_bytes=peak, fwd_bwd_peak_bytes=fb_peak,
+        loss_init=warm_losses[0], warmup_losses=warm_losses, losses=losses,
         finite=finite,
         params=sum(q.numel() for q in model.parameters()),
         launches_per_step=per_step, launches=launches)
     log(f"  {json.dumps({k: v for k, v in stats.items() if k != 'launches'})}")
-    ok = all(finite) and losses[-1] < losses[0]
+    # one batch under LAMB(1e-3) without warm-up: the loss drops from
+    # ln(1000) towards 1e-3 and spikes back between steps (on the card:
+    # 0.70 after three updates, 0.0005, then 0.35 at the last timed
+    # step), so two timed steps compare at random points of the spikes;
+    # the gate is that every timed loss is below the loss at
+    # initialisation, as phases 8, 15 and 17 hold theirs to it
+    ok = gate("ViT-Huge: finite steps, every timed loss below the loss "
+              "at initialisation",
+              all(finite) and all(np.isfinite(warm_losses + losses))
+              and all(x < warm_losses[0] for x in losses))
     for name, want in VIT_LAUNCHES.items():
         if per_step.get(name) != want:
             log(f"  launches of {name}: {per_step.get(name)} per step, "
@@ -4853,10 +4905,13 @@ def main(argv=None):
     rows = []
     t0 = time.monotonic()
     only = None if args.phases is None else set(args.phases.split(","))
+    PHASE_LINES.clear()
     ok = True if only else phase_kernels(torch, rows)
     if not only:
         log(f"phase 1 {'passed' if ok else 'FAILED'} "
             f"({time.monotonic() - t0:.0f}s)")
+        if not ok:
+            report_failure("1", PHASE_LINES)
     shared = {}
 
     def with_model(run):
@@ -4907,15 +4962,19 @@ def main(argv=None):
         if not ok:
             break
         t0 = time.monotonic()
+        PHASE_LINES.clear()
         try:
             ok, results[name] = run()
         except Exception:       # the phase failed: record it, then exit 1
             import traceback
             traceback.print_exc()
+            PHASE_LINES.extend(traceback.format_exc().splitlines()[-6:])
             ok, results[name] = False, None
         if name:
             log(f"phase {name} {'passed' if ok else 'FAILED'} "
                 f"({time.monotonic() - t0:.0f}s)")
+        if not ok:
+            report_failure(name, PHASE_LINES)
     (serve, paged, paged8, train, ident, resnet, resnet_ident, train_fp8,
      chain, fp8_ident, gn_block, block_ident, resnet_o1, resnet_o1_ident,
      train_o1, optimizers, gn_faults, remat, mistral, mixtral,
