@@ -35,18 +35,20 @@
 // bound (at this size the forward's bound is still its bytes, 0.020 ms).
 // Two paths, chosen by what the inputs allow:
 //
-// (1) Forward, dq and dk/dv for bf16/fp16 with head_dim 64 or 128:
+// (1) bf16/fp16 inputs: the forward at head_dim 64 and 128, dq and dk/dv
+//     at 64, 80 and 128 (use_tc; apex_fa_route reports the choice) run
 //     Hopper kernels (fa_fwd_wgmma_kernel, fa_bwd_dq_wgmma_kernel,
 //     fa_bwd_dkv_wgmma_kernel; sm_90a).  A Hopper kernel's rate needs
 //     wgmma on register accumulators fed by asynchronous loads.  Tiles
-//     arrive by TMA (tensor maps over the BSHD tensors, 128-byte
-//     swizzle, positions past the end read as zero) into a ring of two
-//     stages that a producer warp keeps full, so loads overlap the
-//     products; the grid is persistent, so they also overlap the
-//     previous work item's end.  The products are wgmma with fp32
-//     accumulators in registers, and every softmax, mask and dropout step
-//     works on those registers in the accumulator layout (a row across a
-//     quad of lanes: two shuffles per reduction).  Probabilities and dS
+//     arrive by TMA (tensor maps over the BSHD tensors, positions past
+//     the end read as zero; panels of 64 columns with the 128-byte
+//     swizzle, or at head_dim 80 of 16 columns with the 32-byte swizzle:
+//     panel_cols) into a ring of two stages that a producer warp keeps
+//     full, so loads overlap the products; the grid is persistent, so
+//     they also overlap the previous work item's end.  The products are
+//     wgmma with fp32 accumulators in registers, and every softmax, mask
+//     and dropout step works on those registers in the accumulator layout
+//     (a row across a quad of lanes: two shuffles per reduction).  Probabilities and dS
 //     are rounded to the input dtype in registers and enter the next
 //     product as its register A operand, so nothing but the loaded tiles
 //     touches shared memory.  Bias, causal/window and dropout are
@@ -57,8 +59,11 @@
 //     At BERT-Large the forward's bound is its bytes, dq's its three
 //     products and dk/dv's its four; what holds each above its bound (the
 //     exp2 per score, an item of only four key tiles) is not measured.
-//     See the notes at each kernel for its tiling.
-// (2) fp32 inputs and other head dims: fp32 FMA on the CUDA cores.
+//     At ViT's 257 rows (two tiles of 128 and one row) the backward's
+//     bound is its bytes, and the ragged last tile is the waste.  See the
+//     notes at each kernel for its tiling.
+// (2) fp32 inputs, the forward at other head dims, dq and dk/dv at head
+//     dims other than 64, 80 and 128: fp32 FMA on the CUDA cores.
 //     Tiles are converted to fp32 in shared memory (row stride d + 1, so
 //     the column reads of the score product hit 16 different banks);
 //     each of 256 threads owns a 4 x 4 block of the 64 x 64 score tile
@@ -551,13 +556,16 @@ constexpr int kHStages = 2;      // ring depth
 constexpr int kHM = 128;         // forward and dq: query rows per item
 constexpr int kHN = 128;         // forward: keys per tile
 constexpr int kHK = 128;         // dk/dv: keys per block
-// dk/dv: queries per tile — 32 at d = 128 keeps dK, dV (64 registers
-// each), S^T and dP^T (16 each) and their packed operands within the
-// register file
-__host__ __device__ constexpr int dkv_bq(int d) { return d == 64 ? 64 : 32; }
+// dk/dv: queries per tile — 64 at d = 64 and 80 (dK and dV 32 or 40
+// registers each, S^T and dP^T 32 each); 32 at d = 128 keeps dK, dV (64
+// registers each), S^T and dP^T (16 each) and their packed operands
+// within the register file
+__host__ __device__ constexpr int dkv_bq(int d) { return d <= 80 ? 64 : 32; }
 // dq: keys per tile — 128 at d = 64 (S and dP 64 registers each, dQ 32,
-// packed dS 32); 64 at d = 128, where dQ alone takes 64, and with
-// dropout, whose hashes spilled 44 bytes at d = 64 with 128 keys
+// packed dS 32); 64 at d = 128, where dQ alone takes 64, with dropout,
+// whose hashes spilled 44 bytes at d = 64 with 128 keys, and at d = 80,
+// where 128 keys fit but ran 3% slower at ViT's 257 (a third tile of one
+// live key against a fifth of 64)
 __host__ __device__ constexpr int dq_bn(int d, bool drop) {
   return d == 64 && !drop ? 128 : 64;
 }
@@ -566,6 +574,44 @@ using hp::acc_col;
 using hp::acc_row;
 using hp::quad_max;
 using hp::quad_sum;
+
+// A tile of R rows x D columns lies in shared memory as D / panel_cols(D)
+// panels of R rows (hopper.cuh): 64 columns with the 128-byte swizzle at
+// head dims 64 and 128; 16 columns with the 32-byte swizzle at 80, whose
+// 160-byte rows no 64-column panel divides.  Five 16-column panels make
+// the D-wide products one m64n80k16 each.
+__host__ __device__ constexpr int panel_cols(int d) {
+  return d % 64 == 0 ? 64 : 16;
+}
+
+// rows [row0, row0 + R) of one head of map m into a tile, a TMA box a
+// panel, completing on bar
+template <int D, int R, typename T>
+__device__ __forceinline__ void tma_tile(T* dst, const CUtensorMap* m,
+                                         uint64_t* bar, int head, int row0,
+                                         int batch) {
+  constexpr int PW = panel_cols(D);
+#pragma unroll
+  for (int pn = 0; pn < D / PW; ++pn)
+    hp::tma_load_4d(dst + pn * R * PW, m, bar, PW * pn, head, row0, batch);
+}
+
+// a K-major operand (the depth runs along the row): the rows from r0 of
+// a tile of R rows, depth columns 16 kk ... 16 kk + 15
+template <int D, int R, typename T>
+__device__ __forceinline__ uint64_t desc_k(const T* tile, int r0, int kk) {
+  constexpr int PW = panel_cols(D);
+  return hp::desc_panel<PW>(
+      tile + (16 * kk / PW) * R * PW + r0 * PW + 16 * kk % PW, 16, 16 * PW);
+}
+
+// an MN-major operand (the depth runs down the rows): rows 16 kk ... 16 kk
+// + 15 of a tile of R rows, all D columns
+template <int D, int R, typename T>
+__device__ __forceinline__ uint64_t desc_mn(const T* tile, int kk) {
+  constexpr int PW = panel_cols(D);
+  return hp::desc_panel<PW>(tile + kk * 16 * PW, R * PW * 2, 16 * PW);
+}
 
 // One key tile of the forward for a warpgroup's 64 rows, on the scores
 // in registers: scale (and bias), the masks where kMasked, the online
@@ -730,20 +776,14 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         hp::mbar_wait(q_empty, qph ^ 1);
         qph ^= 1;
         hp::mbar_expect_tx(q_full, kQElems * (int)sizeof(T));
-#pragma unroll
-        for (int pn = 0; pn < D / 64; ++pn)
-          hp::tma_load_4d(Qs + pn * kHM * 64, &tq, q_full, 64 * pn, it.head,
-                          it.q0, it.batch);
+        tma_tile<D, kHM>(Qs, &tq, q_full, it.head, it.q0, it.batch);
         for (int kt = it.kt_lo; kt < it.kt_hi; ++kt) {
           hp::mbar_wait(&empty[s], ph ^ 1);
           hp::mbar_expect_tx(&full[s], 2 * kKElems * (int)sizeof(T));
-#pragma unroll
-          for (int pn = 0; pn < D / 64; ++pn) {
-            hp::tma_load_4d(Ks + s * kKElems + pn * kHN * 64, &tk, &full[s],
-                            64 * pn, it.kvh, kt * kHN, it.batch);
-            hp::tma_load_4d(Vs + s * kKElems + pn * kHN * 64, &tv, &full[s],
-                            64 * pn, it.kvh, kt * kHN, it.batch);
-          }
+          tma_tile<D, kHN>(Ks + s * kKElems, &tk, &full[s], it.kvh, kt * kHN,
+                           it.batch);
+          tma_tile<D, kHN>(Vs + s * kKElems, &tv, &full[s], it.kvh, kt * kHN,
+                           it.batch);
           if (++s == kHStages) {
             s = 0;
             ph ^= 1;
@@ -789,14 +829,9 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const T* Vst = Vs + s * kKElems;
         hp::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint64_t da = hp::desc_sw128(
-              Qs + (kk >> 2) * kHM * 64 + wg * 64 * 64 + (kk & 3) * 16, 16,
-              1024);
-          const uint64_t db = hp::desc_sw128(
-              Kst + (kk >> 2) * kHN * 64 + (kk & 3) * 16, 16, 1024);
-          hp::wgmma_ss<kHN, T>(sc, da, db, kk > 0);
-        }
+        for (int kk = 0; kk < D / 16; ++kk)
+          hp::wgmma_ss<kHN, T>(sc, desc_k<D, kHM>(Qs, 64 * wg, kk),
+                               desc_k<D, kHN>(Kst, 0, kk), kk > 0);
         hp::wgmma_commit();
         hp::wgmma_wait<0>();
         hp::fence_regs(sc);
@@ -817,9 +852,7 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         hp::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kHN / 16; ++kk)
-          hp::wgmma_rs_tb<D, T>(
-              acc, pf[kk],
-              hp::desc_sw128(Vst + kk * 16 * 64, kHN * 128, 1024), 1);
+          hp::wgmma_rs_tb<D, T>(acc, pf[kk], desc_mn<D, kHN>(Vst, kk), 1);
         hp::wgmma_commit();
         hp::wgmma_wait<0>();
         hp::fence_regs(acc);
@@ -966,23 +999,15 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         hp::mbar_wait(q_empty, qph ^ 1);
         qph ^= 1;
         hp::mbar_expect_tx(q_full, 2 * kQElems * (int)sizeof(T));
-#pragma unroll
-        for (int pn = 0; pn < D / 64; ++pn) {
-          hp::tma_load_4d(Qs + pn * kHM * 64, &tq, q_full, 64 * pn, it.head,
-                          it.q0, it.batch);
-          hp::tma_load_4d(dOs + pn * kHM * 64, &tdo, q_full, 64 * pn,
-                          it.head, it.q0, it.batch);
-        }
+        tma_tile<D, kHM>(Qs, &tq, q_full, it.head, it.q0, it.batch);
+        tma_tile<D, kHM>(dOs, &tdo, q_full, it.head, it.q0, it.batch);
         for (int kt = it.kt_lo; kt < it.kt_hi; ++kt) {
           hp::mbar_wait(&empty[s], ph ^ 1);
           hp::mbar_expect_tx(&full[s], 2 * kKElems * (int)sizeof(T));
-#pragma unroll
-          for (int pn = 0; pn < D / 64; ++pn) {
-            hp::tma_load_4d(Ks + s * kKElems + pn * BN * 64, &tk, &full[s],
-                            64 * pn, it.kvh, kt * BN, it.batch);
-            hp::tma_load_4d(Vs + s * kKElems + pn * BN * 64, &tv, &full[s],
-                            64 * pn, it.kvh, kt * BN, it.batch);
-          }
+          tma_tile<D, BN>(Ks + s * kKElems, &tk, &full[s], it.kvh, kt * BN,
+                          it.batch);
+          tma_tile<D, BN>(Vs + s * kKElems, &tv, &full[s], it.kvh, kt * BN,
+                          it.batch);
           if (++s == kHStages) {
             s = 0;
             ph ^= 1;
@@ -1032,12 +1057,10 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         hp::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          const int qa_off = (kk >> 2) * kHM * 64 + wg * 64 * 64 + (kk & 3) * 16;
-          const int kb_off = (kk >> 2) * BN * 64 + (kk & 3) * 16;
-          hp::wgmma_ss<BN, T>(sc, hp::desc_sw128(Qs + qa_off, 16, 1024),
-                              hp::desc_sw128(Kst + kb_off, 16, 1024), kk > 0);
-          hp::wgmma_ss<BN, T>(dp, hp::desc_sw128(dOs + qa_off, 16, 1024),
-                              hp::desc_sw128(Vst + kb_off, 16, 1024), kk > 0);
+          hp::wgmma_ss<BN, T>(sc, desc_k<D, kHM>(Qs, 64 * wg, kk),
+                              desc_k<D, BN>(Kst, 0, kk), kk > 0);
+          hp::wgmma_ss<BN, T>(dp, desc_k<D, kHM>(dOs, 64 * wg, kk),
+                              desc_k<D, BN>(Vst, 0, kk), kk > 0);
         }
         hp::wgmma_commit();
         hp::wgmma_wait<0>();
@@ -1060,9 +1083,7 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         hp::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
-          hp::wgmma_rs_tb<D, T>(
-              acc, df[kk], hp::desc_sw128(Kst + kk * 16 * 64, BN * 128, 1024),
-              1);
+          hp::wgmma_rs_tb<D, T>(acc, df[kk], desc_mn<D, BN>(Kst, kk), 1);
         hp::wgmma_commit();
         hp::wgmma_wait<0>();
         hp::fence_regs(acc);
@@ -1245,13 +1266,8 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         if (wl == 0) {
           hp::mbar_wait(kv_empty, kvph ^ 1);
           hp::mbar_expect_tx(kv_full, 2 * kKElems * (int)sizeof(T));
-#pragma unroll
-          for (int pn = 0; pn < D / 64; ++pn) {
-            hp::tma_load_4d(Ks + pn * kHK * 64, &tk, kv_full, 64 * pn,
-                            it.kvh, it.k0, it.batch);
-            hp::tma_load_4d(Vs + pn * kHK * 64, &tv, kv_full, 64 * pn,
-                            it.kvh, it.k0, it.batch);
-          }
+          tma_tile<D, kHK>(Ks, &tk, kv_full, it.kvh, it.k0, it.batch);
+          tma_tile<D, kHK>(Vs, &tv, kv_full, it.kvh, it.k0, it.batch);
         }
         kvph ^= 1;
         for (int t = 0; t < it.n_tiles; ++t) {
@@ -1269,13 +1285,10 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           __syncwarp();
           if (wl == 0) {
             hp::mbar_expect_tx(&full[s], 2 * kQElems * (int)sizeof(T));
-#pragma unroll
-            for (int pn = 0; pn < D / 64; ++pn) {
-              hp::tma_load_4d(Qs + s * kQElems + pn * BQ * 64, &tq, &full[s],
-                              64 * pn, head, q0, it.batch);
-              hp::tma_load_4d(dOs + s * kQElems + pn * BQ * 64, &tdo,
-                              &full[s], 64 * pn, head, q0, it.batch);
-            }
+            tma_tile<D, BQ>(Qs + s * kQElems, &tq, &full[s], head, q0,
+                            it.batch);
+            tma_tile<D, BQ>(dOs + s * kQElems, &tdo, &full[s], head, q0,
+                            it.batch);
           }
           if (++s == kHStages) {
             s = 0;
@@ -1312,13 +1325,10 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         hp::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          const int ka_off =
-              (kk >> 2) * kHK * 64 + wg * 64 * 64 + (kk & 3) * 16;
-          const int qb_off = (kk >> 2) * BQ * 64 + (kk & 3) * 16;
-          hp::wgmma_ss<BQ, T>(st, hp::desc_sw128(Ks + ka_off, 16, 1024),
-                              hp::desc_sw128(Qst + qb_off, 16, 1024), kk > 0);
-          hp::wgmma_ss<BQ, T>(dpt, hp::desc_sw128(Vs + ka_off, 16, 1024),
-                              hp::desc_sw128(dOst + qb_off, 16, 1024), kk > 0);
+          hp::wgmma_ss<BQ, T>(st, desc_k<D, kHK>(Ks, 64 * wg, kk),
+                              desc_k<D, BQ>(Qst, 0, kk), kk > 0);
+          hp::wgmma_ss<BQ, T>(dpt, desc_k<D, kHK>(Vs, 64 * wg, kk),
+                              desc_k<D, BQ>(dOst, 0, kk), kk > 0);
         }
         hp::wgmma_commit();
         hp::wgmma_wait<0>();
@@ -1348,12 +1358,8 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         hp::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk) {
-          hp::wgmma_rs_tb<D, T>(
-              adv, pf[kk],
-              hp::desc_sw128(dOst + kk * 16 * 64, BQ * 128, 1024), 1);
-          hp::wgmma_rs_tb<D, T>(
-              adk, df[kk],
-              hp::desc_sw128(Qst + kk * 16 * 64, BQ * 128, 1024), 1);
+          hp::wgmma_rs_tb<D, T>(adv, pf[kk], desc_mn<D, BQ>(dOst, kk), 1);
+          hp::wgmma_rs_tb<D, T>(adk, df[kk], desc_mn<D, BQ>(Qst, kk), 1);
         }
         hp::wgmma_commit();
         hp::wgmma_wait<0>();
@@ -1496,8 +1502,9 @@ int dq_wgmma_launch(const Params& p, const CUtensorMap& tq,
                     const float* delta, void* dq, cudaStream_t st) {
   constexpr int BN = dq_bn(D, kDrop);
   CUtensorMap tk, tv;
-  int e = hp::tmap_bshd(&tk, p.k, dt, D, p.hk, p.sk, p.b, BN);
-  if (!e) e = hp::tmap_bshd(&tv, p.v, dt, D, p.hk, p.sk, p.b, BN);
+  constexpr int PW = panel_cols(D);
+  int e = hp::tmap_bshd(&tk, p.k, dt, D, p.hk, p.sk, p.b, BN, PW);
+  if (!e) e = hp::tmap_bshd(&tv, p.v, dt, D, p.hk, p.sk, p.b, BN, PW);
   if (e) return e;
   constexpr size_t smem = 1024 + (size_t)(2 * kHM * D + 2 * kHStages * BN * D) *
                                      sizeof(T) + (2 + 2 * kHStages) * 8;
@@ -1513,9 +1520,10 @@ int dq_wgmma_launch(const Params& p, const CUtensorMap& tq,
 template <typename T, int D>
 int dq_wgmma(const Params& p, int dt, const void* dout, const float* lse,
              const float* delta, void* dq, cudaStream_t st) {
+  constexpr int PW = panel_cols(D);
   CUtensorMap tq, tdo;
-  int e = hp::tmap_bshd(&tq, p.q, dt, D, p.h, p.sq, p.b, kHM);
-  if (!e) e = hp::tmap_bshd(&tdo, dout, dt, D, p.h, p.sq, p.b, kHM);
+  int e = hp::tmap_bshd(&tq, p.q, dt, D, p.h, p.sq, p.b, kHM, PW);
+  if (!e) e = hp::tmap_bshd(&tdo, dout, dt, D, p.h, p.sq, p.b, kHM, PW);
   if (e) return e;
 #define APEX_DQ(B, C, R) \
   dq_wgmma_launch<T, D, B, C, R>(p, tq, tdo, dt, lse, delta, dq, st)
@@ -1544,12 +1552,12 @@ int dkv_wgmma_launch(const Params& p, const CUtensorMap& tq,
 template <typename T, int D>
 int dkv_wgmma(const Params& p, int dt, const void* dout, const float* lse,
               const float* delta, void* dk, void* dv, cudaStream_t st) {
-  constexpr int BQ = dkv_bq(D);
+  constexpr int BQ = dkv_bq(D), PW = panel_cols(D);
   CUtensorMap tq, tk, tv, tdo;
-  int e = hp::tmap_bshd(&tq, p.q, dt, D, p.h, p.sq, p.b, BQ);
-  if (!e) e = hp::tmap_bshd(&tdo, dout, dt, D, p.h, p.sq, p.b, BQ);
-  if (!e) e = hp::tmap_bshd(&tk, p.k, dt, D, p.hk, p.sk, p.b, kHK);
-  if (!e) e = hp::tmap_bshd(&tv, p.v, dt, D, p.hk, p.sk, p.b, kHK);
+  int e = hp::tmap_bshd(&tq, p.q, dt, D, p.h, p.sq, p.b, BQ, PW);
+  if (!e) e = hp::tmap_bshd(&tdo, dout, dt, D, p.h, p.sq, p.b, BQ, PW);
+  if (!e) e = hp::tmap_bshd(&tk, p.k, dt, D, p.hk, p.sk, p.b, kHK, PW);
+  if (!e) e = hp::tmap_bshd(&tv, p.v, dt, D, p.hk, p.sk, p.b, kHK, PW);
   if (e) return e;
 #define APEX_DKV(B, C, R) \
   dkv_wgmma_launch<T, D, B, C, R>(p, tq, tk, tv, tdo, lse, delta, dk, dv, st)
@@ -1557,8 +1565,25 @@ int dkv_wgmma(const Params& p, int dt, const void* dout, const float* lse,
 #undef APEX_DKV
 }
 
-// the wgmma kernels take half inputs with head_dim 64 or 128
-bool use_tc(int dt, int d) { return dt != apex::kF32 && (d == 64 || d == 128); }
+// which kernel: the forward, dq or dk/dv (apex_fa_route's argument)
+enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
+
+// the wgmma kernels take half inputs at head_dim 64 and 128, and dq and
+// dk/dv also at 80; the FMA kernels take the rest
+bool use_tc(int kernel, int dt, int d) {
+  return dt != apex::kF32 &&
+         (d == 64 || d == 128 || (kernel != kFwd && d == 80));
+}
+
+// the wgmma launch FN<T, D>(...) for the head dims of use_tc
+#define APEX_TC_BY_D(FN, ...)                                              \
+  if (dt == apex::kBF16)                                                   \
+    return d == 64   ? FN<__nv_bfloat16, 64>(__VA_ARGS__)                  \
+           : d == 80 ? FN<__nv_bfloat16, 80>(__VA_ARGS__)                  \
+                     : FN<__nv_bfloat16, 128>(__VA_ARGS__);                \
+  return d == 64 ? FN<__half, 64>(__VA_ARGS__)                             \
+         : d == 80 ? FN<__half, 80>(__VA_ARGS__)                           \
+                   : FN<__half, 128>(__VA_ARGS__);
 
 Params make_params(const void* q, const void* k, const void* v,
                    const void* bias, long long bsb, long long bsh,
@@ -1612,13 +1637,12 @@ extern "C" int apex_fa_fwd(APEX_FA_PARAMS, void* o, void* lse, void* stream) {
   const Params p = APEX_FA_ARGS;
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
-  const bool wide = d > 64;
-  if (use_tc(dt, d)) {
+  if (use_tc(kFwd, dt, d)) {
     if (dt == apex::kBF16)
-      return wide ? fwd_wgmma<__nv_bfloat16, 128>(p, dt, o, l, st)
-                  : fwd_wgmma<__nv_bfloat16, 64>(p, dt, o, l, st);
-    return wide ? fwd_wgmma<__half, 128>(p, dt, o, l, st)
-                : fwd_wgmma<__half, 64>(p, dt, o, l, st);
+      return d == 128 ? fwd_wgmma<__nv_bfloat16, 128>(p, dt, o, l, st)
+                      : fwd_wgmma<__nv_bfloat16, 64>(p, dt, o, l, st);
+    return d == 128 ? fwd_wgmma<__half, 128>(p, dt, o, l, st)
+                    : fwd_wgmma<__half, 64>(p, dt, o, l, st);
   }
   APEX_FMA_DT(fwd, p, o, l, st)
 }
@@ -1632,13 +1656,8 @@ extern "C" int apex_fa_bwd_dq(APEX_FA_PARAMS, const void* dout,
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   const float* dl = (const float*)delta;
-  const bool wide = d > 64;
-  if (use_tc(dt, d)) {
-    if (dt == apex::kBF16)
-      return wide ? dq_wgmma<__nv_bfloat16, 128>(p, dt, dout, l, dl, dq, st)
-                  : dq_wgmma<__nv_bfloat16, 64>(p, dt, dout, l, dl, dq, st);
-    return wide ? dq_wgmma<__half, 128>(p, dt, dout, l, dl, dq, st)
-                : dq_wgmma<__half, 64>(p, dt, dout, l, dl, dq, st);
+  if (use_tc(kDq, dt, d)) {
+    APEX_TC_BY_D(dq_wgmma, p, dt, dout, l, dl, dq, st)
   }
   APEX_FMA_DT(bwd_dq, p, dout, l, dl, dq, st)
 }
@@ -1652,13 +1671,14 @@ extern "C" int apex_fa_bwd_dkv(APEX_FA_PARAMS, const void* dout,
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   const float* dl = (const float*)delta;
-  const bool wide = d > 64;
-  if (use_tc(dt, d)) {
-    if (dt == apex::kBF16)
-      return wide ? dkv_wgmma<__nv_bfloat16, 128>(p, dt, dout, l, dl, dk, dv, st)
-                  : dkv_wgmma<__nv_bfloat16, 64>(p, dt, dout, l, dl, dk, dv, st);
-    return wide ? dkv_wgmma<__half, 128>(p, dt, dout, l, dl, dk, dv, st)
-                : dkv_wgmma<__half, 64>(p, dt, dout, l, dl, dk, dv, st);
+  if (use_tc(kDkv, dt, d)) {
+    APEX_TC_BY_D(dkv_wgmma, p, dt, dout, l, dl, dk, dv, st)
   }
   APEX_FMA_DT(bwd_dkv, p, dout, l, dl, dk, dv, st)
+}
+
+// 1 if `kernel` (0 the forward, 1 dq, 2 dk/dv) runs the wgmma kernels for
+// dtype dt at head_dim d, 0 if the FMA kernels; launches nothing
+extern "C" int apex_fa_route(int kernel, int dt, int d) {
+  return use_tc(kernel, dt, d) ? 1 : 0;
 }

@@ -4,7 +4,7 @@
 // TMA tile loads and 1-D bulk copies completing on an mbarrier, the
 // mbarrier operations of a producer/consumer ring, 4-byte cp.async, and
 // warpgroup matrix multiplies (wgmma) with their shared-memory
-// descriptors for 128-byte-swizzled tiles.
+// descriptors for 128- and 32-byte-swizzled tiles.
 //
 // Tiles: TMA writes a box of R rows x 64 half-precision columns (128
 // bytes a row) with the 128-byte swizzle; a head of 128 columns is two
@@ -18,6 +18,11 @@
 //            descriptor): 8-row groups of the depth 1024 bytes apart
 //            (SBO), panels of the other dimension R * 128 bytes apart
 //            (LBO); a 16-row step of the depth is +2048 bytes.
+// A head whose width is not a multiple of 64 (80) is cut into panels of
+// 16 columns (32 bytes a row) with the 32-byte swizzle, whose repeat is 8
+// rows of 256 bytes: K-major, a panel is one 16-deep step, 8-row groups
+// 256 bytes apart; MN-major, 8-row groups of the depth 256 bytes apart,
+// panels R * 32 bytes apart, a 16-row step +512 bytes.
 // Accumulators are fp32 in registers in wgmma's m64nN layout: thread t
 // of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 and that + 8;
 // register i is row + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (t % 4) +
@@ -60,24 +65,27 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A (batch, seq, heads, d) half-precision tensor as the 4-D map {d,
-// heads, seq, batch} with boxes of `rows` sequence positions x 64
-// columns of one head, 128-byte swizzle; positions past `seq` read as
-// zero.  Returns 0, or a non-zero error code.
+// heads, seq, batch} with boxes of `rows` sequence positions x `cols`
+// columns of one head: 64 with the 128-byte swizzle, or 16 with the
+// 32-byte swizzle; positions past `seq` read as zero.  Returns 0, or a
+// non-zero error code.
 inline int tmap_bshd(CUtensorMap* m, const void* ptr, int half_kind, int d,
-                     int heads, int seq, int batch, int rows) {
+                     int heads, int seq, int batch, int rows,
+                     int cols = 64) {
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
                               (cuuint64_t)seq, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
                                  (cuuint64_t)seq * heads * d * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUresult r = enc(
       m, half_kind == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                             : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
       4, const_cast<void*>(ptr), dims, strides, box, estr,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -217,12 +225,20 @@ __device__ __forceinline__ void cp_async_wait() {
 // ------------------------------------------------------------------ //
 // device: wgmma
 // ------------------------------------------------------------------ //
-// the descriptor of a 128-byte-swizzled operand at `p` (see the header)
-__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+// the descriptor of an operand at `p` in panels of kCols columns (see
+// the header): layout type 1 (128-byte swizzle) for 64, 3 (32-byte) for 16
+template <int kCols>
+__device__ __forceinline__ uint64_t desc_panel(const void* p, uint32_t lbo,
                                                uint32_t sbo) {
+  static_assert(kCols == 64 || kCols == 16, "panels of 64 or 16 columns");
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) |
+         ((kCols == 64 ? 1ull : 3ull) << 62);
+}
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return desc_panel<64>(p, lbo, sbo);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -366,6 +382,18 @@ __device__ __forceinline__ void wgmma_rs_tb<128, __nv_bfloat16>(float (&d)[64],
 }
 
 template <>
+__device__ __forceinline__ void wgmma_rs_tb<80, __nv_bfloat16>(float (&d)[40],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_ss<32, __half>(float (&d)[16], uint64_t da,
                                                 uint64_t db, int scale_d) {
   asm volatile(
@@ -419,6 +447,18 @@ __device__ __forceinline__ void wgmma_rs_tb<128, __half>(float (&d)[64],
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<80, __half>(float (&d)[40],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 

@@ -42,6 +42,26 @@ from apex_tpu_torch.transformer.layers import (
 __all__ = ["BertConfig", "BertModel", "bert_mlm_loss_fn"]
 
 
+class _TypeRows(torch.autograd.Function):
+    """``table[ids]`` for the token-type table, with the table's gradient
+    ``one_hot(ids)^T dy`` as one product.  CUDA's embedding backward sums
+    the 8192 uses of BERT's one token type (every id 0) in an order that
+    changes from run to run (fault C-12: 10 of 30 reruns differed on an
+    H100); the product's sum runs in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, ids, table):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (ids,) = ctx.saved_tensors
+        hot = F.one_hot(ids.reshape(-1).long(), ctx.rows).to(dy.dtype)
+        return None, hot.t() @ dy.reshape(-1, dy.shape[-1])
+
+
 @dataclasses.dataclass(frozen=True)
 class BertConfig(TransformerConfig):
     """BERT presets; bidirectional, learned positions."""
@@ -135,8 +155,8 @@ class BertModel(nn.Module):
         if self.token_type_embedding is not None:
             if token_type_ids is None:
                 token_type_ids = torch.zeros_like(input_ids)
-            x = x + F.embedding(token_type_ids,
-                                self.token_type_embedding).to(x.dtype)
+            x = x + _TypeRows.apply(token_type_ids,
+                                    self.token_type_embedding).to(x.dtype)
         # dtype None (O1) keeps fp32 here, as jnp's astype(None)
         act = cfg.dtype or torch.float32
         x = fused_layer_norm(x, self.emb_norm_scale, self.emb_norm_bias,

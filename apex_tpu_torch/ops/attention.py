@@ -10,11 +10,12 @@ heads, head_dim)`` (BSHD), GQA through fewer kv heads.  Three kernels
 - ``_fa_bwd_dkv_kernel``: ``dk``, ``dv``, each kv head summing its
   GQA group of query heads in the kernel's fp32 accumulators.
 
-bf16/fp16 inputs with head_dim 64 or 128 run the kernels' products on
-the tensor cores as Hopper kernels (TMA loads, wgmma, the softmax or
-dS on the accumulators in registers; 128 query rows or keys a block);
-fp32 and other head dims run them as fp32 FMA (64 rows a block, 32
-above head_dim 128).
+bf16/fp16 inputs run the kernels' products on the tensor cores as
+Hopper kernels (TMA loads, wgmma, the softmax or dS on the accumulators
+in registers; 128 query rows or keys a block): the forward at head_dim
+64 and 128, dq and dk/dv at 64, 80 (ViT-Huge's) and 128.  fp32 and the
+other head dims run them as fp32 FMA (64 rows a block, 32 above
+head_dim 128).  :func:`flash_route` says which a kernel takes.
 
 The kernels take every head_dim of the JAX package's Pallas envelope
 (``d % 8 == 0``) up to :data:`MAX_HEAD_DIM`, any ``batch * heads``, and
@@ -60,7 +61,7 @@ __all__ = ["fused_attention", "attention_reference", "mask_to_bias",
            "dropout_keep_mask", "flash_fwd_reference",
            "flash_bwd_dq_reference", "flash_bwd_dkv_reference",
            "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-           "flash_fwd",
+           "flash_fwd", "flash_route",
            "attention_delta"]
 
 _NEG_INF = -1e30
@@ -340,6 +341,20 @@ _COMMON_TYPES = [
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_ROUTE_KERNELS = ("fwd", "dq", "dkv")
+
+
+def flash_route(kernel: str, dtype: torch.dtype, d: int) -> str:
+    """``"wgmma"`` or ``"fma"``: the kernels that ``kernel`` (``"fwd"``,
+    ``"dq"`` or ``"dkv"``) runs on the card for inputs of ``dtype`` at
+    head_dim ``d``, as the built library decides (``apex_fa_route``).
+    Builds the library at first use and launches nothing."""
+    fn = _build.function("flash_attention", "apex_fa_route",
+                         [ctypes.c_int] * 3)
+    return "wgmma" if fn(_ROUTE_KERNELS.index(kernel),
+                         _build.FLOAT_CODES[dtype], int(d)) else "fma"
 
 
 def flash_fwd_kernel(q, k, v, bias, scale, causal, window, rate, seed):

@@ -4,7 +4,7 @@ sampling, softmax, RoPE and GroupNorm kernels of one checkout of the port.
 Run on a machine with an NVIDIA Hopper card, as a script:
 
     python3 apex_tpu_torch/tools/flash_timing.py [--root DIR] [--label NAME]
-        [--sdpa] [--layer-norm] [--paged] [--split-keys N,...] [--fp8-adam]
+        [--cases TAG,...] [--sdpa] [--layer-norm] [--paged] [--split-keys N,...] [--fp8-adam]
         [--sampling] [--softmax] [--rope] [--group-norm] [--no-flash]
         [--nvcc] [--out DIR]
 
@@ -12,9 +12,11 @@ It builds the ``flash_attention`` kernel library of the package found
 under ``--root`` (default: the checkout holding this script), and times
 the forward, dq and dk/dv kernels at ``chip_smoke.py``'s flash-row shapes
 in bf16 — BERT-Large (b 16, s 512, h 16, d 64) plain, with a key-padding
-bias and with dropout 0.1, and causal GQA 32/8 at d 128 with a window of
-512 (b 2, s 2048) — as device ms per call (torch.profiler) and call ms
-(CUDA events, the host's launch cost included).  To compare two versions
+bias and with dropout 0.1, causal GQA 32/8 at d 128 with a window of
+512 (b 2, s 2048), and ViT-Huge (b 32, s 257, h 16, d 80) — as device ms
+per call (torch.profiler) and call ms (CUDA events, the host's launch
+cost included); ``--cases bert,vit_huge`` times only the cases of
+those tags.  To compare two versions
 on one card, run it once per checkout in turns (a, b, b, a) in one
 command.  ``--sdpa`` adds the yardstick ``scaled_dot_product_attention``:
 its forward, and its backward alone (``autograd.grad`` over a retained
@@ -97,6 +99,7 @@ CASES = [
     ("bert/pad", 16, 512, 16, 16, 64, False, None, True, 0.0),
     ("bert/drop", 16, 512, 16, 16, 64, False, None, False, 0.1),
     ("gqa/window", 2, 2048, 32, 8, 128, True, 512, False, 0.0),
+    ("vit_huge", 32, 257, 16, 16, 80, False, None, False, 0.0),
 ]
 
 
@@ -588,6 +591,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(here))
     ap.add_argument("--label", default="change")
+    ap.add_argument("--cases", default="",
+                    help="comma-separated flash case tags to time "
+                         "(default: all)")
     ap.add_argument("--sdpa", action="store_true")
     ap.add_argument("--layer-norm", action="store_true")
     ap.add_argument("--paged", action="store_true")
@@ -641,8 +647,10 @@ def main(argv=None):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     dt = torch.bfloat16
+    wanted = set(filter(None, args.cases.split(",")))
     for tag, b, s, h, hk, d, causal, window, has_bias, rate in (
-            [] if args.no_flash else CASES):
+            [] if args.no_flash else
+            [c for c in CASES if not wanted or c[0] in wanted]):
         q, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(dt)
                  for _ in range(2))
         k, v = (torch.randn(b, s, hk, d, generator=g, device=dev).to(dt)
@@ -660,6 +668,9 @@ def main(argv=None):
                                                                  *fa)),
                  dq=_profiled(torch, lambda: A.flash_bwd_dq_kernel(*bw)),
                  dkv=_profiled(torch, lambda: A.flash_bwd_dkv_kernel(*bw)))
+        if hasattr(A, "flash_route"):    # checkouts that report the route
+            r["route"] = {kn: A.flash_route(kn, dt, d)
+                          for kn in ("fwd", "dq", "dkv")}
         if args.sdpa:
             qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
                                for t in (q, k, v, do))

@@ -28,8 +28,11 @@ failure exits non-zero.
    backward rerunning bitwise in bf16, flash attention forward, dq and
    dk/dv, each against its own bound and with SDPA's forward or backward
    alone as yardstick, all three rerunning bitwise in bf16; a causal GQA
-   window case at d=128; ViT-Huge's (32, 257, 16 heads, d=80); the flash edge checks, among them the Hopper
-   kernels' 128-row tile edges, head_dim 256 and 70400 batch x heads;
+   window case at d=128; ViT-Huge's (32, 257, 16 heads, d=80) in bf16,
+   fp16 and fp32, dq and dk/dv on the wgmma route in half types and
+   rerunning bitwise, each flash row's route logged; the flash edge
+   checks, among them the Hopper kernels' 128-row tile edges, head_dim
+   256, the d=80 backward's edges and 70400 batch x heads;
    RoPE bit for bit: one operand at the decode and prefill shapes, q and
    k read from the packed projection in one launch at the chunked-prefill
    and decode steps' shapes, the backward alone, and its edges (both qkv
@@ -195,8 +198,10 @@ failure exits non-zero.
 23. ViT-Huge amp O2 + FusedLAMB (``bench_configs.py``'s ViT row, b = 32
    at 224, remat): 3 warm-up and 10 timed steps with samples/s, host ms,
    the fwd/bwd/opt split, peak memory and the LayerNorm and flash
-   launches a step; every timed loss below the loss at initialisation;
-   ViT-tiny's O2 + FusedLAMB step on the card against the CPU.
+   launches a step, and the step's attention ms (each flash kernel's ms
+   at the step's shape times its launches); every timed loss below the
+   loss at initialisation; ViT-tiny's O2 + FusedLAMB step on the card
+   against the CPU.
 
 A failed phase is also reported on standard error, last: its name, the
 lines it logged that name a failed check, and its last lines.
@@ -1719,8 +1724,11 @@ def _flash_rows(torch, g, record):
     """Flash forward, dq and dk/dv against their plain versions: BERT-
     Large (b=16, s=512, h=16, d=64) plain, with a (b,1,1,s) key-padding
     bias and with dropout 0.1; a causal GQA case with a window at d=128;
-    bf16 and fp32.  At BERT bf16 the forward, dq and dk/dv must rerun
-    bitwise.  The library yardstick is ``F.scaled_dot_product_attention``
+    ViT-Huge's (b=32, s=257, h=16, d=80); bf16 and fp32, ViT-Huge fp16
+    too.  At BERT bf16 the forward, dq and dk/dv must rerun bitwise, at
+    ViT-Huge bf16 and fp16 dq and dk/dv (the wgmma backward at d=80).
+    Each row logs and records the route its kernel took (``wgmma`` or
+    ``fma``, :func:`flash_route`).  The library yardstick is ``F.scaled_dot_product_attention``
     forward for the forward, and its backward alone (``autograd.grad``
     over a retained forward, CUDA events) for each backward kernel, with
     forward + backward beside it.  Bounds: the forward 2 products, dq 3
@@ -1739,13 +1747,16 @@ def _flash_rows(torch, g, record):
                            window=None, bias=False, rate=0.1)),
         ("gqa/window", dict(b=2, s=2048, h=32, hk=8, d=128, causal=True,
                             window=512, bias=False, rate=0.0)),
-        # ViT-H/14 at 224: 257 tokens, head dim 80 (the FMA kernels)
+        # ViT-H/14 at 224: 257 tokens, head dim 80 (the wgmma backward,
+        # the FMA forward)
         ("vit_huge", dict(b=32, s=257, h=16, hk=16, d=80, causal=False,
                           window=None, bias=False, rate=0.0)),
     ]
     ok = True
     for tag, c in cases:
-        for dt in (torch.bfloat16, torch.float32):
+        dtypes = (torch.bfloat16, torch.float32) + (
+            (torch.float16,) if tag == "vit_huge" else ())
+        for dt in dtypes:
             b, s, h, hk, d = c["b"], c["s"], c["h"], c["hk"], c["d"]
             q = torch.randn(b, s, h, d, generator=g, device=dev).to(dt)
             k = torch.randn(b, s, hk, d, generator=g, device=dev).to(dt)
@@ -1782,15 +1793,25 @@ def _flash_rows(torch, g, record):
             e_k, p_k = _close_rel(torch, dk, dk2, rel)
             e_v, p_v = _close_rel(torch, dv, dv2, rel)
             p_dead = bool((lse[~live] < -1e29).all())
-            if tag == "bert" and dt == torch.bfloat16:
+            route = {kn: A.flash_route(kn, dt, d)
+                     for kn in ("fwd", "dq", "dkv")}
+            log(f"  flash {tag} {str(dt)[6:]} routes: {route}")
+            want = "fma" if dt == torch.float32 else "wgmma"
+            if tag == "vit_huge" and (route["dq"], route["dkv"]) != (want,
+                                                                      want):
+                log(f"  flash vit_huge {str(dt)[6:]}: backward routes "
+                    f"{route}, expected {want} FAIL")
+                ok = False
+            if (tag == "bert" and dt == torch.bfloat16) or (
+                    tag == "vit_huge" and dt != torch.float32):
                 o3, lse3 = A.flash_fwd_kernel(q, k, v, *args)
                 dq3 = A.flash_bwd_dq_kernel(*bw)
                 dk3, dv3 = A.flash_bwd_dkv_kernel(*bw)
                 bitwise = (torch.equal(o, o3) and torch.equal(lse, lse3)
                            and torch.equal(dq, dq3)
                            and torch.equal(dk, dk3) and torch.equal(dv, dv3))
-                log(f"  flash bert bf16 rerun: forward, dq and dk/dv "
-                    f"bitwise {bitwise}")
+                log(f"  flash {tag} {str(dt)[6:]} rerun: forward, dq and "
+                    f"dk/dv bitwise {bitwise}")
                 ok &= bitwise
                 del o3, lse3, dq3, dk3, dv3
             # the library yardstick on (b, h, s, d) copies
@@ -1841,20 +1862,23 @@ def _flash_rows(torch, g, record):
                          lambda: A.flash_fwd_kernel(q, k, v, *args),
                          lambda: A.flash_fwd_reference(q, k, v, *args),
                          io_f, 2 * flops, lib_fwd, tol, ops_per_s=peak,
-                         iters=it, lib_events=True)
+                         iters=it, lib_events=True,
+                         extra=dict(route=route["fwd"]))
             ok &= record(f"flash_bwd_dq/{tag}", shape, dt, e_q, p_q,
                          lambda: A.flash_bwd_dq_kernel(*bw),
                          lambda: A.flash_bwd_dq_reference(*bw),
                          io_dq, 3 * flops, lib_bwd, tol + lib_note,
                          ops_per_s=peak, iters=it, lib_events=True,
-                         extra=dict(library_fwd_bwd_ms=t_fb))
+                         extra=dict(library_fwd_bwd_ms=t_fb,
+                                    route=route["dq"]))
             ok &= record(f"flash_bwd_dkv/{tag}", shape, dt, max(e_k, e_v),
                          p_k and p_v,
                          lambda: A.flash_bwd_dkv_kernel(*bw),
                          lambda: A.flash_bwd_dkv_reference(*bw),
                          io_dkv, 4 * flops, lib_bwd, tol + lib_note,
                          ops_per_s=peak, iters=it, lib_events=True,
-                         extra=dict(library_fwd_bwd_ms=t_fb))
+                         extra=dict(library_fwd_bwd_ms=t_fb,
+                                    route=route["dkv"]))
             log(f"  (SDPA forward + backward {t_fb:.5f} ms)")
             del o2, lse2, dq2, dk2, dv2, kept
             torch.cuda.empty_cache()
@@ -1872,8 +1896,13 @@ def _flash_edge_checks(torch, g):
     8/2 at d = 128 with a window and dropout, a per-query bias with a
     dead row and dropout); head_dim 256 (causal GQA; a key-padding bias
     with dropout) and 70400 batch x heads (b 1100, h 64; MHA at d 64 and
-    causal GQA with dropout at d 128); fp32, bf16 and fp16 each.
-    Correctness only, at small shapes."""
+    causal GQA with dropout at d 128); head_dim 80, where dq and dk/dv
+    take the wgmma kernels' 16-column panels in half types (one query
+    over 257 keys, 127 / 129 and 129 / 127, 257 under a key-padding bias
+    with dropout, a per-query bias with dropout, causal GQA 8/2 with a
+    window, 70400 batch x heads); fp32,
+    bf16 and fp16 each, the backward's route logged.  Correctness only,
+    at small shapes."""
     from apex_tpu_torch.ops import attention as A
 
     dev = torch.device("cuda")
@@ -1893,7 +1922,14 @@ def _flash_edge_checks(torch, g):
              (2, 257, 257, 4, 4, 64, False, None, (2, 1, 1, 257), 0.0),
              (2, 257, 257, 2, 2, 128, False, None, (2, 1, 1, 257), 0.0),
              (2, 200, 200, 8, 2, 128, True, 50, None, 0.1),
-             (2, 130, 200, 4, 4, 64, False, None, (2, 4, 130, 200), 0.1)]
+             (2, 130, 200, 4, 4, 64, False, None, (2, 4, 130, 200), 0.1),
+             # head dim 80: the wgmma backward's edges
+             (2, 1, 257, 4, 4, 80, False, None, None, 0.0),
+             (2, 127, 129, 4, 4, 80, True, None, None, 0.0),
+             (2, 129, 127, 4, 4, 80, False, None, (2, 4, 129, 127), 0.1),
+             (2, 257, 257, 4, 4, 80, False, None, (2, 1, 1, 257), 0.1),
+             (2, 200, 200, 8, 2, 80, True, 50, None, 0.0),
+             (1100, 3, 5, 64, 64, 80, False, None, None, 0.0)]
     ok = True
     for b, sq, sk, h, hk, d, causal, window, bs, rate in cases:
         for dt in (torch.float32, torch.bfloat16, torch.float16):
@@ -1926,7 +1962,8 @@ def _flash_edge_checks(torch, g):
                       and bool((lse[~live] < -1e29).all())
                       and all(bool(torch.isfinite(t).all()) for t in got))
             log(f"  flash edge {(b, sq, sk, h, hk, d)} causal={causal} "
-                f"window={window} bias={bs} rate={rate} {str(dt)[6:]}: "
+                f"window={window} bias={bs} rate={rate} {str(dt)[6:]} "
+                f"(backward {A.flash_route('dq', dt, d)}): "
                 f"max err {max(e for e, _ in errs):.3g}, "
                 f"dead rows {int((~live).sum())} "
                 f"{'ok' if passed else 'FAIL'}")
@@ -4536,7 +4573,10 @@ def phase_vit(torch, steps=10, warmup=3, b=32):
     samples/s, host ms a step, the fwd/bwd/opt split and peak memory;
     every timed loss must lie below the loss at initialisation and each
     step launch the LayerNorm and flash kernels
-    ``VIT_LAUNCHES`` times (32 layers, recomputed once).  Then ViT-tiny's
+    ``VIT_LAUNCHES`` times (32 layers, recomputed once).  The step's
+    attention device ms: each flash kernel's ms a call at the step's
+    shape (b, 257, 16 heads, d 80, bf16; CUDA events, enqueue hidden)
+    times its launches a step, with the route each took.  Then ViT-tiny's
     O2 + FusedLAMB step on the card against the CPU."""
     import torch.nn.functional as F
 
@@ -4590,6 +4630,7 @@ def phase_vit(torch, steps=10, warmup=3, b=32):
     torch.cuda.reset_peak_memory_stats()
     fwd_bwd()
     fb_peak = torch.cuda.max_memory_allocated()
+    attn = _vit_attention_ms(torch, b, cfg, per_step)
     stats = dict(
         samples_per_s=b * steps / (sum(step_ms) / 1e3), step_ms=step_ms,
         host_ms_per_step=sum(host_ms) / len(host_ms), fwd_ms=t_fwd,
@@ -4598,6 +4639,7 @@ def phase_vit(torch, steps=10, warmup=3, b=32):
         loss_init=warm_losses[0], warmup_losses=warm_losses, losses=losses,
         finite=finite,
         params=sum(q.numel() for q in model.parameters()),
+        attention_ms_by_launches=attn,
         launches_per_step=per_step, launches=launches)
     log(f"  {json.dumps({k: v for k, v in stats.items() if k != 'launches'})}")
     # one batch under LAMB(1e-3) without warm-up: the loss drops from
@@ -4619,6 +4661,42 @@ def phase_vit(torch, steps=10, warmup=3, b=32):
     torch.cuda.empty_cache()
     good, stats["tiny_o2_identity"] = _tiny_o2_identity(torch, "vit")
     return ok and good, stats
+
+
+def _vit_attention_ms(torch, b, cfg, per_step):
+    """``{kernel: {route, ms, launches, ms_per_step}, "total": ms}``: the
+    flash kernels at ViT-Huge's attention shape in bf16, device ms a call
+    between CUDA events (enqueue hidden), times launches a step."""
+    from apex_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    h = cfg.num_heads
+    d = cfg.hidden_size // h
+    s = (cfg.image_size // cfg.patch_size) ** 2 + 1
+    g = torch.Generator(device=dev).manual_seed(52)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    args = (None, d ** -0.5, False, None, 0.0, 0)
+    o, lse = A.flash_fwd_kernel(q, k, v, *args)
+    bw = (q, k, v, None, do, lse, A.attention_delta(do, o)) + args[1:]
+    calls = {"flash_attention_fwd": ("fwd", lambda: A.flash_fwd_kernel(
+                 q, k, v, *args)),
+             "flash_attention_bwd_dq": ("dq", lambda: A.flash_bwd_dq_kernel(
+                 *bw)),
+             "flash_attention_bwd_dkv": ("dkv",
+                                         lambda: A.flash_bwd_dkv_kernel(*bw))}
+    out, total = {}, 0.0
+    for name, (kn, fn) in calls.items():
+        ms = queued_event_ms(torch, fn, 20)
+        n = per_step.get(name, 0)
+        out[name] = dict(route=A.flash_route(kn, torch.bfloat16, d), ms=ms,
+                         launches=n, ms_per_step=ms * n)
+        total += ms * n
+    out["total_ms_per_step"] = total
+    out["shape"] = (b, s, h, d)
+    log(f"  ViT-Huge attention by launches: {json.dumps(out)}")
+    del q, k, v, do, o, lse, bw
+    return out
 
 
 def _profile_steps(torch, eng, n=4, groups=None):
@@ -4702,10 +4780,12 @@ def _hopper_report(_build, build_logs):
     ``UBLKCP`` and ``LDGSTS`` instructions in the built library's SASS
     (``cuobjdump -sass``), by kind (:data:`HOPPER_KINDS`: the flash
     forward, dq and dk/dv; the paged chunk kernel and the two split-K
-    kernels; the fp8 Adam step's TMA and bulk copies).  Raises
+    kernels; the fp8 Adam step's TMA and bulk copies), and a line for
+    the head-dim-80 instances of dq and dk/dv.  Raises
     when a kind is missing, when a variant lacks an instruction its kind
     needs, when this build printed no ``-Xptxas -v`` line for one (the
-    library was not compiled in this call), or when one spills."""
+    library was not compiled in this call), when one spills, or when dq
+    or dk/dv lacks any of its 16 head-dim-80 variants."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -4755,6 +4835,20 @@ def _hopper_report(_build, build_logs):
                 f"the Hopper kernels of {lib}: kinds {missing} missing; "
                 f"{short} lack the instructions of their kind ({kinds})")
         out.update(found)
+    # head dim 80 (16-column panels): dq and dk/dv in every variant of
+    # both half types, 8 x 2 instances each (mangled "Li80E")
+    for kind in ("fa_bwd_dq_wgmma", "fa_bwd_dkv_wgmma"):
+        d80 = [r for fn, r in out.items()
+               if r.get("kind") == kind and "Li80E" in fn]
+        spill = sum(int(n) for r in d80 for px in r["ptxas"]
+                    for n in re.findall(r"(\d+) bytes spill", px))
+        log(f"  {kind} d=80: {len(d80)} variants; HGMMA in "
+            f"{sum(bool(r.get('HGMMA')) for r in d80)}, UTMALDG in "
+            f"{sum(bool(r.get('UTMALDG')) for r in d80)}; spill bytes "
+            f"{spill}")
+        if len(d80) != 16:
+            raise RuntimeError(f"{kind}: {len(d80)} head-dim-80 variants "
+                               "built, 16 expected")
     unread = [fn for fn, r in out.items() if not r["ptxas"]]
     if unread:
         raise RuntimeError("no -Xptxas -v line from this build for the "

@@ -159,7 +159,11 @@ class TestFusedAttentionAgainstPallas:
     @pytest.mark.parametrize("case", [
         (2, 128, 128, 2, 2, 32, (2, 1, 1, 128), False),
         (1, 128, 128, 4, 2, 32, None, True),
-    ], ids=["key_padding", "causal_gqa"])
+        # head dim 80 (ViT-Huge's), at a length no 128-row tile divides
+        (2, 72, 72, 2, 2, 80, (2, 1, 1, 72), False),
+        (1, 72, 72, 4, 2, 80, None, True),
+    ], ids=["key_padding", "causal_gqa", "key_padding_d80",
+            "causal_gqa_d80"])
     def test_forward_and_grads_match_pallas_interpret(self, case):
         b, sq, sk, h, hk, d, bs, causal = case
         q, k, v, do, bias = _inputs(3, b, sq, sk, h, hk, d, bs)
@@ -321,6 +325,34 @@ def test_hopper_kernels_at_tile_edges_on_card(case, dtype, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_d80_backward_takes_wgmma_and_reruns_bitwise_on_card(dtype,
+                                                             cuda_device):
+    """At ViT-Huge's shape (32, 257, 16 heads, d 80) dq and dk/dv run
+    the wgmma kernels (the forward and fp32 the FMA ones), agree with
+    their plain versions and give the same bits on a rerun."""
+    assert [A.flash_route(k, dtype, 80) for k in ("fwd", "dq", "dkv")] \
+        == ["fma", "wgmma", "wgmma"]
+    assert A.flash_route("dq", torch.float32, 80) == "fma"
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v, do = (torch.randn(32, 257, 16, 80, generator=g,
+                               device=cuda_device).to(dtype)
+                   for _ in range(4))
+    args = (None, 80 ** -0.5, False, None, 0.0, 0)
+    o, lse = A.flash_fwd_reference(q, k, v, *args)
+    bw = (q, k, v, None, do, lse, A.attention_delta(do, o)) + args[1:]
+    dq = A.flash_bwd_dq_kernel(*bw)
+    dk, dv = A.flash_bwd_dkv_kernel(*bw)
+    _card_close(dq, A.flash_bwd_dq_reference(*bw), torch.bfloat16)
+    for got, ref in zip((dk, dv), A.flash_bwd_dkv_reference(*bw)):
+        _card_close(got, ref, torch.bfloat16)
+    dq2 = A.flash_bwd_dq_kernel(*bw)
+    dk2, dv2 = A.flash_bwd_dkv_kernel(*bw)
+    for a, b in ((dq, dq2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_hopper_kernels_rerun_bitwise_on_card(cuda_device):
     """At the BERT-Large shape in bf16 the forward, dq and dk/dv give
     the same bits on a rerun (no atomics, sums in a fixed order)."""
@@ -435,13 +467,19 @@ class TestEnvelope:
     (2, 96, 160, 4, 4, 256, (2, 1, 1, 160), False, None, 0.1),
     (2, 72, 136, 4, 4, 96, None, True, 40, 0.0),
     (1100, 3, 5, 64, 64, 64, None, False, None, 0.0),
-    (1100, 3, 5, 64, 16, 128, None, True, None, 0.1)],
+    (1100, 3, 5, 64, 16, 128, None, True, None, 0.1),
+    (2, 257, 257, 4, 4, 80, None, False, None, 0.0),
+    (2, 257, 257, 4, 4, 80, (2, 1, 1, 257), False, None, 0.1),
+    (2, 200, 200, 8, 2, 80, None, True, 50, 0.0),
+    (1100, 3, 5, 64, 64, 80, None, False, None, 0.0)],
     ids=["d256-causal-gqa", "d256-pad-drop", "d96-window",
-         "bh70400-d64", "bh70400-d128-gqa-drop"])
+         "bh70400-d64", "bh70400-d128-gqa-drop", "d80-vit",
+         "d80-pad-drop", "d80-causal-gqa-window", "bh70400-d80"])
 def test_widened_kernels_match_plain_on_card(case, dtype, cuda_device):
-    """Head dim 256 (the FMA kernels' 32-row tiles), 96, and 70400 batch
-    x heads (grid.x numbering; the wgmma kernels' items) against the
-    plain versions."""
+    """Head dim 256 (the FMA kernels' 32-row tiles), 96, 80 (the wgmma
+    backward's 16-column panels in half types), and 70400 batch x heads
+    (grid.x numbering; the wgmma kernels' items) against the plain
+    versions."""
     b, sq, sk, h, hk, d, bs, causal, window, rate = case
     q, k, v, do, bias = (None if a is None else _t(a).to(cuda_device)
                          for a in _inputs(9, b, sq, sk, h, hk, d, bs))

@@ -234,3 +234,26 @@ def test_o2_bf16_loss_trajectory_within_band():
     for name, p in model.named_parameters():
         want = torch.float32 if "norm" in name else torch.bfloat16
         assert p.dtype == want, name
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("mixed", [False, True], ids=["all_zero", "mixed"])
+def test_token_type_lookup_equals_embedding(mixed, ids_dtype):
+    """The token-type lookup (fault C-12's repair): its rows are
+    ``F.embedding``'s bit for bit and its table gradient, one product
+    ``one_hot(ids)^T dy``, equals the embedding backward's within fp32
+    rounding of another summation order."""
+    from apex_tpu_torch.models.bert import _TypeRows
+
+    rng = np.random.default_rng(12)
+    ids = rng.integers(0, 2, (4, 33)) if mixed else np.zeros((4, 33))
+    ids = torch.from_numpy(ids).to(ids_dtype)
+    table = torch.from_numpy(rng.normal(size=(2, 24)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(4, 33, 24)).astype(np.float32))
+    t1, t2 = table.clone().requires_grad_(), table.clone().requires_grad_()
+    got = _TypeRows.apply(ids, t1)
+    ref = torch.nn.functional.embedding(ids, t2)
+    assert torch.equal(got, ref)
+    got.backward(dy)
+    ref.backward(dy)
+    torch.testing.assert_close(t1.grad, t2.grad, rtol=1e-6, atol=1e-6)

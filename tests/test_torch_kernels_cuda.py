@@ -1,5 +1,6 @@
 """The fused sampler (B-11), the softmax forward and backward (B-4, B-5)
-and RoPE (B-3) held against their plain versions on a card.
+and RoPE (B-3) held against their plain versions on a card; BERT's
+token-type lookup rerunning bitwise there (fault C-12).
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so on a machine without it run it alone with
@@ -191,3 +192,22 @@ def test_rope_kernel_equals_plain_on_strided_views(h, hk, d, rot, grouped,
                 assert torch.equal(yk, R.fused_rope(k, c, sn))
     for got, ref in zip(*outs):
         assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_bert_token_type_gradient_reruns_bitwise_on_card(cuda_device):
+    """BERT-Large's token-type lookup (16 x 512 ids, all 0, a 2 x 1024
+    bf16 table): the table's gradient is the same bits on 30 reruns.
+    ``F.embedding``'s backward at this shape differed in 10 of 30 on an
+    H100 (fault C-12)."""
+    from apex_tpu_torch.models.bert import _TypeRows
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    ids = torch.zeros(16, 512, dtype=torch.long, device=cuda_device)
+    table = torch.randn(2, 1024, generator=g, device=cuda_device).to(
+        torch.bfloat16).requires_grad_()
+    dy = torch.randn(16, 512, 1024, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    grads = [torch.autograd.grad(_TypeRows.apply(ids, table), table, dy)[0]
+             for _ in range(30)]
+    assert all(torch.equal(x, grads[0]) for x in grads[1:])
