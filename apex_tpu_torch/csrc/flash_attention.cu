@@ -35,8 +35,8 @@
 // bound (at this size the forward's bound is still its bytes, 0.020 ms).
 // Two paths, chosen by what the inputs allow:
 //
-// (1) bf16/fp16 inputs: the forward at head_dim 64 and 128, dq and dk/dv
-//     at 64, 80 and 128 (use_tc; apex_fa_route reports the choice) run
+// (1) bf16/fp16 inputs at head_dim 64, 80 and 128: the forward, dq and
+//     dk/dv alike (use_tc; apex_fa_route reports the choice) run
 //     Hopper kernels (fa_fwd_wgmma_kernel, fa_bwd_dq_wgmma_kernel,
 //     fa_bwd_dkv_wgmma_kernel; sm_90a).  A Hopper kernel's rate needs
 //     wgmma on register accumulators fed by asynchronous loads.  Tiles
@@ -59,11 +59,12 @@
 //     At BERT-Large the forward's bound is its bytes, dq's its three
 //     products and dk/dv's its four; what holds each above its bound (the
 //     exp2 per score, an item of only four key tiles) is not measured.
-//     At ViT's 257 rows (two tiles of 128 and one row) the backward's
-//     bound is its bytes, and the ragged last tile is the waste.  See the
+//     At ViT's 257 rows (two tiles of 128 and one row) every kernel's
+//     bound is its bytes, and the ragged last tile is the waste: the
+//     forward and dq take 64-key tiles there (fwd_bn, dq_bn).  See the
 //     notes at each kernel for its tiling.
-// (2) fp32 inputs, the forward at other head dims, dq and dk/dv at head
-//     dims other than 64, 80 and 128: fp32 FMA on the CUDA cores.
+// (2) fp32 inputs, and half inputs at head dims other than 64, 80 and
+//     128: fp32 FMA on the CUDA cores.
 //     Tiles are converted to fp32 in shared memory (row stride d + 1, so
 //     the column reads of the score product hit 16 different banks);
 //     each of 256 threads owns a 4 x 4 block of the 64 x 64 score tile
@@ -554,8 +555,13 @@ constexpr int kHThreads = 384;   // 2 consumer + 1 producer warpgroup
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kHStages = 2;      // ring depth
 constexpr int kHM = 128;         // forward and dq: query rows per item
-constexpr int kHN = 128;         // forward: keys per tile
 constexpr int kHK = 128;         // dk/dv: keys per block
+// forward: keys per tile — 128 at d = 64 and 128 (S 64 registers, packed
+// P 32); 64 at d = 80, where ViT's 257 keys take 320 padded keys a row in
+// five tiles, not 384 in three, and ran 13% faster at ViT-Huge (a ring of
+// three stages, which 64-key stages at d = 80 leave room for, ran 2%
+// slower: tools/flash_fwd_probe.py)
+__host__ __device__ constexpr int fwd_bn(int d) { return d == 80 ? 64 : 128; }
 // dk/dv: queries per tile — 64 at d = 64 and 80 (dK and dV 32 or 40
 // registers each, S^T and dP^T 32 each); 32 at d = 128 keeps dK, dV (64
 // registers each), S^T and dP^T (16 each) and their packed operands
@@ -618,11 +624,11 @@ __device__ __forceinline__ uint64_t desc_mn(const T* tile, int kk) {
 // softmax update of m, l (this lane's partial row sums) and the output
 // accumulator, and the probabilities (dropped and rescaled for the value
 // product) packed to T as the A operand of O += P V.
-template <typename T, int D, bool kBias, bool kCausal, bool kDrop,
+template <typename T, int D, int BN, bool kBias, bool kCausal, bool kDrop,
           bool kMasked>
 __device__ __forceinline__ void fwd_tile_softmax(
-    float (&sc)[kHN / 2], float (&acc)[D / 2], float (&m)[2], float (&l)[2],
-    uint32_t (&pf)[kHN / 16][4], const Params& p, const float* const* brow,
+    float (&sc)[BN / 2], float (&acc)[D / 2], float (&m)[2], float (&l)[2],
+    uint32_t (&pf)[BN / 16][4], const Params& p, const float* const* brow,
     const uint32_t (&drow)[2], int qa, int k0, int wl) {
   const float c = p.scale * kLog2e;
   const int off = p.sk - p.sq;
@@ -631,7 +637,7 @@ __device__ __forceinline__ void fwd_tile_softmax(
   float mx[2] = {m[0], m[1]};
   // registers i + e (row qa) and i + 2 + e (row qa + 8) share a column
 #pragma unroll
-  for (int i = 0; i < kHN / 2; i += 4)
+  for (int i = 0; i < BN / 2; i += 4)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int kpos = k0 + acc_col(i + e, wl);
@@ -666,7 +672,7 @@ __device__ __forceinline__ void fwd_tile_softmax(
   }
   float rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < kHN / 2; i += 2) {
+  for (int i = 0; i < BN / 2; i += 2) {
     const int r = (i >> 1) & 1;
     float p0, p1;
     if (kBias || kMasked) {
@@ -725,8 +731,8 @@ __device__ __forceinline__ QItem q_item(const Params& p, int item) {
 // Forward.  Persistent: one block per multiprocessor walks the items
 // item = blockIdx.x, + gridDim.x, ... (lane-major, so the blocks of a
 // wave share K and V in L2).  Each consumer warpgroup keeps its 64
-// rows' scores (64 x 128 fp32) and output (64 x d fp32) in registers.
-// An item's Q tile is loaded once; K and V tiles of 128 keys stream
+// rows' scores (64 x fwd_bn fp32) and output (64 x d fp32) in registers.
+// An item's Q tile is loaded once; K and V tiles of fwd_bn keys stream
 // through the ring, whose stages and phases run on across items.  S =
 // Q K^T is wgmma with both operands in shared memory (K-major); O += P V
 // takes P from registers and V transposed through its descriptor.  The
@@ -739,7 +745,8 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, Params p,
                     int n_items, T* __restrict__ o, float* __restrict__ lse) {
-  constexpr int kQElems = kHM * D, kKElems = kHN * D;
+  constexpr int BN = fwd_bn(D);
+  constexpr int kQElems = kHM * D, kKElems = BN * D;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -772,7 +779,7 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       int s = 0;
       uint32_t ph = 0, qph = 0;
       for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-        const QItem it = q_item<kHN, kCausal>(p, item);
+        const QItem it = q_item<BN, kCausal>(p, item);
         hp::mbar_wait(q_empty, qph ^ 1);
         qph ^= 1;
         hp::mbar_expect_tx(q_full, kQElems * (int)sizeof(T));
@@ -780,10 +787,10 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int kt = it.kt_lo; kt < it.kt_hi; ++kt) {
           hp::mbar_wait(&empty[s], ph ^ 1);
           hp::mbar_expect_tx(&full[s], 2 * kKElems * (int)sizeof(T));
-          tma_tile<D, kHN>(Ks + s * kKElems, &tk, &full[s], it.kvh, kt * kHN,
-                           it.batch);
-          tma_tile<D, kHN>(Vs + s * kKElems, &tv, &full[s], it.kvh, kt * kHN,
-                           it.batch);
+          tma_tile<D, BN>(Ks + s * kKElems, &tk, &full[s], it.kvh, kt * BN,
+                          it.batch);
+          tma_tile<D, BN>(Vs + s * kKElems, &tv, &full[s], it.kvh, kt * BN,
+                          it.batch);
           if (++s == kHStages) {
             s = 0;
             ph ^= 1;
@@ -798,7 +805,7 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     int s = 0;
     uint32_t ph = 0, qph = 0;
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-      const QItem it = q_item<kHN, kCausal>(p, item);
+      const QItem it = q_item<BN, kCausal>(p, item);
       const int wq0 = it.q0 + 64 * wg;
       // this lane's rows: qa and qa + 8
       const int qa = wq0 + 16 * ww + (wl >> 2);
@@ -822,37 +829,37 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       qph ^= 1;
       if (it.kt_hi <= it.kt_lo) hp::mbar_arrive(q_empty);
       for (int kt = it.kt_lo; kt < it.kt_hi; ++kt) {
-        const int k0 = kt * kHN;
+        const int k0 = kt * BN;
         hp::mbar_wait(&full[s], ph);
-        float sc[kHN / 2];
+        float sc[BN / 2];
         const T* Kst = Ks + s * kKElems;
         const T* Vst = Vs + s * kKElems;
         hp::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          hp::wgmma_ss<kHN, T>(sc, desc_k<D, kHM>(Qs, 64 * wg, kk),
-                               desc_k<D, kHN>(Kst, 0, kk), kk > 0);
+          hp::wgmma_ss<BN, T>(sc, desc_k<D, kHM>(Qs, 64 * wg, kk),
+                              desc_k<D, BN>(Kst, 0, kk), kk > 0);
         hp::wgmma_commit();
         hp::wgmma_wait<0>();
         hp::fence_regs(sc);
         if (kt == it.kt_hi - 1) hp::mbar_arrive(q_empty);  // Q is read
         // this warpgroup's rows meet an edge of the mask in this tile
         const bool edge =
-            k0 + kHN > p.sk ||
-            (kCausal && (k0 + kHN - 1 > wq0 + off ||
+            k0 + BN > p.sk ||
+            (kCausal && (k0 + BN - 1 > wq0 + off ||
                          (p.window > 0 && k0 <= wq0 + 63 + off - p.window)));
-        uint32_t pf[kHN / 16][4];
+        uint32_t pf[BN / 16][4];
         if (edge)
-          fwd_tile_softmax<T, D, kBias, kCausal, kDrop, true>(
+          fwd_tile_softmax<T, D, BN, kBias, kCausal, kDrop, true>(
               sc, acc, m, l, pf, p, brow, drow, qa, k0, wl);
         else
-          fwd_tile_softmax<T, D, kBias, kCausal, kDrop, false>(
+          fwd_tile_softmax<T, D, BN, kBias, kCausal, kDrop, false>(
               sc, acc, m, l, pf, p, brow, drow, qa, k0, wl);
         hp::fence_regs(acc);
         hp::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kHN / 16; ++kk)
-          hp::wgmma_rs_tb<D, T>(acc, pf[kk], desc_mn<D, kHN>(Vst, kk), 1);
+        for (int kk = 0; kk < BN / 16; ++kk)
+          hp::wgmma_rs_tb<D, T>(acc, pf[kk], desc_mn<D, BN>(Vst, kk), 1);
         hp::wgmma_commit();
         hp::wgmma_wait<0>();
         hp::fence_regs(acc);
@@ -1473,7 +1480,8 @@ template <typename T, int D, bool kBias, bool kCausal, bool kDrop>
 int fwd_wgmma_launch(const Params& p, const CUtensorMap& tq,
                      const CUtensorMap& tk, const CUtensorMap& tv, void* o,
                      float* lse, cudaStream_t st) {
-  constexpr size_t smem = 1024 + (size_t)(kHM * D + 2 * kHStages * kHN * D) *
+  constexpr int BN = fwd_bn(D);
+  constexpr size_t smem = 1024 + (size_t)(kHM * D + 2 * kHStages * BN * D) *
                                      sizeof(T) + (2 + 2 * kHStages) * 8;
   auto kern = fa_fwd_wgmma_kernel<T, D, kBias, kCausal, kDrop>;
   int e = prepare(kern, smem);
@@ -1486,10 +1494,11 @@ int fwd_wgmma_launch(const Params& p, const CUtensorMap& tq,
 
 template <typename T, int D>
 int fwd_wgmma(const Params& p, int dt, void* o, float* lse, cudaStream_t st) {
+  constexpr int BN = fwd_bn(D), PW = panel_cols(D);
   CUtensorMap tq, tk, tv;
-  int e = hp::tmap_bshd(&tq, p.q, dt, D, p.h, p.sq, p.b, kHM);
-  if (!e) e = hp::tmap_bshd(&tk, p.k, dt, D, p.hk, p.sk, p.b, kHN);
-  if (!e) e = hp::tmap_bshd(&tv, p.v, dt, D, p.hk, p.sk, p.b, kHN);
+  int e = hp::tmap_bshd(&tq, p.q, dt, D, p.h, p.sq, p.b, kHM, PW);
+  if (!e) e = hp::tmap_bshd(&tk, p.k, dt, D, p.hk, p.sk, p.b, BN, PW);
+  if (!e) e = hp::tmap_bshd(&tv, p.v, dt, D, p.hk, p.sk, p.b, BN, PW);
   if (e) return e;
 #define APEX_FWD(B, C, R) fwd_wgmma_launch<T, D, B, C, R>(p, tq, tk, tv, o, lse, st)
   APEX_FA_VARIANTS(APEX_FWD)
@@ -1565,14 +1574,10 @@ int dkv_wgmma(const Params& p, int dt, const void* dout, const float* lse,
 #undef APEX_DKV
 }
 
-// which kernel: the forward, dq or dk/dv (apex_fa_route's argument)
-enum Kernel { kFwd = 0, kDq = 1, kDkv = 2 };
-
-// the wgmma kernels take half inputs at head_dim 64 and 128, and dq and
-// dk/dv also at 80; the FMA kernels take the rest
-bool use_tc(int kernel, int dt, int d) {
-  return dt != apex::kF32 &&
-         (d == 64 || d == 128 || (kernel != kFwd && d == 80));
+// the wgmma kernels take half inputs at head_dim 64, 80 and 128, one rule
+// for the forward, dq and dk/dv; the FMA kernels take the rest
+bool use_tc(int dt, int d) {
+  return dt != apex::kF32 && (d == 64 || d == 80 || d == 128);
 }
 
 // the wgmma launch FN<T, D>(...) for the head dims of use_tc
@@ -1637,12 +1642,8 @@ extern "C" int apex_fa_fwd(APEX_FA_PARAMS, void* o, void* lse, void* stream) {
   const Params p = APEX_FA_ARGS;
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
-  if (use_tc(kFwd, dt, d)) {
-    if (dt == apex::kBF16)
-      return d == 128 ? fwd_wgmma<__nv_bfloat16, 128>(p, dt, o, l, st)
-                      : fwd_wgmma<__nv_bfloat16, 64>(p, dt, o, l, st);
-    return d == 128 ? fwd_wgmma<__half, 128>(p, dt, o, l, st)
-                    : fwd_wgmma<__half, 64>(p, dt, o, l, st);
+  if (use_tc(dt, d)) {
+    APEX_TC_BY_D(fwd_wgmma, p, dt, o, l, st)
   }
   APEX_FMA_DT(fwd, p, o, l, st)
 }
@@ -1656,7 +1657,7 @@ extern "C" int apex_fa_bwd_dq(APEX_FA_PARAMS, const void* dout,
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   const float* dl = (const float*)delta;
-  if (use_tc(kDq, dt, d)) {
+  if (use_tc(dt, d)) {
     APEX_TC_BY_D(dq_wgmma, p, dt, dout, l, dl, dq, st)
   }
   APEX_FMA_DT(bwd_dq, p, dout, l, dl, dq, st)
@@ -1671,14 +1672,16 @@ extern "C" int apex_fa_bwd_dkv(APEX_FA_PARAMS, const void* dout,
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   const float* dl = (const float*)delta;
-  if (use_tc(kDkv, dt, d)) {
+  if (use_tc(dt, d)) {
     APEX_TC_BY_D(dkv_wgmma, p, dt, dout, l, dl, dk, dv, st)
   }
   APEX_FMA_DT(bwd_dkv, p, dout, l, dl, dk, dv, st)
 }
 
 // 1 if `kernel` (0 the forward, 1 dq, 2 dk/dv) runs the wgmma kernels for
-// dtype dt at head_dim d, 0 if the FMA kernels; launches nothing
+// dtype dt at head_dim d, 0 if the FMA kernels; the three kernels share
+// one rule (use_tc).  Launches nothing
 extern "C" int apex_fa_route(int kernel, int dt, int d) {
-  return use_tc(kernel, dt, d) ? 1 : 0;
+  (void)kernel;
+  return use_tc(dt, d) ? 1 : 0;
 }

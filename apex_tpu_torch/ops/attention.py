@@ -12,10 +12,10 @@ heads, head_dim)`` (BSHD), GQA through fewer kv heads.  Three kernels
 
 bf16/fp16 inputs run the kernels' products on the tensor cores as
 Hopper kernels (TMA loads, wgmma, the softmax or dS on the accumulators
-in registers; 128 query rows or keys a block): the forward at head_dim
-64 and 128, dq and dk/dv at 64, 80 (ViT-Huge's) and 128.  fp32 and the
-other head dims run them as fp32 FMA (64 rows a block, 32 above
-head_dim 128).  :func:`flash_route` says which a kernel takes.
+in registers; 128 query rows or keys a block): all three kernels at
+head_dim 64, 80 (ViT-Huge's) and 128.  fp32 and the other head dims run
+them as fp32 FMA (64 rows a block, 32 above head_dim 128).
+:func:`flash_route` says which a kernel takes.
 
 The kernels take every head_dim of the JAX package's Pallas envelope
 (``d % 8 == 0``) up to :data:`MAX_HEAD_DIM`, any ``batch * heads``, and

@@ -1725,8 +1725,8 @@ def _flash_rows(torch, g, record):
     Large (b=16, s=512, h=16, d=64) plain, with a (b,1,1,s) key-padding
     bias and with dropout 0.1; a causal GQA case with a window at d=128;
     ViT-Huge's (b=32, s=257, h=16, d=80); bf16 and fp32, ViT-Huge fp16
-    too.  At BERT bf16 the forward, dq and dk/dv must rerun bitwise, at
-    ViT-Huge bf16 and fp16 dq and dk/dv (the wgmma backward at d=80).
+    too.  At BERT bf16 the forward, dq and dk/dv must rerun bitwise, and
+    at ViT-Huge bf16 and fp16 (all three on the wgmma kernels at d=80).
     Each row logs and records the route its kernel took (``wgmma`` or
     ``fma``, :func:`flash_route`).  The library yardstick is ``F.scaled_dot_product_attention``
     forward for the forward, and its backward alone (``autograd.grad``
@@ -1747,8 +1747,8 @@ def _flash_rows(torch, g, record):
                            window=None, bias=False, rate=0.1)),
         ("gqa/window", dict(b=2, s=2048, h=32, hk=8, d=128, causal=True,
                             window=512, bias=False, rate=0.0)),
-        # ViT-H/14 at 224: 257 tokens, head dim 80 (the wgmma backward,
-        # the FMA forward)
+        # ViT-H/14 at 224: 257 tokens, head dim 80 (the wgmma forward
+        # and backward in half types, 16-column panels)
         ("vit_huge", dict(b=32, s=257, h=16, hk=16, d=80, causal=False,
                           window=None, bias=False, rate=0.0)),
     ]
@@ -1797,10 +1797,9 @@ def _flash_rows(torch, g, record):
                      for kn in ("fwd", "dq", "dkv")}
             log(f"  flash {tag} {str(dt)[6:]} routes: {route}")
             want = "fma" if dt == torch.float32 else "wgmma"
-            if tag == "vit_huge" and (route["dq"], route["dkv"]) != (want,
-                                                                      want):
-                log(f"  flash vit_huge {str(dt)[6:]}: backward routes "
-                    f"{route}, expected {want} FAIL")
+            if tag == "vit_huge" and set(route.values()) != {want}:
+                log(f"  flash vit_huge {str(dt)[6:]}: routes {route}, "
+                    f"expected {want} for all three FAIL")
                 ok = False
             if (tag == "bert" and dt == torch.bfloat16) or (
                     tag == "vit_huge" and dt != torch.float32):
@@ -1896,13 +1895,14 @@ def _flash_edge_checks(torch, g):
     8/2 at d = 128 with a window and dropout, a per-query bias with a
     dead row and dropout); head_dim 256 (causal GQA; a key-padding bias
     with dropout) and 70400 batch x heads (b 1100, h 64; MHA at d 64 and
-    causal GQA with dropout at d 128); head_dim 80, where dq and dk/dv
-    take the wgmma kernels' 16-column panels in half types (one query
-    over 257 keys, 127 / 129 and 129 / 127, 257 under a key-padding bias
-    with dropout, a per-query bias with dropout, causal GQA 8/2 with a
-    window, 70400 batch x heads); fp32,
-    bf16 and fp16 each, the backward's route logged.  Correctness only,
-    at small shapes."""
+    causal GQA with dropout at d 128); head_dim 80, where the forward,
+    dq and dk/dv take the wgmma kernels' 16-column panels in half types
+    (one query over 257 keys, 127 / 129 and 129 / 127, 257 under a
+    key-padding bias with dropout, a per-query bias with a dead row and
+    dropout, causal GQA 8/2 with a window, causal sq > sk whose first
+    rows see no key, 70400 batch x heads); fp32, bf16 and fp16 each, the
+    forward's and the backward's routes logged.  Correctness only, at
+    small shapes."""
     from apex_tpu_torch.ops import attention as A
 
     dev = torch.device("cuda")
@@ -1923,12 +1923,13 @@ def _flash_edge_checks(torch, g):
              (2, 257, 257, 2, 2, 128, False, None, (2, 1, 1, 257), 0.0),
              (2, 200, 200, 8, 2, 128, True, 50, None, 0.1),
              (2, 130, 200, 4, 4, 64, False, None, (2, 4, 130, 200), 0.1),
-             # head dim 80: the wgmma backward's edges
+             # head dim 80: the wgmma kernels' edges
              (2, 1, 257, 4, 4, 80, False, None, None, 0.0),
              (2, 127, 129, 4, 4, 80, True, None, None, 0.0),
              (2, 129, 127, 4, 4, 80, False, None, (2, 4, 129, 127), 0.1),
              (2, 257, 257, 4, 4, 80, False, None, (2, 1, 1, 257), 0.1),
              (2, 200, 200, 8, 2, 80, True, 50, None, 0.0),
+             (2, 200, 120, 4, 4, 80, True, None, None, 0.0),
              (1100, 3, 5, 64, 64, 80, False, None, None, 0.0)]
     ok = True
     for b, sq, sk, h, hk, d, causal, window, bs, rate in cases:
@@ -1963,7 +1964,8 @@ def _flash_edge_checks(torch, g):
                       and all(bool(torch.isfinite(t).all()) for t in got))
             log(f"  flash edge {(b, sq, sk, h, hk, d)} causal={causal} "
                 f"window={window} bias={bs} rate={rate} {str(dt)[6:]} "
-                f"(backward {A.flash_route('dq', dt, d)}): "
+                f"(forward {A.flash_route('fwd', dt, d)}, "
+                f"backward {A.flash_route('dq', dt, d)}): "
                 f"max err {max(e for e, _ in errs):.3g}, "
                 f"dead rows {int((~live).sum())} "
                 f"{'ok' if passed else 'FAIL'}")
@@ -4576,7 +4578,8 @@ def phase_vit(torch, steps=10, warmup=3, b=32):
     ``VIT_LAUNCHES`` times (32 layers, recomputed once).  The step's
     attention device ms: each flash kernel's ms a call at the step's
     shape (b, 257, 16 heads, d 80, bf16; CUDA events, enqueue hidden)
-    times its launches a step, with the route each took.  Then ViT-tiny's
+    times its launches a step, with the route each took (all three must
+    be ``wgmma``).  Then ViT-tiny's
     O2 + FusedLAMB step on the card against the CPU."""
     import torch.nn.functional as F
 
@@ -4657,6 +4660,9 @@ def phase_vit(torch, steps=10, warmup=3, b=32):
             log(f"  launches of {name}: {per_step.get(name)} per step, "
                 f"expected {want}")
             ok = False
+    routes = {k: v["route"] for k, v in attn.items() if isinstance(v, dict)}
+    ok &= gate(f"ViT-Huge: every flash kernel on the wgmma route {routes}",
+               set(routes.values()) == {"wgmma"})
     del model, state, outs, x
     torch.cuda.empty_cache()
     good, stats["tiny_o2_identity"] = _tiny_o2_identity(torch, "vit")
@@ -4781,11 +4787,11 @@ def _hopper_report(_build, build_logs):
     (``cuobjdump -sass``), by kind (:data:`HOPPER_KINDS`: the flash
     forward, dq and dk/dv; the paged chunk kernel and the two split-K
     kernels; the fp8 Adam step's TMA and bulk copies), and a line for
-    the head-dim-80 instances of dq and dk/dv.  Raises
+    the head-dim-80 instances of the forward, dq and dk/dv.  Raises
     when a kind is missing, when a variant lacks an instruction its kind
     needs, when this build printed no ``-Xptxas -v`` line for one (the
-    library was not compiled in this call), when one spills, or when dq
-    or dk/dv lacks any of its 16 head-dim-80 variants."""
+    library was not compiled in this call), when one spills, or when the
+    forward, dq or dk/dv lacks any of its 16 head-dim-80 variants."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -4835,9 +4841,9 @@ def _hopper_report(_build, build_logs):
                 f"the Hopper kernels of {lib}: kinds {missing} missing; "
                 f"{short} lack the instructions of their kind ({kinds})")
         out.update(found)
-    # head dim 80 (16-column panels): dq and dk/dv in every variant of
-    # both half types, 8 x 2 instances each (mangled "Li80E")
-    for kind in ("fa_bwd_dq_wgmma", "fa_bwd_dkv_wgmma"):
+    # head dim 80 (16-column panels): the forward, dq and dk/dv in every
+    # variant of both half types, 8 x 2 instances each (mangled "Li80E")
+    for kind in ("fa_fwd_wgmma", "fa_bwd_dq_wgmma", "fa_bwd_dkv_wgmma"):
         d80 = [r for fn, r in out.items()
                if r.get("kind") == kind and "Li80E" in fn]
         spill = sum(int(n) for r in d80 for px in r["ptxas"]

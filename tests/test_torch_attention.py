@@ -85,12 +85,18 @@ REFERENCE_CASES = {
 
 
 # shapes that cross the card kernels' 128-wide tiles: ragged tails, the
-# causal sk - sq offset crossing a tile, GQA with a window and dropout
+# causal sk - sq offset crossing a tile, GQA with a window and dropout;
+# and at head dim 80 (ViT-Huge's, 16-column panels on the card) ViT's
+# ragged 257 with key padding and dropout, causal GQA with a window and
+# dropout
 TILE_EDGE_CASES = {
     "ragged_key_padding": (2, 130, 257, 4, 4, 16, (2, 1, 1, 257), False,
                            None, 0.0),
     "causal_192x320": (2, 192, 320, 4, 4, 16, None, True, None, 0.0),
     "gqa_window_dropout": (1, 200, 200, 8, 2, 16, None, True, 50, 0.1),
+    "vit_257_key_padding_dropout_d80": (2, 257, 257, 2, 2, 80,
+                                        (2, 1, 1, 257), False, None, 0.1),
+    "gqa_window_dropout_d80": (1, 200, 200, 8, 2, 80, None, True, 50, 0.1),
 }
 
 
@@ -326,29 +332,34 @@ def test_hopper_kernels_at_tile_edges_on_card(case, dtype, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-def test_d80_backward_takes_wgmma_and_reruns_bitwise_on_card(dtype,
-                                                             cuda_device):
-    """At ViT-Huge's shape (32, 257, 16 heads, d 80) dq and dk/dv run
-    the wgmma kernels (the forward and fp32 the FMA ones), agree with
+def test_d80_takes_wgmma_and_reruns_bitwise_on_card(dtype, cuda_device):
+    """At ViT-Huge's shape (32, 257, 16 heads, d 80) the forward, dq
+    and dk/dv run the wgmma kernels (fp32 the FMA ones), agree with
     their plain versions and give the same bits on a rerun."""
     assert [A.flash_route(k, dtype, 80) for k in ("fwd", "dq", "dkv")] \
-        == ["fma", "wgmma", "wgmma"]
-    assert A.flash_route("dq", torch.float32, 80) == "fma"
+        == ["wgmma"] * 3
+    assert [A.flash_route(k, torch.float32, 80)
+            for k in ("fwd", "dq", "dkv")] == ["fma"] * 3
     g = torch.Generator(device=cuda_device).manual_seed(1)
     q, k, v, do = (torch.randn(32, 257, 16, 80, generator=g,
                                device=cuda_device).to(dtype)
                    for _ in range(4))
     args = (None, 80 ** -0.5, False, None, 0.0, 0)
-    o, lse = A.flash_fwd_reference(q, k, v, *args)
-    bw = (q, k, v, None, do, lse, A.attention_delta(do, o)) + args[1:]
+    o, lse = A.flash_fwd_kernel(q, k, v, *args)
+    o_ref, lse_ref = A.flash_fwd_reference(q, k, v, *args)
+    _card_close(o, o_ref, torch.bfloat16)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+    bw = (q, k, v, None, do, lse_ref, A.attention_delta(do, o_ref)) \
+        + args[1:]
     dq = A.flash_bwd_dq_kernel(*bw)
     dk, dv = A.flash_bwd_dkv_kernel(*bw)
     _card_close(dq, A.flash_bwd_dq_reference(*bw), torch.bfloat16)
     for got, ref in zip((dk, dv), A.flash_bwd_dkv_reference(*bw)):
         _card_close(got, ref, torch.bfloat16)
+    o2, lse2 = A.flash_fwd_kernel(q, k, v, *args)
     dq2 = A.flash_bwd_dq_kernel(*bw)
     dk2, dv2 = A.flash_bwd_dkv_kernel(*bw)
-    for a, b in ((dq, dq2), (dk, dk2), (dv, dv2)):
+    for a, b in ((o, o2), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2)):
         assert torch.equal(a, b)
 
 
@@ -471,15 +482,17 @@ class TestEnvelope:
     (2, 257, 257, 4, 4, 80, None, False, None, 0.0),
     (2, 257, 257, 4, 4, 80, (2, 1, 1, 257), False, None, 0.1),
     (2, 200, 200, 8, 2, 80, None, True, 50, 0.0),
+    (2, 200, 120, 4, 4, 80, None, True, None, 0.0),
     (1100, 3, 5, 64, 64, 80, None, False, None, 0.0)],
     ids=["d256-causal-gqa", "d256-pad-drop", "d96-window",
          "bh70400-d64", "bh70400-d128-gqa-drop", "d80-vit",
-         "d80-pad-drop", "d80-causal-gqa-window", "bh70400-d80"])
+         "d80-pad-drop", "d80-causal-gqa-window", "d80-causal-sq-gt-sk",
+         "bh70400-d80"])
 def test_widened_kernels_match_plain_on_card(case, dtype, cuda_device):
     """Head dim 256 (the FMA kernels' 32-row tiles), 96, 80 (the wgmma
-    backward's 16-column panels in half types), and 70400 batch x heads
-    (grid.x numbering; the wgmma kernels' items) against the plain
-    versions."""
+    kernels' 16-column panels in half types; causal sq > sk leaves its
+    first rows no key), and 70400 batch x heads (grid.x numbering; the
+    wgmma kernels' items) against the plain versions."""
     b, sq, sk, h, hk, d, bs, causal, window, rate = case
     q, k, v, do, bias = (None if a is None else _t(a).to(cuda_device)
                          for a in _inputs(9, b, sq, sk, h, hk, d, bs))
@@ -491,6 +504,7 @@ def test_widened_kernels_match_plain_on_card(case, dtype, cuda_device):
     ref_dtype = torch.float32 if dtype == torch.float32 else torch.bfloat16
     _card_close(o, o2, ref_dtype)
     torch.testing.assert_close(lse[live], lse2[live], rtol=1e-5, atol=1e-5)
+    assert bool((lse[~live] < -1e29).all())
     delta = A.attention_delta(do, o2)
     bw = (q, k, v, bias, do, lse2, delta) + args[1:]
     _card_close(A.flash_bwd_dq_kernel(*bw), A.flash_bwd_dq_reference(*bw),
