@@ -34,7 +34,13 @@ backward, the multi-head-attention modules over the flash kernels
 (``SelfMultiheadAttn``, ``EncdecMultiheadAttn``), the fused dense and
 MLP modules, and the ``contrib`` aliases that resolve onto ported ops.
 With it every Pallas kernel of the JAX package has a Hopper
-counterpart.
+counterpart.  Later slices port amp O1 and the rest of ``optim``, the
+remat policies, the ring cache, MoE, ViT and the importers, and (item
+10a of ``ROADMAP.md``) data and tensor parallelism on
+``torch.distributed``: the mesh of process groups (``core.mesh``),
+``parallel.launch``, ``transformer.{parallel_state,mappings,layers,
+cross_entropy,random}`` with sequence parallelism, DDP with half and
+int8 all-reduces, ZeRO-1/2 and SyncBatchNorm across processes.
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise
 when CUDA is unavailable unless the caller passes ``device="cpu"``.

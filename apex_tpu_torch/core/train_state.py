@@ -31,6 +31,17 @@ stored dtype, unscale, check finiteness, update, keep the old values on
 a non-finite step, adjust the scale, copy the masters back into the
 module.  Nothing in it reads the device from the host: the returned
 ``finite`` flag is a device tensor.
+
+ZeRO mode (``zero=ZeroConfig(...)`` at :meth:`MixedPrecisionTrainState.
+create`, :mod:`apex_tpu_torch.parallel.distributed_optim`): the module's
+parameters are grouped by their dtype after the policy's cast, and each
+group's fp32 masters are kept as this rank's row of the ZeRO layout, the
+optimizer state beside them.  :meth:`apply_gradients` then takes each
+rank's own (un-synced) gradients: it reduce-scatters them into fp32
+shards (the gradient sync), unscales, takes one finiteness flag for the
+whole group (a MIN all-reduce), updates the shards, and all-gathers them
+in the parameters' dtype into the module — as the JAX package's
+``_apply_gradients_zero`` does inside ``shard_map``.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from apex_tpu_torch.core.loss_scale import (
@@ -46,6 +58,7 @@ from apex_tpu_torch.core.loss_scale import (
     LossScaleState,
     all_finite,
 )
+from apex_tpu_torch.core.mesh import group_of
 from apex_tpu_torch.core.precision import PrecisionPolicy
 from apex_tpu_torch.optim.fused_adam import Leaf, adam_state_from_jax
 
@@ -165,7 +178,7 @@ class MixedPrecisionTrainState:
     with :meth:`create` or ``amp.initialize``."""
 
     def __init__(self, model: nn.Module, optimizer, policy: PrecisionPolicy,
-                 loss_scaler: DynamicLossScale):
+                 loss_scaler: DynamicLossScale, zero=None):
         self.model = model
         self.tx = optimizer
         self.policy = policy
@@ -175,6 +188,12 @@ class MixedPrecisionTrainState:
         self.names = [n for n, _ in named]
         self.module_params = [p for _, p in named]
         device = self.module_params[0].device
+        self.zero = None
+        self.loss_scale_state: LossScaleState = loss_scaler.init(device)
+        self.step = torch.zeros((), dtype=torch.int32, device=device)
+        if zero is not None:
+            self._init_zero(zero)
+            return
         # stored copy: fp32 masters (O2) or the params in their storage
         # dtype (norm params fp32 under keep_batchnorm_fp32)
         if policy.master_weights:
@@ -204,25 +223,70 @@ class MixedPrecisionTrainState:
                 flats, [[lf for _, lf in b] for b in self.leaves()])
         else:
             self.opt_state = optimizer.init(flats)
-        self.loss_scale_state: LossScaleState = loss_scaler.init(device)
-        self.step = torch.zeros((), dtype=torch.int32, device=device)
+
+    def _init_zero(self, zero):
+        """The ZeRO layout (module docstring): groups by the parameters'
+        dtype after the cast, fp32 master rows taken before it."""
+        from apex_tpu_torch.parallel import distributed_optim as zero_lib
+        from apex_tpu_torch.parallel.ddp import _pad_rows
+
+        policy, opt = self.policy, self.tx
+        if getattr(opt, "moment_format", "dense") != "dense":
+            raise ValueError(
+                "fp8 moments lay their blocks over whole parameters, not "
+                "ZeRO shards: use a dense moment_dtype with zero=")
+        self.zero = zero.resolved()
+        self.zero_group = group_of(self.zero.axis)
+        n = dist.get_world_size(self.zero_group)
+        if n != self.zero.axis_size:
+            raise ValueError(f"ZeroConfig.axis_size {self.zero.axis_size} "
+                             f"!= the {self.zero.axis!r} group's {n} ranks")
+        rank = dist.get_rank(self.zero_group)
+        after = [p.dtype if policy.per_op_casting
+                 else policy.dtype_for(name, policy.compute_dtype)
+                 for name, p in zip(self.names, self.module_params)]
+        self.zero_groups = [(dt, [i for i, a in enumerate(after) if a == dt])
+                            for dt in dict.fromkeys(after)]
+        masters = []
+        for _, idx in self.zero_groups:
+            flat = torch.cat([self.module_params[i].detach().reshape(-1)
+                              .float() for i in idx])
+            masters.append(_pad_rows(flat, n)[rank].clone())
+            del flat
+        self.compute_copy = (ComputeCopy(self.model, policy)
+                             if policy.per_op_casting else None)
+        if not policy.per_op_casting:
+            policy.cast_to_compute(self.model)
+        self._leaves = parameter_leaves(self.model)
+        sizes = [[self.module_params[i].numel() for i in idx]
+                 for _, idx in self.zero_groups]
+        if getattr(opt, "per_leaf", False):
+            inner = opt.init(masters, [
+                [Leaf(k) for k in zero_lib.shard_segments(sz, rank, n)]
+                for sz in sizes])
+        else:
+            inner = opt.init(masters)
+        self.opt_state = zero_lib.ZeroOptState(master=masters, inner=inner)
 
     @classmethod
     def create(cls, *, model: nn.Module, optimizer,
                policy: Optional[PrecisionPolicy] = None,
                loss_scaler: Optional[DynamicLossScale] = None,
                zero=None) -> "MixedPrecisionTrainState":
-        if zero is not None:
-            raise NotImplementedError(
-                "ZeRO-sharded optimizer state comes with ROADMAP.md A-5")
+        """The train state; ``zero``: a
+        :class:`~apex_tpu_torch.parallel.distributed_optim.ZeroConfig`
+        for ZeRO-sharded masters and optimizer state (needs a mesh)."""
         policy = policy or PrecisionPolicy.O0()
         return cls(model, optimizer, policy,
-                   loss_scaler or policy.make_loss_scale())
+                   loss_scaler or policy.make_loss_scale(), zero)
 
     # ------------------------------------------------------------------ #
     @property
     def params(self) -> Dict[str, torch.Tensor]:
-        """The stored params by name (fp32 masters under O2)."""
+        """The stored params by name (fp32 masters under O2; in ZeRO
+        mode the module's parameters, the masters being sharded)."""
+        if self.zero is not None:
+            return dict(zip(self.names, self.module_params))
         out = {}
         for g in self.groups:
             for i, view in zip(g.indices, g.views):
@@ -237,7 +301,26 @@ class MixedPrecisionTrainState:
     def leaves(self) -> List[List[Tuple[str, Leaf]]]:
         """Per flat buffer, its parameters in order as ``(name, Leaf)``
         (see :func:`parameter_leaves`)."""
+        if self.zero is not None:
+            return [[self._leaves[i] for i in idx]
+                    for _, idx in self.zero_groups]
         return [[self._leaves[i] for i in g.indices] for g in self.groups]
+
+    def master_params(self) -> Dict[str, torch.Tensor]:
+        """The stored params by name, whole (ZeRO mode: the fp32 master
+        shards all-gathered, a collective; else :attr:`params`)."""
+        if self.zero is None:
+            return self.params
+        from apex_tpu_torch.transformer.mappings import all_gather
+        out = {}
+        for (_, idx), m in zip(self.zero_groups, self.opt_state.master):
+            full = all_gather(m, self.zero_group, 0)
+            off = 0
+            for i in idx:
+                p = self.module_params[i]
+                out[self.names[i]] = full[off:off + p.numel()].view(p.shape)
+                off += p.numel()
+        return {n: out[n] for n in self.names}
 
     def load_jax_opt_state(self, count, exp_avg, exp_avg_sq
                            ) -> "MixedPrecisionTrainState":
@@ -267,6 +350,17 @@ class MixedPrecisionTrainState:
         own = grads is None
         if own:
             grads = [p.grad for p in self.module_params]
+        if self.zero is not None:
+            finite = self._apply_gradients_zero(grads)
+        else:
+            finite = self._apply_gradients(grads)
+        self.step += 1
+        if own:
+            for p in self.module_params:
+                p.grad = None
+        return finite
+
+    def _apply_gradients(self, grads) -> torch.Tensor:
         flat_grads = []
         for g in self.groups:
             parts = [torch.zeros(self.module_params[i].numel(),
@@ -286,10 +380,43 @@ class MixedPrecisionTrainState:
             for g in self.groups:
                 for i, view in zip(g.indices, g.views):
                     self.module_params[i].copy_(view)
-        self.step += 1
-        if own:
-            for p in self.module_params:
-                p.grad = None
+        return finite
+
+    def _apply_gradients_zero(self, grads) -> torch.Tensor:
+        """Reduce-scatter → unscale → one flag → shard update →
+        all-gather into the module (the module docstring)."""
+        from apex_tpu_torch.parallel import distributed_optim as zero_lib
+        from apex_tpu_torch.transformer.mappings import all_gather
+
+        z, zs = self.zero, self.opt_state
+        flat = []
+        for dt, idx in self.zero_groups:
+            flat.append(torch.cat([
+                torch.zeros(self.module_params[i].numel(), dtype=dt,
+                            device=zs.master[0].device)
+                if grads[i] is None else grads[i].reshape(-1)
+                for i in idx]))
+        # scaled gradients on the wire, fp32 shards out
+        shards = [s.reshape(-1) for s in zero_lib.reduce_scatter_mean_grads(
+            flat, self.zero_group, reduce_dtype=z.reduce_dtype,
+            stage=z.stage)]
+        del flat
+        ls, ls_state = self.loss_scaler, self.loss_scale_state
+        ls.unscale_(ls_state, shards)
+        # one decision for every shard: a non-finite value lands only in
+        # the shard that owns it
+        ok = all_finite(shards).to(torch.int32).reshape(1)
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=self.zero_group)
+        finite = ok[0].bool()
+        self.tx.step(shards, zs.inner, zs.master, finite)
+        self.loss_scale_state = ls.adjust(ls_state, finite)
+        for (dt, idx), m in zip(self.zero_groups, zs.master):
+            full = all_gather(m.to(dt), self.zero_group, 0)
+            off = 0
+            for i in idx:
+                p = self.module_params[i]
+                p.copy_(full[off:off + p.numel()].view(p.shape))
+                off += p.numel()
         return finite
 
     # ------------------------------------------------------------------ #

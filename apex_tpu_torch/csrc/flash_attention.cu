@@ -101,6 +101,8 @@ struct Params {
   uint32_t seed, threshold;      // dropout: keep iff hash >= threshold
   float drop_inv;                // 1 / (1 - rate)
   int dropout;
+  int lane_heads, lane_offset;   // dropout lanes: batch * lane_heads +
+                                 // lane_offset + head (a TP rank's heads)
 };
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -112,9 +114,13 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   return x;
 }
 
-// the row stage of _keep_from_counters: fmix32(q * C + (seed ^ lane * C))
+// the row stage of _keep_from_counters: fmix32(q * C + (seed ^ lane * C)),
+// the lane (batch * h + head here) taken as the unsharded call's
 __device__ __forceinline__ uint32_t drop_row(const Params& p, uint32_t lane,
                                              int qpos) {
+  const uint32_t b = lane / (uint32_t)p.h;
+  lane = b * (uint32_t)p.lane_heads + (uint32_t)p.lane_offset +
+         (lane - b * (uint32_t)p.h);
   const uint32_t hh = p.seed ^ (lane * 0x9E3779B9u);
   return fmix32((uint32_t)qpos * 0x9E3779B9u + hh);
 }
@@ -1594,7 +1600,8 @@ Params make_params(const void* q, const void* k, const void* v,
                    const void* bias, long long bsb, long long bsh,
                    long long bsq, int b, int h, int hk, int sq, int sk, int d,
                    float scale, int causal, int window, unsigned seed,
-                   unsigned threshold, float drop_inv, int dropout) {
+                   unsigned threshold, float drop_inv, int dropout,
+                   int lane_heads, int lane_offset) {
   Params p;
   p.q = q;
   p.k = k;
@@ -1616,6 +1623,8 @@ Params make_params(const void* q, const void* k, const void* v,
   p.threshold = threshold;
   p.drop_inv = drop_inv;
   p.dropout = dropout;
+  p.lane_heads = lane_heads;
+  p.lane_offset = lane_offset;
   return p;
 }
 
@@ -1625,16 +1634,21 @@ Params make_params(const void* q, const void* k, const void* v,
   const void *q, const void *k, const void *v, const void *bias,              \
       long long bsb, long long bsh, long long bsq, int b, int h, int hk,      \
       int sq, int sk, int d, float scale, int causal, int window,             \
-      unsigned seed, unsigned threshold, float drop_inv, int dropout, int dt
+      unsigned seed, unsigned threshold, float drop_inv, int dropout,         \
+      int lane_heads, int lane_offset, int dt
 #define APEX_FA_ARGS                                                          \
   make_params(q, k, v, bias, bsb, bsh, bsq, b, h, hk, sq, sk, d, scale,      \
-              causal, window, seed, threshold, drop_inv, dropout)
+              causal, window, seed, threshold, drop_inv, dropout, lane_heads, \
+              lane_offset)
 
 // Common arguments: q (b, sq, h, d), k and v (b, sk, hk, d), contiguous in
 // dtype dt; bias float32 with element strides (bsb, bsh, bsq, 1) over
 // (b, h, sq, sk), 0 on a broadcast axis, or null; scale the softmax
 // scale; window <= 0 for none; dropout with keep iff hash >= threshold
-// and kept probabilities times drop_inv.  d a multiple of 8 up to 256.
+// and kept probabilities times drop_inv, the hash's lane batch *
+// lane_heads + lane_offset + head (lane_heads = h and lane_offset = 0
+// unless the h heads are a tensor-parallel rank's share of lane_heads).
+// d a multiple of 8 up to 256.
 
 // o like q; lse (b * h, sq) float32, log2 domain.  Pointers 16-byte
 // aligned (TMA).

@@ -12,6 +12,14 @@ Parameter names follow the flax module's (``emb_norm_scale``,
 keeps the same leaves fp32 under O2, and
 :func:`~apex_tpu_torch.models.jax_import.params_from_jax` maps a JAX
 tree one to one.
+
+Built on a mesh (:mod:`apex_tpu_torch.core.mesh`) the encoder is
+tensor-parallel as GPT's (:mod:`apex_tpu_torch.models.gpt`); the MLM
+dense and the pooler gather their output features, and the tied
+decoder's vocabulary slices are all-gathered before ``mlm_bias``, so
+the outputs and :func:`bert_mlm_loss_fn` are the unsharded ones.  Under
+``sequence_parallel`` the layers run on sequence chunks, cut after the
+embedding norm and gathered again before the heads.
 """
 
 from __future__ import annotations
@@ -34,9 +42,11 @@ from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.ops.attention import mask_to_bias
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
 from apex_tpu_torch.ops.xentropy import mean_cross_entropy
+from apex_tpu_torch.transformer import mappings
 from apex_tpu_torch.transformer.layers import (
     ColumnParallelLinear,
     VocabParallelEmbedding,
+    tensor_parallel,
 )
 
 __all__ = ["BertConfig", "BertModel", "bert_mlm_loss_fn"]
@@ -115,8 +125,11 @@ class BertModel(nn.Module):
         self.emb_norm_bias = nn.Parameter(torch.zeros(h, dtype=pdt,
                                                       device=dev))
         self.transformer = ParallelTransformer(cfg, dev)
+        active, tp, _ = tensor_parallel()
+        self.sequence_parallel = cfg.sequence_parallel and active
+        self.gather_logits = tp > 1
         kw = dict(use_bias=True, dtype=cfg.dtype, param_dtype=pdt,
-                  device=dev)
+                  device=dev, gather_output=True)
         self.mlm_dense = ColumnParallelLinear(h, h, **kw)
         self.mlm_norm = Norm(cfg, dev)
         self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size, dtype=pdt,
@@ -166,8 +179,15 @@ class BertModel(nn.Module):
             # (b, 1, 1, s) key padding: rides the flash kernel
             mask_bias = mask_to_bias(
                 ~attention_mask[:, None, None, :].bool())
+        if self.sequence_parallel:
+            x = mappings.scatter_to_sequence_parallel_region(x, dim=1)
         x = self.transformer(x, mask_bias=mask_bias, seeds=dropout_seeds(
             cfg, deterministic, dropout_seed))
+        if self.sequence_parallel:
+            # the heads run whole on every rank (their column layers sum
+            # their input's gradient over the group), so the way back is
+            # the own chunk, not a reduce-scatter
+            x = mappings.gather_from_tensor_parallel_region(x, dim=1)
         x_mlm = x
         if mlm_positions is not None:
             idx = mlm_positions.long()[..., None].expand(
@@ -176,6 +196,8 @@ class BertModel(nn.Module):
         hmid = F.gelu(self.mlm_dense(x_mlm), approximate="tanh")
         hmid = self.mlm_norm(hmid).to(act)
         logits = self.embedding.attend(hmid)
+        if self.gather_logits:
+            logits = mappings.gather_from_tensor_parallel_region(logits)
         logits = logits + self.mlm_bias.to(logits.dtype)
         pooled = torch.tanh(self.pooler(x[:, 0]))
         return logits, pooled

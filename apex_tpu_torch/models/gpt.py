@@ -8,6 +8,14 @@ module's ``decode=False``, the training forward); with one it is the
 decode-mode forward: it runs ``input_ids`` against the KV cache, writes
 their K/V and advances the cache index.  Logits ``(batch, seq, vocab)``
 in ``cfg.dtype`` either way.
+
+Built on a mesh (:mod:`apex_tpu_torch.core.mesh`), the training forward
+is tensor-parallel: the embedding and head are sharded by vocabulary, so
+the logits are this rank's ``(batch, seq, vocab / tp)`` slice, which
+:func:`gpt_loss_fn` reduces with the vocab-parallel cross entropy when
+the tensor group has more than one rank.  Under ``sequence_parallel``
+the embeddings are cut into the rank's chunk of the sequence before the
+layers and the final norm's output is all-gathered into the head.
 """
 
 from __future__ import annotations
@@ -30,9 +38,14 @@ from apex_tpu_torch.models.transformer import (
 from apex_tpu_torch.ops._dispatch import resolve_device
 from apex_tpu_torch.ops.xentropy import mean_cross_entropy
 from apex_tpu_torch.ops.rope import rope_cos_sin
+from apex_tpu_torch.transformer import mappings
+from apex_tpu_torch.transformer.cross_entropy import (
+    vocab_parallel_cross_entropy,
+)
 from apex_tpu_torch.transformer.layers import (
     ColumnParallelLinear,
     VocabParallelEmbedding,
+    tensor_parallel,
 )
 
 __all__ = ["GPTConfig", "GPTModel", "gpt_loss_fn", "moe_aux_loss"]
@@ -85,9 +98,13 @@ class GPTModel(nn.Module):
         else:
             self.register_parameter("position_embedding", None)
         self.transformer = ParallelTransformer(cfg, dev)
-        self.final_norm = Norm(cfg, dev)
+        self.final_norm = Norm(cfg, dev, sequence_parallel=True)
+        # the activations between the blocks are sequence chunks
+        self.sequence_parallel = (cfg.sequence_parallel
+                                  and tensor_parallel()[0])
         self.lm_head = None if cfg.tie_embeddings else ColumnParallelLinear(
             cfg.hidden_size, cfg.vocab_size, use_bias=False,
+            sequence_parallel=cfg.sequence_parallel,
             dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=dev)
         if cfg.position_embedding == "rope":
             cos, sin = rope_cos_sin(cfg.max_seq_len, cfg.rot_dim,
@@ -196,13 +213,13 @@ class GPTModel(nn.Module):
         x = self.transformer(x.to(cfg.dtype), cache, step)
         return self._head(x, last_index)
 
-    def _head(self, x, last_index=None):
+    def _head(self, x, last_index=None, sequence_parallel=False):
         if last_index is not None:
             rows = torch.arange(x.shape[0], device=x.device)
             x = x[rows, last_index.long()][:, None]
         x = self.final_norm(x).to(self.cfg.dtype)
         if self.lm_head is None:
-            return self.embedding.attend(x)
+            return self.embedding.attend(x, sequence_parallel)
         return self.lm_head(x)
 
     def _full(self, input_ids, deterministic, dropout_seed):
@@ -215,17 +232,29 @@ class GPTModel(nn.Module):
         if self.position_embedding is not None:
             x = x + self.position_embedding[None, :s].to(x.dtype)
         x = x.to(cfg.dtype)
+        if self.sequence_parallel:
+            x = mappings.scatter_to_sequence_parallel_region(x, dim=1)
         rope = None
         if cfg.position_embedding == "rope":
             rope = (self.rope_cos[:s], self.rope_sin[:s])
         x = self.transformer(x, rope=rope, seeds=dropout_seeds(
             cfg, deterministic, dropout_seed))
-        return self._head(x)
+        return self._head(x, sequence_parallel=self.sequence_parallel)
 
 
 def gpt_loss_fn(logits, labels, *, ignore_index: int = -100):
-    """Next-token CE averaged over valid tokens (fp32)."""
-    return mean_cross_entropy(logits, labels, ignore_index=ignore_index)
+    """Next-token CE averaged over valid tokens (fp32).  When a mesh's
+    tensor group has more than one rank the logits are this rank's
+    vocabulary slice, and the loss is the vocab-parallel cross entropy's
+    (:func:`~apex_tpu_torch.transformer.cross_entropy.
+    vocab_parallel_cross_entropy`), the same on every tensor rank."""
+    if tensor_parallel()[1] == 1:
+        return mean_cross_entropy(logits, labels, ignore_index=ignore_index)
+    valid = labels != ignore_index
+    nll = vocab_parallel_cross_entropy(
+        logits, torch.where(valid, labels, torch.zeros_like(labels)))
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / torch.clamp_min(valid.sum(), 1).float()
 
 
 def moe_aux_loss(model: nn.Module) -> torch.Tensor:

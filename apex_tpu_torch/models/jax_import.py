@@ -28,7 +28,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "resnet_params_from_jax",
+__all__ = ["params_from_jax", "shard_state_dict", "resnet_params_from_jax",
            "named_leaves_from_jax", "group_norm_params_from_jax",
            "mha_params_from_jax", "mlp_params_from_jax"]
 
@@ -71,7 +71,43 @@ def _linear(out: Dict[str, Any], prefix: str, tree: Mapping) -> None:
         out[f"{prefix}.bias"] = _arr(tree["bias"])
 
 
-def params_from_jax(params_np: Mapping, cfg) -> Dict[str, torch.Tensor]:
+#: tensor-parallel layout of the transformer models' parameters: the dim
+#: a rank's shard is cut along (column layers and the vocabulary: the
+#: rows of the torch weight; row layers: its columns; biases of row
+#: layers, norms and positions whole)
+_TP_DIMS = (("qkv_proj.weight", 0), ("qkv_proj.bias", 0),
+            ("dense_h_to_4h.weight", 0), ("dense_h_to_4h.bias", 0),
+            ("dense_h_to_4h_gate.weight", 0), ("dense_h_to_4h_gate.bias", 0),
+            ("out_proj.weight", 1), ("dense_4h_to_h.weight", 1),
+            ("embedding.weight", 0), ("lm_head.weight", 0),
+            ("mlm_dense.weight", 0), ("mlm_dense.bias", 0),
+            ("pooler.weight", 0), ("pooler.bias", 0))
+
+
+def shard_state_dict(sd: Mapping[str, Any], tp_rank: int,
+                     tp_size: int) -> Dict[str, Any]:
+    """Tensor-parallel rank ``tp_rank``'s part of a whole ``GPTModel`` /
+    ``BertModel`` state dict: each column layer's rows, each row layer's
+    columns and the embedding's vocabulary block, as the layers of a
+    model built on a mesh with ``tp_size`` tensor ranks hold them
+    (:mod:`apex_tpu_torch.transformer.layers`); the rest whole."""
+    out = {}
+    for name, t in sd.items():
+        dim = next((d for suffix, d in _TP_DIMS
+                    if name == suffix or name.endswith("." + suffix)), None)
+        if dim is None or tp_size == 1:
+            out[name] = t
+            continue
+        if t.shape[dim] % tp_size:
+            raise ValueError(f"{name}: dim {dim} of {tuple(t.shape)} does "
+                             f"not split into {tp_size}")
+        size = t.shape[dim] // tp_size
+        out[name] = t.narrow(dim, tp_rank * size, size).clone()
+    return out
+
+
+def params_from_jax(params_np: Mapping, cfg, *, tp_rank: int = 0,
+                    tp_size: int = 1) -> Dict[str, torch.Tensor]:
     """State dict for ``GPTModel(cfg)``, ``BertModel(cfg)`` (a tree
     with ``emb_norm_scale``) or ``ViTModel(cfg)`` (a tree with
     ``patch_embed``: the conv kernel HWIO → OIHW, the class token,
@@ -82,6 +118,8 @@ def params_from_jax(params_np: Mapping, cfg) -> Dict[str, torch.Tensor]:
     ``params_np``: the ``params`` collection (or a dict holding it under
     ``"params"``) with array leaves.  Returns CPU tensors in the JAX
     arrays' dtypes; ``load_state_dict`` casts them to the module's.
+    ``tp_rank`` / ``tp_size``: the shard of tensor-parallel rank
+    ``tp_rank`` (:func:`shard_state_dict`).
     """
     p = params_np.get("params", params_np)
     out: Dict[str, Any] = {}
@@ -121,7 +159,7 @@ def params_from_jax(params_np: Mapping, cfg) -> Dict[str, torch.Tensor]:
         _norm(out, "final_norm", p["final_norm"])
     if "lm_head" in p:
         _linear(out, "lm_head", p["lm_head"])
-    return _tensors(out)
+    return shard_state_dict(_tensors(out), tp_rank, tp_size)
 
 
 def _is_fp8_leaf(v) -> bool:

@@ -51,7 +51,7 @@ class ResNetConfig:
     stage_sizes: Tuple[int, ...] = (3, 4, 6, 3)
     num_classes: int = 1000
     width: int = 64
-    #: None: BN statistics over the local batch (across processes: A-5)
+    #: BN statistics over the mesh group of these axes (None: local)
     bn_axis_names: Optional[Sequence[str]] = None
     dtype: Any = torch.float32
     param_dtype: Any = torch.float32

@@ -46,7 +46,21 @@ a wider step (chunked prefill, the speculative verify) rotates with the
 per-row RoPE kernel, scatters its K/V into the pool and attends with the
 paged attention kernel.  The pool is updated in place.
 
-Not in this slice: a tensor-parallel paged pool (``ROADMAP.md`` A-5).
+Tensor parallelism: built while a mesh is initialized
+(:mod:`apex_tpu_torch.core.mesh`), each layer holds its rank's shard of
+the heads (the grouped qkv layout keeps whole kv groups on a rank) and
+of the MLP's hidden features (:mod:`apex_tpu_torch.transformer.layers`).
+Under ``sequence_parallel`` the activations between the blocks are the
+rank's chunk of the sequence (dim 1): the norms, residuals and hidden
+dropout run on the chunk, a column layer all-gathers it on entry and a
+row layer reduce-scatters on exit, as the JAX model's sharding
+constraints place them.  A sharded run computes what the unsharded one
+computes, dropout included: the attention-dropout hash takes each local
+head's global lane (``fused_attention(dropout_lanes=...)``), and the
+hidden dropout draws the whole mask and keeps the rank's chunk.
+
+Not in this slice: tensor-parallel decode and a tensor-parallel paged
+pool (``ROADMAP.md`` A-5, item 10c).
 """
 
 from __future__ import annotations
@@ -78,6 +92,10 @@ from apex_tpu_torch.ops.rope import _rope_qk
 from apex_tpu_torch.transformer.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
+    tensor_parallel,
+)
+from apex_tpu_torch.transformer.mappings import (
+    copy_to_tensor_parallel_region,
 )
 from apex_tpu_torch.transformer.moe import MoEConfig, MoEMLP
 
@@ -153,6 +171,9 @@ class TransformerConfig:
     kv_dtype: Optional[str] = None
     # Megatron per-kv-head grouped qkv layout: [q_g*rep..., k_g, v_g]
     qkv_grouped: bool = True
+    # with a mesh: the activations between blocks are the rank's chunk
+    # of the sequence over the tensor axis (Korthikanti et al.)
+    sequence_parallel: bool = False
     dtype: Any = torch.float32
     param_dtype: Any = torch.float32
 
@@ -335,10 +356,20 @@ class PagedStep:
 
 
 class Norm(nn.Module):
-    """Pre-norm: RMSNorm or LayerNorm through the fused kernel."""
+    """Pre-norm: RMSNorm or LayerNorm through the fused kernel.
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    ``sequence_parallel``: the norm runs on the rank's sequence chunk
+    (with a mesh and ``cfg.sequence_parallel``), so each tensor rank's
+    gradient of the replicated weights is a part: they enter through
+    ``copy_to_tensor_parallel_region``, whose backward sums the parts
+    over the tensor group (Megatron's all-reduce of the
+    sequence-parallel gradients)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 sequence_parallel: bool = False):
         super().__init__()
+        self.sequence_parallel = (sequence_parallel and cfg.sequence_parallel
+                                  and tensor_parallel()[0])
         self.rms = cfg.norm == "rmsnorm"
         self.eps = cfg.layernorm_eps
         self.weight = nn.Parameter(torch.ones(
@@ -350,9 +381,13 @@ class Norm(nn.Module):
                 cfg.hidden_size, dtype=cfg.param_dtype, device=device))
 
     def forward(self, x):
+        w, b = self.weight, self.bias
+        if self.sequence_parallel:
+            w = copy_to_tensor_parallel_region(w)
+            b = None if b is None else copy_to_tensor_parallel_region(b)
         if self.rms:
-            return fused_rms_norm(x, self.weight, eps=self.eps)
-        return fused_layer_norm(x, self.weight, self.bias, eps=self.eps)
+            return fused_rms_norm(x, w, eps=self.eps)
+        return fused_layer_norm(x, w, b, eps=self.eps)
 
 
 def _visible(pos_q, k_pos, window):
@@ -437,8 +472,20 @@ class ParallelAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, hk, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        _, tp, rank = tensor_parallel()
+        if hk % tp:
+            raise ValueError(f"kv heads ({hk}) must split over the tensor "
+                             f"axis ({tp})")
+        if tp > 1 and not cfg.qkv_grouped:
+            raise ValueError("tensor parallelism needs qkv_grouped=True "
+                             "(whole kv groups on a rank)")
+        # this rank's heads, and their global lanes for attention dropout
+        self.heads, self.kv_heads = h // tp, hk // tp
+        self.dropout_lanes = (h, rank * self.heads)
+        self.tp_size = tp
         kw = dict(use_bias=cfg.add_bias_linear, dtype=cfg.dtype,
-                  param_dtype=cfg.param_dtype, device=device)
+                  param_dtype=cfg.param_dtype, device=device,
+                  sequence_parallel=cfg.sequence_parallel)
         self.qkv_proj = ColumnParallelLinear(
             cfg.hidden_size, (h + 2 * hk) * d, **kw)
         self.out_proj = RowParallelLinear(h * d, cfg.hidden_size, **kw)
@@ -449,9 +496,9 @@ class ParallelAttention(nn.Module):
         rotated by one kernel launch that reads them through their
         strides, so neither is copied first."""
         cfg = self.cfg
-        b, s, _ = x.shape
-        h, hk, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        h, hk, d = self.heads, self.kv_heads, cfg.head_dim
         qkv = self.qkv_proj(x)
+        b, s, _ = qkv.shape
         if cfg.qkv_grouped:
             rep = h // hk
             grouped = qkv.view(b, s, hk, rep + 2, d)
@@ -479,20 +526,24 @@ class ParallelAttention(nn.Module):
         :class:`DecodeStep`; paged decode for a :class:`PagedStep`, with
         ``cache_k`` / ``cache_v`` this layer's page pools and ``scales``
         its ``(k_scales, v_scales)`` when the pool is quantized."""
+        if step is not None and self.tp_size > 1:
+            raise NotImplementedError(
+                "tensor-parallel decode comes with ROADMAP.md A-5, item 10c")
         if isinstance(step, PagedStep):
             return self._paged_decode(x, cache_k, cache_v, scales, step)
         if step is not None:
             return self._decode(x, cache_k, cache_v, step)
         cfg = self.cfg
-        b, s, _ = x.shape
         q, k, v = self._qkv(x, rope)
+        b, s = q.shape[:2]
         drop = cfg.attention_dropout if attn_seed is not None else 0.0
         o = fused_attention(
             q, k, v, causal=cfg.causal, bias=mask_bias,
             window=cfg.sliding_window, dropout_rate=drop,
             dropout_seed=attn_seed if drop > 0.0 else None,
+            dropout_lanes=self.dropout_lanes,
             block_q=cfg.attention_block_q, block_k=cfg.attention_block_k)
-        return self.out_proj(o.reshape(b, s, cfg.num_heads * cfg.head_dim))
+        return self.out_proj(o.reshape(b, s, self.heads * cfg.head_dim))
 
     def _decode(self, x, cache_k, cache_v, step: DecodeStep):
         cfg = self.cfg
@@ -642,7 +693,8 @@ class ParallelMLP(nn.Module):
         super().__init__()
         self.act = resolve_activation(cfg.activation, gelu_approximate=True)
         kw = dict(use_bias=cfg.add_bias_linear, dtype=cfg.dtype,
-                  param_dtype=cfg.param_dtype, device=device)
+                  param_dtype=cfg.param_dtype, device=device,
+                  sequence_parallel=cfg.sequence_parallel)
         self.dense_h_to_4h = ColumnParallelLinear(
             cfg.hidden_size, cfg.ffn_size, **kw)
         self.dense_h_to_4h_gate = (ColumnParallelLinear(
@@ -659,12 +711,20 @@ class ParallelMLP(nn.Module):
         return self.dense_4h_to_h(y)
 
 
-def _dropout(x, rate: float, seed: int):
+def _dropout(x, rate: float, seed: int, seq_chunk=None):
     """Inverted dropout with a mask drawn from a generator seeded by
-    ``seed`` on ``x``'s device, so a recomputation draws it again."""
+    ``seed`` on ``x``'s device, so a recomputation draws it again.
+    ``seq_chunk`` ``(rank, n)``: ``x`` is chunk ``rank`` of ``n`` along
+    dim 1; the whole mask is drawn and the chunk's part kept, so the
+    sharded run drops what the unsharded one drops."""
     g = torch.Generator(device=x.device)
     g.manual_seed(seed)
-    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    shape = list(x.shape)
+    if seq_chunk is not None:
+        shape[1] *= seq_chunk[1]
+    keep = torch.rand(shape, generator=g, device=x.device) >= rate
+    if seq_chunk is not None:
+        keep = keep.narrow(1, seq_chunk[0] * x.shape[1], x.shape[1])
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -697,9 +757,13 @@ class ParallelTransformerLayer(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.input_norm = Norm(cfg, device)
+        active, tp, rank = tensor_parallel()
+        # the hidden dropout's chunk of the whole mask
+        self.seq_chunk = ((rank, tp) if cfg.sequence_parallel and active
+                          else None)
+        self.input_norm = Norm(cfg, device, sequence_parallel=True)
         self.attention = ParallelAttention(cfg, device)
-        self.post_attention_norm = Norm(cfg, device)
+        self.post_attention_norm = Norm(cfg, device, sequence_parallel=True)
         self.moe_aux: Optional[torch.Tensor] = None
         if cfg.num_moe_experts:
             self.moe_mlp = MoEMLP(MoEConfig(
@@ -740,7 +804,7 @@ class ParallelTransformerLayer(nn.Module):
                            attn_seed=None if seeds is None else seeds[0],
                            scales=scales)
         if seeds is not None and rate > 0.0:
-            a = _dropout(a, rate, seeds[1])
+            a = _dropout(a, rate, seeds[1], self.seq_chunk)
         x = x + a.to(x.dtype)
         h = self.post_attention_norm(x)
         aux = None
@@ -749,7 +813,7 @@ class ParallelTransformerLayer(nn.Module):
         else:
             m = self.mlp(h)
         if seeds is not None and rate > 0.0:
-            m = _dropout(m, rate, seeds[2])
+            m = _dropout(m, rate, seeds[2], self.seq_chunk)
         return x + m.to(x.dtype), aux
 
 

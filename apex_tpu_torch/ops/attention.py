@@ -101,14 +101,19 @@ def _drop_threshold(rate: float) -> int:
     return min(int(rate * 4294967296.0), 4294967295)
 
 
-def dropout_keep_mask(seed, b, h, sq, sk, rate, device=None):
+def dropout_keep_mask(seed, b, h, sq, sk, rate, device=None, lanes=None):
     """``(b, h, sq, sk)`` boolean keep-mask of the counter hash,
     bit-identical to the JAX package's ``dropout_keep_mask``: the lane
     is ``batch * h + head``, the integer ``seed`` an int32 taken as
-    uint32 (``None`` is 0)."""
+    uint32 (``None`` is 0).  ``lanes`` ``(heads, offset)``: the ``h``
+    heads are heads ``offset ..`` of ``heads`` (a tensor-parallel rank's
+    share), whose lanes are ``batch * heads + offset + head`` — the mask
+    of those heads in the unsharded call."""
     seed_u = (0 if seed is None else int(seed)) & _U32
-    lane = torch.arange(b * h, dtype=torch.int64, device=device).view(
-        b, h, 1, 1)
+    heads, offset = lanes if lanes is not None else (h, 0)
+    lane = (torch.arange(b, dtype=torch.int64, device=device).view(
+        b, 1, 1, 1) * heads + offset + torch.arange(
+        h, dtype=torch.int64, device=device).view(1, h, 1, 1))
     hh = seed_u ^ ((lane * 0x9E3779B9) & _U32)
     q_pos = torch.arange(sq, dtype=torch.int64, device=device).view(
         1, 1, sq, 1)
@@ -147,7 +152,8 @@ def _dead_positions(sq, sk, causal, window, device):
 def attention_reference(q, k, v, *, causal: bool = False,
                         scale: Optional[float] = None, bias=None,
                         window: Optional[int] = None,
-                        dropout_rate: float = 0.0, dropout_seed=None):
+                        dropout_rate: float = 0.0, dropout_seed=None,
+                        dropout_lanes=None):
     """Plain differentiable attention: softmax(q·kᵀ·scale + bias
     [causal]) · v in fp32, output in ``q.dtype``.  Rows with no visible
     key output zeros; dropout drops post-softmax probabilities with
@@ -172,7 +178,7 @@ def attention_reference(q, k, v, *, causal: bool = False,
         p = torch.where(s < 0.5 * _NEG_INF, torch.zeros_like(p), p)
     if dropout_rate > 0.0:
         keep = dropout_keep_mask(dropout_seed, b, h, sq, sk, dropout_rate,
-                                 q.device)
+                                 q.device, dropout_lanes)
         p = torch.where(keep, p / (1.0 - dropout_rate), torch.zeros_like(p))
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return o.to(q.dtype)
@@ -207,16 +213,19 @@ def _as_operand(t, dtype):
     return t if dtype == torch.float32 else t.to(dtype).float()
 
 
-def _keep(q, k, rate, seed):
+def _keep(q, k, rate, seed, lanes):
     b, sq, h = q.shape[:3]
-    return dropout_keep_mask(seed, b, h, sq, k.shape[1], rate, q.device)
+    return dropout_keep_mask(seed, b, h, sq, k.shape[1], rate, q.device,
+                             lanes)
 
 
-def flash_fwd_reference(q, k, v, bias, scale, causal, window, rate, seed):
+def flash_fwd_reference(q, k, v, bias, scale, causal, window, rate, seed,
+                        lanes=None):
     """Plain version of the forward kernel: ``(o, lse)``, ``o`` like
     ``q`` and ``lse`` ``(b*h, sq)`` fp32 in the log2 domain (-1e30 on a
     row with no visible key).  Softmax in fp32; the probabilities enter
-    the value product in the input dtype."""
+    the value product in the input dtype.  ``lanes``: the dropout lanes
+    of :func:`dropout_keep_mask`."""
     b, sq, h, d = q.shape
     s = _scores_log2(q, k, bias, scale, causal, window)
     m = s.amax(-1, keepdim=True).clamp(min=_NEG_INF)
@@ -224,7 +233,8 @@ def flash_fwd_reference(q, k, v, bias, scale, causal, window, rate, seed):
     ls = p.sum(-1, keepdim=True)
     ls = torch.where(ls == 0, torch.ones_like(ls), ls)
     if rate > 0.0:
-        p = torch.where(_keep(q, k, rate, seed), p * (1.0 / (1.0 - rate)),
+        p = torch.where(_keep(q, k, rate, seed, lanes),
+                        p * (1.0 / (1.0 - rate)),
                         torch.zeros_like(p))
     vf = v.float().repeat_interleave(h // v.shape[2], dim=2)
     o = torch.einsum("bhqk,bkhd->bqhd", _as_operand(p, v.dtype), vf) \
@@ -234,7 +244,7 @@ def flash_fwd_reference(q, k, v, bias, scale, causal, window, rate, seed):
 
 
 def _bwd_parts(q, k, v, bias, dout, lse, delta, scale, causal, window,
-               rate, seed):
+               rate, seed, lanes):
     """(dropped p, dS) of the backward, ``(b, h, sq, sk)`` fp32, each
     rounded to the input dtype as the operand of its product."""
     b, sq, h, d = q.shape
@@ -244,7 +254,7 @@ def _bwd_parts(q, k, v, bias, dout, lse, delta, scale, causal, window,
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), vf)
     pd = p
     if rate > 0.0:
-        keep = _keep(q, k, rate, seed)
+        keep = _keep(q, k, rate, seed, lanes)
         inv = 1.0 / (1.0 - rate)
         zero = torch.zeros_like(p)
         pd = torch.where(keep, p * inv, zero)
@@ -254,23 +264,23 @@ def _bwd_parts(q, k, v, bias, dout, lse, delta, scale, causal, window,
 
 
 def flash_bwd_dq_reference(q, k, v, bias, dout, lse, delta, scale, causal,
-                           window, rate, seed):
+                           window, rate, seed, lanes=None):
     """Plain version of the dq kernel."""
     h, hk = q.shape[2], k.shape[2]
     _, ds = _bwd_parts(q, k, v, bias, dout, lse, delta, scale, causal,
-                       window, rate, seed)
+                       window, rate, seed, lanes)
     kf = k.float().repeat_interleave(h // hk, dim=2)
     return (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale).to(q.dtype)
 
 
 def flash_bwd_dkv_reference(q, k, v, bias, dout, lse, delta, scale, causal,
-                            window, rate, seed):
+                            window, rate, seed, lanes=None):
     """Plain version of the dk/dv kernel, GQA groups summed: ``(dk,
     dv)`` like ``k``, ``v``."""
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     pd, ds = _bwd_parts(q, k, v, bias, dout, lse, delta, scale, causal,
-                        window, rate, seed)
+                        window, rate, seed, lanes)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", pd, dout.float())
     dk = dk.view(b, sk, hk, h // hk, d).sum(3)
@@ -289,7 +299,7 @@ def attention_delta(dout, o):
 # ------------------------------------------------------------------ #
 # kernel wrappers
 # ------------------------------------------------------------------ #
-def _common_args(q, k, v, bias, scale, causal, window, rate, seed):
+def _common_args(q, k, v, bias, scale, causal, window, rate, seed, lanes):
     """Checked, contiguous operands and the C entries' common argument
     list; ``keep`` holds tensors that must outlive the launch."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
@@ -315,12 +325,14 @@ def _common_args(q, k, v, bias, scale, causal, window, rate, seed):
         keep.append(bf)
         bias_ptr = bf.data_ptr()
         strides = (bf.stride(0), bf.stride(1), bf.stride(2))
+    heads, offset = lanes if lanes is not None else (h, 0)
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, *strides,
             b, h, hk, sq, sk, d, float(scale), int(bool(causal)),
             int(window or 0), (0 if seed is None else int(seed)) & _U32,
             _drop_threshold(rate) if rate > 0.0 else 0,
             float(1.0 / (1.0 - rate)) if rate > 0.0 else 1.0,
-            int(rate > 0.0), _build.DTYPE_CODES[q.dtype]]
+            int(rate > 0.0), int(heads), int(offset),
+            _build.DTYPE_CODES[q.dtype]]
     return q, k, v, keep, args
 
 
@@ -336,7 +348,7 @@ _COMMON_TYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
     ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
-    ctypes.c_int]
+    ctypes.c_int, ctypes.c_int, ctypes.c_int]
 
 
 def _stream(t):
@@ -357,10 +369,11 @@ def flash_route(kernel: str, dtype: torch.dtype, d: int) -> str:
                          _build.FLOAT_CODES[dtype], int(d)) else "fma"
 
 
-def flash_fwd_kernel(q, k, v, bias, scale, causal, window, rate, seed):
+def flash_fwd_kernel(q, k, v, bias, scale, causal, window, rate, seed,
+                     lanes=None):
     """The forward kernel: ``(o, lse)`` as :func:`flash_fwd_reference`."""
     q, k, v, keep, args = _common_args(q, k, v, bias, scale, causal,
-                                       window, rate, seed)
+                                       window, rate, seed, lanes)
     b, sq, h, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
@@ -374,10 +387,10 @@ def flash_fwd_kernel(q, k, v, bias, scale, causal, window, rate, seed):
 
 
 def flash_bwd_dq_kernel(q, k, v, bias, dout, lse, delta, scale, causal,
-                        window, rate, seed):
+                        window, rate, seed, lanes=None):
     """The dq kernel: ``dq`` like ``q``."""
     q, k, v, keep, args = _common_args(q, k, v, bias, scale, causal,
-                                       window, rate, seed)
+                                       window, rate, seed, lanes)
     dout = _aligned(dout.to(q.dtype).contiguous())
     lse, delta = lse.contiguous(), delta.contiguous()
     dq = torch.empty_like(q)
@@ -392,11 +405,11 @@ def flash_bwd_dq_kernel(q, k, v, bias, dout, lse, delta, scale, causal,
 
 
 def flash_bwd_dkv_kernel(q, k, v, bias, dout, lse, delta, scale, causal,
-                         window, rate, seed):
+                         window, rate, seed, lanes=None):
     """The dk/dv kernel: ``(dk, dv)`` like ``k``, ``v``; under GQA each
     kv head sums its group of query heads inside the kernel."""
     q, k, v, keep, args = _common_args(q, k, v, bias, scale, causal,
-                                       window, rate, seed)
+                                       window, rate, seed, lanes)
     dout = _aligned(dout.to(q.dtype).contiguous())
     lse, delta = lse.contiguous(), delta.contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -419,19 +432,23 @@ def flash_bwd_dkv_kernel(q, k, v, bias, dout, lse, delta, scale, causal,
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: Optional[torch.Tensor], scale: float, causal: bool,
               window: Optional[int], rate: float, seed: int,
+              lane_heads: int, lane_offset: int,
               kernel: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """The flash forward as one dispatcher op, ``(o, lse)`` — the JAX
     kernel's residuals ``attn_out`` and ``attn_lse``: a selective
     checkpoint policy can keep both and skip the forward in the
-    recomputation (``TransformerConfig.remat_policy``).  ``kernel``
-    picks :func:`flash_fwd_kernel` or :func:`flash_fwd_reference`."""
+    recomputation (``TransformerConfig.remat_policy``).  ``lane_heads``
+    / ``lane_offset``: the dropout lanes (``dropout_keep_mask``'s
+    ``lanes``).  ``kernel`` picks :func:`flash_fwd_kernel` or
+    :func:`flash_fwd_reference`."""
     fwd = flash_fwd_kernel if kernel else flash_fwd_reference
-    return fwd(q, k, v, bias, scale, causal, window, rate, seed)
+    return fwd(q, k, v, bias, scale, causal, window, rate, seed,
+               (lane_heads, lane_offset))
 
 
 @flash_fwd.register_fake
 def _flash_fwd_fake(q, k, v, bias, scale, causal, window, rate, seed,
-                    kernel):
+                    lane_heads, lane_offset, kernel):
     b, sq, h, _ = q.shape
     return torch.empty_like(q), q.new_empty((b * h, sq),
                                             dtype=torch.float32)
@@ -440,10 +457,11 @@ def _flash_fwd_fake(q, k, v, bias, scale, causal, window, rate, seed,
 def _flash_setup(ctx, inputs, output):
     """Saved-logsumexp backward of ``_fa_pallas_fwd`` / ``_fa_pallas_bwd``;
     the bias is a constant."""
-    q, k, v, bias, scale, causal, window, rate, seed, kernel = inputs
+    (q, k, v, bias, scale, causal, window, rate, seed, lane_heads,
+     lane_offset, kernel) = inputs
     o, lse = output
     ctx.save_for_backward(q, k, v, bias, o, lse)
-    ctx.cfg = (scale, causal, window, rate, seed)
+    ctx.cfg = (scale, causal, window, rate, seed, (lane_heads, lane_offset))
     ctx.kernel = kernel
     ctx.set_materialize_grads(False)
 
@@ -451,7 +469,7 @@ def _flash_setup(ctx, inputs, output):
 def _flash_backward(ctx, dout, _dlse):
     q, k, v, bias, o, lse = ctx.saved_tensors
     if dout is None:
-        return (None,) * 10
+        return (None,) * 12
     delta = attention_delta(dout, o)
     if ctx.kernel:
         dq_fn, dkv_fn = flash_bwd_dq_kernel, flash_bwd_dkv_kernel
@@ -462,7 +480,7 @@ def _flash_backward(ctx, dout, _dlse):
     dk = dv = None
     if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
         dk, dv = dkv_fn(*args)
-    return dq, dk, dv, None, None, None, None, None, None, None
+    return (dq, dk, dv) + (None,) * 9
 
 
 flash_fwd.register_autograd(_flash_backward, setup_context=_flash_setup)
@@ -473,6 +491,7 @@ def fused_attention(q, k, v, *, causal: bool = False,
                     bias_requires_grad: bool = False,
                     window: Optional[int] = None,
                     dropout_rate: float = 0.0, dropout_seed=None,
+                    dropout_lanes: Optional[Tuple[int, int]] = None,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None,
                     implementation: Optional[str] = None):
@@ -485,7 +504,10 @@ def fused_attention(q, k, v, *, causal: bool = False,
     learned bias), as the JAX API routes it.  ``window``: sliding window
     (requires ``causal``).  ``dropout_rate`` with an integer
     ``dropout_seed`` (the caller draws it, e.g. from a
-    ``torch.Generator``) drops probabilities with the counter hash.
+    ``torch.Generator``) drops probabilities with the counter hash;
+    ``dropout_lanes`` ``(heads, offset)``: ``q``'s heads are heads
+    ``offset ..`` of a call with ``heads`` (a tensor-parallel rank's
+    heads), and drop as they would there (:func:`dropout_keep_mask`).
     ``block_q`` / ``block_k``: tile hints, as in the JAX package; any
     positive value is taken and ignored — the kernels choose their own
     tiles (64 or 128 rows) and the outputs do not depend on the tile.
@@ -533,8 +555,10 @@ def fused_attention(q, k, v, *, causal: bool = False,
                      tuple(q.shape), tuple(bias.shape))
         return attention_reference(q, k, v, causal=causal, scale=scale,
                                    bias=bias, window=window,
-                                   dropout_rate=rate, dropout_seed=seed)
+                                   dropout_rate=rate, dropout_seed=seed,
+                                   dropout_lanes=dropout_lanes)
     if bias is not None:
         bias = bias.detach()
+    heads, offset = dropout_lanes if dropout_lanes is not None else (h, 0)
     return flash_fwd(q, k, v, bias, scale, bool(causal), window, rate,
-                     seed, kernel)[0]
+                     seed, int(heads), int(offset), kernel)[0]

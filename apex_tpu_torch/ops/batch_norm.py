@@ -22,8 +22,16 @@ a CUDA tensor ``"auto"`` always launches them.
 The input must be laid out densely in the order of its shape: a model
 that keeps NCHW activations in ``torch.channels_last`` memory passes
 ``x.permute(0, 2, 3, 1)``.  Anything else raises rather than paying a
-hidden transpose.  On one card there is nothing to reduce across:
-``axis_names`` raise (ROADMAP.md A-5).
+hidden transpose.
+
+Cross-process statistics (SyncBatchNorm): ``axis_names`` (mesh axes,
+their group from the current mesh; without a mesh they are unbound and
+ignored, as unbound axes are in JAX) or a ``process_group``.  The
+per-channel partial sums the reduction pass writes are all-reduced over
+the group (one collective of the stacked ``(2, C)``) before the map, and
+the backward's ``(Σdz, Σdz·x̂)`` with the mean / variance cotangents
+(``(4, C)``) before the dx map; dγ and dβ stay the local sums, which
+the data-parallel gradient all-reduce combines.
 """
 
 from __future__ import annotations
@@ -33,8 +41,10 @@ import functools
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from apex_tpu_torch import _build
+from apex_tpu_torch.core import mesh as mesh_lib
 from apex_tpu_torch.ops._dispatch import resolve_impl
 
 __all__ = ["batch_norm_train", "batch_norm_inference", "batch_norm_reference",
@@ -56,11 +66,44 @@ def _check_act(act):
         raise ValueError(f"unknown act {act!r}")
 
 
-def _no_axes(axis_names):
-    if axis_names:
-        raise NotImplementedError(
-            f"axis_names={tuple(axis_names)!r}: batch statistics across "
-            "processes come with ROADMAP.md A-5")
+def sync_group(axis_names=(), process_group=None):
+    """The group the statistics reduce over: ``process_group``, else the
+    mesh group of ``axis_names``, else None (local statistics; no mesh
+    means the axes are unbound)."""
+    if process_group is not None:
+        return process_group
+    if not axis_names or not mesh_lib.mesh_is_initialized():
+        return None
+    return mesh_lib.get_mesh().group(tuple(axis_names))
+
+
+def _sum_over(group, *rows):
+    """The ``(C,)`` rows summed over ``group`` (one all-reduce of their
+    stack), or as they are without a group."""
+    if group is None:
+        return rows
+    st = torch.stack(rows)
+    dist.all_reduce(st, group=group)
+    return tuple(st)
+
+
+class AllReduceSum(torch.autograd.Function):
+    """The sum over ``group`` (forward all-reduce) whose cotangent is
+    summed over the group too (backward all-reduce): the derivative of
+    the sum of every rank's loss, as JAX transposes a ``psum``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 def _epilogue(z, residual, act):
@@ -76,20 +119,24 @@ def _epilogue(z, residual, act):
 # --------------------------------------------------------------------- #
 def batch_norm_reference(x, weight=None, bias=None, *, eps: float = 1e-5,
                          residual=None, act: Optional[str] = None,
-                         axis_names=()):
+                         axis_names=(), process_group=None):
     """Train-mode BN(+add+ReLU) as the JAX golden composition computes
     it: ``(y, mean, var)``, ``y = (x - mean)·rsqrt(var + eps)·w + b``
-    with the biased variance ``max(Σx²/n - mean², 0)``."""
+    with the biased variance ``max(Σx²/n - mean², 0)``; the sums over
+    the ``axis_names`` / ``process_group`` group (differentiable)."""
     _check_act(act)
-    _no_axes(axis_names)
+    group = sync_group(axis_names, process_group)
     dims = tuple(range(x.ndim - 1))
     n = 1
     for d in dims:
         n *= x.shape[d]
     xf = x.float()
-    mean = xf.sum(dims) / float(n)
-    var = torch.clamp_min(torch.square(xf).sum(dims) / float(n)
-                          - torch.square(mean), 0.0)
+    s1, s2 = xf.sum(dims), torch.square(xf).sum(dims)
+    if group is not None:
+        s1, s2 = AllReduceSum.apply(torch.stack([s1, s2]), group)
+        n *= dist.get_world_size(group)
+    mean = s1 / float(n)
+    var = torch.clamp_min(s2 / float(n) - torch.square(mean), 0.0)
     y = (xf - mean) * torch.rsqrt(var + eps)
     if weight is not None:
         y = y * weight.float()
@@ -329,10 +376,13 @@ class _BatchNormFn(torch.autograd.Function):
     included."""
 
     @staticmethod
-    def forward(ctx, x2, w, b, res2, eps, relu, kernel):
+    def forward(ctx, x2, w, b, res2, eps, relu, kernel, group):
         reduce, apply, _, _ = _PASSES[kernel]
         n = float(x2.shape[0])
-        s1, s2 = reduce(x2)
+        s1, s2 = _sum_over(group, *reduce(x2))
+        if group is not None:
+            n *= dist.get_world_size(group)
+        ctx.n, ctx.group = n, group
         mean = s1 / n
         var = torch.clamp_min(s2 / n - torch.square(mean), 0.0)
         rstd = torch.rsqrt(var + eps)
@@ -354,28 +404,34 @@ class _BatchNormFn(torch.autograd.Function):
     def backward(ctx, dy, dmean, dvar):
         x2, w, mean, rstd, y2, scale, shift = ctx.saved_tensors
         _, _, bwd_reduce, bwd_dx = _PASSES[ctx.kernel]
-        n = float(x2.shape[0])
+        n = ctx.n
         if dy is None:
             dy = torch.zeros_like(x2)
         scsh = None if scale is None else (scale, shift)
-        g1, g2 = bwd_reduce(dy, x2, y2, scsh, mean, rstd, ctx.relu)
+        s1, s2 = bwd_reduce(dy, x2, y2, scsh, mean, rstd, ctx.relu)
         a = rstd * w.float()
-        gm = torch.zeros_like(g1) if dmean is None else dmean.float()
-        gv = torch.zeros_like(g2) if dvar is None else dvar.float()
+        gm = torch.zeros_like(s1) if dmean is None else dmean.float()
+        gv = torch.zeros_like(s2) if dvar is None else dvar.float()
+        # dx needs the group's sums; dγ, dβ stay local
+        g1, g2, gm, gv = _sum_over(ctx.group, s1, s2, gm, gv)
         bcoef = (gm - a * g1) / n
         ccoef = (2.0 * gv / rstd - a * g2) / n
         dx, dres = bwd_dx(dy, x2, y2, scsh, mean, rstd, a, bcoef, ccoef,
                           ctx.relu, ctx.has_res)
         # dγ, dβ: the local sums of the one reduction
-        return dx, g2.to(w.dtype), g1.to(w.dtype), dres, None, None, None
+        return (dx, s2.to(w.dtype), s1.to(w.dtype), dres, None, None, None,
+                None)
 
 
 def batch_norm_train(x, weight=None, bias=None, *, eps: float = 1e-5,
                      residual=None, act: Optional[str] = None,
-                     axis_names=(), implementation: Optional[str] = None):
+                     axis_names=(), process_group=None,
+                     implementation: Optional[str] = None):
     """Fused train-mode BatchNorm(+residual-add+ReLU) over a channels-last
     ``(N, ..., C)`` tensor: ``(y, mean, var)``, the statistics fp32 (the
-    variance biased, for the caller's running-stats update).
+    variance biased, for the caller's running-stats update).  With
+    ``axis_names`` (a mesh's) or ``process_group`` the statistics are the
+    group's (module docstring).
 
     ``residual`` (x's shape) is added after the affine, before ``act``
     (None or ``"relu"``); its cotangent comes out of the fused backward.
@@ -385,7 +441,7 @@ def batch_norm_train(x, weight=None, bias=None, *, eps: float = 1e-5,
     in the order of their shape, else ValueError.
     """
     _check_act(act)
-    _no_axes(axis_names)
+    group = sync_group(axis_names, process_group)
     if residual is not None and residual.shape != x.shape:
         raise ValueError(
             f"residual shape {tuple(residual.shape)} != x shape "
@@ -406,5 +462,5 @@ def batch_norm_train(x, weight=None, bias=None, *, eps: float = 1e-5,
     b = bias if bias is not None else torch.zeros(
         c, dtype=torch.float32, device=x.device)
     y2, mean, var = _BatchNormFn.apply(x2, w, b, res2, float(eps),
-                                       act == "relu", kernel)
+                                       act == "relu", kernel, group)
     return y2.view(x.shape), mean, var

@@ -33,7 +33,7 @@ Unlike the JAX functions, which return new pools, these update the pool
 (and its scales) **in place** and return the same tensors: the pool is
 the serving engine's largest allocation, and only one row of it moves
 per decode step.  Tensor-parallel pools (``mesh=`` / ``shard_axis=``)
-come with ROADMAP.md A-5.
+come with ROADMAP.md A-5, item 10c.
 """
 
 from __future__ import annotations
@@ -168,7 +168,7 @@ def _no_mesh(mesh, shard_axis):
     if mesh is not None or shard_axis is not None:
         raise NotImplementedError(
             "tensor-parallel paged pools (mesh= / shard_axis=) come with "
-            "ROADMAP.md A-5")
+            "ROADMAP.md A-5, item 10c")
 
 
 # --------------------------------------------------------------------- #

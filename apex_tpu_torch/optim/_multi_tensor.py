@@ -16,20 +16,29 @@ import dataclasses
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
+from apex_tpu_torch.core.mesh import group_of
 from apex_tpu_torch.core.precision import tree_leaves, tree_map
 
 __all__ = ["tree_l2_norm", "per_tensor_l2_norms", "tree_scale",
            "tree_axpby", "global_grad_clip_coef", "segment_norms"]
 
 
-def tree_l2_norm(tree: Any, *, dtype=torch.float32) -> torch.Tensor:
+def tree_l2_norm(tree: Any, *, dtype=torch.float32,
+                 axis=None) -> torch.Tensor:
     """Global L2 norm over every floating tensor (``amp_C.
-    multi_tensor_l2norm``), in ``dtype``; a zero without any."""
+    multi_tensor_l2norm``), in ``dtype``; a zero without any.  ``axis``:
+    the tensors are ZeRO shards over that mesh axis (or group), whose
+    sums of squares are all-reduced first."""
     leaves = [t for t in tree_leaves(tree) if torch.is_floating_point(t)]
     if not leaves:
         return torch.zeros((), dtype=dtype)
     sq = sum(torch.sum(torch.square(t.to(dtype))) for t in leaves)
+    if axis is not None:
+        sq = sq.reshape(1).clone()
+        dist.all_reduce(sq, group=group_of(axis))
+        sq = sq[0]
     return torch.sqrt(sq)
 
 
@@ -54,12 +63,13 @@ def tree_axpby(a, x: Any, b, y: Any) -> Any:
 
 
 def global_grad_clip_coef(grads: Any, max_norm: Optional[float], *,
-                          eps: float = 1e-6
+                          eps: float = 1e-6, axis=None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(coef, global_norm)`` of a global-norm clip (``apex/contrib/
     clip_grad``): ``coef = min(1, max_norm / (norm + eps))``, 1 without
-    ``max_norm``.  On the device, no host sync."""
-    gnorm = tree_l2_norm(grads)
+    ``max_norm``.  On the device, no host sync; ``axis`` as in
+    :func:`tree_l2_norm`."""
+    gnorm = tree_l2_norm(grads, axis=axis)
     if max_norm is None:
         return torch.ones((), dtype=torch.float32,
                           device=gnorm.device), gnorm
@@ -104,6 +114,11 @@ class Segments:
 
     def norms(self, flat: torch.Tensor) -> torch.Tensor:
         return segment_norms(flat, self.sizes)
+
+    def sumsq(self, flat: torch.Tensor) -> torch.Tensor:
+        """Each tensor's fp32 sum of squares, ``(len(sizes),)``."""
+        views = torch.split(flat.float(), list(self.sizes))
+        return torch.stack([torch.sum(torch.square(v)) for v in views])
 
     def expand(self, per: torch.Tensor) -> torch.Tensor:
         """A per-tensor ``(L,)`` value repeated over each tensor's

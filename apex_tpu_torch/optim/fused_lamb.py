@@ -16,6 +16,10 @@ leaves)`` and ``step(grads, state, params, finite)``, in place.  A step:
 
 The JAX package computes this in XLA; here it is plain PyTorch over the
 train state's flat buffers, each line one launch over every parameter.
+``shard_axis`` (a mesh axis or process group): the buffers are ZeRO
+shards (:mod:`apex_tpu_torch.parallel.distributed_optim`), so the clip
+norm's and each buffer's per-tensor sums of squares are all-reduced over
+the shards (one collective a buffer) and the update is the whole one.
 The trust ratio is per parameter, so the optimizer is ``per_leaf``: the
 train state hands :meth:`FusedLAMB.init` each buffer's parameters, whose
 norms come from one multi-tensor norm over views of the buffer
@@ -30,7 +34,9 @@ import dataclasses
 from typing import Any, Callable, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 
+from apex_tpu_torch.core.mesh import group_of
 from apex_tpu_torch.optim._multi_tensor import (
     Segments,
     commit_,
@@ -62,6 +68,7 @@ class FusedLAMB:
     max_grad_norm: Optional[float] = 1.0
     trust_clip: bool = False
     always_adapt: bool = False
+    shard_axis: Any = None
 
     #: :meth:`init` takes each buffer's parameters (the trust ratio is per
     #: parameter)
@@ -87,7 +94,8 @@ class FusedLAMB:
         count = state.count + 1
         lr, bc1, bc2 = step_scalars(self.learning_rate, count, self.b1,
                                     self.b2, self.bias_correction)
-        coef, _ = global_grad_clip_coef(grads, self.max_grad_norm)
+        coef, _ = global_grad_clip_coef(grads, self.max_grad_norm,
+                                        axis=self.shard_axis)
         b1, b2, wd = self.b1, self.b2, self.weight_decay
         use_trust = self.always_adapt or wd != 0.0
         out = []
@@ -103,7 +111,12 @@ class FusedLAMB:
             if self.adam_w_mode and wd != 0.0:
                 upd = upd + wd * pf
             if use_trust:
-                w_norm, u_norm = seg.norms(pf), seg.norms(upd)
+                if self.shard_axis is None:
+                    w_norm, u_norm = seg.norms(pf), seg.norms(upd)
+                else:
+                    sq = torch.cat([seg.sumsq(pf), seg.sumsq(upd)])
+                    dist.all_reduce(sq, group=group_of(self.shard_axis))
+                    w_norm, u_norm = torch.sqrt(sq).chunk(2)
                 ratio = torch.where((w_norm > 0) & (u_norm > 0),
                                     w_norm / u_norm,
                                     torch.ones_like(w_norm))
@@ -136,9 +149,9 @@ def fused_lamb(learning_rate: Union[float, Callable] = 1e-3,
                adam_w_mode: bool = True,
                max_grad_norm: Optional[float] = 1.0,
                trust_clip: bool = False,
-               always_adapt: bool = False) -> FusedLAMB:
-    """Build the FusedLAMB optimizer (the JAX package's signature, less
-    its ZeRO ``shard_axis``, which comes with the parallel slice)."""
+               always_adapt: bool = False,
+               shard_axis: Any = None) -> FusedLAMB:
+    """Build the FusedLAMB optimizer (the JAX package's signature)."""
     return FusedLAMB(learning_rate, b1, b2, eps, weight_decay,
                      bias_correction, adam_w_mode, max_grad_norm,
-                     trust_clip, always_adapt)
+                     trust_clip, always_adapt, shard_axis)

@@ -1,10 +1,15 @@
-"""SyncBatchNorm on one card.
+"""SyncBatchNorm — batch statistics shared across processes.
 
-Counterpart of ``apex_tpu/parallel/sync_batchnorm.py`` for a single
-process: the batch statistics reduce over every leading dim of a
-channels-last ``(N, ..., C)`` input.  Reducing them across processes
-(the JAX module's ``axis_names``, apex's ``process_group``) and
-``convert_syncbn_model`` come with ROADMAP.md A-5 and raise until then.
+Counterpart of ``apex_tpu/parallel/sync_batchnorm.py`` (reference
+``apex/parallel/{optimized_,}sync_batchnorm.py``): the batch statistics
+reduce over every leading dim of a channels-last ``(N, ..., C)`` input
+and over a process group — the mesh group of ``axis_names`` (the JAX
+module's; without a mesh the axes are unbound and the statistics local,
+as in JAX) or apex's ``process_group``.  With equal local batches the
+Welford combine is the sum of (Σx, Σx², n), one all-reduce; the
+backward all-reduces the cotangents of those sums (the transpose of the
+JAX ``psum``).  :func:`convert_syncbn_model` turns the BN layers of a
+model of the port into cross-process ones.
 
 ``fused=True`` routes the train-mode math through
 :func:`apex_tpu_torch.ops.batch_norm.batch_norm_train` (the fused
@@ -25,41 +30,48 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
+from apex_tpu_torch.core.mesh import DATA_AXIS
 from apex_tpu_torch.ops.batch_norm import (
+    AllReduceSum,
     batch_norm_inference,
     batch_norm_train,
+    sync_group,
 )
 from apex_tpu_torch.ops._dispatch import resolve_device
 
 __all__ = ["SyncBatchNorm", "sync_batch_norm_stats", "convert_syncbn_model"]
 
 
-def _local_only(axis_names, process_group=None):
-    if axis_names or process_group is not None:
-        raise NotImplementedError(
-            "SyncBatchNorm across processes (axis_names / process_group) "
-            "comes with ROADMAP.md A-5")
-
-
-def sync_batch_norm_stats(x, axis_names=None, *, reduce_dims):
-    """``(mean, var)`` over ``reduce_dims`` of ``x`` from the Σx / Σx²
-    sums, fp32 (the variance biased and not clamped, as in JAX)."""
-    _local_only(axis_names)
+def sync_batch_norm_stats(x, axis_names=None, *, reduce_dims,
+                          process_group=None):
+    """``(mean, var)`` over ``reduce_dims`` of ``x`` and over the group of
+    ``axis_names`` / ``process_group``, from the Σx / Σx² sums, fp32 (the
+    variance biased and not clamped, as in JAX); differentiable through
+    the group's sums."""
+    group = sync_group(axis_names, process_group)
     n = 1
     for d in reduce_dims:
         n *= x.shape[d]
     xf = x.float()
-    mean = xf.sum(reduce_dims) / float(n)
-    var = torch.square(xf).sum(reduce_dims) / float(n) - torch.square(mean)
+    s1 = xf.sum(reduce_dims)
+    s2 = torch.square(xf).sum(reduce_dims)
+    if group is not None:
+        s1, s2 = AllReduceSum.apply(torch.stack([s1, s2]), group)
+        n *= dist.get_world_size(group)
+    mean = s1 / float(n)
+    var = s2 / float(n) - torch.square(mean)
     return mean, var
 
 
 class SyncBatchNorm(nn.Module):
-    """BatchNorm over a channels-last ``(N, ..., C)`` input (apex
-    ``SyncBatchNorm`` on one card).  Train mode normalises with the batch
-    statistics and updates the running ones; eval mode
+    """BatchNorm over a channels-last ``(N, ..., C)`` input, its
+    statistics over the group of ``axis_names`` (a mesh's) or
+    ``process_group`` (apex ``SyncBatchNorm``; neither: local).  Train
+    mode normalises with the batch statistics and updates the running
+    ones (the group's, identical on every rank); eval mode
     (``module.eval()``) uses the running statistics."""
 
     def __init__(self, num_features: int, *, momentum: float = 0.9,
@@ -70,13 +82,14 @@ class SyncBatchNorm(nn.Module):
                  fused: bool = False, act: Optional[str] = None,
                  device=None):
         super().__init__()
-        _local_only(axis_names, process_group)
         if act not in (None, "relu"):
             raise ValueError(f"unknown act {act!r}")
         dev = resolve_device(device)
         self.num_features = num_features
         self.momentum, self.eps = momentum, eps
         self.fused, self.act = fused, act
+        self.axis_names = tuple(axis_names) if axis_names else ()
+        self.process_group = process_group
         kw = dict(dtype=param_dtype, device=dev)
         self.weight = (nn.Parameter(torch.ones(num_features, **kw))
                        if use_scale else None)
@@ -101,12 +114,14 @@ class SyncBatchNorm(nn.Module):
                 x, self.mean, self.var, self.weight, self.bias, eps=self.eps,
                 residual=residual, act=self.act)
         dims = tuple(range(x.ndim - 1))
+        group = sync_group(self.axis_names, self.process_group)
         if self.fused:
             y, mean, var = batch_norm_train(
                 x, self.weight, self.bias, eps=self.eps, residual=residual,
-                act=self.act)
+                act=self.act, process_group=group)
         else:
-            mean, var = sync_batch_norm_stats(x, reduce_dims=dims)
+            mean, var = sync_batch_norm_stats(x, reduce_dims=dims,
+                                              process_group=group)
             yf = (x.float() - mean) * torch.rsqrt(var + self.eps)
             if self.weight is not None:
                 yf = yf * self.weight.float()
@@ -118,7 +133,7 @@ class SyncBatchNorm(nn.Module):
                 yf = torch.clamp_min(yf, 0.0)
             y = yf.to(x.dtype)
         with torch.no_grad():
-            n = 1
+            n = 1 if group is None else dist.get_world_size(group)
             for d in dims:
                 n *= x.shape[d]
             m = self.momentum
@@ -128,8 +143,16 @@ class SyncBatchNorm(nn.Module):
         return y
 
 
-def convert_syncbn_model(module: nn.Module) -> nn.Module:
-    """``apex.parallel.convert_syncbn_model``: swapping BN layers for
-    statistics shared across processes comes with ROADMAP.md A-5."""
-    raise NotImplementedError(
-        "convert_syncbn_model comes with ROADMAP.md A-5")
+def convert_syncbn_model(module: nn.Module, axis_names=(DATA_AXIS,),
+                         process_group=None) -> nn.Module:
+    """``apex.parallel.convert_syncbn_model``: every BN layer of the port
+    in ``module`` (the :class:`SyncBatchNorm` its models build) takes
+    its statistics over the group of ``axis_names`` / ``process_group``
+    from now on; parameters and running statistics stay.  Returns
+    ``module`` (converted in place).  ``torch.nn.BatchNorm*d`` layers are
+    channels-first and are left to ``torch.nn.SyncBatchNorm``."""
+    for mod in module.modules():
+        if isinstance(mod, SyncBatchNorm):
+            mod.axis_names = tuple(axis_names) if axis_names else ()
+            mod.process_group = process_group
+    return module

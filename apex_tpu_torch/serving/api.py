@@ -27,7 +27,7 @@ Usage::
 The model carries its weights (a ``torch.nn.Module`` on the serving
 device), so there is no separate ``params`` argument.  Tensor
 parallelism, graceful drain and the fleet router come with a later
-slice (ROADMAP.md A-5).
+slice (ROADMAP.md A-5, item 10c).
 """
 
 from __future__ import annotations
@@ -163,7 +163,7 @@ class InferenceServer:
         if (tp and tp > 1) or mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (tp= / mesh=) comes with "
-                "ROADMAP.md A-5")
+                "ROADMAP.md A-5, item 10c")
         if kv_cache == "paged":
             if prompt_buckets is not None:
                 raise ValueError(

@@ -351,7 +351,7 @@ class PagedEngine:
     in one transfer and reads tokens, counts and finished flags back in
     one.  ``block_size=0`` means 16 and ``kv_dtype="auto"`` means
     unquantized (the port has no tuning table yet); ``mesh=`` (a
-    tensor-parallel pool) comes with ROADMAP.md A-5.
+    tensor-parallel pool) comes with ROADMAP.md A-5, item 10c.
     """
 
     paged = True
@@ -377,7 +377,7 @@ class PagedEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "a tensor-parallel paged pool (mesh=) comes with "
-                "ROADMAP.md A-5")
+                "ROADMAP.md A-5, item 10c")
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         if prefill_chunk < 1:

@@ -17,8 +17,8 @@ memory and call out of line at most once and never, as the GroupNorm
 cluster kernels must, which also need TMA loads (``_call_report``),
 logs the registers and occupancy of the RoPE kernel and the softmax
 backward (``_occupancy_report``), and then runs
-twenty-three phases, in the order 1, 2, 3, 6, 7,
-4, 5, 17, 10, 12, 18, 11, 8, 9, 15, 16, 13, 14, 19, 20, 21, 22, 23
+twenty-five phases, in the order 1, 2, 3, 6, 7,
+4, 5, 17, 10, 12, 18, 11, 8, 9, 15, 16, 13, 14, 19, 20, 21, 22, 23, 24, 25
 (Llama-2-7B is built once for 3, 6 and 7 and dropped before 4); any
 failure exits non-zero.
 
@@ -202,6 +202,26 @@ failure exits non-zero.
    at the step's shape times its launches); every timed loss below the
    loss at initialisation; ViT-tiny's O2 + FusedLAMB step on the card
    against the CPU.
+24. GPT-2 1.3B (24 layers, hidden 2048, 16 heads of 128, vocab 50304,
+   learned positions) in bf16 with remat, amp O2 + FusedAdam (bf16
+   moments), b = 8 x s = 1024, on the parallel path at a world of one
+   over NCCL (``init_distributed`` with no environment: a file store):
+   a mesh with a tensor axis of 1, sequence parallelism and ZeRO-2 over
+   the data axis, every collective called.  One step bitwise equal to
+   the same seeded step without a mesh and with the plain FusedAdam
+   state (loss, gradients, fp32 masters, parameters); 3 warm-up and 10
+   timed steps with samples/s, tokens/s, host ms, the split, peak
+   memory and the LayerNorm / flash launches a step; the initial loss
+   within 0.8-1.6 ln V, the loss falls.  The flash kernels' dropout
+   lanes for a tensor-parallel rank's heads: bitwise equal to the whole
+   call's heads.
+25. ResNet-50 amp O1 + FusedSGD (phase 15's model) at b = 128 with
+   ``convert_syncbn_model`` over the data axis and
+   ``DistributedDataParallel.mean_grads`` each step, at a world of one
+   over NCCL: one step bitwise equal to the local-BN step without DDP
+   (loss, gradients, parameters, running statistics); 3 warm-up and 10
+   timed steps, 53 launches a step of each BN kernel, the loss below its
+   initial value; one step over the int8 all-reduce, finite.
 
 A failed phase is also reported on standard error, last: its name, the
 lines it logged that name a failed check, and its last lines.
@@ -4669,6 +4689,406 @@ def phase_vit(torch, steps=10, warmup=3, b=32):
     return ok and good, stats
 
 
+# ------------------------------------------------------------------ #
+# phases 24, 25: the parallel slice on a world of one (NCCL)
+# ------------------------------------------------------------------ #
+# GPT-2 1.3B with remat: two LayerNorms a layer and the final one each
+# forward, the layers' recomputed once; one flash forward a layer and its
+# recomputation
+GPT_LAUNCHES = {"layer_norm": 97, "layer_norm_bwd": 49,
+                "flash_attention_fwd": 48, "flash_attention_bwd_dq": 24,
+                "flash_attention_bwd_dkv": 24}
+GPT_GROUPS = {"flash_fwd": r"fa_fwd_", "flash_dq": r"fa_bwd_dq_",
+              "flash_dkv": r"fa_bwd_dkv_", "layer_norm": r"ln_fwd_",
+              "layer_norm_bwd": r"ln_bwd_dx", "nccl": r"(?i)nccl",
+              "gemms": r"nvjet|gemm|cutlass"}
+
+
+def _world_of_one(torch):
+    """A world-of-one NCCL group (``init_distributed``, no environment:
+    a file store) and the mesh on it."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.core.mesh import initialize_mesh
+    from apex_tpu_torch.parallel.launch import init_distributed
+
+    init_distributed()
+    mesh = initialize_mesh(tensor_model_parallel_size=1)
+    log(f"  process group: backend {dist.get_backend()}, world "
+        f"{dist.get_world_size()}, mesh {mesh.shape}")
+    return dist.get_backend() == "nccl" and dist.get_world_size() == 1
+
+
+def _flash_lanes_check(torch):
+    """The dropout lanes of a tensor-parallel rank's heads on the card:
+    the three flash kernels on heads 4..7 of 16 with ``lanes=(16, 4)``
+    equal the whole call's heads 4..7 bit for bit (and the plain version
+    with the same lanes)."""
+    from apex_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(241)
+    b, s, h, d = 2, 384, 16, 128
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    args = (None, d ** -0.5, True, None, 0.1, 777)
+    part = slice(4, 8)
+
+    def run(q, k, v, do, lanes, kernel):
+        fwd = A.flash_fwd_kernel if kernel else A.flash_fwd_reference
+        o, lse = fwd(q, k, v, *args, lanes)
+        bw = (q, k, v, None, do, lse, A.attention_delta(do, o), *args[1:],
+              lanes)
+        dq_fn = A.flash_bwd_dq_kernel if kernel else A.flash_bwd_dq_reference
+        dkv_fn = (A.flash_bwd_dkv_kernel if kernel
+                  else A.flash_bwd_dkv_reference)
+        return (o, dq_fn(*bw), *dkv_fn(*bw))
+    whole = run(q, k, v, do, None, True)
+    sub = [t[:, :, part].contiguous() for t in (q, k, v, do)]
+    mine = run(*sub, (h, 4), True)
+    plain = run(*sub, (h, 4), False)
+    bitwise = all(torch.equal(a[:, :, part], m) for a, m in zip(whole, mine))
+    plain_err = max(float((m.float() - p.float()).abs().max())
+                    for m, p in zip(mine, plain))
+    log(f"  flash dropout lanes (16 heads, rank's 4..7): kernels equal the "
+        f"whole call's heads bitwise {bitwise}; max |kernel - plain| "
+        f"{plain_err:.3g}")
+    return bitwise and plain_err <= 2 ** -6, dict(
+        lanes_bitwise_whole_call=bitwise, lanes_plain_abs_err=plain_err)
+
+
+def phase_gpt_tp(torch, profile=False, steps=10, warmup=3, b=8, s=1024):
+    """GPT-2 1.3B (``apex_tpu/models/gpt.py``'s preset: 24 layers, hidden
+    2048, 16 heads of 128, vocab 50304, learned positions) in bf16 with
+    remat, amp O2 + FusedAdam with bf16 moments, b = 8 x s = 1024, on the
+    parallel path at a world of one: a mesh (tensor axis 1), sequence
+    parallelism and ZeRO stage 2 over the data axis, every collective
+    called over NCCL.  One step against the same seeded step without a
+    mesh and with the plain FusedAdam state: loss, gradients and updated
+    masters bitwise.  Then 3 warm-up and 10 timed steps: samples/s,
+    tokens/s, host ms, the fwd/bwd/opt split, peak memory, the LayerNorm
+    and flash launches a step; the initial loss within 0.8-1.6 ln V and
+    the loss falls.  Last, the flash kernels' dropout lanes for a
+    tensor-parallel rank's heads (``_flash_lanes_check``)."""
+    import dataclasses
+
+    from apex_tpu_torch import _build, amp
+    from apex_tpu_torch.models import GPTConfig, GPTModel, gpt_loss_fn
+    from apex_tpu_torch.optim import fused_adam
+    from apex_tpu_torch.parallel.distributed_optim import ZeroConfig
+    from apex_tpu_torch.parallel.launch import destroy_distributed
+
+    log(f"phase 24: GPT-2 1.3B amp O2 on the TP/SP/ZeRO-2 path at a world "
+        f"of one (NCCL), b={b} s={s}, remat")
+    dev = torch.device("cuda")
+    cfg = GPTConfig.gpt2_1p3b(dtype=torch.bfloat16, remat=True,
+                              sequence_parallel=True)
+    ok, stats = True, {}
+    try:
+        # the plain twin: built before the mesh, so its layers hold whole
+        # weights and call nothing; the same weights for both
+        plain = GPTModel(cfg, device=dev)
+        plain.init_weights(torch.Generator(device=dev).manual_seed(24))
+        sd = plain.state_dict()
+        ok &= gate("world of one over NCCL", _world_of_one(torch))
+        model = GPTModel(cfg, device=dev)
+        model.load_state_dict(sd)
+        del sd
+        opt = dict(moment_dtype=torch.bfloat16)
+        ref = amp.initialize(plain, fused_adam(1e-4, **opt), "O2",
+                             half_dtype=torch.bfloat16)
+        state = amp.initialize(model, fused_adam(1e-4, **opt), "O2",
+                               half_dtype=torch.bfloat16,
+                               zero=ZeroConfig(axis="data", stage=2))
+        g = torch.Generator(device=dev).manual_seed(25)
+        ids = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=g,
+                            device=dev)
+        x, y = ids[:, :-1], ids[:, 1:]
+
+        def loss_of(m):
+            return gpt_loss_fn(m(x).float(), y)
+
+        # one step each: loss, gradients, masters bit for bit
+        losses0 = []
+        for st, m in ((ref, plain), (state, model)):
+            loss = loss_of(m)
+            st.scale_loss(loss).backward()
+            losses0.append(loss.detach())
+        same_loss = torch.equal(losses0[0], losses0[1])
+        bad_grads = [n for (n, a), (_, q) in zip(plain.named_parameters(),
+                                                 model.named_parameters())
+                     if not torch.equal(a.grad, q.grad)]
+        ref.apply_gradients()
+        state.apply_gradients()
+        mz, mp = state.master_params(), ref.master_params()
+        bad_masters = [n for n in mp if not torch.equal(mp[n], mz[n])]
+        bad_params = [n for (n, a), (_, q) in zip(plain.named_parameters(),
+                                                  model.named_parameters())
+                      if not torch.equal(a, q)]
+        ident = dict(loss_plain=float(losses0[0]), loss_mesh=float(losses0[1]),
+                     loss_bitwise=same_loss, grads=len(mp),
+                     grads_differing=bad_grads[:5],
+                     masters_differing=bad_masters[:5],
+                     params_differing=bad_params[:5])
+        log(f"  one step, mesh + SP + ZeRO-2 against plain: "
+            f"{json.dumps(ident)}")
+        ok &= gate("GPT-2 1.3B: loss, gradients, masters and params of the "
+                   "parallel step bitwise equal to the plain step",
+                   same_loss and not bad_grads and not bad_masters
+                   and not bad_params)
+        stats["identity"] = ident
+        del mz, mp
+
+        def plain_step():
+            loss = loss_of(plain)
+            ref.scale_loss(loss).backward()
+            ref.apply_gradients()
+            return loss.detach()
+        # the plain twin's own steps, for what the parallel path costs
+        plain_ms, _, plain_host = _event_times(torch, plain_step, 4)
+        stats.update(plain_step_ms=plain_ms, plain_host_ms=plain_host)
+        log(f"  plain steps (no mesh, plain FusedAdam): ms {plain_ms}, "
+            f"host ms {plain_host}")
+        del ref, plain
+        torch.cuda.empty_cache()
+        loss_init = float(losses0[0])
+        ln_v = math.log(cfg.vocab_size)
+        ok &= gate(f"GPT-2 1.3B: initial loss {loss_init:.4f} within "
+                   f"0.8-1.6 ln V ({ln_v:.4f})",
+                   0.8 * ln_v <= loss_init <= 1.6 * ln_v)
+
+        def train_step():
+            loss = loss_of(model)
+            state.scale_loss(loss).backward()
+            finite = state.apply_gradients()
+            return loss.detach(), finite
+
+        def fwd_only():
+            with torch.no_grad():
+                return loss_of(model)
+
+        def fwd_bwd():
+            loss = loss_of(model)
+            state.scale_loss(loss).backward()
+            for q in model.parameters():
+                q.grad = None
+            return loss.detach()
+
+        warm_losses = [float(train_step()[0]) for _ in range(warmup)]
+        t_fwd = sorted(_event_times(torch, fwd_only, 5)[0])[2]
+        t_fb = sorted(_event_times(torch, fwd_bwd, 5)[0])[2]
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        step_ms, outs, host_ms = _event_times(torch, train_step, steps)
+        launches = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(o[0]) for o in outs]
+        finite = [bool(o[1]) for o in outs]
+        t_step = sum(step_ms) / len(step_ms)
+        per_step = {k: v / steps for k, v in launches.items()}
+        prof = (_profile_train(torch, train_step, groups=GPT_GROUPS)
+                if profile else None)
+        stats.update(
+            samples_per_s=b * steps / (sum(step_ms) / 1e3),
+            tokens_per_s=b * s * steps / (sum(step_ms) / 1e3),
+            step_ms=step_ms, host_ms_per_step=sum(host_ms) / len(host_ms),
+            fwd_ms=t_fwd, bwd_ms=max(t_fb - t_fwd, 0.0),
+            opt_ms=max(t_step - t_fb, 0.0), peak_bytes=peak,
+            loss_init=loss_init, warmup_losses=warm_losses, losses=losses,
+            finite=finite, params=sum(q.numel() for q in model.parameters()),
+            launches_per_step=per_step, launches=launches)
+        log(f"  {json.dumps({k: v for k, v in stats.items() if k not in ('launches', 'identity')})}")
+        if prof is not None:
+            stats["profile"] = prof
+            log(f"  profile: {json.dumps(prof)}")
+        ok &= gate("GPT-2 1.3B: finite steps and the loss falls",
+                   all(finite) and all(np.isfinite(warm_losses + losses))
+                   and losses[-1] < loss_init)
+        for name, want in GPT_LAUNCHES.items():
+            ok &= gate(f"launches of {name}: {per_step.get(name)} a step, "
+                       f"expected {want}", per_step.get(name) == want)
+        del model, state, outs
+        torch.cuda.empty_cache()
+        good, stats["flash_lanes"] = _flash_lanes_check(torch)
+        ok &= gate("flash dropout lanes of a rank's heads", good)
+    finally:
+        destroy_distributed()
+    return ok, stats
+
+
+def phase_resnet_ddp(torch, profile=False, steps=10, warmup=3, b=128,
+                     size=224):
+    """ResNet-50 (phase 15's: bf16 compute copy, fused BN, s2d stem) amp
+    O1 + FusedSGD at b = 128 on 224x224, with every BN converted to the
+    data group's statistics (``convert_syncbn_model``) and the gradients
+    averaged by ``DistributedDataParallel.mean_grads`` each step, at a
+    world of one over NCCL.  One step (cuDNN deterministic) against the
+    same seeded step of the local-BN model without DDP: loss, gradients,
+    parameters and running statistics bitwise.  Then 3 warm-up and 10
+    timed steps (samples/s, host ms, the split, peak memory; each BN
+    kernel 53 launches a step; the loss falls below its value at
+    initialisation), and one step over the int8 all-reduce (a quantize
+    round trip at one rank: finite, not bitwise)."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch import _build, amp
+    from apex_tpu_torch.models import resnet50
+    from apex_tpu_torch.optim import fused_sgd
+    from apex_tpu_torch.parallel import (
+        DistributedDataParallel,
+        convert_syncbn_model,
+    )
+    from apex_tpu_torch.parallel.launch import destroy_distributed
+
+    log(f"phase 25: ResNet-50 amp O1 + DDP + SyncBatchNorm at a world of "
+        f"one (NCCL), b={b}, {size}x{size}")
+    dev = torch.device("cuda")
+    bench_was = torch.backends.cudnn.benchmark
+    det_was = torch.backends.cudnn.deterministic
+    ok, stats = True, {}
+    try:
+        ok &= gate("world of one over NCCL", _world_of_one(torch))
+        local = resnet50(dtype=torch.bfloat16, fused_bn=True, stem="s2d")
+        local.init_weights(torch.Generator(device=dev).manual_seed(9))
+        model = resnet50(dtype=torch.bfloat16, fused_bn=True, stem="s2d")
+        model.load_state_dict(local.state_dict())
+        convert_syncbn_model(model, ("data",))
+        ddp = DistributedDataParallel()
+        ddp.replicate(model)
+
+        def sgd():
+            return fused_sgd(0.1, momentum=0.9, weight_decay=1e-4)
+        ref = amp.initialize(local, sgd(), "O1")
+        state = amp.initialize(model, sgd(), "O1")
+        g = torch.Generator(device=dev).manual_seed(10)
+        images = torch.randn(b, size, size, 3, generator=g, device=dev)
+        labels = torch.randint(0, 1000, (b,), generator=g, device=dev)
+        onehot = F.one_hot(labels, 1000).float()
+        images, onehot = ddp.shard((images, onehot))
+
+        def loss_of(m):
+            return _resnet_loss(torch, m(images), onehot)
+
+        def ddp_step(d=ddp):
+            loss = loss_of(model)
+            state.scale_loss(loss).backward()
+            grads = d.mean_grads([q.grad for q in state.module_params])
+            finite = state.apply_gradients(grads)
+            for q in state.module_params:
+                q.grad = None
+            return loss.detach(), finite
+
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = True
+        loss_r = loss_of(local)
+        ref.scale_loss(loss_r).backward()
+        grads_r = {n: q.grad.clone() for n, q in local.named_parameters()}
+        ref.apply_gradients()
+        loss_m = loss_of(model)
+        state.scale_loss(loss_m).backward()
+        grads_m = ddp.mean_grads({n: q.grad for n, q in
+                                  model.named_parameters()})
+        state.apply_gradients([grads_m[n] for n in state.names])
+        bad = dict(
+            grads=[n for n in grads_r if not torch.equal(grads_r[n],
+                                                         grads_m[n])],
+            params=[n for (n, a), (_, q) in zip(local.named_parameters(),
+                                                model.named_parameters())
+                    if not torch.equal(a, q)],
+            stats=[n for (n, a), (_, q) in zip(local.named_buffers(),
+                                               model.named_buffers())
+                   if not torch.equal(a, q)])
+        ident = dict(loss_local=float(loss_r.detach()),
+                     loss_ddp=float(loss_m.detach()),
+                     loss_bitwise=torch.equal(loss_r, loss_m),
+                     **{f"{k}_differing": v[:5] for k, v in bad.items()})
+        log(f"  one step, SyncBN + DDP against local BN: {json.dumps(ident)}")
+        ok &= gate("ResNet-50: loss, gradients, parameters and running "
+                   "statistics of the DDP + SyncBN step bitwise equal to "
+                   "the local step", ident["loss_bitwise"]
+                   and not any(bad.values()))
+        stats["identity"] = ident
+        del grads_r, grads_m
+        torch.backends.cudnn.deterministic = det_was
+        torch.backends.cudnn.benchmark = True
+
+        def local_step():
+            loss = loss_of(local)
+            ref.scale_loss(loss).backward()
+            ref.apply_gradients()
+            return loss.detach()
+        # the local model's own steps (no SyncBN, no DDP), for what the
+        # parallel path costs
+        for _ in range(warmup):
+            local_step()
+        local_ms, _, local_host = _event_times(torch, local_step, 5)
+        stats.update(local_step_ms=local_ms, local_host_ms=local_host)
+        log(f"  local steps (local BN, no DDP): ms {local_ms}, host ms "
+            f"{local_host}")
+        del ref, local
+        torch.cuda.empty_cache()
+        loss_init = float(loss_m.detach())
+
+        def fwd_only():
+            with torch.no_grad():
+                return loss_of(model)
+
+        def fwd_bwd():
+            loss = loss_of(model)
+            state.scale_loss(loss).backward()
+            ddp.mean_grads([q.grad for q in state.module_params])
+            for q in state.module_params:
+                q.grad = None
+            return loss.detach()
+
+        warm_losses = [float(ddp_step()[0]) for _ in range(warmup)]
+        t_fwd = sorted(_event_times(torch, fwd_only, 5)[0])[2]
+        t_fb = sorted(_event_times(torch, fwd_bwd, 5)[0])[2]
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        step_ms, outs, host_ms = _event_times(torch, ddp_step, steps)
+        launches = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(o[0]) for o in outs]
+        finite = [bool(o[1]) for o in outs]
+        t_step = sum(step_ms) / len(step_ms)
+        per_step = {k: launches.get(k, 0) / steps for k in BN_KERNELS}
+        prof = (_profile_train(torch, ddp_step, groups=dict(
+            RESNET_GROUPS, nccl=r"(?i)nccl")) if profile else None)
+        int8 = DistributedDataParallel(allreduce_dtype="int8")
+        l8, f8 = ddp_step(int8)
+        int8_ok = (bool(f8) and math.isfinite(float(l8)) and all(
+            bool(torch.isfinite(q).all()) for q in model.parameters()))
+        stats.update(
+            samples_per_s=b * steps / (sum(step_ms) / 1e3), step_ms=step_ms,
+            host_ms_per_step=sum(host_ms) / len(host_ms), fwd_ms=t_fwd,
+            bwd_ms=max(t_fb - t_fwd, 0.0), opt_ms=max(t_step - t_fb, 0.0),
+            peak_bytes=peak, loss_init=loss_init, warmup_losses=warm_losses,
+            losses=losses, finite=finite, int8_step_loss=float(l8),
+            int8_step_finite=int8_ok, launches_per_step=per_step,
+            launches=launches)
+        log(f"  {json.dumps({k: v for k, v in stats.items() if k not in ('launches', 'identity')})}")
+        if prof is not None:
+            stats["profile"] = prof
+            log(f"  profile: {json.dumps(prof)}")
+        ok &= gate("ResNet-50 DDP: finite steps, the loss below its value "
+                   "at initialisation",
+                   all(finite) and all(np.isfinite(warm_losses + losses))
+                   and min(warm_losses + losses) < loss_init)
+        ok &= gate("ResNet-50 DDP: one int8 all-reduce step, finite", int8_ok)
+        for name in BN_KERNELS:
+            ok &= gate(f"launches of {name}: {per_step[name]} a step, "
+                       f"expected {RESNET_BN_LAUNCHES}",
+                       per_step[name] == RESNET_BN_LAUNCHES)
+        del model, state, outs, images
+    finally:
+        torch.backends.cudnn.benchmark = bench_was
+        torch.backends.cudnn.deterministic = det_was
+        destroy_distributed()
+        torch.cuda.empty_cache()
+    return ok, stats
+
+
 def _vit_attention_ms(torch, b, cfg, per_step):
     """``{kernel: {route, ms, launches, ms_per_step}, "total": ms}``: the
     flash kernels at ViT-Huge's attention shape in bf16, device ms a call
@@ -4962,8 +5382,8 @@ def main(argv=None):
                     help="build the kernels and run phase 1 only")
     ap.add_argument("--profile", action="store_true",
                     help="also profile steady decode steps in phases 3, 6 "
-                         "and 7 and training steps in phases 4, 8, 15 "
-                         "and 17")
+                         "and 7 and training steps in phases 4, 8, 15, "
+                         "17, 24 and 25")
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run after the build, "
                          "phase 1 and the kernels record left out (a "
@@ -5054,6 +5474,8 @@ def main(argv=None):
         ("21", lambda: phase_mistral(torch)),
         ("22", lambda: phase_mixtral(torch)),
         ("23", lambda: phase_vit(torch)),
+        ("24", lambda: phase_gpt_tp(torch, args.profile)),
+        ("25", lambda: phase_resnet_ddp(torch, args.profile)),
     ]
     if only:
         phases = [(n, r) for n, r in phases if n in only]
@@ -5078,9 +5500,9 @@ def main(argv=None):
     (serve, paged, paged8, train, ident, resnet, resnet_ident, train_fp8,
      chain, fp8_ident, gn_block, block_ident, resnet_o1, resnet_o1_ident,
      train_o1, optimizers, gn_faults, remat, mistral, mixtral,
-     vit) = (results.get(n) for n in (
+     vit, gpt_tp, resnet_ddp) = (results.get(n) for n in (
          "3", "6", "7", "4", "5", "8", "9", "10", "11", "12", "13", "14",
-         "15", "16", "17", "18", "19", "20", "21", "22", "23"))
+         "15", "16", "17", "18", "19", "20", "21", "22", "23", "24", "25"))
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5098,7 +5520,8 @@ def main(argv=None):
                        resnet_o1_identity=resnet_o1_ident,
                        train_o1=train_o1, optimizers=optimizers,
                        group_norm_faults=gn_faults, remat=remat,
-                       mistral=mistral, mixtral=mixtral, vit=vit), f,
+                       mistral=mistral, mixtral=mixtral, vit=vit,
+                       gpt_tp=gpt_tp, resnet_ddp=resnet_ddp), f,
                   indent=1)
     if not ok:
         log("chip_smoke: FAILED")
@@ -5112,7 +5535,7 @@ def main(argv=None):
     # stage-0 bn3 (residual and ReLU) bf16 for the BatchNorm passes,
     # BERT-Large's masters for the fp8 Adam step and its scores for the
     # softmax; launches are the counts of the main-path runs (phases 3,
-    # 6, 7, 4, 8, 10, 11 and 13, the O1 runs 15 and 17, and 20-23)
+    # 6, 7, 4, 8, 10, 11 and 13, the O1 runs 15 and 17, and 20-25)
     pick = {
         "layer_norm": ("layer_norm/stats", (8192, 1024), "torch.bfloat16"),
         "layer_norm_bwd": ("layer_norm_bwd", (8192, 1024),
@@ -5177,7 +5600,7 @@ def main(argv=None):
         n = sum((st or {}).get("launches", {}).get(name, 0)
                 for st in (serve, paged, paged8, train, resnet, train_fp8,
                            chain, gn_block, resnet_o1, train_o1, remat,
-                           mistral, mixtral, vit))
+                           mistral, mixtral, vit, gpt_tp, resnet_ddp))
         kernels.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"], launches=n,

@@ -296,17 +296,24 @@ def test_flax_batchnorm_agrees_on_the_normalisation():
 # what the op refuses
 # ------------------------------------------------------------------ #
 def test_axis_names_and_process_groups_name_a5():
+    # cross-process statistics are ported (item 10a; the multi-process
+    # checks are in test_torch_parallel.py).  Without a mesh the axes
+    # are unbound and the statistics local, as JAX ignores unbound axes
     x = _t(_data(47)[0])
-    with pytest.raises(NotImplementedError, match="A-5"):
-        B.batch_norm_train(x, axis_names=("data",))
-    with pytest.raises(NotImplementedError, match="A-5"):
-        SyncBatchNorm(64, axis_names=("data",), device="cpu")
-    with pytest.raises(NotImplementedError, match="A-5"):
-        SyncBatchNorm(64, process_group=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A-5"):
-        convert_syncbn_model(torch.nn.Linear(2, 2))
-    with pytest.raises(NotImplementedError, match="A-5"):
-        sync_batch_norm_stats(x, ("data",), reduce_dims=(0, 1, 2))
+    y0, m0, v0 = B.batch_norm_train(x)
+    y1, m1, v1 = B.batch_norm_train(x, axis_names=("data",))
+    assert torch.equal(y0, y1) and torch.equal(m0, m1) and torch.equal(v0, v1)
+    bn = SyncBatchNorm(64, axis_names=("data",), device="cpu")
+    assert bn.axis_names == ("data",)
+    assert torch.equal(bn(x), SyncBatchNorm(64, device="cpu")(x))
+    pg = SyncBatchNorm(64, process_group=object(), device="cpu")
+    assert pg.process_group is not None
+    lin = torch.nn.Linear(2, 2)
+    assert convert_syncbn_model(lin) is lin
+    seq = torch.nn.Sequential(SyncBatchNorm(64, device="cpu"))
+    assert convert_syncbn_model(seq)[0].axis_names == ("data",)
+    mean, var = sync_batch_norm_stats(x, ("data",), reduce_dims=(0, 1, 2))
+    assert torch.equal(mean, m0)
 
 
 def test_layout_and_argument_checks():

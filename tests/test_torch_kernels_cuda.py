@@ -10,7 +10,9 @@ tie (the exclusive cumulative mass at the boundary within 1e-5 of
 top_p, as ``chip_smoke.py`` allows); a rerun is bitwise.  The softmax is
 within 2e-6 in fp32 and one ulp in the half types (the backward plus
 what another order of its row sum moves dx by), and reruns bitwise.
-RoPE equals its plain version bit for bit.
+RoPE equals its plain version bit for bit.  The flash kernels' dropout
+lanes for a tensor-parallel rank's heads equal the whole call's heads
+bit for bit.
 """
 
 import math
@@ -211,3 +213,43 @@ def test_bert_token_type_gradient_reruns_bitwise_on_card(cuda_device):
     grads = [torch.autograd.grad(_TypeRows.apply(ids, table), table, dy)[0]
              for _ in range(30)]
     assert all(torch.equal(x, grads[0]) for x in grads[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16),
+                                     (64, torch.float16),
+                                     (80, torch.bfloat16),
+                                     (96, torch.float32)])
+def test_flash_dropout_lanes_of_a_tensor_parallel_rank(d, dtype,
+                                                       cuda_device):
+    """A tensor-parallel rank's heads (4..7 of 16, ``lanes=(16, 4)``) drop
+    what the whole call drops for those heads: the three flash kernels
+    on the rank's heads equal the whole call's bit for bit, and their
+    plain versions with the same lanes."""
+    from apex_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    b, s, h = 2, 200, 16
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=cuda_device)
+                   .to(dtype) for _ in range(4))
+    args = (None, d ** -0.5, True, None, 0.1, 4242)
+
+    def run(q, k, v, do, lanes, kernel):
+        fwd = A.flash_fwd_kernel if kernel else A.flash_fwd_reference
+        o, lse = fwd(q, k, v, *args, lanes)
+        bw = (q, k, v, None, do, lse, A.attention_delta(do, o), *args[1:],
+              lanes)
+        dq = (A.flash_bwd_dq_kernel if kernel
+              else A.flash_bwd_dq_reference)(*bw)
+        dk, dv = (A.flash_bwd_dkv_kernel if kernel
+                  else A.flash_bwd_dkv_reference)(*bw)
+        return o, dq, dk, dv
+    whole = run(q, k, v, do, None, True)
+    sub = [t[:, :, 4:8].contiguous() for t in (q, k, v, do)]
+    mine = run(*sub, (h, 4), True)
+    plain = run(*sub, (h, 4), False)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for a, m, p in zip(whole, mine, plain):
+        assert torch.equal(a[:, :, 4:8], m)
+        assert float((m.float() - p.float()).abs().max()) <= tol * max(
+            1.0, float(p.float().abs().max()))

@@ -214,8 +214,14 @@ def test_module_names_and_layouts():
     assert model.fc.weight.shape == (10, 2048)
     with pytest.raises(ValueError, match="unknown stem"):
         ResNet(ResNetConfig(stem="patch"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A-5"):
-        ResNet(ResNetConfig(bn_axis_names=("data",), **TINY), device="cpu")
+    # bn_axis_names (item 10a): every BN takes the data group's
+    # statistics on a mesh, the local ones without
+    synced = ResNet(ResNetConfig(bn_axis_names=("data",), **TINY),
+                    device="cpu")
+    bns = [m for m in synced.modules() if hasattr(m, "axis_names")]
+    assert len(bns) == len([n for n, _ in synced.named_buffers()
+                            if n.endswith(".mean")]) > 0
+    assert all(m.axis_names == ("data",) for m in bns)
 
 
 # ------------------------------------------------------------------ #

@@ -1,0 +1,324 @@
+"""Rank functions of the port's multi-process CPU tests.
+
+Each function runs on every rank of a gloo group started by
+``apex_tpu_torch.transformer.testing.commons.run_on_ranks`` and returns
+what the test compares against the JAX package.  This module imports
+only torch, numpy and the port, so that a spawned rank stays light;
+the JAX side lives in the test files.
+"""
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from apex_tpu_torch.transformer.testing import commons
+
+F32 = torch.float32
+
+
+def _t(a, dtype=F32):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+
+
+def _grad_of(fn, *xs):
+    """``(fn(*xs), grads)`` of ``fn``'s output summed (or the scalar)."""
+    xs = [x.clone().requires_grad_(True) for x in xs]
+    y = fn(*xs)
+    (y if y.dim() == 0 else y.sum()).backward()
+    return y.detach(), [x.grad for x in xs]
+
+
+# --------------------------------------------------------------------- #
+# tensor parallelism: mappings, layers, cross entropy, keys (tp = world)
+# --------------------------------------------------------------------- #
+def tensor_parallel_checks(rank, world, d):
+    from apex_tpu_torch.ops.fused_sampling import prng_key
+    from apex_tpu_torch.transformer import mappings as M
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.transformer.cross_entropy import (
+        vocab_parallel_cross_entropy,
+    )
+    from apex_tpu_torch.transformer.layers import (
+        column_parallel_linear,
+        row_parallel_linear,
+        vocab_parallel_embedding,
+    )
+    from apex_tpu_torch.transformer.random import model_parallel_rng_key
+
+    commons.initialize_distributed(tensor_model_parallel_size=world,
+                                   device="cpu")
+    out = {"tp_size": ps.get_tensor_model_parallel_world_size(),
+           "tp_rank": ps.get_tensor_model_parallel_rank(),
+           "dp_size": ps.get_data_parallel_world_size()}
+    x = _t(d["x"])                                    # (8, 16)
+
+    def chunk(t, dim):
+        n = t.shape[dim] // world
+        return t.narrow(dim, rank * n, n).contiguous()
+
+    # the seven mappings: forward and the input's gradient of a loss
+    # weighting each output element by w (so no gradient is trivial)
+    def fwd_bwd(fn, x_in, w):
+        _, (g,) = _grad_of(lambda t: (fn(t) * w).sum(), x_in)
+        return fn(x_in.detach()), g
+    wt = _t(d["w_out"])                               # (8, 16) weights
+    out["copy"] = fwd_bwd(M.copy_to_tensor_parallel_region, x, wt)
+    out["reduce"] = fwd_bwd(M.reduce_from_tensor_parallel_region,
+                            x * (rank + 1), wt)
+    out["scatter"] = fwd_bwd(M.scatter_to_tensor_parallel_region, x,
+                             chunk(wt, 1))
+    out["gather"] = fwd_bwd(M.gather_from_tensor_parallel_region,
+                            chunk(x, 1), wt)
+    out["rs_seq"] = fwd_bwd(
+        lambda t: M.reduce_scatter_to_sequence_parallel_region(t, dim=0),
+        x * (rank + 1), chunk(wt, 0))
+    out["gather_seq"] = fwd_bwd(
+        lambda t: M.gather_from_sequence_parallel_region(t, dim=0),
+        chunk(x, 0), wt)
+    out["scatter_seq"] = fwd_bwd(
+        lambda t: M.scatter_to_sequence_parallel_region(t, dim=0), x,
+        chunk(wt, 0))
+
+    # column -> relu -> row against dense, forward and weight gradients
+    w1, w2 = _t(d["w1"]), _t(d["w2"])                 # torch (out, in)
+
+    def block(w1s, w2s, sp):
+        xin = chunk(x, 0) if sp else x
+        h = torch.relu(column_parallel_linear(xin, w1s,
+                                              sequence_parallel=sp,
+                                              seq_dim=0))
+        y = row_parallel_linear(h, w2s, sequence_parallel=sp, seq_dim=0)
+        return (y ** 2).sum(), y
+    for sp in (False, True):
+        w1s = chunk(w1, 0).requires_grad_(True)
+        w2s = chunk(w2, 1).requires_grad_(True)
+        loss, y = block(w1s, w2s, sp)
+        # the loss of each rank's (sequence) part; summed over ranks it
+        # is the whole loss under SP, the whole loss itself without
+        loss.backward()
+        out[f"col_row_sp{int(sp)}"] = (y.detach(), w1s.grad, w2s.grad)
+
+    # vocab-parallel embedding and cross entropy
+    table = _t(d["table"])                            # (64, 8)
+    ids = torch.from_numpy(d["ids"]).long()
+    out["embedding"] = vocab_parallel_embedding(ids, chunk(table, 0))
+    logits, labels = _t(d["logits"]), torch.from_numpy(d["labels"]).long()
+    for sm in (0.0, 0.1):
+        ls = chunk(logits, 1).requires_grad_(True)
+        nll = vocab_parallel_cross_entropy(ls, labels, smoothing=sm)
+        nll.mean().backward()
+        out[f"xent_{sm}"] = (nll.detach(), ls.grad)
+    out["key"] = model_parallel_rng_key(prng_key(d["seed"]))
+    return out
+
+
+# --------------------------------------------------------------------- #
+# a tiny GPT, tensor- (and data-) parallel
+# --------------------------------------------------------------------- #
+def _gpt_loss_and_grads(model, ids, labels, dropout_seed=None):
+    from apex_tpu_torch.models.gpt import gpt_loss_fn
+
+    logits = model(ids, deterministic=dropout_seed is None,
+                   dropout_seed=dropout_seed)
+    loss = gpt_loss_fn(logits.float(), labels)
+    loss.backward()
+    return loss.detach(), {n: p.grad for n, p in model.named_parameters()}
+
+
+def gpt_tp_checks(rank, world, d, tp, sequence_parallel):
+    """Loss and this rank's gradients of the tiny GPT at ``tp`` tensor
+    ranks (data parallel over the rest, the gradients averaged by the
+    DDP all-reduce), from the whole weights ``d["sd"]``; with
+    ``d["dropout"]`` also the same with dropout, at tp and without a
+    mesh."""
+    from apex_tpu_torch.parallel.ddp import all_reduce_mean_grads
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    commons.initialize_distributed(tensor_model_parallel_size=tp,
+                                   device="cpu")
+    sd = {k: _t(v) for k, v in d["sd"].items()}
+    ids = torch.from_numpy(d["ids"]).long()
+    labels = torch.from_numpy(d["labels"]).long()
+    dp, dp_rank = ps.get_data_parallel_world_size(), ps.get_data_parallel_rank()
+    b = ids.shape[0] // dp
+    mine = slice(dp_rank * b, (dp_rank + 1) * b)
+    kw = dict(device="cpu", state_dict=sd, sequence_parallel=sequence_parallel,
+              **d["cfg"])
+    model = commons.standalone_gpt(**kw)
+    loss, grads = _gpt_loss_and_grads(model, ids[mine], labels[mine])
+    names = list(grads)
+    grads = dict(zip(names, all_reduce_mean_grads(
+        [grads[n] for n in names], "data")))
+    loss = all_reduce_mean_grads(loss, "data")
+    out = {"loss": loss, "grads": grads, "tp_rank": ps.get_tensor_model_parallel_rank()}
+    if d.get("dropout"):
+        cfg = dict(d["cfg"], attention_dropout=0.1, hidden_dropout=0.1)
+        kw = dict(device="cpu", state_dict=sd,
+                  sequence_parallel=sequence_parallel, **cfg)
+        model = commons.standalone_gpt(**kw)
+        out["drop_loss"], out["drop_grads"] = _gpt_loss_and_grads(
+            model, ids, labels, dropout_seed=1234)
+        with commons.without_mesh():
+            whole = commons.standalone_gpt(**kw)
+            out["drop_loss_tp1"], out["drop_grads_tp1"] = \
+                _gpt_loss_and_grads(whole, ids, labels, dropout_seed=1234)
+    if d.get("bert"):
+        out.update(_bert_tp(ids, labels, sequence_parallel))
+    return out
+
+
+def _bert_tp(ids, labels, sequence_parallel):
+    """A tiny BERT (key padding, masked positions, dropout) on the mesh
+    against the same BERT without one: logits, pooled, loss, gradients."""
+    from apex_tpu_torch.models.bert import bert_mlm_loss_fn
+
+    cfg = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
+               max_seq_len=32, attention_dropout=0.1, hidden_dropout=0.1,
+               sequence_parallel=sequence_parallel)
+    with commons.without_mesh():
+        whole = commons.standalone_bert(7, device="cpu", **cfg)
+    sd = whole.state_dict()
+    mask = torch.ones_like(ids)
+    mask[0, 10:] = 0
+    pos = torch.arange(4).repeat(ids.shape[0], 1) * 3 + 1
+    mlm_labels = torch.gather(labels, 1, pos)
+
+    def run(model):
+        logits, pooled = model(ids, attention_mask=mask, mlm_positions=pos,
+                               deterministic=False, dropout_seed=55)
+        loss = bert_mlm_loss_fn(logits.float(), mlm_labels)
+        loss.backward()
+        return dict(logits=logits.detach(), pooled=pooled.detach(),
+                    loss=loss.detach(),
+                    grads={n: p.grad for n, p in model.named_parameters()})
+    out = {"bert": run(commons.standalone_bert(device="cpu", state_dict=sd,
+                                               **cfg))}
+    with commons.without_mesh():
+        out["bert_tp1"] = run(commons.standalone_bert(
+            device="cpu", state_dict=sd, **cfg))
+    return out
+
+
+# --------------------------------------------------------------------- #
+# data parallelism: DDP all-reduce, SyncBatchNorm, mesh bookkeeping
+# --------------------------------------------------------------------- #
+def ddp_checks(rank, world, d):
+    from apex_tpu_torch.parallel import ddp
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    mesh = commons.initialize_distributed(device="cpu")
+    out = {"world": ps.get_data_parallel_world_size(),
+           "rank": ps.get_data_parallel_rank(),
+           "line": mesh.line("data")}
+    grads = [_t(g[rank]) for g in d["grads"]]
+    for name, kw in (("mean", {}), ("sum", dict(average=False)),
+                     ("bf16", dict(allreduce_dtype=torch.bfloat16)),
+                     ("int8", dict(allreduce_dtype="int8")),
+                     ("int8_sum", dict(allreduce_dtype="int8",
+                                       average=False))):
+        out[name] = ddp.all_reduce_mean_grads(grads, "data", **kw)
+    special = [_t(g[rank]) for g in d["special"]]
+    out["int8_special"] = ddp.all_reduce_mean_grads(
+        special, "data", allreduce_dtype="int8")
+    # replicate: every rank ends with rank 0's tensors
+    p = torch.full((3,), float(rank))
+    ddp.replicate([p])
+    out["replicated"] = p
+    out["shard"] = ddp.shard_batch(torch.arange(8 * world).view(-1, 1) * 1.0)
+    return out
+
+
+def syncbn_checks(rank, world, d):
+    """SyncBatchNorm over the data axis, fused and not: outputs, running
+    statistics and the gradients of a loss weighting the output."""
+    from apex_tpu_torch.ops.batch_norm import batch_norm_train
+    from apex_tpu_torch.parallel.sync_batchnorm import (
+        SyncBatchNorm,
+        convert_syncbn_model,
+        sync_batch_norm_stats,
+    )
+
+    commons.initialize_distributed(device="cpu")
+    x = _t(d["x"][rank])                          # (N, H, W, C) local
+    dy = _t(d["dy"][rank])
+    res = _t(d["res"][rank])
+    w, b = _t(d["w"]), _t(d["b"])
+    out = {"stats": sync_batch_norm_stats(x, ("data",),
+                                          reduce_dims=(0, 1, 2))}
+    for fused in (False, True):
+        bn = SyncBatchNorm(x.shape[-1], axis_names=("data",), fused=fused,
+                           act="relu", device="cpu")
+        with torch.no_grad():
+            bn.weight.copy_(w)
+            bn.bias.copy_(b)
+        xi = x.clone().requires_grad_(True)
+        ri = res.clone().requires_grad_(True)
+        y = bn(xi, residual=ri)
+        (y * dy).sum().backward()
+        out[f"module_{int(fused)}"] = dict(
+            y=y.detach(), dx=xi.grad, dres=ri.grad, dw=bn.weight.grad,
+            db=bn.bias.grad, mean=bn.mean.clone(), var=bn.var.clone())
+    xi = x.clone().requires_grad_(True)
+    y, mean, var = batch_norm_train(xi, w, b, axis_names=("data",))
+    (y * dy).sum().backward()
+    out["op"] = dict(y=y.detach(), mean=mean, var=var, dx=xi.grad)
+    # convert_syncbn_model turns a local BN into the data group's
+    model = nn.Sequential(SyncBatchNorm(x.shape[-1], device="cpu"))
+    convert_syncbn_model(model)
+    out["converted"] = model(x).detach()
+    return out
+
+
+# --------------------------------------------------------------------- #
+# ZeRO
+# --------------------------------------------------------------------- #
+class TinyMLP(nn.Module):
+    """The JAX tests' MLP: tanh(x w1 + b1) w2 + b2."""
+
+    def __init__(self):
+        super().__init__()
+        self.l1 = nn.Linear(16, 33)
+        self.l2 = nn.Linear(33, 1)
+
+    def forward(self, x):
+        return self.l2(torch.tanh(self.l1(x)))
+
+
+def zero_checks(rank, world, d, steps=3):
+    """Three zero-mode steps of each optimizer on the MLP over the data
+    axis, each rank on its slice of the batch; the params after, and the
+    reduce-scatter of raw gradients."""
+    from apex_tpu_torch.core.train_state import MixedPrecisionTrainState
+    from apex_tpu_torch.optim import fused_adam
+    from apex_tpu_torch.parallel import distributed_optim as Z
+
+    commons.initialize_distributed(device="cpu")
+    x = _t(d["x"][rank])
+    y = _t(d["y"][rank])
+    out = {}
+    g = [_t(a[rank]) for a in d["grads"]]
+    for stage in (1, 2):
+        for rd in (None, "int8"):
+            out[f"rs_{stage}_{rd}"] = Z.reduce_scatter_mean_grads(
+                g, "data", reduce_dtype=rd, stage=stage)
+    opts = {
+        "adam_s2": (lambda: Z.distributed_fused_adam(1e-2), 2, None),
+        "adam_s1": (lambda: Z.distributed_fused_adam(1e-2), 1, None),
+        "adam_int8": (lambda: fused_adam(1e-2), 2, "int8"),
+        "lamb_s2": (lambda: Z.distributed_fused_lamb(
+            1e-2, shard_axis="data"), 2, None),
+    }
+    for name, (make, stage, rd) in opts.items():
+        model = TinyMLP()
+        model.load_state_dict({k: _t(v) for k, v in d["params"].items()})
+        state = MixedPrecisionTrainState.create(
+            model=model, optimizer=make(),
+            zero=Z.ZeroConfig(axis="data", stage=stage, reduce_dtype=rd))
+        for _ in range(steps):
+            loss = torch.mean((model(x) - y) ** 2)
+            state.scale_loss(loss).backward()
+            state.apply_gradients()
+        out[name] = {k: v.detach().clone()
+                     for k, v in model.state_dict().items()}
+        out[name + "_masters"] = state.master_params()
+    return out
