@@ -40,7 +40,12 @@ remat policies, the ring cache, MoE, ViT and the importers, and (item
 ``torch.distributed``: the mesh of process groups (``core.mesh``),
 ``parallel.launch``, ``transformer.{parallel_state,mappings,layers,
 cross_entropy,random}`` with sequence parallelism, DDP with half and
-int8 all-reduces, ZeRO-1/2 and SyncBatchNorm across processes.
+int8 all-reduces, ZeRO-1/2 and SyncBatchNorm across processes; and
+(item 10b's first half) pipeline parallelism: the microbatch
+calculators, ``transformer.data.broadcast_data``, the 1F1B and
+interleaved schedules over point-to-point exchange
+(``transformer.pipeline_parallel``) and the train step on a data × pipe
+(× tensor) mesh with stage-local ZeRO (``parallel.pipeline``).
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise
 when CUDA is unavailable unless the caller passes ``device="cpu"``.

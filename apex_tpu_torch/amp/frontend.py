@@ -36,8 +36,12 @@ def initialize(model, optimizer, opt_level: str = "O1", *,
     model built with ``dtype=None``); ``optimizer``: an optimizer of
     :mod:`apex_tpu_torch.optim` (``init`` / ``step``).  The list form
     ``initialize([m1, m2], [o1, o2])`` returns one independently scaled
-    state per pair.  ``zero`` raises ``NotImplementedError`` naming its
-    ``ROADMAP.md`` item.
+    state per pair.  ``zero``: a
+    :class:`~apex_tpu_torch.parallel.distributed_optim.ZeroConfig` for
+    ZeRO-1/2 (the fp32 masters and the optimizer state sharded over its
+    mesh axis's group; needs a mesh), handed to
+    :meth:`~apex_tpu_torch.core.train_state.MixedPrecisionTrainState.
+    create`.
     """
     if type(optimizer) in (list, tuple):
         models = model if type(model) in (list, tuple) else None

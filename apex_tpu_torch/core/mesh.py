@@ -24,9 +24,10 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 __all__ = [
@@ -122,6 +123,9 @@ class Mesh:
         self.coords: Dict[str, int] = {
             a: int(c) for a, c in zip(AXIS_ORDER, where)}
         self._groups: Dict[Tuple[str, ...], object] = {}
+        #: the axes whose group has had its point-to-point communicator
+        #: opened (``pipeline_parallel.p2p.connect``)
+        self.p2p_opened: Set[str] = set()
 
     @property
     def size(self) -> int:
@@ -171,6 +175,14 @@ class Mesh:
             if self.rank in members:
                 mine = g
         return mine
+
+    @property
+    def device(self) -> torch.device:
+        """Where this rank's collectives take their tensors: the current
+        CUDA device under NCCL, the CPU under gloo."""
+        if dist.get_backend() == "nccl":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
 
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank})"

@@ -48,7 +48,8 @@ from apex_tpu_torch.transformer.layers import (
     tensor_parallel,
 )
 
-__all__ = ["GPTConfig", "GPTModel", "gpt_loss_fn", "moe_aux_loss"]
+__all__ = ["GPTConfig", "GPTModel", "gpt_loss_fn", "moe_aux_loss",
+           "gpt_pipeline_forward_backward"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,7 +223,13 @@ class GPTModel(nn.Module):
             return self.embedding.attend(x, sequence_parallel)
         return self.lm_head(x)
 
-    def _full(self, input_ids, deterministic, dropout_seed):
+    def embed(self, input_ids):
+        """The layers' input of the full-sequence forward: the token
+        embeddings plus the learned positions, in ``cfg.dtype``, this
+        rank's sequence chunk under sequence parallelism.  With
+        :meth:`head` it is the closure of a pipeline whose stages run
+        the layers in between (``num_layers=0`` and an untied head make
+        a model of just the two)."""
         cfg = self.cfg
         s = input_ids.shape[1]
         if s > cfg.max_seq_len:
@@ -234,12 +241,23 @@ class GPTModel(nn.Module):
         x = x.to(cfg.dtype)
         if self.sequence_parallel:
             x = mappings.scatter_to_sequence_parallel_region(x, dim=1)
+        return x
+
+    def head(self, x):
+        """Logits of the last layer's output ``x`` of the full-sequence
+        forward (the final norm, then the vocabulary head)."""
+        return self._head(x, sequence_parallel=self.sequence_parallel)
+
+    def _full(self, input_ids, deterministic, dropout_seed):
+        cfg = self.cfg
+        x = self.embed(input_ids)
         rope = None
         if cfg.position_embedding == "rope":
+            s = input_ids.shape[1]
             rope = (self.rope_cos[:s], self.rope_sin[:s])
         x = self.transformer(x, rope=rope, seeds=dropout_seeds(
             cfg, deterministic, dropout_seed))
-        return self._head(x, sequence_parallel=self.sequence_parallel)
+        return self.head(x)
 
 
 def gpt_loss_fn(logits, labels, *, ignore_index: int = -100):
@@ -255,6 +273,56 @@ def gpt_loss_fn(logits, labels, *, ignore_index: int = -100):
         logits, torch.where(valid, labels, torch.zeros_like(labels)))
     nll = torch.where(valid, nll, torch.zeros_like(nll))
     return nll.sum() / torch.clamp_min(valid.sum(), 1).float()
+
+
+def gpt_pipeline_forward_backward(closure: GPTModel, stage_fn, stage,
+                                  input_ids, labels, *,
+                                  num_microbatches: int, scale_loss=None,
+                                  axis: str = "pipe"):
+    """The forward and backward of a GPT whose layers run in the 1F1B
+    pipeline (``parallel.pipeline.run_1f1b`` over this rank's
+    ``stage``, applied by ``stage_fn`` from ``build_model``) with the
+    embedding, positions, final norm and head closed over the pipelined
+    region.  ``closure`` is a :class:`GPTModel` of no layers with an
+    untied head (the layout of the JAX GPT-2 3D train step).
+
+    ``input_ids`` / ``labels`` ``(M·mb, s)`` are cut into
+    ``num_microbatches``.  Each microbatch's embedding output enters the
+    schedule detached; the final norm's and the head's parameters are
+    its ``loss_params``; after the schedule each embedding output is
+    backpropagated with its input cotangent, in microbatch order.  So
+    every parameter's ``.grad``, the closure's and the stage's,
+    accumulates the gradient of the mean microbatch loss, the same
+    gradients as ``forward_backward_no_pipelining`` over the whole
+    model.  ``scale_loss`` (e.g. a train state's ``scale_loss``) maps
+    each microbatch's cross entropy to the loss differentiated.
+
+    Returns ``(loss, scaled)`` on every pipe rank: the mean microbatch
+    cross entropy, and the schedule's mean of the scaled losses."""
+    from apex_tpu_torch.parallel.pipeline import run_1f1b
+    from apex_tpu_torch.transformer.pipeline_parallel import schedules
+
+    m = num_microbatches
+    ids_mb, lab_mb = input_ids.chunk(m), labels.chunk(m)
+    hs = [closure.embed(i) for i in ids_mb]
+    ces = []
+
+    def loss_fn(loss_params, y, i):
+        ce = gpt_loss_fn(closure.head(y).float(), lab_mb[i])
+        ces.append(ce.detach())
+        return ce if scale_loss is None else scale_loss(ce)
+
+    scaled, _, aux = run_1f1b(
+        stage_fn, loss_fn, stage, torch.stack([h.detach() for h in hs]),
+        axis=axis, return_input_cotangents=True,
+        loss_params=[*closure.final_norm.parameters(),
+                     closure.lm_head.weight])
+    for h, ct in zip(hs, aux["input_cotangents"]):
+        h.backward(ct)
+    rank, pp = schedules.pipe_rank_and_size(axis)
+    loss = (torch.stack(ces).mean() if rank == pp - 1 else torch.zeros(
+        (), dtype=torch.float32, device=input_ids.device))
+    return schedules._broadcast(loss, pp - 1, axis), scaled
 
 
 def moe_aux_loss(model: nn.Module) -> torch.Tensor:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "shard_state_dict", "resnet_params_from_jax",
+           "stage_params_from_jax", "closure_params_from_jax",
            "named_leaves_from_jax", "group_norm_params_from_jax",
            "mha_params_from_jax", "mlp_params_from_jax"]
 
@@ -84,6 +85,19 @@ _TP_DIMS = (("qkv_proj.weight", 0), ("qkv_proj.bias", 0),
             ("pooler.weight", 0), ("pooler.bias", 0))
 
 
+def _layer(out: Dict[str, Any], pre: str, layer: Mapping) -> None:
+    """One ``ParallelTransformerLayer``'s leaves under ``pre``."""
+    for name in _NORMS:
+        _norm(out, f"{pre}.{name}", layer[name])
+    for block, names in _LINEARS.items():
+        for name in names:
+            if name in layer.get(block, {}):
+                _linear(out, f"{pre}.{block}.{name}", layer[block][name])
+    for name in _MOE:
+        if name in layer.get("moe_mlp", {}):
+            out[f"{pre}.moe_mlp.{name}"] = _arr(layer["moe_mlp"][name])
+
+
 def shard_state_dict(sd: Mapping[str, Any], tp_rank: int,
                      tp_size: int) -> Dict[str, Any]:
     """Tensor-parallel rank ``tp_rank``'s part of a whole ``GPTModel`` /
@@ -136,17 +150,7 @@ def params_from_jax(params_np: Mapping, cfg, *, tp_rank: int = 0,
         out["position_embedding"] = _arr(p["position_embedding"])
     for i, layer in enumerate(_layer_trees(p["transformer"],
                                            cfg.num_layers)):
-        pre = f"transformer.layers.{i}"
-        for name in _NORMS:
-            _norm(out, f"{pre}.{name}", layer[name])
-        for block, names in _LINEARS.items():
-            for name in names:
-                if name in layer.get(block, {}):
-                    _linear(out, f"{pre}.{block}.{name}",
-                            layer[block][name])
-        for name in _MOE:
-            if name in layer.get("moe_mlp", {}):
-                out[f"{pre}.moe_mlp.{name}"] = _arr(layer["moe_mlp"][name])
+        _layer(out, f"transformer.layers.{i}", layer)
     if "emb_norm_scale" in p:                   # BERT
         for name in ("token_type_embedding", "emb_norm_scale",
                      "emb_norm_bias", "mlm_bias"):
@@ -160,6 +164,55 @@ def params_from_jax(params_np: Mapping, cfg, *, tp_rank: int = 0,
     if "lm_head" in p:
         _linear(out, "lm_head", p["lm_head"])
     return shard_state_dict(_tensors(out), tp_rank, tp_size)
+
+
+def stage_params_from_jax(stacked_np: Mapping, cfg=None, *, stage: int,
+                          chunk: int = 0, tp_rank: int = 0,
+                          tp: int = 1) -> Dict[str, torch.Tensor]:
+    """State dict of one pipe rank's chunk of layers — the
+    ``nn.ModuleList`` that ``apex_tpu_torch.transformer.pipeline_parallel.
+    build_model`` makes on rank ``stage`` — from the stacked parameters of
+    the JAX ``build_model``: leaves ``(pp, per_stage, ...)``, or ``(V,
+    pp, per_stage, ...)`` interleaved (then ``chunk`` picks the row).
+    Keys ``"<j>.<name>"`` for the chunk's ``j``-th layer, under the
+    :func:`params_from_jax` names of a ``ParallelTransformerLayer``;
+    ``tp_rank`` / ``tp``: that tensor rank's shard.  ``cfg`` is accepted
+    for the signature of :func:`params_from_jax`; the layout is read
+    from the leaves.  The same call turns the JAX schedule's stage
+    gradients, which have the parameters' layout, into the port's."""
+    del cfg
+    p = stacked_np.get("params", stacked_np)
+    lead = _arr(p["input_norm"]["scale"]).ndim - 1   # 2, or 3 with V
+    if lead not in (2, 3):
+        raise ValueError(f"expected (pp, per_stage, ...) or (V, pp, "
+                         f"per_stage, ...) leaves, got {lead} leading dims")
+    row = (stage,) if lead == 2 else (chunk, stage)
+
+    def take(tree, j):
+        return {k: (take(v, j) if isinstance(v, Mapping)
+                    else _arr(v)[row + (j,)]) for k, v in tree.items()}
+    per = _arr(p["input_norm"]["scale"]).shape[lead - 1]
+    out: Dict[str, Any] = {}
+    for j in range(per):
+        _layer(out, str(j), take(p, j))
+    return shard_state_dict(_tensors(out), tp_rank, tp)
+
+
+def closure_params_from_jax(params_np: Mapping, *, tp_rank: int = 0,
+                            tp: int = 1) -> Dict[str, torch.Tensor]:
+    """State dict of the pipeline closure — a ``GPTModel`` with
+    ``num_layers=0`` and an untied head, whose ``embed`` / ``head`` run
+    before and after the stages — from the closure leaves of the JAX
+    pipelined GPT train step (``bench_configs.bench_gpt2_3d_full_step``):
+    ``embed`` ``(V, H)``, ``pos`` ``(S, H)``, ``head`` ``(H, V)``,
+    ``fln_scale`` and ``fln_bias`` (a dict holding them, other keys
+    ignored).  ``tp_rank`` / ``tp``: that tensor rank's shard."""
+    out = {"embedding.weight": _arr(params_np["embed"]),
+           "position_embedding": _arr(params_np["pos"]),
+           "final_norm.weight": _arr(params_np["fln_scale"]),
+           "final_norm.bias": _arr(params_np["fln_bias"]),
+           "lm_head.weight": _arr(params_np["head"]).T}
+    return shard_state_dict(_tensors(out), tp_rank, tp)
 
 
 def _is_fp8_leaf(v) -> bool:

@@ -96,6 +96,8 @@ from apex_tpu_torch.transformer.layers import (
 )
 from apex_tpu_torch.transformer.mappings import (
     copy_to_tensor_parallel_region,
+    gather_from_tensor_parallel_region,
+    scatter_to_sequence_parallel_region,
 )
 from apex_tpu_torch.transformer.moe import MoEConfig, MoEMLP
 
@@ -761,6 +763,9 @@ class ParallelTransformerLayer(nn.Module):
         # the hidden dropout's chunk of the whole mask
         self.seq_chunk = ((rank, tp) if cfg.sequence_parallel and active
                           else None)
+        # the MoE layer routes whole batch rows: under SP at tp > 1 it
+        # runs on the gathered sequence (:meth:`_moe`)
+        self.moe_whole_sequence = self.seq_chunk is not None and tp > 1
         self.input_norm = Norm(cfg, device, sequence_parallel=True)
         self.attention = ParallelAttention(cfg, device)
         self.post_attention_norm = Norm(cfg, device, sequence_parallel=True)
@@ -809,12 +814,26 @@ class ParallelTransformerLayer(nn.Module):
         h = self.post_attention_norm(x)
         aux = None
         if self.cfg.num_moe_experts:
-            m, aux = self.moe_mlp(h)
+            m, aux = self._moe(h)
         else:
             m = self.mlp(h)
         if seeds is not None and rate > 0.0:
             m = _dropout(m, rate, seeds[2], self.seq_chunk)
         return x + m.to(x.dtype), aux
+
+    def _moe(self, h):
+        """The MoE MLP.  Under sequence parallelism at tp > 1 the rank's
+        sequence chunk is gathered first (its backward keeps the own
+        chunk: every tensor rank runs the whole layer on whole weights,
+        so each has the whole input gradient) and the output is cut back
+        to the chunk (its backward all-gathers), so the routing, the
+        capacity, the aux term and every gradient are those of the
+        unsharded layer, which routes whole batch rows as the JAX layer
+        does."""
+        if not self.moe_whole_sequence:
+            return self.moe_mlp(h)
+        m, aux = self.moe_mlp(gather_from_tensor_parallel_region(h, dim=1))
+        return scatter_to_sequence_parallel_region(m, dim=1), aux
 
 
 @contextlib.contextmanager

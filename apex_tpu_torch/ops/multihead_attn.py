@@ -84,9 +84,11 @@ class _MHABase(nn.Module):
 
     def _linear(self, n_in, n_out):
         """``F.linear`` in the compute dtype, weight ``(out, in)`` and
-        bias cast to it, as flax's Dense / DenseGeneral with ``dtype``."""
+        bias cast to it, as flax's Dense / DenseGeneral with ``dtype``:
+        whole weights on any mesh (``axis=None``), as the JAX modules'."""
         lin = ColumnParallelLinear(n_in, n_out, use_bias=self.use_bias,
-                                   param_dtype=self._pdt, device=self._dev)
+                                   param_dtype=self._pdt, device=self._dev,
+                                   axis=None)
         lin.init_weights()
         return lin
 

@@ -1,8 +1,8 @@
 """Parallel building blocks of the port: the process-group bootstrap,
-data parallelism (DDP with half and int8 all-reduces), ZeRO-1/2 and
-SyncBatchNorm across processes (counterpart of ``apex_tpu.parallel``;
-the pipeline, ring attention and Ulysses come with ROADMAP.md item
-10b)."""
+data parallelism (DDP with half and int8 all-reduces), ZeRO-1/2,
+SyncBatchNorm across processes and the pipeline train step (counterpart
+of ``apex_tpu.parallel``; ring attention and Ulysses come with
+ROADMAP.md item 10b)."""
 
 from apex_tpu_torch.parallel.ddp import (
     DistributedDataParallel,
@@ -25,6 +25,19 @@ from apex_tpu_torch.parallel.launch import (
     init_distributed,
     is_distributed,
 )
+from apex_tpu_torch.parallel.pipeline import (
+    bubble_fraction,
+    live_microbatches,
+    local_stage,
+    pipeline_state_layout,
+    run_1f1b,
+    schedule_ticks,
+    stage_local_zero,
+    stage_split,
+    stage_unsplit,
+    sync_grad_overflow,
+    wrap_pipeline_step,
+)
 from apex_tpu_torch.parallel.sync_batchnorm import (
     SyncBatchNorm,
     convert_syncbn_model,
@@ -36,4 +49,8 @@ __all__ = ["DistributedDataParallel", "all_reduce_mean_grads", "replicate",
            "distributed_fused_adam", "distributed_fused_lamb",
            "reduce_scatter_mean_grads", "zero_partition", "zero_unpartition",
            "init_distributed", "is_distributed", "destroy_distributed",
-           "SyncBatchNorm", "convert_syncbn_model", "sync_batch_norm_stats"]
+           "SyncBatchNorm", "convert_syncbn_model", "sync_batch_norm_stats",
+           "bubble_fraction", "schedule_ticks", "live_microbatches",
+           "stage_split", "stage_unsplit", "local_stage",
+           "stage_local_zero", "pipeline_state_layout",
+           "sync_grad_overflow", "run_1f1b", "wrap_pipeline_step"]

@@ -26,7 +26,8 @@ on that axis's group, at any group size, one included:
   rows are all-reduced; :meth:`VocabParallelEmbedding.attend` gives
   vocabulary-sharded logits.
 
-Without a mesh the layers hold whole weights and call nothing.  Like
+Without a mesh, or with ``axis=None``, the layers hold whole weights
+and call nothing.  Like
 every entry point of the port they are built on ``device`` (default
 ``"cuda"``; raises when CUDA is unavailable unless ``device="cpu"``).
 
@@ -63,11 +64,12 @@ __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "tensor_parallel"]
 
 
-def tensor_parallel(axis: str = TENSOR_AXIS) -> Tuple[bool, int, int]:
+def tensor_parallel(axis: Optional[str] = TENSOR_AXIS
+                    ) -> Tuple[bool, int, int]:
     """``(active, size, rank)`` of the ``axis`` group: active while a
     mesh is initialized (a group of one included), else ``(False, 1,
-    0)``."""
-    if not mesh_lib.mesh_is_initialized():
+    0)``, as for ``axis=None`` (a layer that is not split)."""
+    if axis is None or not mesh_lib.mesh_is_initialized():
         return False, 1, 0
     m = mesh_lib.get_mesh()
     return True, m.axis_size(axis), m.axis_rank(axis)

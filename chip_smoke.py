@@ -17,8 +17,9 @@ memory and call out of line at most once and never, as the GroupNorm
 cluster kernels must, which also need TMA loads (``_call_report``),
 logs the registers and occupancy of the RoPE kernel and the softmax
 backward (``_occupancy_report``), and then runs
-twenty-five phases, in the order 1, 2, 3, 6, 7,
-4, 5, 17, 10, 12, 18, 11, 8, 9, 15, 16, 13, 14, 19, 20, 21, 22, 23, 24, 25
+twenty-six phases, in the order 1, 2, 3, 6, 7,
+4, 5, 17, 10, 12, 18, 11, 8, 9, 15, 16, 13, 14, 19, 20, 21, 22, 23, 24, 25,
+26
 (Llama-2-7B is built once for 3, 6 and 7 and dropped before 4); any
 failure exits non-zero.
 
@@ -222,6 +223,21 @@ failure exits non-zero.
    (loss, gradients, parameters, running statistics); 3 warm-up and 10
    timed steps, 53 launches a step of each BN kernel, the loss below its
    initial value; one step over the int8 all-reduce, finite.
+26. Phase 24's GPT-2 1.3B (its weights and batch) through the pipeline
+   at a world of one over NCCL (pipe, data and tensor axes of 1): the
+   stages from ``build_model`` with per-layer remat, the embedding,
+   positions, final norm and an untied copy of the head closed over the
+   pipelined region, M = 4 microbatches of 2, amp O2 + FusedAdam (bf16
+   moments) with stage-local ZeRO-2, the step ``wrap_pipeline_step``.
+   One step bitwise equal to ``forward_backward_no_pipelining`` over the
+   same microbatches (loss, gradients, fp32 masters, parameters), the
+   loss within 2e-3 of the whole model's; 3 warm-up and 10 timed steps
+   with phase 24's measures beside its own, the LayerNorm / flash
+   launches a step four times phase 24's; the initial loss within
+   0.8-1.6 ln V, the loss falls; the schedule's peak memory (before
+   ``apply_gradients``) at M = 8 no more than at M = 4 plus the O(M)
+   buffers and 64 MiB.  Phases 24 and 26 each break one more step's
+   memory down by owner and by the allocating line of the port.
 
 A failed phase is also reported on standard error, last: its name, the
 lines it logged that name a failed check, and its last lines.
@@ -4769,7 +4785,8 @@ def phase_gpt_tp(torch, profile=False, steps=10, warmup=3, b=8, s=1024):
     tokens/s, host ms, the fwd/bwd/opt split, peak memory, the LayerNorm
     and flash launches a step; the initial loss within 0.8-1.6 ln V and
     the loss falls.  Last, the flash kernels' dropout lanes for a
-    tensor-parallel rank's heads (``_flash_lanes_check``)."""
+    tensor-parallel rank's heads (``_flash_lanes_check``).  One more step
+    runs under the allocator's history (:func:`_memory_breakdown`)."""
     import dataclasses
 
     from apex_tpu_torch import _build, amp
@@ -4907,6 +4924,9 @@ def phase_gpt_tp(torch, profile=False, steps=10, warmup=3, b=8, s=1024):
         for name, want in GPT_LAUNCHES.items():
             ok &= gate(f"launches of {name}: {per_step.get(name)} a step, "
                        f"expected {want}", per_step.get(name) == want)
+        stats["memory_breakdown"] = _memory_breakdown(
+            torch, train_step, {"model": model, "train state": state})
+        log(f"  memory breakdown: {json.dumps(stats['memory_breakdown'])}")
         del model, state, outs
         torch.cuda.empty_cache()
         good, stats["flash_lanes"] = _flash_lanes_check(torch)
@@ -5086,6 +5106,407 @@ def phase_resnet_ddp(torch, profile=False, steps=10, warmup=3, b=128,
         torch.backends.cudnn.deterministic = det_was
         destroy_distributed()
         torch.cuda.empty_cache()
+    return ok, stats
+
+
+
+# ------------------------------------------------------------------ #
+# where a training step's memory goes (phases 24 and 26)
+# ------------------------------------------------------------------ #
+def _repo_line(frames):
+    """``file:line (function)`` of the innermost frame of the port or of
+    this script in an allocation's Python stack (innermost first)."""
+    for f in frames:
+        name = f.get("filename", "")
+        if "apex_tpu_torch" in name or name.endswith("chip_smoke.py"):
+            tail = name[name.find("apex_tpu_torch"):] if (
+                "apex_tpu_torch" in name) else "chip_smoke.py"
+            return f"{tail}:{f.get('line')} ({f.get('name')})"
+    return "elsewhere"
+
+
+def _live_tensors(torch, owners):
+    """Bytes of the CUDA tensors the Python heap holds, each storage
+    once: by owner (``owners``: name -> object whose tensors, reached
+    through attributes, containers and module parameters, count as its
+    own) and the largest others by shape and dtype."""
+    import gc
+
+    def ptrs(obj, seen, depth=0):
+        if id(obj) in seen or depth > 6:
+            return
+        seen.add(id(obj))
+        if torch.is_tensor(obj):
+            if obj.is_cuda:
+                yield obj.untyped_storage().data_ptr()
+            if isinstance(obj, torch.nn.Parameter) and obj.grad is not None:
+                yield from ptrs(obj.grad, seen, depth + 1)
+            return
+        if isinstance(obj, torch.nn.Module):
+            for t in list(obj.parameters()) + list(obj.buffers()):
+                yield from ptrs(t, seen, depth + 1)
+            return
+        if isinstance(obj, dict):
+            items = obj.values()
+        elif isinstance(obj, (list, tuple, set)):
+            items = obj
+        elif hasattr(obj, "__dict__") and not isinstance(obj, type):
+            items = vars(obj).values()
+        else:
+            return
+        for v in list(items):
+            yield from ptrs(v, seen, depth + 1)
+
+    sizes = {}
+    for o in gc.get_objects():
+        try:
+            if torch.is_tensor(o) and o.is_cuda:
+                st = o.untyped_storage()
+                sizes.setdefault(st.data_ptr(), (st.nbytes(), tuple(o.shape),
+                                                 str(o.dtype)))
+        except Exception:       # a half-made object: not a tensor of ours
+            continue
+    out, claimed = {}, set()
+    for name, obj in owners.items():
+        mine = set(ptrs(obj, set())) - claimed
+        claimed |= mine
+        out[name] = sum(sizes[p][0] for p in mine if p in sizes)
+    others = {}
+    for p, (n, shape, dt) in sizes.items():
+        if p not in claimed:
+            key = f"{shape} {dt}"
+            others[key] = others.get(key, 0) + n
+    out["other"] = sum(others.values())
+    out["largest_other"] = dict(sorted(others.items(),
+                                       key=lambda kv: -kv[1])[:8])
+    out["python_total"] = sum(n for n, _, _ in sizes.values())
+    return out
+
+
+def _memory_breakdown(torch, step, owners):
+    """One ``step()`` under the CUDA allocator's history: the bytes
+    alive before it (the Python-held CUDA tensors by owner,
+    :func:`_live_tensors`, and what the allocator holds beyond them),
+    and the peak within it, the bytes the step allocated that are alive
+    at that peak grouped by the allocating line of the port or of this
+    script (:func:`_repo_line`)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    held = _live_tensors(torch, owners)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.memory._record_memory_history(max_entries=1_000_000,
+                                             stacks="python")
+    try:
+        step()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    peak = torch.cuda.max_memory_allocated()
+    trace = snap["device_traces"][torch.cuda.current_device()]
+    cur, best, at = 0, 0, -1
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            cur += e["size"]
+            if cur > best:
+                best, at = cur, i
+        elif e["action"] == "free_completed":
+            cur -= e["size"]
+    live = {}
+    for e in trace[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = (e["size"], _repo_line(e.get("frames", [])))
+        elif e["action"] == "free_completed":
+            live.pop(e["addr"], None)
+    by_line = {}
+    for n, line in live.values():
+        by_line[line] = by_line.get(line, 0) + n
+    return dict(
+        alive_before=before, held_before=held,
+        held_by_cpp_only=before - held["python_total"], peak=peak,
+        step_peak_above_before=best, trace_events=len(trace),
+        peak_by_line=dict(sorted(by_line.items(),
+                                 key=lambda kv: -kv[1])[:12]))
+
+
+# ------------------------------------------------------------------ #
+# phase 26: pipeline parallelism on a world of one (NCCL)
+# ------------------------------------------------------------------ #
+def _gpt_pipeline_model(torch, cfg, sd, dev):
+    """GPT-2 1.3B cut for the pipeline: the closure (a ``GPTModel`` of
+    no layers with an untied head: embedding, positions, final norm,
+    head) and this rank's stage from ``build_model``, loaded from the
+    whole model's state dict ``sd`` (the head a copy of the tied table,
+    so the forward is the whole model's).  Returns ``(model, stage_fn)``,
+    the model holding ``closure`` and ``stages``."""
+    import dataclasses
+    import functools
+
+    import torch.nn as nn
+
+    from apex_tpu_torch.core.mesh import get_mesh
+    from apex_tpu_torch.models import GPTModel
+    from apex_tpu_torch.models.transformer import ParallelTransformerLayer
+    from apex_tpu_torch.parallel import pipeline as pl
+    from apex_tpu_torch.transformer.pipeline_parallel import build_model
+
+    pp = get_mesh().shape["pipe"]
+    stage_fn, chunks = build_model(
+        functools.partial(ParallelTransformerLayer, cfg), cfg.num_layers, pp,
+        device=dev, layer_remat=True)
+    model = nn.Module()
+    model.closure = GPTModel(dataclasses.replace(
+        cfg, num_layers=0, tie_embeddings=False), device=dev)
+    model.stages = chunks[0]
+    pre = "transformer.layers."
+    model.stages.load_state_dict(pl.local_stage(pl.stage_split(
+        {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}, pp)))
+    model.closure.load_state_dict(
+        {k: v for k, v in sd.items() if not k.startswith(pre)}
+        | {"lm_head.weight": sd["embedding.weight"]})
+    return model, stage_fn
+
+
+def phase_gpt_pipeline(torch, profile=False, steps=10, warmup=3, b=8,
+                       s=1024, gpt_tp=None):
+    """GPT-2 1.3B (phase 24's preset, weights and batch) through the
+    pipeline at a world of one over NCCL (pipe 1, data 1, tensor 1):
+    bf16 with remat (``build_model(..., layer_remat=True)``), amp O2 +
+    FusedAdam (bf16 moments), stage-local ZeRO-2, b = 8 x s = 1024 in
+    M = 4 microbatches of 2; embedding, positions, final norm and the
+    untied head closed over the pipelined region (``loss_params``, the
+    input cotangents); the step is ``wrap_pipeline_step`` over
+    ``run_1f1b``, ``sync_grad_overflow`` and ``apply_gradients``.  One
+    step bitwise against ``forward_backward_no_pipelining`` over the
+    same microbatches and weights (loss, gradients, fp32 masters,
+    parameters); the loss within 2e-3 of the whole model's on the same
+    batch; the LayerNorm and flash launches a step, four microbatches of
+    phase 24's step; 3 warm-up and 10 timed steps (samples/s, tokens/s,
+    host ms, the split, peak memory, beside phase 24's numbers
+    ``gpt_tp``); the initial loss within 0.8-1.6 ln V and the loss
+    falls; the schedule's peak memory (from just before the forwards to
+    just before ``apply_gradients``) at M = 8 no more than at M = 4 plus
+    the O(M) buffers and 64 MiB, the whole step's peak logged beside it;
+    one more step under the allocator's history
+    (:func:`_memory_breakdown`)."""
+    from apex_tpu_torch import _build, amp
+    from apex_tpu_torch.models import (
+        GPTConfig,
+        GPTModel,
+        gpt_loss_fn,
+        gpt_pipeline_forward_backward,
+    )
+    from apex_tpu_torch.optim import fused_adam
+    from apex_tpu_torch.parallel import pipeline as pl
+    from apex_tpu_torch.parallel.distributed_optim import ZeroConfig
+    from apex_tpu_torch.parallel.launch import destroy_distributed
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        forward_backward_no_pipelining,
+    )
+
+    torch.cuda.synchronize()
+    alive_at_start = torch.cuda.memory_allocated()
+    mb = 2
+    log(f"phase 26: GPT-2 1.3B amp O2 through the 1F1B pipeline at a world "
+        f"of one (NCCL), b={b} s={s} in {b // mb} microbatches of {mb}, "
+        f"remat, stage-local ZeRO-2")
+    dev = torch.device("cuda")
+    cfg = GPTConfig.gpt2_1p3b(dtype=torch.bfloat16, remat=True,
+                              sequence_parallel=True)
+    adam = dict(moment_dtype=torch.bfloat16)
+    ok, stats = True, {}
+
+    def batch(seed, rows):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        ids = torch.randint(0, cfg.vocab_size, (rows, s + 1), generator=g,
+                            device=dev)
+        return ids[:, :-1], ids[:, 1:]
+    x, y = batch(25, b)
+    try:
+        # phase 24's weights (fp32, before the O2 cast) and batch, and the
+        # whole model's loss on them
+        whole = GPTModel(cfg, device=dev)
+        whole.init_weights(torch.Generator(device=dev).manual_seed(24))
+        sd = {k: v.clone() for k, v in whole.state_dict().items()}
+        amp.initialize(whole, fused_adam(1e-4, **adam), "O2",
+                       half_dtype=torch.bfloat16)
+        with torch.no_grad():
+            whole_loss = float(gpt_loss_fn(whole(x).float(), y))
+        del whole
+        torch.cuda.empty_cache()
+        ok &= gate("world of one over NCCL", _world_of_one(torch))
+
+        def make():
+            model, stage_fn = _gpt_pipeline_model(torch, cfg, sd, dev)
+            state = pl.stage_local_zero(amp.initialize(
+                model, fused_adam(1e-4, **adam), "O2",
+                half_dtype=torch.bfloat16,
+                zero=ZeroConfig(axis="data", stage=2)), num_stages=1)
+            return model, stage_fn, state
+        model, stage_fn, state = make()
+        ref, _, ref_state = make()
+        del sd
+        cl = model.closure
+
+        def fwd_bwd(ids, labels):
+            """The pipelined forward and backward of one batch and the
+            pipe-global overflow sync: the mean microbatch loss
+            (unscaled) and the scaled one."""
+            out = gpt_pipeline_forward_backward(
+                cl, stage_fn, model.stages, ids, labels,
+                num_microbatches=ids.shape[0] // mb,
+                scale_loss=state.scale_loss)
+            pl.sync_grad_overflow(model)
+            return out
+
+        def body(state, ids, labels):
+            loss, _ = fwd_bwd(ids, labels)
+            return loss, state.apply_gradients()
+        step = pl.wrap_pipeline_step(body, state=state)
+
+        # one step each way, bit for bit: the loss and the gradients,
+        # then the fp32 masters and parameters after the update
+        loss0, scaled0 = fwd_bwd(x, y)
+        ref_ces = []
+
+        def ref_fwd(mod, batch_mb):
+            i, lab = batch_mb
+            out = stage_fn(mod.stages, mod.closure.embed(i))
+            ce = gpt_loss_fn(mod.closure.head(out).float(), lab)
+            ref_ces.append(ce.detach())
+            return ref_state.scale_loss(ce)
+        ref_scaled, ref_grads = forward_backward_no_pipelining(
+            ref_fwd, (x, y), ref, num_microbatches=b // mb)
+        ref_loss = torch.stack(ref_ces).mean()
+        same_loss = (torch.equal(loss0, ref_loss)
+                     and torch.equal(scaled0, ref_scaled))
+        pairs = list(zip(ref.named_parameters(), model.named_parameters()))
+        bad_grads = [n for (n, a), (_, q) in pairs
+                     if not torch.equal(a.grad, q.grad)]
+        state.apply_gradients()
+        ref_state.apply_gradients()
+        mz, mp = state.master_params(), ref_state.master_params()
+        bad_masters = [n for n in mp if not torch.equal(mp[n], mz[n])]
+        bad_params = [n for (n, a), (_, q) in pairs if not torch.equal(a, q)]
+        ident = dict(loss_pipeline=float(loss0), loss_no_pipelining=float(
+            ref_loss), loss_whole_model=whole_loss,
+            loss_phase24=(gpt_tp or {}).get("loss_init"),
+            loss_bitwise=same_loss, grads=len(pairs),
+            grads_differing=bad_grads[:5], masters_differing=bad_masters[:5],
+            params_differing=bad_params[:5])
+        stats["identity"] = ident
+        log(f"  one step, 1F1B against no pipelining: {json.dumps(ident)}")
+        ok &= gate("GPT-2 1.3B pipeline: loss, gradients, masters and "
+                   "parameters of the 1F1B step bitwise equal to no "
+                   "pipelining's", same_loss and not bad_grads
+                   and not bad_masters and not bad_params)
+        loss_init = float(loss0)
+        ok &= gate(f"GPT-2 1.3B pipeline: loss {loss_init:.5f} within 2e-3 "
+                   f"of the whole model's {whole_loss:.5f}",
+                   abs(loss_init - whole_loss) <= 2e-3)
+        ln_v = math.log(cfg.vocab_size)
+        ok &= gate(f"GPT-2 1.3B pipeline: initial loss {loss_init:.4f} "
+                   f"within 0.8-1.6 ln V ({ln_v:.4f})",
+                   0.8 * ln_v <= loss_init <= 1.6 * ln_v)
+        # ref_grads holds the no-pipelining gradients after
+        # apply_gradients cleared .grad: gone with the rest of the twin
+        del ref, ref_state, ref_grads, mz, mp, pairs
+        torch.cuda.empty_cache()
+
+        def train_step():
+            return step(x, y)
+
+        def fwd_only():
+            with torch.no_grad():
+                return torch.stack([gpt_loss_fn(cl.head(stage_fn(
+                    model.stages, cl.embed(i))).float(), lab)
+                    for i, lab in zip(x.chunk(b // mb), y.chunk(b // mb))])
+
+        def fwd_bwd_only():
+            loss, _ = fwd_bwd(x, y)
+            for q in model.parameters():
+                q.grad = None
+            return loss
+
+        warm_losses = [float(train_step()[0]) for _ in range(warmup)]
+        t_fwd = sorted(_event_times(torch, fwd_only, 5)[0])[2]
+        t_fb = sorted(_event_times(torch, fwd_bwd_only, 5)[0])[2]
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        step_ms, outs, host_ms = _event_times(torch, train_step, steps)
+        launches = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(o[0]) for o in outs]
+        finite = [bool(o[1]) for o in outs]
+        t_step = sum(step_ms) / len(step_ms)
+        per_step = {k: v / steps for k, v in launches.items()}
+        prof = (_profile_train(torch, train_step, groups=GPT_GROUPS)
+                if profile else None)
+        stats.update(
+            samples_per_s=b * steps / (sum(step_ms) / 1e3),
+            tokens_per_s=b * s * steps / (sum(step_ms) / 1e3),
+            step_ms=step_ms, host_ms_per_step=sum(host_ms) / len(host_ms),
+            fwd_ms=t_fwd, bwd_ms=max(t_fb - t_fwd, 0.0),
+            opt_ms=max(t_step - t_fb, 0.0), peak_bytes=peak,
+            loss_init=loss_init, warmup_losses=warm_losses, losses=losses,
+            finite=finite, microbatches=b // mb, microbatch_size=mb,
+            peak_live=pl.schedules.last_run.get("peak_live"),
+            launches_per_step=per_step, launches=launches,
+            phase24={k: (gpt_tp or {}).get(k) for k in (
+                "samples_per_s", "tokens_per_s", "host_ms_per_step",
+                "fwd_ms", "bwd_ms", "opt_ms", "peak_bytes")})
+        log(f"  {json.dumps({k: v for k, v in stats.items() if k not in ('launches', 'identity')})}")
+        if prof is not None:
+            stats["profile"] = prof
+            log(f"  profile: {json.dumps(prof)}")
+        ok &= gate("GPT-2 1.3B pipeline: finite steps and the loss falls",
+                   all(finite) and all(np.isfinite(warm_losses + losses))
+                   and losses[-1] < loss_init)
+        for name, want in GPT_LAUNCHES.items():
+            want = want * (b // mb)
+            ok &= gate(f"pipeline launches of {name}: {per_step.get(name)} "
+                       f"a step, expected {want}", per_step.get(name) == want)
+
+        # the 1F1B memory shape: a step at M = 8 against one at M = 4,
+        # the schedule's peak (the forwards, backwards and the closure's
+        # backward) read before apply_gradients, whose own peak comes after
+        def peak_of(rows, seed):
+            xb, yb = batch(seed, rows)
+            torch.cuda.synchronize()
+            alive = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fwd_bwd(xb, yb)
+            torch.cuda.synchronize()
+            sched = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            state.apply_gradients()
+            torch.cuda.synchronize()
+            return alive, sched, torch.cuda.max_memory_allocated()
+        (alive4, sched4, apply4), (alive8, sched8, apply8) = (
+            peak_of(b, 27), peak_of(2 * b, 28))
+        # O(M) by design: per microbatch the stacked input, the embedding
+        # output kept for the closure's backward and its input cotangent,
+        # (mb, s, hidden) in bf16 each
+        per_mb = 3 * mb * s * cfg.hidden_size * 2
+        allowed = sched4 + (b // mb) * per_mb + 64 * 2 ** 20
+        stats.update(alive_at_start=alive_at_start, alive_before_step=alive4,
+                     schedule_peak_m4=sched4, schedule_peak_m8=sched8,
+                     schedule_peak_allowed_m8=allowed, apply_peak_m4=apply4,
+                     apply_peak_m8=apply8, alive_before_step_m8=alive8)
+        log(f"  memory: alive at the phase's start {alive_at_start}, "
+            f"before a step {alive4}; schedule peak M=4 {sched4} M=8 "
+            f"{sched8} (allowed {allowed}); apply_gradients peak M=4 "
+            f"{apply4} M=8 {apply8} (bytes)")
+        ok &= gate("GPT-2 1.3B pipeline: the schedule's peak memory flat in "
+                   "M (M=8 within M=4's plus the O(M) buffers and 64 MiB)",
+                   sched8 <= allowed)
+        stats["memory_breakdown"] = _memory_breakdown(
+            torch, lambda: step(x, y), {"model": model, "train state": state})
+        log(f"  memory breakdown: {json.dumps(stats['memory_breakdown'])}")
+        del model, state, outs
+        torch.cuda.empty_cache()
+    finally:
+        destroy_distributed()
     return ok, stats
 
 
@@ -5383,7 +5804,7 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also profile steady decode steps in phases 3, 6 "
                          "and 7 and training steps in phases 4, 8, 15, "
-                         "17, 24 and 25")
+                         "17, 24, 25 and 26")
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run after the build, "
                          "phase 1 and the kernels record left out (a "
@@ -5476,6 +5897,8 @@ def main(argv=None):
         ("23", lambda: phase_vit(torch)),
         ("24", lambda: phase_gpt_tp(torch, args.profile)),
         ("25", lambda: phase_resnet_ddp(torch, args.profile)),
+        ("26", lambda: phase_gpt_pipeline(torch, args.profile,
+                                          gpt_tp=results.get("24"))),
     ]
     if only:
         phases = [(n, r) for n, r in phases if n in only]
@@ -5500,9 +5923,10 @@ def main(argv=None):
     (serve, paged, paged8, train, ident, resnet, resnet_ident, train_fp8,
      chain, fp8_ident, gn_block, block_ident, resnet_o1, resnet_o1_ident,
      train_o1, optimizers, gn_faults, remat, mistral, mixtral,
-     vit, gpt_tp, resnet_ddp) = (results.get(n) for n in (
+     vit, gpt_tp, resnet_ddp, gpt_pipe) = (results.get(n) for n in (
          "3", "6", "7", "4", "5", "8", "9", "10", "11", "12", "13", "14",
-         "15", "16", "17", "18", "19", "20", "21", "22", "23", "24", "25"))
+         "15", "16", "17", "18", "19", "20", "21", "22", "23", "24", "25",
+         "26"))
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5521,7 +5945,8 @@ def main(argv=None):
                        train_o1=train_o1, optimizers=optimizers,
                        group_norm_faults=gn_faults, remat=remat,
                        mistral=mistral, mixtral=mixtral, vit=vit,
-                       gpt_tp=gpt_tp, resnet_ddp=resnet_ddp), f,
+                       gpt_tp=gpt_tp, resnet_ddp=resnet_ddp,
+                       gpt_pipe=gpt_pipe), f,
                   indent=1)
     if not ok:
         log("chip_smoke: FAILED")
@@ -5535,7 +5960,7 @@ def main(argv=None):
     # stage-0 bn3 (residual and ReLU) bf16 for the BatchNorm passes,
     # BERT-Large's masters for the fp8 Adam step and its scores for the
     # softmax; launches are the counts of the main-path runs (phases 3,
-    # 6, 7, 4, 8, 10, 11 and 13, the O1 runs 15 and 17, and 20-25)
+    # 6, 7, 4, 8, 10, 11 and 13, the O1 runs 15 and 17, and 20-26)
     pick = {
         "layer_norm": ("layer_norm/stats", (8192, 1024), "torch.bfloat16"),
         "layer_norm_bwd": ("layer_norm_bwd", (8192, 1024),
@@ -5600,7 +6025,8 @@ def main(argv=None):
         n = sum((st or {}).get("launches", {}).get(name, 0)
                 for st in (serve, paged, paged8, train, resnet, train_fp8,
                            chain, gn_block, resnet_o1, train_o1, remat,
-                           mistral, mixtral, vit, gpt_tp, resnet_ddp))
+                           mistral, mixtral, vit, gpt_tp, resnet_ddp,
+                           gpt_pipe))
         kernels.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"], launches=n,

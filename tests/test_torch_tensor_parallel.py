@@ -36,6 +36,7 @@ from apex_tpu.core import mesh as jax_mesh
 from apex_tpu.models.gpt import GPTConfig as JGPTConfig
 from apex_tpu.models.gpt import GPTModel as JGPTModel
 from apex_tpu.models.gpt import gpt_loss_fn as j_gpt_loss
+from apex_tpu.models.gpt import moe_aux_loss as j_moe_aux_loss
 from apex_tpu.ops import softmax_cross_entropy
 from apex_tpu.transformer import (
     column_parallel_linear,
@@ -87,7 +88,10 @@ def tp_data():
         ids=rng.integers(0, 64, size=(4, 6)),
         logits=(rng.normal(size=(8, 64)) * 3).astype(np.float32),
         labels=rng.integers(0, 64, size=(8,)),
-        seed=20)
+        seed=20,
+        mha_q=rng.normal(size=(2, 16, 64)).astype(np.float32),
+        mha_kv=rng.normal(size=(2, 12, 64)).astype(np.float32),
+        mha_w=rng.normal(size=(2, 16, 64)).astype(np.float32))
 
 
 @pytest.fixture(scope="module")
@@ -207,6 +211,23 @@ def test_model_parallel_rng_key_words(tp_ranks, tp_data):
         np.testing.assert_array_equal(tp_ranks[r]["key"], want)
 
 
+@pytest.mark.parametrize("name", ["self", "encdec"])
+def test_multihead_attn_on_a_tp2_mesh_equals_the_call_without_one(
+        tp_ranks, name):
+    # C-14: whole projections (not split over the tensor group), as the
+    # JAX modules' Dense weights: the same ops as without a mesh, bitwise
+    for r in range(TP):
+        got, want = (tp_ranks[r]["mha"][f"{name}_{t}"]
+                     for t in ("mesh", "whole"))
+        np.testing.assert_array_equal(got["y"], want["y"])
+        for a, b in zip(got["dx"], want["dx"]):
+            np.testing.assert_array_equal(a, b)
+        assert set(got["grads"]) == set(want["grads"])
+        for n in want["grads"]:
+            np.testing.assert_array_equal(got["grads"][n], want["grads"][n],
+                                          err_msg=n)
+
+
 # --------------------------------------------------------------------- #
 # dropout: the sharded masks are the unsharded masks' parts
 # --------------------------------------------------------------------- #
@@ -295,11 +316,31 @@ def _close(got, want, tol=2e-5):
                                    err_msg=n)
 
 
-def test_gpt_tp2_sequence_parallel_matches_jax(gpt_case):
+@pytest.fixture(scope="module")
+def gpt_tp2(gpt_case, moe_case, pipe_case):
+    """The 2-rank spawn: the tiny GPT at tp 2 with SP (dropout, BERT,
+    the MoE configs), then the pipe-2 checks on a pipe mesh."""
     _, _, _, sd, ids, labels = gpt_case
-    ranks = run_on_ranks(W.gpt_tp_checks, 2, dict(
+    return run_on_ranks(W.gpt_tp_checks, 2, dict(
         sd=sd, ids=ids, labels=labels, cfg=GPT_CFG, dropout=True,
-        bert=True), 2, True)
+        bert=True, moe={cf: moe_case[1] for cf in MOE_CFS},
+        pipe=pipe_case[2]), 2, True)
+
+
+@pytest.fixture(scope="module")
+def gpt_tp2_dp2(gpt_case, pipe_case):
+    """The 4-rank spawn: the tiny GPT at tp 2 x dp 2, then the pipe-4
+    schedules, the GPT closure at pipe 2 x tensor 2 and the ZeRO-2
+    step at pipe 2 x data 2."""
+    _, _, _, sd, ids, labels = gpt_case
+    return run_on_ranks(W.gpt_tp_checks, 4, dict(
+        sd=sd, ids=ids, labels=labels, cfg=GPT_CFG, pipe=pipe_case[4]),
+        2, False)
+
+
+def test_gpt_tp2_sequence_parallel_matches_jax(gpt_case, gpt_tp2):
+    _, _, _, sd, ids, labels = gpt_case
+    ranks = gpt_tp2
     loss, grads = _jax_loss_grads(gpt_case, 2, 1)
     for r in ranks:
         np.testing.assert_allclose(r["loss"], loss, rtol=2e-5)
@@ -321,13 +362,397 @@ def test_gpt_tp2_sequence_parallel_matches_jax(gpt_case):
            ranks[0]["bert_tp1"]["grads"])
 
 
-def test_gpt_tp2_dp2_matches_jax(gpt_case):
-    _, _, _, sd, ids, labels = gpt_case
-    ranks = run_on_ranks(W.gpt_tp_checks, 4, dict(
-        sd=sd, ids=ids, labels=labels, cfg=GPT_CFG), 2, False)
+def test_gpt_tp2_dp2_matches_jax(gpt_case, gpt_tp2_dp2):
+    ranks = gpt_tp2_dp2
     loss, grads = _jax_loss_grads(gpt_case, 2, 2)
     assert [r["tp_rank"] for r in ranks] == [0, 1, 0, 1]
     for r in ranks:
         np.testing.assert_allclose(r["loss"], loss, rtol=2e-5)
     _close(_gathered(ranks, "grads", 2), grads)
     _close(_gathered(ranks[2:], "grads", 2), grads)
+
+
+# --------------------------------------------------------------------- #
+# C-13: MoE layers at tp 2 with sequence parallelism
+# --------------------------------------------------------------------- #
+MOE_CFS = (4.0, 1.25)
+
+
+@pytest.fixture(scope="module")
+def moe_case(gpt_case):
+    """The tiny GPT with MoE layers (4 experts, top 2), its whole
+    weights as a port state dict."""
+    _, _, _, _, ids, _ = gpt_case
+    jcfg = JGPTConfig.tiny(**GPT_CFG, num_moe_experts=4, moe_top_k=2,
+                           sequence_parallel=True)
+    params = JGPTModel(jcfg).init(jax.random.PRNGKey(11),
+                                  jnp.asarray(ids))["params"]
+    sd = {k: v.numpy() for k, v in params_from_jax(
+        jax.device_get(params), jcfg).items()}
+    return params, sd
+
+
+def _jax_moe_loss_grads(gpt_case, moe_case, cf):
+    """CE, aux term and gradients of the JAX MoE GPT on a tp 2 mesh with
+    sequence parallelism."""
+    _, _, _, _, ids, labels = gpt_case
+    jcfg = JGPTConfig.tiny(**GPT_CFG, num_moe_experts=4, moe_top_k=2,
+                           moe_capacity_factor=cf, sequence_parallel=True)
+    model = JGPTModel(jcfg)
+
+    def loss_fn(p):
+        logits, mut = model.apply({"params": p}, jnp.asarray(ids),
+                                  mutable=["losses"])
+        ce = j_gpt_loss(logits, jnp.asarray(labels))
+        aux = j_moe_aux_loss(mut)
+        return ce + aux, (ce, aux)
+    jax_mesh.initialize_mesh(tensor_model_parallel_size=2,
+                             devices=jax.devices()[:2])
+    try:
+        (_, (ce, aux)), grads = jax.jit(jax.value_and_grad(
+            loss_fn, has_aux=True))(moe_case[0])
+    finally:
+        jax_mesh.destroy_mesh()
+    return float(ce), float(aux), {k: v.numpy() for k, v in params_from_jax(
+        jax.device_get(grads), jcfg).items()}
+
+
+@pytest.mark.parametrize("cf", MOE_CFS)
+def test_moe_gpt_tp2_sequence_parallel_matches_unsharded_and_jax(
+        gpt_case, moe_case, gpt_tp2, cf):
+    ce, aux, grads = _jax_moe_loss_grads(gpt_case, moe_case, cf)
+    ranks = [r[f"moe_{cf}"] for r in gpt_tp2]
+    whole = ranks[0]["whole"]
+    # fp32, 2e-5: the loss, the aux term and every gradient, MoE ones
+    # included, against the unsharded port model and the JAX GPT
+    for r in ranks:
+        for k in ("loss", "aux"):
+            np.testing.assert_allclose(r[k], whole[k], rtol=2e-5, err_msg=k)
+        np.testing.assert_allclose(r["loss"], ce, rtol=2e-5)
+        np.testing.assert_allclose(r["aux"], aux, rtol=2e-5)
+    got = _gathered(ranks, "grads", 2)
+    assert any(".moe_mlp." in n for n in got)
+    _close(got, whole["grads"])
+    _close(got, grads)
+
+
+# --------------------------------------------------------------------- #
+# pipeline parallelism (the spawns above, on a pipe mesh)
+# --------------------------------------------------------------------- #
+HID, MB, SEQ = 16, 2, 4
+PIPE_MS = {2: (2, 5), 4: (4, 9)}       # M = pp and 2·pp + 1
+GPT_PIPE = dict(vocab_size=128, hidden_size=64, num_heads=4, max_seq_len=16,
+                position_embedding="learned")
+GPT_PIPE_LAYERS, GPT_PIPE_M = 4, 4
+
+
+def _toy_stage(params, x):
+    w1, b1, w2 = params
+    return x + jnp.tanh(x @ w1 + b1) @ w2
+
+
+def _toy_stack(rng, *lead):
+    return [(rng.normal(size=lead + s) * sc).astype(np.float32)
+            for s, sc in (((HID, HID), 0.3), ((HID,), 0.1), ((HID, HID), 0.3))]
+
+
+def _pipe_mesh(pp):
+    return Mesh(np.array(jax.devices()[:pp]), ("pipe",))
+
+
+@pytest.fixture(scope="module")
+def pipe_case():
+    """Inputs of the pipe checks, per spawn size: the toy stacks and
+    batch, the GPT closure's JAX stack and closure parameters, the ZeRO
+    step's layers and data."""
+    from apex_tpu.models import ParallelTransformerLayer as JLayer
+    from apex_tpu.models import TransformerConfig as JTCfg
+    from apex_tpu.transformer.pipeline_parallel import build_model as jbuild
+
+    rng = np.random.default_rng(21)
+    batch = rng.normal(size=(2 * 4 * MB + MB, SEQ, HID)).astype(np.float32)
+    jcfg = JTCfg(num_layers=1, causal=True, dtype=jnp.float32,
+                 **GPT_PIPE)
+    s = GPT_PIPE["max_seq_len"]
+    _, stacked, _ = jbuild(
+        JLayer(jcfg), GPT_PIPE_LAYERS, 2, rng=jax.random.PRNGKey(4),
+        sample_input=jnp.zeros((1, s, GPT_PIPE["hidden_size"])))
+    h, v = GPT_PIPE["hidden_size"], GPT_PIPE["vocab_size"]
+    closure = dict(
+        embed=(rng.normal(size=(v, h)) * 0.5).astype(np.float32),
+        pos=(rng.normal(size=(s, h)) * 0.1).astype(np.float32),
+        head=(rng.normal(size=(h, v)) * 0.2).astype(np.float32),
+        fln_scale=(1 + 0.1 * rng.normal(size=(h,))).astype(np.float32),
+        fln_bias=(0.1 * rng.normal(size=(h,))).astype(np.float32))
+    tokens = rng.integers(0, v, size=(GPT_PIPE_M * 2, s + 1))
+    gpt = dict(cfg=GPT_PIPE, layers=GPT_PIPE_LAYERS, m=GPT_PIPE_M,
+               stacked=jax.tree.map(np.asarray, jax.device_get(stacked)),
+               closure=closure, ids=tokens[:, :-1], labels=tokens[:, 1:])
+    zr = np.random.default_rng(8)
+    zero = dict(params=_toy_stack(zr, 4),
+                x=zr.normal(size=(2 * 4, MB, HID)).astype(np.float32),
+                y=zr.normal(size=(2 * 4, MB, HID)).astype(np.float32))
+    return {2: dict(toy=_toy_stack(rng, 2), toy_v=_toy_stack(rng, 2, 2),
+                    toy_batch=batch, mb=MB, ms=PIPE_MS[2], gpt=gpt),
+            4: dict(toy=_toy_stack(rng, 4), toy_batch=batch, mb=MB,
+                    ms=PIPE_MS[4], gpt=gpt, tp=True, zero=zero)}
+
+
+def _pipe_ranks(pp, gpt_tp2, gpt_tp2_dp2):
+    return [r["pipe"] for r in (gpt_tp2 if pp == 2 else gpt_tp2_dp2)]
+
+
+def _jax_1f1b(schedule, stacked, batch, m, pp):
+    loss, grads = jax.jit(lambda p, b: schedule(
+        _toy_stage, lambda y, i: jnp.mean(y ** 2), p, b,
+        mesh=_pipe_mesh(pp), num_microbatches=m))(
+            tuple(jnp.asarray(a) for a in stacked), jnp.asarray(batch))
+    return float(loss), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("pp,m", [(pp, m) for pp in PIPE_MS
+                                  for m in PIPE_MS[pp]])
+def test_1f1b_matches_the_jax_schedule(pipe_case, gpt_tp2, gpt_tp2_dp2, pp,
+                                     m):
+    from apex_tpu.transformer.pipeline_parallel import (
+        forward_backward_pipelining_without_interleaving as jsched)
+
+    case = pipe_case[pp]
+    loss, grads = _jax_1f1b(jsched, case["toy"],
+                            case["toy_batch"][:m * MB], m, pp)
+    # fp32; loss 1e-6, gradients 2e-5 of their largest magnitude (the
+    # stage products add in another order than XLA's)
+    for r, got in enumerate(_pipe_ranks(pp, gpt_tp2, gpt_tp2_dp2)):
+        np.testing.assert_allclose(got[f"1f1b_{m}"]["loss"], loss,
+                                   rtol=1e-6)
+        for g, w in zip(got[f"1f1b_{m}"]["grads"], grads):
+            _near(g, w[r], 2e-5)
+
+
+@pytest.mark.parametrize("pp", sorted(PIPE_MS))
+def test_1f1b_live_microbatches_stay_within_pp(gpt_tp2, gpt_tp2_dp2, pp):
+    # the 1F1B memory shape: at most pp - rank microbatch graphs held at
+    # once, the same at M = pp and 2·pp + 1
+    for r, got in enumerate(_pipe_ranks(pp, gpt_tp2, gpt_tp2_dp2)):
+        peaks = [got[f"1f1b_{m}"]["peak"] for m in PIPE_MS[pp]]
+        assert peaks == [pp - r] * len(peaks), (r, peaks)
+
+
+def test_interleaved_pp2_v2_matches_the_jax_schedule(pipe_case, gpt_tp2):
+    from apex_tpu.transformer.pipeline_parallel import (
+        forward_backward_pipelining_with_interleaving as jsched)
+
+    case, m = pipe_case[2], 4
+    loss, grads = _jax_1f1b(jsched, case["toy_v"],
+                            case["toy_batch"][:m * MB], m, 2)
+    for r, got in enumerate(_pipe_ranks(2, gpt_tp2, None)):
+        np.testing.assert_allclose(got["interleaved"]["loss"], loss,
+                                   rtol=1e-6)
+        for c in range(2):
+            for g, w in zip(got["interleaved"]["grads"][c], grads):
+                _near(g, w[c, r], 2e-5)
+
+
+@pytest.mark.parametrize("interleaved", [False, True])
+def test_spmd_pipeline_forward_and_autograd_match_jax(pipe_case, gpt_tp2,
+                                                      interleaved):
+    from apex_tpu.transformer.pipeline_parallel import (
+        spmd_pipeline,
+        spmd_pipeline_interleaved,
+    )
+
+    case = pipe_case[2]
+    m, key, spec = ((4, "toy_v", P(None, "pipe")) if interleaved
+                    else (3, "toy", P("pipe")))
+    fn = spmd_pipeline_interleaved if interleaved else spmd_pipeline
+    mbs = jnp.asarray(case["toy_batch"][:m * MB].reshape(m, MB, SEQ, HID))
+    run = jax.shard_map(lambda p, x: fn(_toy_stage, p, x),
+                        mesh=_pipe_mesh(2), in_specs=(spec, P()),
+                        out_specs=P(), axis_names={"pipe"})
+    stacked = tuple(jnp.asarray(a) for a in case[key])
+
+    def loss(p):
+        outs = run(p, mbs)
+        return jnp.mean(outs ** 2), outs
+    (_, outs), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        stacked)
+    # the outputs 1e-6 and the gradients 2e-5 of their largest magnitude
+    for r, got in enumerate(_pipe_ranks(2, gpt_tp2, None)):
+        got = got["spmd_interleaved" if interleaved else "spmd"]
+        _near(got["outs"], outs, 1e-6)
+        rows = ([[np.asarray(w)[c, r] for w in grads] for c in range(2)]
+                if interleaved else [[np.asarray(w)[r] for w in grads]])
+        for g_chunk, w_chunk in zip(got["grads"] if interleaved
+                                    else [got["grads"]], rows):
+            for g, w in zip(g_chunk, w_chunk):
+                _near(g, w, 2e-5)
+
+
+def test_sync_grad_overflow_skips_on_every_rank(gpt_tp2):
+    # rank 1's inf turns every rank's gradients NaN; finite ones pass
+    for r, got in enumerate(_pipe_ranks(2, gpt_tp2, None)):
+        np.testing.assert_array_equal(got["overflow"]["finite"],
+                                      np.arange(4.0) + r)
+        assert np.isnan(got["overflow"]["poisoned"]).all()
+
+
+def test_p2p_send_and_recv_move_the_sent_values(gpt_tp2):
+    # pipe 2, gloo: rank 0's activation reaches rank 1 and rank 1's
+    # gradient rank 0, bit for bit; the ends without a neighbour get
+    # None; a receive with no device named wants CUDA, and raises here
+    first, last = (got["p2p"] for got in _pipe_ranks(2, gpt_tp2, None))
+    np.testing.assert_array_equal(last["recv_forward"], W.P2P_ACT.numpy())
+    np.testing.assert_array_equal(first["recv_backward"],
+                                  W.P2P_GRAD.numpy())
+    assert first["recv_forward"] is None and last["recv_backward"] is None
+    assert first["default_device_raises"] and last["default_device_raises"]
+
+
+def test_broadcast_data_hands_every_tensor_rank_the_first_ones_batch(
+        gpt_tp2, gpt_tp2_dp2):
+    # tensor groups {0, 1} at tp 2, and {0, 1}, {2, 3} at tp 2 x dp 2:
+    # every rank ends with its group's first rank's batch, exactly
+    for ranks in (gpt_tp2, gpt_tp2_dp2):
+        for r, got in enumerate(ranks):
+            want = W._broadcast_data_of(r - r % 2)
+            assert set(got["broadcast"]) == {"text", "mask"}
+            for k in want:
+                np.testing.assert_array_equal(got["broadcast"][k],
+                                              want[k].numpy(), err_msg=k)
+
+
+def _jax_gpt_closure(case):
+    """The JAX 1F1B schedule with the embedding / head closure of
+    ``bench_configs.bench_gpt2_3d_full_step`` (fp32, pipe 2): loss,
+    stage gradients and closure gradients."""
+    from apex_tpu.models import ParallelTransformerLayer as JLayer
+    from apex_tpu.models import TransformerConfig as JTCfg
+    from apex_tpu.transformer.pipeline_parallel import (
+        build_model as jbuild,
+        forward_backward_pipelining_without_interleaving as jsched,
+    )
+
+    g = case["gpt"]
+    m, s = g["m"], GPT_PIPE["max_seq_len"]
+    jcfg = JTCfg(num_layers=1, causal=True, dtype=jnp.float32, **GPT_PIPE)
+    stage_fn, _, _ = jbuild(JLayer(jcfg), g["layers"], 2,
+                            rng=jax.random.PRNGKey(4),
+                            sample_input=jnp.zeros((1, s, jcfg.hidden_size)))
+    ids, labels = jnp.asarray(g["ids"]), jnp.asarray(g["labels"])
+    lab_mb = labels.reshape(m, -1, s)
+    mesh = jax_mesh.initialize_mesh(pipeline_model_parallel_size=2,
+                                    devices=jax.devices()[:2])
+
+    def loss_fn(lp, y, i):
+        hd, sc, bi = lp
+        mu = jnp.mean(y, axis=-1, keepdims=True)
+        var = jnp.var(y, axis=-1, keepdims=True)
+        yn = (y - mu) * jax.lax.rsqrt(var + 1e-5) * sc + bi
+        logp = jax.nn.log_softmax(yn @ hd)
+        lab = jax.lax.dynamic_index_in_dim(lab_mb, i, 0, keepdims=False)
+        return -jnp.mean(jnp.take_along_axis(logp, lab[..., None], -1))
+
+    def step(stacked, cl):
+        h = jnp.take(cl["embed"], ids, axis=0) + cl["pos"][None]
+        loss, sg, aux = jsched(
+            stage_fn, loss_fn, stacked, h, mesh=mesh, num_microbatches=m,
+            loss_params=(cl["head"], cl["fln_scale"], cl["fln_bias"]),
+            return_input_cotangents=True, distribute_inputs=False)
+        cts = aux["input_cotangents"].reshape(h.shape)
+        dh, ds, db = aux["loss_params_grads"]
+        return loss, sg, dict(embed=jnp.zeros_like(cl["embed"]).at[ids].add(
+            cts), pos=cts.sum(0), head=dh, fln_scale=ds, fln_bias=db)
+    try:
+        with jax.set_mesh(mesh):
+            loss, sg, cg = jax.jit(step)(g["stacked"], g["closure"])
+    finally:
+        jax_mesh.destroy_mesh()
+    return float(loss), jax.device_get(sg), jax.device_get(cg)
+
+
+@pytest.fixture(scope="module")
+def jax_gpt_closure(pipe_case):
+    return _jax_gpt_closure(pipe_case[2])
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_gpt_closure_pipeline_matches_jax(jax_gpt_closure, gpt_tp2,
+                                          gpt_tp2_dp2, tp):
+    from apex_tpu_torch.models.jax_import import (
+        closure_params_from_jax,
+        stage_params_from_jax,
+    )
+
+    loss, sg, cg = jax_gpt_closure
+    ranks = [r["pipe"]["gpt"] for r in (gpt_tp2 if tp == 1
+                                       else gpt_tp2_dp2)]
+    # fp32, 2e-5 (the tiny GPT's tolerance above): the loss, each rank's stage
+    # gradients (its tensor shard at tp 2) and the closure's gradients
+    # through the input cotangents and loss_params
+    for got in ranks:
+        stage, tp_rank = got["coords"]
+        np.testing.assert_allclose(got["loss"], loss, rtol=2e-5)
+        want = {k: v.numpy() for k, v in stage_params_from_jax(
+            sg, stage=stage, tp_rank=tp_rank, tp=tp).items()}
+        _close(got["stage"], want)
+        want = {k: v.numpy() for k, v in closure_params_from_jax(
+            cg, tp_rank=tp_rank, tp=tp).items()}
+        _close(got["closure"], want)
+
+
+def _jax_zero_pipeline(case):
+    """Two steps of the JAX ``wrap_pipeline_step`` at data 2 x pipe 2
+    with stage-local ZeRO-2 FusedAdam (``tests/test_pipeline.py``'s
+    composed step): the losses and the staged parameters after."""
+    from apex_tpu import amp
+    from apex_tpu.optim import fused_adam
+    from apex_tpu.parallel import ZeroConfig
+    from apex_tpu.parallel import pipeline as pl
+
+    z = case["zero"]
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "pipe"))
+    staged = {"stages": pl.stage_split(
+        tuple(jnp.asarray(a) for a in z["params"]), 2)}
+    state = amp.initialize(None, staged, fused_adam(1e-2), opt_level="O0",
+                           zero=ZeroConfig(axis="data", axis_size=2, stage=2))
+    state = pl.stage_local_zero(state, num_stages=2)
+    state = jax.device_put(state,
+                           pl.pipeline_state_shardings(state, mesh=mesh))
+
+    def layers(x, p):
+        w1, b1, w2 = p
+        return x + jnp.tanh(x @ w1 + b1) @ w2, None
+
+    def body(state, mbs, labels):
+        def loss_fn(out, i):
+            yl = jax.lax.dynamic_index_in_dim(labels, i, 0, keepdims=False)
+            return jnp.mean((out - yl) ** 2)
+        loss, grads = pl.run_1f1b(
+            lambda p, x: jax.lax.scan(layers, x, p)[0], loss_fn,
+            state.params["stages"], mbs)
+        grads = pl.sync_grad_overflow({"stages": grads})
+        new_state, _ = state.apply_gradients(grads=grads)
+        return new_state, jax.lax.pmean(loss, "data")
+
+    step = pl.wrap_pipeline_step(body, state=state, mesh=mesh,
+                                 batch_specs=(P("data"), P("data")))
+    losses = []
+    for _ in range(2):
+        state, loss = step(state, jnp.asarray(z["x"]), jnp.asarray(z["y"]))
+        losses.append(float(loss))
+    return losses, [np.asarray(a) for a in
+                    jax.device_get(state.params["stages"])]
+
+
+def test_wrap_pipeline_step_zero2_matches_jax(pipe_case, gpt_tp2_dp2):
+    losses, staged = _jax_zero_pipeline(pipe_case[4])
+    # two steps of FusedAdam at lr 1e-2 over pipe 2 x data 2: losses
+    # 1e-5, parameters 2e-6 (the JAX composed step's own tolerances)
+    for got in (r["pipe"]["zero"] for r in gpt_tp2_dp2):
+        np.testing.assert_allclose(got["losses"], losses, rtol=0, atol=1e-5)
+        for g, w in zip(got["params"], staged):
+            np.testing.assert_allclose(g, w[got["stage"]], rtol=0,
+                                       atol=2e-6)
+        lay = got["layout"]
+        assert (lay["num_stages"], lay["num_shards"]) == (2, 2)
+        assert lay["stage"] == got["stage"]

@@ -109,6 +109,37 @@ def tensor_parallel_checks(rank, world, d):
         nll.mean().backward()
         out[f"xent_{sm}"] = (nll.detach(), ls.grad)
     out["key"] = model_parallel_rng_key(prng_key(d["seed"]))
+    out["mha"] = _mha_checks(d)
+    return out
+
+
+def _mha_checks(d):
+    """``SelfMultiheadAttn`` / ``EncdecMultiheadAttn`` built on the mesh
+    and without one from the same weights: outputs, input and weight
+    gradients of a loss weighting the output."""
+    from apex_tpu_torch.ops.multihead_attn import (
+        EncdecMultiheadAttn,
+        SelfMultiheadAttn,
+    )
+
+    q, kv, w = _t(d["mha_q"]), _t(d["mha_kv"]), _t(d["mha_w"])
+    out = {}
+    for name, cls, kw, args in (
+            ("self", SelfMultiheadAttn,
+             dict(bias=True, include_norm_add=True, causal=True), (q,)),
+            ("encdec", EncdecMultiheadAttn, dict(bias=True), (q, kv))):
+        torch.manual_seed(3)
+        with commons.without_mesh():
+            whole = cls(64, 4, device="cpu", **kw)
+        sharded = cls(64, 4, device="cpu", **kw)
+        sharded.load_state_dict(whole.state_dict())
+        for tag, mod in (("mesh", sharded), ("whole", whole)):
+            xs = [a.clone().requires_grad_(True) for a in args]
+            y = mod(*xs)
+            (y * w).sum().backward()
+            out[f"{name}_{tag}"] = dict(
+                y=y.detach(), dx=[x.grad for x in xs],
+                grads={n: p.grad for n, p in mod.named_parameters()})
     return out
 
 
@@ -164,6 +195,51 @@ def gpt_tp_checks(rank, world, d, tp, sequence_parallel):
                 _gpt_loss_and_grads(whole, ids, labels, dropout_seed=1234)
     if d.get("bert"):
         out.update(_bert_tp(ids, labels, sequence_parallel))
+    for cf, sd_moe in d.get("moe", {}).items():
+        out[f"moe_{cf}"] = _moe_tp(ids, labels, sequence_parallel, cf,
+                                   sd_moe, d["cfg"])
+    if d.get("pipe"):
+        out["broadcast"] = _broadcast_checks(rank)
+        out["pipe"] = pipeline_checks(rank, world, d["pipe"])
+    return out
+
+
+def _broadcast_data_of(rank):
+    """The batch rank ``rank`` passes to ``broadcast_data``."""
+    return {"text": torch.arange(12).reshape(3, 4) + 100 * rank,
+            "mask": torch.arange(6).reshape(2, 3) % 2 + rank}
+
+
+def _broadcast_checks(rank):
+    """``broadcast_data`` over this rank's tensor group: every rank
+    passes its own batch and keeps the group's first rank's."""
+    from apex_tpu_torch.transformer.data import broadcast_data
+
+    return broadcast_data(["text", "mask"], _broadcast_data_of(rank),
+                          torch.int64)
+
+
+def _moe_tp(ids, labels, sequence_parallel, cf, sd, cfg):
+    """The tiny GPT with MoE layers (4 experts, top 2, capacity factor
+    ``cf``) on the mesh and without one, from the whole weights ``sd``:
+    the CE loss, the aux term and every gradient."""
+    from apex_tpu_torch.models import moe_aux_loss
+
+    kw = dict(cfg, device="cpu", state_dict={k: _t(v) for k, v in sd.items()},
+              sequence_parallel=sequence_parallel, num_moe_experts=4,
+              moe_top_k=2, moe_capacity_factor=cf)
+
+    def run(model):
+        from apex_tpu_torch.models.gpt import gpt_loss_fn
+
+        ce = gpt_loss_fn(model(ids).float(), labels)
+        aux = moe_aux_loss(model)
+        (ce + aux).backward()
+        return dict(loss=ce.detach(), aux=aux.detach(), grads={
+            n: p.grad for n, p in model.named_parameters()})
+    out = run(commons.standalone_gpt(**kw))
+    with commons.without_mesh():
+        out["whole"] = run(commons.standalone_gpt(**kw))
     return out
 
 
@@ -322,3 +398,214 @@ def zero_checks(rank, world, d, steps=3):
                      for k, v in model.state_dict().items()}
         out[name + "_masters"] = state.master_params()
     return out
+
+
+# --------------------------------------------------------------------- #
+# pipeline parallelism (run after the tensor-parallel checks, on a pipe
+# mesh built in their place)
+# --------------------------------------------------------------------- #
+class ToyStage(nn.Module):
+    """The JAX tests' residual MLP stage, x + tanh(x w1 + b1) w2, over a
+    stack of such layers when the weights lead with a layer axis."""
+
+    def __init__(self, w1, b1, w2):
+        super().__init__()
+        self.w1, self.b1, self.w2 = (nn.Parameter(_t(a)) for a in (w1, b1, w2))
+
+
+def toy_stage_fn(stage, x):
+    if stage.w1.dim() == 2:
+        return x + torch.tanh(x @ stage.w1 + stage.b1) @ stage.w2
+    for w1, b1, w2 in zip(stage.w1, stage.b1, stage.w2):
+        x = x + torch.tanh(x @ w1 + b1) @ w2
+    return x
+
+
+def _toy_grads(stage):
+    return [stage.w1.grad, stage.b1.grad, stage.w2.grad]
+
+
+def _pipe_mesh(**kw):
+    """Tear down the current mesh and build ``kw``'s (a collective)."""
+    from apex_tpu_torch.core import mesh as mesh_lib
+
+    mesh_lib.destroy_mesh()
+    return mesh_lib.initialize_mesh(**kw)
+
+
+def _mean_sq(y, i):
+    return torch.mean(y ** 2)
+
+
+def pipeline_checks(rank, world, d):
+    """The schedules on a pipe mesh of ``world`` ranks: 1F1B at each M
+    of ``d["ms"]``; with ``d["toy_v"]`` also the interleaved schedule at
+    V = 2, ``spmd_pipeline`` and the overflow sync; with ``d["gpt"]``
+    the GPT closure at pipe 2 (tensor 2 with ``d["tp"]``); with
+    ``d["zero"]`` the ZeRO-2 step at pipe 2 x data 2."""
+    from apex_tpu_torch.transformer.pipeline_parallel import schedules as S
+
+    out = {}
+    toy = d["toy"]
+    batch = _t(d["toy_batch"])
+    mesh = _pipe_mesh(pipeline_model_parallel_size=world)
+    r = mesh.axis_rank("pipe")
+    for m in d["ms"]:
+        stage = ToyStage(*(a[r] for a in toy))
+        loss, _ = S.forward_backward_pipelining_without_interleaving(
+            toy_stage_fn, _mean_sq, stage, batch[:m * d["mb"]],
+            num_microbatches=m)
+        out[f"1f1b_{m}"] = dict(loss=loss, grads=_toy_grads(stage),
+                                peak=S.last_run["peak_live"])
+    if "toy_v" in d:
+        m = 2 * world
+        chunks = [ToyStage(*(a[c, r] for a in d["toy_v"]))
+                  for c in range(2)]
+        loss, _ = S.forward_backward_pipelining_with_interleaving(
+            toy_stage_fn, _mean_sq, chunks, batch[:m * d["mb"]],
+            num_microbatches=m)
+        out["interleaved"] = dict(loss=loss, grads=[
+            _toy_grads(c) for c in chunks])
+        stage = ToyStage(*(a[r] for a in toy))
+        mbs = batch[:3 * d["mb"]].reshape(3, d["mb"], *batch.shape[1:])
+        outs = S.spmd_pipeline(toy_stage_fn, stage, mbs)
+        torch.mean(outs ** 2).backward()
+        out["spmd"] = dict(outs=outs.detach(), grads=_toy_grads(stage))
+        chunks = [ToyStage(*(a[c, r] for a in d["toy_v"]))
+                  for c in range(2)]
+        mbs = batch[:2 * world * d["mb"]].reshape(2 * world, d["mb"],
+                                                  *batch.shape[1:])
+        outs = S.spmd_pipeline_interleaved(toy_stage_fn, chunks, mbs)
+        torch.mean(outs ** 2).backward()
+        out["spmd_interleaved"] = dict(outs=outs.detach(), grads=[
+            _toy_grads(c) for c in chunks])
+        out["overflow"] = _overflow_checks(r)
+        out["p2p"] = _p2p_checks(r)
+    if "gpt" in d:
+        tp = 2 if d.get("tp") else 1
+        mesh = _pipe_mesh(pipeline_model_parallel_size=2,
+                          tensor_model_parallel_size=tp)
+        out["gpt"] = _gpt_pipeline(d["gpt"], mesh.axis_rank("pipe"), tp,
+                                   mesh.axis_rank("tensor"))
+        out["gpt"]["coords"] = (mesh.axis_rank("pipe"),
+                                mesh.axis_rank("tensor"))
+    if "zero" in d:
+        out["zero"] = _zero_pipeline_step(
+            d["zero"], _pipe_mesh(pipeline_model_parallel_size=2))
+    return out
+
+
+def _overflow_checks(r):
+    """``sync_grad_overflow``: an inf on rank 1 makes every rank's
+    gradients NaN; finite gradients come back unchanged."""
+    from apex_tpu_torch.parallel.pipeline import sync_grad_overflow
+
+    g = {"g": torch.arange(4.0) + r}
+    kept = sync_grad_overflow(g)["g"].clone()
+    bad = torch.ones(4)
+    if r == 1:
+        bad[0] = float("inf")
+    return dict(finite=kept, poisoned=sync_grad_overflow([bad])[0])
+
+
+P2P_ACT = torch.arange(6.0).reshape(2, 3) + 10
+P2P_GRAD = -torch.arange(6.0).reshape(2, 3)
+
+
+def _p2p_checks(r):
+    """The unfused helpers at pipe 2: rank 0's activation reaches rank
+    1, rank 1's gradient reaches rank 0; the end with no neighbour
+    receives None and sends nothing; a receive with no device named is
+    a CUDA one, so on the CPU it raises before posting anything."""
+    from apex_tpu_torch.transformer.pipeline_parallel import p2p
+
+    out = {}
+    shape, f32 = (2, 3), torch.float32
+    try:
+        (p2p.recv_forward if r else p2p.recv_backward)(shape, f32)
+    except RuntimeError:
+        out["default_device_raises"] = True
+    if r == 0:
+        p2p.send_forward(P2P_ACT)
+        out["recv_backward"] = p2p.recv_backward(shape, f32, device="cpu")
+        out["recv_forward"] = p2p.recv_forward(shape, f32, device="cpu")
+        p2p.send_backward(P2P_GRAD)
+    else:
+        out["recv_forward"] = p2p.recv_forward(shape, f32, device="cpu")
+        p2p.send_backward(P2P_GRAD)
+        out["recv_backward"] = p2p.recv_backward(shape, f32, device="cpu")
+        p2p.send_forward(P2P_ACT)
+    return out
+
+
+def _gpt_pipeline(d, r, tp, tp_rank):
+    """A tiny GPT through the 1F1B schedule: the stage built by
+    ``build_model`` from the JAX stack, the embedding, positions, final
+    norm and head closed over the pipelined region
+    (``gpt_pipeline_forward_backward``).  Returns the loss and every
+    gradient of this rank."""
+    import functools
+
+    from apex_tpu_torch.models import (
+        GPTConfig,
+        GPTModel,
+        gpt_pipeline_forward_backward,
+    )
+    from apex_tpu_torch.models.jax_import import (
+        closure_params_from_jax,
+        stage_params_from_jax,
+    )
+    from apex_tpu_torch.models.transformer import ParallelTransformerLayer
+    from apex_tpu_torch.transformer.pipeline_parallel import build_model
+
+    cfg = GPTConfig.tiny(**d["cfg"], num_layers=0, tie_embeddings=False,
+                         causal=True, sequence_parallel=tp > 1)
+    closure = GPTModel(cfg, device="cpu")
+    closure.load_state_dict(closure_params_from_jax(
+        d["closure"], tp_rank=tp_rank, tp=tp))
+    stage_fn, chunks = build_model(
+        functools.partial(ParallelTransformerLayer, cfg), d["layers"], 2,
+        device="cpu")
+    stage = chunks[0]
+    stage.load_state_dict(stage_params_from_jax(
+        d["stacked"], stage=r, tp_rank=tp_rank, tp=tp))
+    loss, _ = gpt_pipeline_forward_backward(
+        closure, stage_fn, stage, torch.from_numpy(d["ids"]).long(),
+        torch.from_numpy(d["labels"]).long(), num_microbatches=d["m"])
+    return dict(loss=loss, stage={
+        n: p.grad for n, p in stage.named_parameters()}, closure={
+        n: p.grad for n, p in closure.named_parameters()})
+
+
+def _zero_pipeline_step(d, mesh):
+    """Two steps of ``wrap_pipeline_step``: 1F1B over this rank's two
+    layers of the toy stack, the overflow sync, and the stage-local
+    ZeRO-2 FusedAdam update over the data group.  Returns the data-mean
+    losses and the stage's parameters after."""
+    from apex_tpu_torch.core.train_state import MixedPrecisionTrainState
+    from apex_tpu_torch.optim import fused_adam
+    from apex_tpu_torch.parallel import pipeline as pl
+    from apex_tpu_torch.parallel.ddp import all_reduce_mean_grads
+    from apex_tpu_torch.parallel.distributed_optim import ZeroConfig
+
+    r = mesh.axis_rank("pipe")
+    staged = pl.stage_split([_t(a) for a in d["params"]], 2)
+    model = nn.Module()
+    model.stages = ToyStage(*pl.local_stage(staged))
+    state = pl.stage_local_zero(MixedPrecisionTrainState.create(
+        model=model, optimizer=fused_adam(1e-2),
+        zero=ZeroConfig(axis="data", stage=2)), num_stages=2)
+
+    def body(state, mbs, labels):
+        def loss_fn(y, i):
+            return torch.mean((y - labels[i]) ** 2)
+        loss, _ = pl.run_1f1b(toy_stage_fn, loss_fn, state.model.stages, mbs)
+        pl.sync_grad_overflow(state.model)
+        state.apply_gradients()
+        return all_reduce_mean_grads(loss, "data")
+
+    step = pl.wrap_pipeline_step(body, state=state)
+    losses = [step(_t(d["x"]), _t(d["y"])) for _ in range(2)]
+    return dict(losses=torch.stack(losses), stage=r,
+                params=[p.detach() for p in model.stages.parameters()],
+                layout=pl.pipeline_state_layout(state))
