@@ -45,7 +45,11 @@ int8 all-reduces, ZeRO-1/2 and SyncBatchNorm across processes; and
 calculators, ``transformer.data.broadcast_data``, the 1F1B and
 interleaved schedules over point-to-point exchange
 (``transformer.pipeline_parallel``) and the train step on a data × pipe
-(× tensor) mesh with stage-local ZeRO (``parallel.pipeline``).
+(× tensor) mesh with stage-local ZeRO (``parallel.pipeline``); (its
+second half) context parallelism — ring attention and Ulysses
+(``parallel.ring_attention``, ``parallel.ulysses``) — and MoE experts
+sharded over a mesh axis; and tensor-parallel paged serving
+(``serving.tp_mesh``, ``PagedEngine(mesh=)``, ``InferenceServer(tp=)``).
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise
 when CUDA is unavailable unless the caller passes ``device="cpu"``.

@@ -126,6 +126,10 @@ class Mesh:
         #: the axes whose group has had its point-to-point communicator
         #: opened (``pipeline_parallel.p2p.connect``)
         self.p2p_opened: Set[str] = set()
+        #: the axes over which an MoE layer built on this mesh holds a
+        #: shard of its experts (``transformer.moe.MoEMLP``): its
+        #: gradients are not replicas there
+        self.expert_sharded: Set[str] = set()
 
     @property
     def size(self) -> int:
@@ -165,13 +169,26 @@ class Mesh:
             self._groups[names] = self._new_groups(names)
         return self._groups[names]
 
-    def _new_groups(self, names):
+    def host_group(self, axes: Axes):
+        """This rank's gloo group along ``axes``, for host objects
+        (``broadcast_object_list``): :meth:`group` itself under a gloo
+        world, else one made at the first request (a collective call,
+        as for :meth:`group`)."""
+        if dist.get_backend() == "gloo":
+            return self.group(axes)
+        names = ("host",) + _axes(axes)
+        if names not in self._groups:
+            self._groups[names] = self._new_groups(names[1:],
+                                                   backend="gloo")
+        return self._groups[names]
+
+    def _new_groups(self, names, backend=None):
         others = [a for a in AXIS_ORDER if a not in names]
         mine = None
         for coord in itertools.product(*(range(self.shape[a])
                                          for a in others)):
             members = list(self.line(names, dict(zip(others, coord))))
-            g = dist.new_group(members)
+            g = dist.new_group(members, backend=backend)
             if self.rank in members:
                 mine = g
         return mine

@@ -41,7 +41,11 @@ rank's own (un-synced) gradients: it reduce-scatters them into fp32
 shards (the gradient sync), unscales, takes one finiteness flag for the
 whole group (a MIN all-reduce), updates the shards, and all-gathers them
 in the parameters' dtype into the module — as the JAX package's
-``_apply_gradients_zero`` does inside ``shard_map``.
+``_apply_gradients_zero`` does inside ``shard_map``.  MoE experts
+sharded over the ZeRO axis (``expert_axis``, not replicas there) stay
+out of the shards: each rank keeps their whole fp32 masters and state,
+and their gradient — the sum over the axis that the layer's all-to-all
+brought home — divided by the axis size is the mean the shards get.
 """
 
 from __future__ import annotations
@@ -236,6 +240,16 @@ class MixedPrecisionTrainState:
                 "fp8 moments lay their blocks over whole parameters, not "
                 "ZeRO shards: use a dense moment_dtype with zero=")
         self.zero = zero.resolved()
+        # MoE experts sharded over the ZeRO axis are not replicas there:
+        # they stay out of the shards, each rank keeping whole masters
+        local = {i for i, p in enumerate(self.module_params)
+                 if getattr(p, "expert_axis", None) == self.zero.axis}
+        if local and getattr(opt, "shard_axis", None) is not None:
+            raise ValueError(
+                "an optimizer that reduces its norms over the ZeRO shards "
+                "(LAMB's shard_axis) would mix other ranks' experts into "
+                "the experts sharded over that axis: use "
+                "distributed_fused_adam")
         self.zero_group = group_of(self.zero.axis)
         n = dist.get_world_size(self.zero_group)
         if n != self.zero.axis_size:
@@ -245,14 +259,20 @@ class MixedPrecisionTrainState:
         after = [p.dtype if policy.per_op_casting
                  else policy.dtype_for(name, policy.compute_dtype)
                  for name, p in zip(self.names, self.module_params)]
-        self.zero_groups = [(dt, [i for i, a in enumerate(after) if a == dt])
-                            for dt in dict.fromkeys(after)]
+        def by_dtype(keep):
+            return [(dt, idx) for dt in dict.fromkeys(after) for idx in (
+                [i for i, a in enumerate(after) if a == dt and keep(i)],)
+                if idx]
+        self.zero_groups = by_dtype(lambda i: i not in local)
+        self.local_groups = by_dtype(lambda i: i in local)
         masters = []
         for _, idx in self.zero_groups:
             flat = torch.cat([self.module_params[i].detach().reshape(-1)
                               .float() for i in idx])
             masters.append(_pad_rows(flat, n)[rank].clone())
             del flat
+        local_masters = [torch.cat([self.module_params[i].detach().reshape(
+            -1).float() for i in idx]) for _, idx in self.local_groups]
         self.compute_copy = (ComputeCopy(self.model, policy)
                              if policy.per_op_casting else None)
         if not policy.per_op_casting:
@@ -260,13 +280,22 @@ class MixedPrecisionTrainState:
         self._leaves = parameter_leaves(self.model)
         sizes = [[self.module_params[i].numel() for i in idx]
                  for _, idx in self.zero_groups]
-        if getattr(opt, "per_leaf", False):
+        per_leaf = getattr(opt, "per_leaf", False)
+        if per_leaf:
             inner = opt.init(masters, [
                 [Leaf(k) for k in zero_lib.shard_segments(sz, rank, n)]
                 for sz in sizes])
         else:
             inner = opt.init(masters)
-        self.opt_state = zero_lib.ZeroOptState(master=masters, inner=inner)
+        local_inner = None
+        if local_masters:
+            local_inner = (opt.init(local_masters, [
+                [self._leaves[i][1] for i in idx]
+                for _, idx in self.local_groups])
+                if per_leaf else opt.init(local_masters))
+        self.opt_state = zero_lib.ZeroOptState(
+            master=masters, inner=inner, local_master=local_masters,
+            local_inner=local_inner)
 
     @classmethod
     def create(cls, *, model: nn.Module, optimizer,
@@ -303,7 +332,7 @@ class MixedPrecisionTrainState:
         (see :func:`parameter_leaves`)."""
         if self.zero is not None:
             return [[self._leaves[i] for i in idx]
-                    for _, idx in self.zero_groups]
+                    for _, idx in self.zero_groups + self.local_groups]
         return [[self._leaves[i] for i in g.indices] for g in self.groups]
 
     def master_params(self) -> Dict[str, torch.Tensor]:
@@ -313,14 +342,23 @@ class MixedPrecisionTrainState:
             return self.params
         from apex_tpu_torch.transformer.mappings import all_gather
         out = {}
-        for (_, idx), m in zip(self.zero_groups, self.opt_state.master):
-            full = all_gather(m, self.zero_group, 0)
-            off = 0
-            for i in idx:
-                p = self.module_params[i]
-                out[self.names[i]] = full[off:off + p.numel()].view(p.shape)
-                off += p.numel()
+        zs = self.opt_state
+        for (_, idx), m in zip(self.zero_groups, zs.master):
+            self._unflatten(idx, all_gather(m, self.zero_group, 0),
+                            lambda i, v: out.__setitem__(self.names[i], v))
+        for (_, idx), m in zip(self.local_groups, zs.local_master):
+            self._unflatten(idx, m,
+                            lambda i, v: out.__setitem__(self.names[i], v))
         return {n: out[n] for n in self.names}
+
+    def _unflatten(self, idx, flat, put):
+        """``put(i, view)`` for each parameter ``i`` of ``idx`` laid end
+        to end in ``flat``."""
+        off = 0
+        for i in idx:
+            p = self.module_params[i]
+            put(i, flat[off:off + p.numel()].view(p.shape))
+            off += p.numel()
 
     def load_jax_opt_state(self, count, exp_avg, exp_avg_sq
                            ) -> "MixedPrecisionTrainState":
@@ -401,22 +439,31 @@ class MixedPrecisionTrainState:
             flat, self.zero_group, reduce_dtype=z.reduce_dtype,
             stage=z.stage)]
         del flat
+        # the experts sharded over the axis: the owner's gradient is
+        # the sum over the axis already; the mean divides it
+        n = dist.get_world_size(self.zero_group)
+        local = [torch.cat([
+            torch.zeros(self.module_params[i].numel(),
+                        device=zs.local_master[0].device)
+            if grads[i] is None else grads[i].reshape(-1).float()
+            for i in idx]) / n for _, idx in self.local_groups]
         ls, ls_state = self.loss_scaler, self.loss_scale_state
-        ls.unscale_(ls_state, shards)
+        ls.unscale_(ls_state, shards + local)
         # one decision for every shard: a non-finite value lands only in
         # the shard that owns it
-        ok = all_finite(shards).to(torch.int32).reshape(1)
+        ok = all_finite(shards + local).to(torch.int32).reshape(1)
         dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=self.zero_group)
         finite = ok[0].bool()
         self.tx.step(shards, zs.inner, zs.master, finite)
+        if local:
+            self.tx.step(local, zs.local_inner, zs.local_master, finite)
         self.loss_scale_state = ls.adjust(ls_state, finite)
+        params = self.module_params
         for (dt, idx), m in zip(self.zero_groups, zs.master):
-            full = all_gather(m.to(dt), self.zero_group, 0)
-            off = 0
-            for i in idx:
-                p = self.module_params[i]
-                p.copy_(full[off:off + p.numel()].view(p.shape))
-                off += p.numel()
+            self._unflatten(idx, all_gather(m.to(dt), self.zero_group, 0),
+                            lambda i, v: params[i].copy_(v))
+        for (_, idx), m in zip(self.local_groups, zs.local_master):
+            self._unflatten(idx, m, lambda i, v: params[i].copy_(v))
         return finite
 
     # ------------------------------------------------------------------ #

@@ -28,6 +28,16 @@ __all__ = ["init_cache", "init_paged_cache", "apply_decode",
 _NEG_INF = -1e30
 
 
+def _kv_heads(model) -> int:
+    """The kv heads each layer of ``model`` holds: its rank's share when
+    built on a mesh with a tensor axis (``ParallelAttention.kv_heads``),
+    else the config's."""
+    for mod in model.modules():
+        if hasattr(mod, "kv_heads") and hasattr(mod, "tp_size"):
+            return int(mod.kv_heads)
+    return int(model.cfg.kv_heads)
+
+
 def init_cache(model, batch_size: int) -> Dict[str, torch.Tensor]:
     """An all-zero dense KV cache on the model's device: ``key`` and
     ``value`` ``(layers, batch, max_seq_len, kv_heads, head_dim)`` in
@@ -41,7 +51,7 @@ def init_cache(model, batch_size: int) -> Dict[str, torch.Tensor]:
     cfg = model.cfg
     ring = cfg.ring_window
     b = int(batch_size)
-    shape = (cfg.num_layers, b, ring or cfg.max_seq_len, cfg.kv_heads,
+    shape = (cfg.num_layers, b, ring or cfg.max_seq_len, _kv_heads(model),
              cfg.head_dim)
     dev = model.device
     cache = {
@@ -65,7 +75,8 @@ def init_paged_cache(model, batch_size: int, *,
     ``kv_block_size`` / ``kv_pool_blocks`` / ``kv_dtype`` unless the
     arguments say otherwise (the serving engine passes its own):
     ``key`` / ``value`` ``(layers, kv_heads, kv_pool_blocks,
-    kv_block_size, head_dim)`` in ``cfg.dtype`` or the ``kv_dtype``
+    kv_block_size, head_dim)`` (a tensor-parallel model's share of the
+    kv heads) in ``cfg.dtype`` or the ``kv_dtype``
     codes, plus ``key_scales`` / ``value_scales`` ``(layers, kv_heads,
     kv_pool_blocks)`` fp32 when quantized; and per row ``block_tables``
     ``(batch, ceil(max_seq_len / kv_block_size))``, ``cursors`` and
@@ -84,7 +95,7 @@ def init_paged_cache(model, batch_size: int, *,
                                 else kv_dtype)
     dev = model.device
     b = int(batch_size)
-    pool = (cfg.num_layers, cfg.kv_heads, nb, bs, cfg.head_dim)
+    pool = (cfg.num_layers, _kv_heads(model), nb, bs, cfg.head_dim)
     dt = cfg.dtype if store_dt is None else store_dt
     out = {
         "key": torch.zeros(pool, dtype=dt, device=dev),

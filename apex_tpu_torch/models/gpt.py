@@ -16,6 +16,9 @@ the logits are this rank's ``(batch, seq, vocab / tp)`` slice, which
 the tensor group has more than one rank.  Under ``sequence_parallel``
 the embeddings are cut into the rank's chunk of the sequence before the
 layers and the final norm's output is all-gathered into the head.
+The decode forwards (dense or paged cache) gather the vocabulary shards,
+so their logits are whole on every tensor rank (tensor-parallel
+serving).
 """
 
 from __future__ import annotations
@@ -103,6 +106,8 @@ class GPTModel(nn.Module):
         # the activations between the blocks are sequence chunks
         self.sequence_parallel = (cfg.sequence_parallel
                                   and tensor_parallel()[0])
+        # built on a mesh: the head's logits are vocabulary shards
+        self.vocab_parallel = tensor_parallel()[0]
         self.lm_head = None if cfg.tie_embeddings else ColumnParallelLinear(
             cfg.hidden_size, cfg.vocab_size, use_bias=False,
             sequence_parallel=cfg.sequence_parallel,
@@ -177,7 +182,7 @@ class GPTModel(nn.Module):
             ring[rows, step.slots] = (positions[:, s - tail:] + 1).to(
                 ring.dtype)
         index += s
-        return self._head(x, last_index)
+        return self._decode_logits(x, last_index)
 
     @staticmethod
     def _ring_step(step: DecodeStep, ring, s: int):
@@ -212,7 +217,17 @@ class GPTModel(nn.Module):
         if self.position_embedding is not None:
             x = x + self.position_embedding[clamped].to(x.dtype)
         x = self.transformer(x.to(cfg.dtype), cache, step)
-        return self._head(x, last_index)
+        return self._decode_logits(x, last_index)
+
+    def _decode_logits(self, x, last_index):
+        """Decode logits over the whole vocabulary: on a mesh the head's
+        vocabulary shards are all-gathered, so a sampler on every tensor
+        rank draws from the same logits."""
+        logits = self._head(x, last_index)
+        if self.vocab_parallel:
+            logits = mappings.gather_from_tensor_parallel_region(logits,
+                                                                 dim=-1)
+        return logits
 
     def _head(self, x, last_index=None, sequence_parallel=False):
         if last_index is not None:

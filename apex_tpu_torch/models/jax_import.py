@@ -23,12 +23,13 @@ flax's partitioning metadata, are unboxed).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "shard_state_dict", "resnet_params_from_jax",
+__all__ = ["params_from_jax", "shard_state_dict", "shard_paged_pool",
+           "resnet_params_from_jax",
            "stage_params_from_jax", "closure_params_from_jax",
            "named_leaves_from_jax", "group_norm_params_from_jax",
            "mha_params_from_jax", "mlp_params_from_jax"]
@@ -40,6 +41,8 @@ _LINEARS = {
 _NORMS = ("input_norm", "post_attention_norm")
 #: MoE leaves, in the JAX module's layout on both sides
 _MOE = ("gate", "w1", "w2", "wg", "b1", "b2")
+#: the stacked ``(E, ...)`` leaves an expert axis shards
+_MOE_EXPERT_LEAVES = ("w1", "w2", "wg", "b1", "b2")
 
 
 def _arr(leaf) -> np.ndarray:
@@ -98,25 +101,59 @@ def _layer(out: Dict[str, Any], pre: str, layer: Mapping) -> None:
             out[f"{pre}.moe_mlp.{name}"] = _arr(layer["moe_mlp"][name])
 
 
-def shard_state_dict(sd: Mapping[str, Any], tp_rank: int,
-                     tp_size: int) -> Dict[str, Any]:
+def shard_state_dict(sd: Mapping[str, Any], tp_rank: int, tp_size: int, *,
+                     experts: Optional[Tuple[int, int]] = None
+                     ) -> Dict[str, Any]:
     """Tensor-parallel rank ``tp_rank``'s part of a whole ``GPTModel`` /
     ``BertModel`` state dict: each column layer's rows, each row layer's
     columns and the embedding's vocabulary block, as the layers of a
     model built on a mesh with ``tp_size`` tensor ranks hold them
-    (:mod:`apex_tpu_torch.transformer.layers`); the rest whole."""
+    (:mod:`apex_tpu_torch.transformer.layers`); the rest whole.
+    ``experts`` ``(rank, n)``: the MoE expert leaves (``moe_mlp.w1``,
+    ``w2``, ``wg``, ``b1``, ``b2``) are cut on their expert dim into
+    ``n`` blocks and block ``rank`` kept, as a layer whose
+    ``expert_axis`` has ``n`` ranks holds them; default ``(tp_rank,
+    tp_size)`` (the expert axis is the tensor axis), ``(0, 1)`` keeps
+    them whole."""
     out = {}
+    e_rank, e_size = (tp_rank, tp_size) if experts is None else experts
     for name, t in sd.items():
         dim = next((d for suffix, d in _TP_DIMS
                     if name == suffix or name.endswith("." + suffix)), None)
-        if dim is None or tp_size == 1:
+        rank, size = tp_rank, tp_size
+        if dim is None and any(name.endswith(f".moe_mlp.{leaf}")
+                               for leaf in _MOE_EXPERT_LEAVES):
+            dim, rank, size = 0, e_rank, e_size
+        if dim is None or size == 1:
             out[name] = t
             continue
-        if t.shape[dim] % tp_size:
+        if t.shape[dim] % size:
             raise ValueError(f"{name}: dim {dim} of {tuple(t.shape)} does "
-                             f"not split into {tp_size}")
-        size = t.shape[dim] // tp_size
-        out[name] = t.narrow(dim, tp_rank * size, size).clone()
+                             f"not split into {size}")
+        part = t.shape[dim] // size
+        out[name] = t.narrow(dim, rank * part, part).clone()
+    return out
+
+
+def shard_paged_pool(cache: Mapping[str, Any], tp_rank: int,
+                     tp_size: int) -> Dict[str, Any]:
+    """Tensor-parallel rank ``tp_rank``'s part of a whole paged pool
+    (:func:`~apex_tpu_torch.models.generate.init_paged_cache`'s dict):
+    its block of the kv heads of ``key`` / ``value`` ``(layers,
+    kv_heads, ...)`` and of their ``key_scales`` / ``value_scales``, as
+    the layers of a model serving at ``tp_size`` tensor ranks hold them;
+    the tables and cursors whole (every rank keeps the same ones)."""
+    out = {}
+    for name, t in cache.items():
+        if name in ("key", "value", "key_scales", "value_scales") \
+                and tp_size > 1:
+            if t.shape[1] % tp_size:
+                raise ValueError(
+                    f"{name}: kv heads ({t.shape[1]}) must be divisible by "
+                    f"the tensor-parallel degree ({tp_size})")
+            part = t.shape[1] // tp_size
+            t = t.narrow(1, tp_rank * part, part).clone()
+        out[name] = t
     return out
 
 

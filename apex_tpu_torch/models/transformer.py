@@ -59,8 +59,13 @@ computes, dropout included: the attention-dropout hash takes each local
 head's global lane (``fused_attention(dropout_lanes=...)``), and the
 hidden dropout draws the whole mask and keeps the rank's chunk.
 
-Not in this slice: tensor-parallel decode and a tensor-parallel paged
-pool (``ROADMAP.md`` A-5, item 10c).
+Decode at tp > 1 (tensor-parallel serving): each rank's cache or page
+pool holds its share of the kv heads (``kv_heads / tp``), the layer
+attends on its heads and the row-parallel output all-reduces.  The
+model is built on the serving mesh (its layers hold their heads from
+it); the serving engine carries that mesh and checks it as the JAX
+config checks ``kv_mesh`` / ``kv_shard_axis``, which the config here
+does not repeat.  Decode runs without sequence parallelism.
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ from torch.utils.checkpoint import (
 )
 
 from apex_tpu_torch.amp import o1
+from apex_tpu_torch.core.mesh import TENSOR_AXIS
 from apex_tpu_torch.ops.attention import fused_attention
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm, fused_rms_norm
 from apex_tpu_torch.ops.mlp import resolve_activation
@@ -474,7 +480,7 @@ class ParallelAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, hk, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
-        _, tp, rank = tensor_parallel()
+        active, tp, rank = tensor_parallel()
         if hk % tp:
             raise ValueError(f"kv heads ({hk}) must split over the tensor "
                              f"axis ({tp})")
@@ -485,6 +491,7 @@ class ParallelAttention(nn.Module):
         self.heads, self.kv_heads = h // tp, hk // tp
         self.dropout_lanes = (h, rank * self.heads)
         self.tp_size = tp
+        self.sequence_parallel = active and cfg.sequence_parallel and tp > 1
         kw = dict(use_bias=cfg.add_bias_linear, dtype=cfg.dtype,
                   param_dtype=cfg.param_dtype, device=device,
                   sequence_parallel=cfg.sequence_parallel)
@@ -528,9 +535,10 @@ class ParallelAttention(nn.Module):
         :class:`DecodeStep`; paged decode for a :class:`PagedStep`, with
         ``cache_k`` / ``cache_v`` this layer's page pools and ``scales``
         its ``(k_scales, v_scales)`` when the pool is quantized."""
-        if step is not None and self.tp_size > 1:
-            raise NotImplementedError(
-                "tensor-parallel decode comes with ROADMAP.md A-5, item 10c")
+        if step is not None and self.sequence_parallel:
+            raise ValueError(
+                "decode runs without sequence parallelism: build the "
+                "serving model with sequence_parallel=False")
         if isinstance(step, PagedStep):
             return self._paged_decode(x, cache_k, cache_v, scales, step)
         if step is not None:
@@ -554,7 +562,7 @@ class ParallelAttention(nn.Module):
                 "decode=True requires a causal model (the cache attends "
                 "over the generated prefix)")
         b, s, _ = x.shape
-        h, d = cfg.num_heads, cfg.head_dim
+        h, d = self.heads, cfg.head_dim
         q, k, v = self._qkv(x, None if step.cos is None else (
             step.cos, step.sin))
         rows = torch.arange(b, device=x.device)[:, None]
@@ -630,7 +638,7 @@ class ParallelAttention(nn.Module):
         order-free)."""
         cfg = self.cfg
         b, s, _ = x.shape
-        h, d = cfg.num_heads, cfg.head_dim
+        h, d = self.heads, cfg.head_dim
         S, BS, MB = cfg.max_seq_len, kp.shape[2], step.tables.shape[1]
         # the pool's own dtype says whether it holds codes
         qmax = pool_qmax(kp.dtype)
@@ -824,15 +832,21 @@ class ParallelTransformerLayer(nn.Module):
     def _moe(self, h):
         """The MoE MLP.  Under sequence parallelism at tp > 1 the rank's
         sequence chunk is gathered first (its backward keeps the own
-        chunk: every tensor rank runs the whole layer on whole weights,
-        so each has the whole input gradient) and the output is cut back
-        to the chunk (its backward all-gathers), so the routing, the
-        capacity, the aux term and every gradient are those of the
+        chunk: every tensor rank ends with the whole input gradient), so
+        the routing, the capacity and the aux term are those of the
         unsharded layer, which routes whole batch rows as the JAX layer
-        does."""
+        does.  With the experts sharded over the tensor axis the ranks'
+        parts of the output are reduce-scattered back to the chunk
+        (:class:`~apex_tpu_torch.transformer.moe.MoEMLP`); with whole
+        experts the output is cut back to the chunk (its backward
+        all-gathers)."""
         if not self.moe_whole_sequence:
             return self.moe_mlp(h)
-        m, aux = self.moe_mlp(gather_from_tensor_parallel_region(h, dim=1))
+        whole = gather_from_tensor_parallel_region(h, dim=1)
+        moe = self.moe_mlp
+        if moe.ep_active and moe.cfg.expert_axis == TENSOR_AXIS:
+            return moe(whole, seq_scatter_dim=1)
+        m, aux = moe(whole)
         return scatter_to_sequence_parallel_region(m, dim=1), aux
 
 

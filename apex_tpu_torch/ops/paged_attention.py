@@ -32,8 +32,16 @@ plain versions dequantize after the gather, the kernels in registers.
 Unlike the JAX functions, which return new pools, these update the pool
 (and its scales) **in place** and return the same tensors: the pool is
 the serving engine's largest allocation, and only one row of it moves
-per decode step.  Tensor-parallel pools (``mesh=`` / ``shard_axis=``)
-come with ROADMAP.md A-5, item 10c.
+per decode step.
+
+Tensor-parallel pools take no mesh argument: each rank holds
+``kv_heads / tp`` heads of every page and their ``(kv head, page)``
+scales, and passes its shard with the q heads that read them (its block
+from :func:`tp_head_shards`, which a tensor-parallel layer's projection
+already gives); the result is the unsharded op's slice of heads.  The
+JAX op's ``mesh=`` / ``shard_axis=`` place a global array with
+``shard_map``; a process here holds only its shard, so the ops stay
+unsharded and the serving engine carries the mesh.
 """
 
 from __future__ import annotations
@@ -162,13 +170,6 @@ def _qmax_for_pool(dtype) -> float:
     except KeyError:
         raise ValueError(
             f"no KV quantization spec for pool dtype {dtype}") from None
-
-
-def _no_mesh(mesh, shard_axis):
-    if mesh is not None or shard_axis is not None:
-        raise NotImplementedError(
-            "tensor-parallel paged pools (mesh= / shard_axis=) come with "
-            "ROADMAP.md A-5, item 10c")
 
 
 # --------------------------------------------------------------------- #
@@ -655,16 +656,14 @@ def _check_pool(q, k_pages, v_pages, block_tables, lengths, k_scales,
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                     scale: Optional[float] = None,
                     implementation: Optional[str] = None,
-                    k_scales=None, v_scales=None, mesh=None,
-                    shard_axis: Optional[str] = None):
+                    k_scales=None, v_scales=None):
     """Attention of chunk queries over a paged pool (layouts in the
     module docstring); the chunk's own K/V must already be written.
     Quantized pools need ``k_scales`` / ``v_scales``.  ``implementation``
     as in :mod:`._dispatch`: under ``"auto"`` a CUDA call outside
     :func:`paged_kernel_ok` (head_dim not a multiple of 8 or above 256,
     pages of another float dtype) runs the plain version, logged once per
-    shape."""
-    _no_mesh(mesh, shard_axis)
+    shape.  A tensor-parallel pool: the module docstring."""
     _check_pool(q, k_pages, v_pages, block_tables, lengths, k_scales,
                 v_scales)
     scale = (q.shape[-1] ** -0.5) if scale is None else float(scale)
@@ -680,8 +679,7 @@ def paged_decode_fused(q, k_new, v_new, k_pages, v_pages, block_tables,
                        lengths, *, max_seq_len: int, cos_b=None, sin_b=None,
                        scale: Optional[float] = None,
                        implementation: Optional[str] = None,
-                       k_scales=None, v_scales=None, chunk_lens=None,
-                       mesh=None, shard_axis: Optional[str] = None):
+                       k_scales=None, v_scales=None, chunk_lens=None):
     """One decode step over the paged pool: per-row RoPE of ``q`` (b, 1,
     h, d) and ``k_new`` (b, 1, hk, d) with tables ``cos_b`` / ``sin_b``
     (b, 1, 1, rot/2) gathered at ``lengths`` (``None``: no rotation), the
@@ -693,7 +691,6 @@ def paged_decode_fused(q, k_new, v_new, k_pages, v_pages, block_tables,
     live pages; ``o`` agrees up to the order of the sums.  Any number of
     query heads per kv head.  ``implementation`` as in
     :func:`paged_attention`."""
-    _no_mesh(mesh, shard_axis)
     b, s, h, d = q.shape
     if s != 1:
         raise ValueError(

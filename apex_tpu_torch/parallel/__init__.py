@@ -1,8 +1,8 @@
 """Parallel building blocks of the port: the process-group bootstrap,
 data parallelism (DDP with half and int8 all-reduces), ZeRO-1/2,
-SyncBatchNorm across processes and the pipeline train step (counterpart
-of ``apex_tpu.parallel``; ring attention and Ulysses come with
-ROADMAP.md item 10b)."""
+SyncBatchNorm across processes, the pipeline train step and context
+parallelism — ring attention and Ulysses (counterpart of
+``apex_tpu.parallel``)."""
 
 from apex_tpu_torch.parallel.ddp import (
     DistributedDataParallel,
@@ -38,10 +38,19 @@ from apex_tpu_torch.parallel.pipeline import (
     sync_grad_overflow,
     wrap_pipeline_step,
 )
+from apex_tpu_torch.parallel.ring_attention import (
+    ring_attention,
+    ring_self_attention,
+    virtual_ring_attention,
+)
 from apex_tpu_torch.parallel.sync_batchnorm import (
     SyncBatchNorm,
     convert_syncbn_model,
     sync_batch_norm_stats,
+)
+from apex_tpu_torch.parallel.ulysses import (
+    ulysses_attention,
+    ulysses_self_attention,
 )
 
 __all__ = ["DistributedDataParallel", "all_reduce_mean_grads", "replicate",
@@ -53,4 +62,6 @@ __all__ = ["DistributedDataParallel", "all_reduce_mean_grads", "replicate",
            "bubble_fraction", "schedule_ticks", "live_microbatches",
            "stage_split", "stage_unsplit", "local_stage",
            "stage_local_zero", "pipeline_state_layout",
-           "sync_grad_overflow", "run_1f1b", "wrap_pipeline_step"]
+           "sync_grad_overflow", "run_1f1b", "wrap_pipeline_step",
+           "ring_attention", "ring_self_attention", "virtual_ring_attention",
+           "ulysses_attention", "ulysses_self_attention"]

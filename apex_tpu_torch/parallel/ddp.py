@@ -17,6 +17,21 @@ backward left, as apex's ``DistributedDataParallel`` makes it:
 - :class:`DistributedDataParallel` — the three as one object.
 
 Every call runs its collectives at any group size, one included.
+
+MoE experts sharded over a data-parallel axis (``MoEConfig.expert_axis
+= "data"``; such a parameter carries ``expert_axis``) are not replicas
+over it: each rank holds other experts, and the layer's token
+all-to-all already brought each expert's gradient home, summed over
+every rank's tokens.  :func:`replicate` leaves them alone, and
+:func:`all_reduce_mean_grads`, given ``params``, leaves their gradients
+out of the collective and divides them by the axis size under
+``average`` — the unsharded layer's mean-over-data gradient.  Without
+``params`` it cannot tell them apart, so once such a layer is built on
+the mesh (``Mesh.expert_sharded``) a reduction over its axis whose
+gradients' parameters are not all known raises.
+:class:`DistributedDataParallel` keeps the parameters it replicated and
+finds each gradient's parameter by identity (``p.grad``), so its
+``mean_grads([p.grad for p in ...])`` needs no ``params``.
 """
 
 from __future__ import annotations
@@ -46,11 +61,18 @@ def _dp_axes(mesh, axes=(DATA_AXIS, FSDP_AXIS)):
     return tuple(a for a in axes if mesh.shape[a] > 1) or (axes[0],)
 
 
+def _sharded_over(param, axes) -> bool:
+    """Whether ``param`` holds MoE experts sharded over one of ``axes``
+    (not a replica there)."""
+    return getattr(param, "expert_axis", None) in axes
+
+
 def replicate(tree: Any, mesh=None) -> Any:
     """Broadcast every tensor of ``tree`` (or every parameter and buffer
     of a module) in place from the first rank of this rank's
     data-parallel group (``data`` × ``fsdp``), so all replicas start
-    identical; returns ``tree``."""
+    identical; returns ``tree``.  Experts sharded over a data-parallel
+    axis are not broadcast (each rank holds its own)."""
     mesh = mesh or mesh_lib.get_mesh()
     axes = _dp_axes(mesh)
     group = mesh.group(axes)
@@ -59,6 +81,8 @@ def replicate(tree: Any, mesh=None) -> Any:
         tensors = list(tree.parameters()) + list(tree.buffers())
     else:
         tensors = [t for t in tree_leaves(tree) if torch.is_tensor(t)]
+    tensors = [t for t in tensors
+               if not _sharded_over(t, (DATA_AXIS, FSDP_AXIS))]
     with torch.no_grad():
         for t in tensors:
             dist.broadcast(t.data, src=src, group=group)
@@ -171,7 +195,7 @@ def _q8_all_reduce(g, group, n: int, average: bool):
 
 def all_reduce_mean_grads(grads: Any, axis=DATA_AXIS, *,
                           allreduce_dtype: Any = None,
-                          average: bool = True) -> Any:
+                          average: bool = True, params: Any = None) -> Any:
     """The gradients of ``grads`` (a tensor or a list / tuple / dict of
     them; None passes through) reduced over the ``axis`` group: the mean
     (``average=True``, ``gradient_average``) or the sum.
@@ -181,18 +205,52 @@ def all_reduce_mean_grads(grads: Any, axis=DATA_AXIS, *,
     dtype); a half dtype casts before and back after (apex DDP's
     ``allreduce_different_dtype``); ``"int8"`` is the quantized
     all-reduce of the module docstring, per tensor, with non-finite
-    gradients coming back NaN.  Returns new tensors."""
+    gradients coming back NaN.  ``params``: the parameters of the
+    gradients, in the same structure; the gradient of one whose experts
+    are sharded over ``axis`` (the module docstring) stays out of the
+    collective and is divided by the group size under ``average``.
+    Without ``params``, or with a None among them, a reduction over an
+    axis where an MoE layer of the current mesh holds sharded experts
+    raises ``ValueError``.  Returns new tensors."""
     dtype = _normalize_allreduce_dtype(allreduce_dtype)
     group = group_of(axis)
     n = dist.get_world_size(group)
+    names = ((axis,) if isinstance(axis, str)
+             else axis if isinstance(axis, tuple) else ())
+    own, unknown = set(), []
+
+    def sort(g, p):
+        if p is None:
+            unknown.append(g)
+        elif _sharded_over(p, names):
+            own.add(id(g))
+    if params is None:
+        unknown = [g for g in tree_leaves(grads) if torch.is_tensor(g)]
+    else:
+        tree_map(sort, grads, params)
+    experts = sorted(set(names) & (mesh_lib.get_mesh().expert_sharded
+                                   if mesh_lib.mesh_is_initialized()
+                                   else set()))
+    if unknown and experts:
+        raise ValueError(
+            f"an MoE layer on this mesh holds its experts sharded over "
+            f"{experts}: their gradients are not replicas there — pass "
+            f"params= (the gradients' parameters, in the same structure) "
+            f"so they stay out of the all-reduce")
+
+    def local(g):
+        return g / n if average else g.clone()
+
     if dtype == "int8":
-        return tree_map(lambda g: g if g is None else _q8_all_reduce(
-            g, group, n, average), grads)
-    leaves = [g for g in tree_leaves(grads) if torch.is_tensor(g)]
+        return tree_map(lambda g: g if g is None else local(g)
+                        if id(g) in own else _q8_all_reduce(
+                            g, group, n, average), grads)
+    leaves = [g for g in tree_leaves(grads)
+              if torch.is_tensor(g) and id(g) not in own]
     wire = {}
     for g in leaves:
         wire.setdefault(g.dtype if dtype is None else dtype, []).append(g)
-    out = {}
+    out = {id(g): local(g) for g in tree_leaves(grads) if id(g) in own}
     for wdt, gs in wire.items():
         flat = torch.cat([g.reshape(-1).to(wdt) for g in gs])
         dist.all_reduce(flat, group=group)
@@ -217,6 +275,11 @@ class DistributedDataParallel:
         loss.backward()
         grads = ddp.mean_grads([p.grad for p in state.module_params])
         state.apply_gradients(grads)
+
+    ``mean_grads`` finds each gradient's parameter among the ones
+    :meth:`replicate` saw (by ``p.grad`` identity), so the experts of an
+    MoE layer sharded over the data axis stay out of the all-reduce (the
+    module docstring).
     """
 
     def __init__(self, mesh=None, *, gradient_average: bool = True,
@@ -225,15 +288,27 @@ class DistributedDataParallel:
         self.gradient_average = gradient_average
         self.allreduce_dtype = allreduce_dtype
         _normalize_allreduce_dtype(allreduce_dtype)
+        self.params: list = []
 
     def replicate(self, params: Any) -> Any:
+        self.params = (list(params.parameters())
+                       if isinstance(params, torch.nn.Module)
+                       else [t for t in tree_leaves(params)
+                             if torch.is_tensor(t)])
         return replicate(params, self.mesh)
 
     def shard(self, batch: Any) -> Any:
         return shard_batch(batch, self.mesh)
 
-    def mean_grads(self, grads: Any, axis: Any = DATA_AXIS) -> Any:
-        """``grads`` reduced over the ``axis`` group."""
+    def mean_grads(self, grads: Any, axis: Any = DATA_AXIS,
+                   params: Any = None) -> Any:
+        """``grads`` reduced over the ``axis`` group; ``params`` (see
+        :func:`all_reduce_mean_grads`) defaults to the replicated
+        parameters whose ``.grad`` each gradient is."""
+        if params is None and self.params:
+            by_grad = {id(p.grad): p for p in self.params
+                       if p.grad is not None}
+            params = tree_map(lambda g: by_grad.get(id(g)), grads)
         return all_reduce_mean_grads(
             grads, axis, allreduce_dtype=self.allreduce_dtype,
-            average=self.gradient_average)
+            average=self.gradient_average, params=params)

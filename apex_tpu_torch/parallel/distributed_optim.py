@@ -93,10 +93,16 @@ class ZeroConfig:
 class ZeroOptState:
     """The sharded optimizer state of a zero-mode train state:
     ``master`` the fp32 master shards ``(m,)`` (one a buffer), ``inner``
-    the wrapped optimizer's state over them."""
+    the wrapped optimizer's state over them; ``local_master`` /
+    ``local_inner`` the whole fp32 masters and the state of the
+    parameters that are not replicas over the ZeRO axis (MoE experts
+    sharded over it), which each rank updates alone."""
 
     master: List[torch.Tensor]
     inner: Any
+    local_master: List[torch.Tensor] = dataclasses.field(
+        default_factory=list)
+    local_inner: Any = None
 
 
 # ---------------------------------------------------------- shard layout

@@ -6,6 +6,8 @@ the slot pool and the page allocator, digests and prefix trie
 (:mod:`~apex_tpu_torch.serving.scheduler`) and the threaded front end
 (:mod:`~apex_tpu_torch.serving.api`).  Greedy decoding through the
 engine is token-identical to :func:`apex_tpu_torch.models.generate`.
+A paged engine or server spans ``tp`` tensor ranks with ``mesh=`` /
+``tp=`` (:func:`tp_mesh`).
 """
 
 from apex_tpu_torch.serving.api import (
@@ -27,6 +29,7 @@ from apex_tpu_torch.serving.engine import (
     StepOutput,
     prompt_lookup_draft,
     sample_dynamic,
+    tp_mesh,
 )
 from apex_tpu_torch.serving.scheduler import (
     QueueFull,
@@ -39,6 +42,6 @@ __all__ = [
     "InferenceServer", "RequestFailed", "RequestHandle", "ServerClosed",
     "BlockAllocator", "BlockExhausted", "PrefixTrie", "chain_digests",
     "DEFAULT_BUCKETS", "Engine", "PagedEngine", "StepOutput",
-    "prompt_lookup_draft", "sample_dynamic",
+    "prompt_lookup_draft", "sample_dynamic", "tp_mesh",
     "QueueFull", "Request", "Scheduler", "StepEvent",
 ]

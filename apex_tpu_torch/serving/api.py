@@ -25,9 +25,19 @@ Usage::
                              spec_tokens=3, kv_dtype="int8")
 
 The model carries its weights (a ``torch.nn.Module`` on the serving
-device), so there is no separate ``params`` argument.  Tensor
-parallelism, graceful drain and the fleet router come with a later
-slice (ROADMAP.md A-5, item 10c).
+device), so there is no separate ``params`` argument.
+
+Tensor parallelism (``kv_cache="paged"`` with ``tp=`` or ``mesh=``):
+every tensor rank builds the model on the serving mesh and its own
+server, and calls ``start`` / ``shutdown``; requests enter on tensor
+rank 0, whose worker thread schedules.  Its engine records the calls
+that change engine state — admissions, releases (preemptions, evictions
+and finished requests) and each step — and broadcasts the record of a
+step, before running it, over the tensor group's gloo group; the worker
+threads of the other ranks replay each record on their engines, so
+every rank runs the same step with the same host state, and none of
+them schedules.  ``health()`` and the metrics carry
+``chips_per_replica``, ``mesh_shape`` and the per-chip throughput.
 """
 
 from __future__ import annotations
@@ -39,7 +49,9 @@ from collections import deque
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch.distributed as dist
 
+from apex_tpu_torch.core.mesh import TENSOR_AXIS
 from apex_tpu_torch.resilience import faults
 from apex_tpu_torch.serving.engine import (
     DEFAULT_BUCKETS,
@@ -135,6 +147,57 @@ class RequestHandle:
         return list(self._request.tokens)
 
 
+class _RecordingEngine:
+    """Tensor rank 0's engine under tensor parallelism: the calls that
+    change engine state are recorded (after they succeed; a step before
+    it runs), and a step first broadcasts the record since the last one
+    to the other tensor ranks (:meth:`InferenceServer._follow` replays
+    it).  Every other attribute is the engine's."""
+
+    def __init__(self, engine, channel: "_Channel"):
+        self._engine = engine
+        self._channel = channel
+        self._calls: List[tuple] = []
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def admit(self, slot, prompt, **kw):
+        self._engine.admit(slot, prompt, **kw)
+        self._calls.append(("admit", (slot, np.asarray(prompt)), kw))
+
+    def release(self, slot):
+        self._engine.release(slot)
+        self._calls.append(("release", (slot,), {}))
+
+    def step(self):
+        self._channel.send(self._calls + [("step", (), {})])
+        self._calls = []
+        return self._engine.step()
+
+    def close(self) -> None:
+        """The last record: what is left, then stop."""
+        self._channel.send(self._calls + [("stop", (), {})])
+        self._calls = []
+
+
+class _Channel:
+    """Records from tensor rank 0 to the others, over the tensor group's
+    gloo group (``broadcast_object_list``)."""
+
+    def __init__(self, mesh):
+        self.group = mesh.host_group(TENSOR_AXIS)
+        self.src = mesh.line(TENSOR_AXIS)[0]
+
+    def send(self, record) -> None:
+        dist.broadcast_object_list([record], src=self.src, group=self.group)
+
+    def receive(self):
+        box = [None]
+        dist.broadcast_object_list(box, src=self.src, group=self.group)
+        return box[0]
+
+
 class InferenceServer:
     """Continuous-batching inference server over one model.
 
@@ -160,24 +223,37 @@ class InferenceServer:
                  share_prefixes: bool = False, spec_tokens: int = 0,
                  spec_ngram: int = 3, kv_dtype: Optional[str] = None,
                  tp: int = 0, mesh: Optional[Any] = None):
-        if (tp and tp > 1) or mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (tp= / mesh=) comes with "
-                "ROADMAP.md A-5, item 10c")
         if kv_cache == "paged":
             if prompt_buckets is not None:
                 raise ValueError(
                     "prompt_buckets only applies to kv_cache='dense' — "
                     "chunked prefill admits any prompt length; tune "
                     "prefill_chunk and pool_tokens instead")
+            if tp and mesh is not None:
+                # mesh may be a Mesh or an int (the engine takes both):
+                # its tensor width must agree with an explicit tp
+                mesh_tp = (mesh if isinstance(mesh, int)
+                           else dict(getattr(mesh, "shape", {}) or {}).get(
+                               TENSOR_AXIS, 1))
+                if mesh_tp != tp:
+                    raise ValueError(
+                        f"tp={tp} disagrees with mesh ({TENSOR_AXIS} axis "
+                        f"{mesh_tp}) — pass one or make them match")
             # chunked prefill needs a width; 0 maps to the default
             self.engine: Any = PagedEngine(
                 model, max_slots=max_slots, block_size=block_size,
                 pool_tokens=pool_tokens, prefill_chunk=prefill_chunk or 32,
                 admit_headroom=admit_headroom,
                 share_prefixes=share_prefixes, spec_tokens=spec_tokens,
-                spec_ngram=spec_ngram, kv_dtype=kv_dtype)
+                spec_ngram=spec_ngram, kv_dtype=kv_dtype,
+                mesh=(mesh if mesh is not None
+                      else (tp if tp and tp > 1 else None)))
         elif kv_cache == "dense":
+            if (tp and tp > 1) or mesh is not None:
+                raise ValueError(
+                    "tp / mesh require kv_cache='paged' — tensor-parallel "
+                    "serving shards the paged pool on its kv_heads axis; "
+                    "the dense slab engine is single-chip")
             if share_prefixes or spec_tokens:
                 raise ValueError(
                     "share_prefixes / spec_tokens require kv_cache='paged' "
@@ -196,6 +272,15 @@ class InferenceServer:
         else:
             raise ValueError(
                 f"kv_cache={kv_cache!r} not in ('dense', 'paged')")
+        #: tensor rank of this server (0 schedules) and the record
+        #: channel to the other ranks (tp > 1 only)
+        self.tp_rank, self._channel = 0, None
+        if getattr(self.engine, "tp", 1) > 1:
+            mesh = self.engine.mesh
+            self.tp_rank = mesh.axis_rank(TENSOR_AXIS)
+            self._channel = _Channel(mesh)
+            if self.tp_rank == 0:
+                self.engine = _RecordingEngine(self.engine, self._channel)
         self.scheduler = Scheduler(self.engine,
                                    queue_capacity=queue_capacity)
         self.metrics = metrics
@@ -228,8 +313,9 @@ class InferenceServer:
         if warmup:
             self.engine.warmup()
         self._started_at = time.monotonic()
+        target = self._follow if self.tp_rank else self._serve
         self._thread = threading.Thread(
-            target=self._serve, name="apex-tpu-torch-serving", daemon=True)
+            target=target, name="apex-tpu-torch-serving", daemon=True)
         self._thread.start()
         return self
 
@@ -261,6 +347,10 @@ class InferenceServer:
         ``deadline`` bounds the request's total latency (seconds from
         acceptance); ``timeout`` bounds only this call's wait for queue
         space."""
+        if self.tp_rank:
+            raise ValueError(
+                f"requests enter on tensor rank 0; this server is tensor "
+                f"rank {self.tp_rank}, which follows its records")
         request = Request(
             prompt=np.asarray(prompt, np.int32).reshape(-1),
             max_new_tokens=int(max_new_tokens),
@@ -297,6 +387,22 @@ class InferenceServer:
             raise
 
     # ------------------------------------------------------------- worker
+    def _follow(self) -> None:
+        """A tensor rank other than 0: replay rank 0's records until its
+        stop record."""
+        try:
+            while True:
+                for name, args, kw in self._channel.receive():
+                    if name == "stop":
+                        return
+                    getattr(self.engine, name)(*args, **kw)
+                    if name == "step":
+                        self._steps += 1
+        except BaseException as exc:    # noqa: BLE001 — surfaced by health
+            with self._wakeup:
+                self.error = exc
+                self._stop = True
+
     def _serve(self) -> None:
         try:
             while True:
@@ -374,6 +480,8 @@ class InferenceServer:
             if self.metrics is not None \
                     and self._steps != self._last_emit_step:
                 self._emit_metrics(time.monotonic())
+            if self._channel is not None:
+                self.engine.close()
 
     # ----------------------------------------------------- fault recovery
     def _fail_request(self, req: Request, failure: RequestFailed) -> None:
@@ -442,8 +550,13 @@ class InferenceServer:
 
     def _emit_metrics(self, now: float) -> None:
         dt = max(now - (self._window_t0 or now), 1e-9)
+        chips = self._chips()
         payload = {
             "tokens_per_sec": self._window_tokens / dt,
+            # per chip: a tensor-parallel replica divides by its width,
+            # so 1 x M and M x 1 deployments compare at equal chips
+            "tokens_per_sec_per_chip": self._window_tokens / dt / chips,
+            "chips_per_replica": chips,
             "occupancy": self.scheduler.occupancy,
             "queue_depth": self.scheduler.queue_depth,
             "tokens_total": self._tokens_emitted,
@@ -475,7 +588,7 @@ class InferenceServer:
             status = "stopped"
         else:
             status = "serving"
-        return {
+        out = {
             "status": status,
             "ready": status == "serving",
             "uptime_s": (0.0 if self._started_at is None
@@ -489,8 +602,16 @@ class InferenceServer:
             "deadline_expired": self._deadline_expired,
             "preempts": self.scheduler.preempts,
             "error": None if error is None else repr(error),
+            "chips_per_replica": self._chips(),
             **self._pool_gauges(numeric=False),
         }
+        mesh_shape = getattr(self.engine, "mesh_shape", None)
+        if mesh_shape is not None:
+            out["mesh_shape"] = mesh_shape
+        return out
+
+    def _chips(self) -> int:
+        return int(getattr(self.engine, "chips_per_replica", 1))
 
     def _pool_gauges(self, numeric: bool) -> Dict[str, Any]:
         """The paged pool's gauges (empty for the dense engine): pages in

@@ -37,6 +37,10 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
+from apex_tpu_torch.core import mesh as mesh_lib
+from apex_tpu_torch.core.mesh import TENSOR_AXIS
 from apex_tpu_torch.models.generate import (
     apply_decode,
     init_cache,
@@ -46,6 +50,7 @@ from apex_tpu_torch.models.generate import (
 from apex_tpu_torch.ops.paged_attention import (
     kv_quant_spec,
     kv_store_bytes_per_token,
+    tp_head_shards,
 )
 from apex_tpu_torch.ops.fused_sampling import (
     fused_sample,
@@ -56,7 +61,7 @@ from apex_tpu_torch.serving import cache as slot_cache
 from apex_tpu_torch.utils.metrics import counters
 
 __all__ = ["Engine", "PagedEngine", "StepOutput", "sample_dynamic",
-           "prompt_lookup_draft", "DEFAULT_BUCKETS"]
+           "prompt_lookup_draft", "DEFAULT_BUCKETS", "tp_mesh"]
 
 DEFAULT_BUCKETS: Tuple[int, ...] = (32, 128, 512)
 
@@ -108,6 +113,60 @@ def prompt_lookup_draft(context, k: int, max_ngram: int = 3) -> np.ndarray:
             if drafts.size:
                 return drafts.astype(np.int32)
     return np.empty((0,), np.int32)
+
+
+def tp_mesh(tp: int):
+    """A one-replica tensor-parallel serving mesh: ``tp`` ranks on the
+    ``tensor`` axis of the initialized process group (the data axis
+    takes the rest).  The current mesh when its tensor axis already has
+    ``tp`` ranks, else a new one made current (a collective call) — the
+    model must be built on it, since its layers hold their rank's
+    shards.  Raises when the process group has fewer than ``tp``
+    ranks."""
+    tp = int(tp)
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world < tp:
+        raise ValueError(
+            f"tp={tp} needs {tp} devices (processes of the initialized "
+            f"process group), only {world} available")
+    if mesh_lib.mesh_is_initialized() \
+            and mesh_lib.get_mesh().shape[TENSOR_AXIS] == tp:
+        return mesh_lib.get_mesh()
+    return mesh_lib.initialize_mesh(tensor_model_parallel_size=tp)
+
+
+def _serving_mesh(mesh, model):
+    """``(mesh, tp)`` of a paged engine from its ``mesh=`` argument, with
+    the JAX engine's gates: an int ≤ 1 (or None) is the single-chip
+    engine ``(None, 1)``; an int > 1 goes through :func:`tp_mesh`; a
+    mesh without a tensor axis, ``kv_heads % tp`` and a model not built
+    on a tensor axis of ``tp`` ranks raise ``ValueError``.  A mesh passed
+    in runs the tensor-parallel code even when its tensor axis has one
+    rank (the collectives then move nothing)."""
+    cfg = model.cfg
+    if mesh is None or (isinstance(mesh, int) and mesh <= 1):
+        return None, 1
+    if isinstance(mesh, int):
+        tp_head_shards(cfg.num_heads, cfg.kv_heads, mesh)
+        mesh = tp_mesh(mesh)
+    shape = dict(getattr(mesh, "shape", {}) or {})
+    if TENSOR_AXIS not in shape:
+        raise ValueError(
+            f"mesh has no {TENSOR_AXIS!r} axis (axes: "
+            f"{tuple(getattr(mesh, 'axis_names', ()))}) — build the "
+            f"serving mesh with serving.tp_mesh(tp), or pass an int")
+    tp = int(shape[TENSOR_AXIS])
+    tp_head_shards(cfg.num_heads, cfg.kv_heads, tp)
+    built = {int(m.tp_size) for m in model.modules()
+             if hasattr(m, "tp_size") and hasattr(m, "kv_heads")}
+    if built and built != {tp}:
+        raise ValueError(
+            f"the model's layers are built on a tensor axis of "
+            f"{sorted(built)} ranks, the mesh's has {tp}: build the model "
+            f"on the serving mesh")
+    return mesh, tp
 
 
 def _check_sampling(vocab_size: int, top_k, top_p) -> None:
@@ -350,8 +409,17 @@ class PagedEngine:
     token counts, prefill and emit flags, tables, cursors) to the card
     in one transfer and reads tokens, counts and finished flags back in
     one.  ``block_size=0`` means 16 and ``kv_dtype="auto"`` means
-    unquantized (the port has no tuning table yet); ``mesh=`` (a
-    tensor-parallel pool) comes with ROADMAP.md A-5, item 10c.
+    unquantized (the port has no tuning table yet).
+
+    ``mesh``: an int (the tensor-parallel degree; ≤ 1 is the single-chip
+    engine) or a :class:`~apex_tpu_torch.core.mesh.Mesh` with a tensor
+    axis, on which the model was built.  The engine is then SPMD: every
+    tensor rank holds the same host state (scheduler, allocator, trie,
+    tables), is driven by the same calls in the same order, and holds
+    its ``kv_heads / tp`` heads of every page; the model's decode logits
+    are gathered over the vocabulary, so the sampled tokens are the same
+    on every rank.  :attr:`chips_per_replica` and :attr:`mesh_shape` are
+    the JAX engine's gauges.
     """
 
     paged = True
@@ -374,10 +442,7 @@ class PagedEngine:
                 "PagedEngine does not support sliding-window models — "
                 "the paged pool already bounds decode memory to live "
                 "tokens; serve with sliding_window=None")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a tensor-parallel paged pool (mesh=) comes with "
-                "ROADMAP.md A-5, item 10c")
+        self.mesh, self.tp = _serving_mesh(mesh, model)
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         if prefill_chunk < 1:
@@ -833,6 +898,20 @@ class PagedEngine:
             self._drafter = drafter
 
     # ------------------------------------------------------------ gauges
+    @property
+    def chips_per_replica(self) -> int:
+        """Cards this one replica spans (the tensor-parallel degree; 1
+        for the single-chip engine)."""
+        return self.tp
+
+    @property
+    def mesh_shape(self) -> Optional[dict]:
+        """``{"tensor": tp}`` of the replica's mesh, or None for the
+        single-chip engine."""
+        if self.mesh is None:
+            return None
+        return {TENSOR_AXIS: self.tp}
+
     @property
     def blocks_total(self) -> int:
         return self._alloc.blocks_total

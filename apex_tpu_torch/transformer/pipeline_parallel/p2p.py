@@ -51,32 +51,34 @@ __all__ = [
 FORWARD_TAG, BACKWARD_TAG = 0, 1
 
 
-def pipe_rank_and_size(axis: str = PIPE_AXIS) -> Tuple[int, int]:
-    """``(rank, size)`` of this process along ``axis`` of the current
-    mesh; ``(0, 1)`` when no mesh is initialized (one process is one
-    stage)."""
-    if not mesh_lib.mesh_is_initialized():
+def pipe_rank_and_size(axis: str = PIPE_AXIS,
+                       mesh=None) -> Tuple[int, int]:
+    """``(rank, size)`` of this process along ``axis`` of ``mesh``
+    (default: the current mesh); ``(0, 1)`` when no mesh is initialized
+    (one process is one stage)."""
+    if mesh is None and not mesh_lib.mesh_is_initialized():
         return 0, 1
-    m = mesh_lib.get_mesh()
+    m = mesh or mesh_lib.get_mesh()
     return m.axis_rank(axis), m.axis_size(axis)
 
 
 def exchange(sends: Sequence[Tuple[torch.Tensor, int, int]],
              recvs: Sequence[Tuple[torch.Tensor, int, int]], *,
-             axis: str = PIPE_AXIS) -> None:
+             axis: str = PIPE_AXIS, mesh=None) -> None:
     """Post ``sends`` ``(tensor, peer, tag)`` and ``recvs`` ``(buffer,
     peer, tag)`` together and wait for all of them; ``peer`` is a rank
-    along ``axis``.  Messages to this rank itself never reach the
-    backend: each is copied into this rank's receive of the same tag, in
-    order."""
-    me, _ = pipe_rank_and_size(axis)
+    along ``axis`` of ``mesh`` (default: the current mesh).  Messages to
+    this rank itself never reach the backend: each is copied into this
+    rank's receive of the same tag, in order."""
+    me, _ = pipe_rank_and_size(axis, mesh)
     own = [(t, tag) for t, p, tag in sends if p == me]
     for buf, _, tag in (r for r in recvs if r[1] == me):
         i = next(i for i, (_, t) in enumerate(own) if t == tag)
         buf.copy_(own.pop(i)[0])
     if own:
         raise ValueError("exchange: a send to this rank has no receive")
-    mesh = mesh_lib.get_mesh() if mesh_lib.mesh_is_initialized() else None
+    if mesh is None and mesh_lib.mesh_is_initialized():
+        mesh = mesh_lib.get_mesh()
     ops: List[dist.P2POp] = []
     if mesh is not None:
         line, group = mesh.line(axis), mesh.group(axis)
@@ -89,16 +91,16 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int, int]],
             work.wait()
 
 
-def connect(device, *, axis: str = PIPE_AXIS) -> None:
+def connect(device, *, axis: str = PIPE_AXIS, mesh=None) -> None:
     """Open the pipe group's communicator with one collective that every
     rank of the group calls (a 1-element all-reduce on ``device``), once
     a mesh: NCCL leaves a first point-to-point batch that not every
     rank of the group joins undefined, and a schedule's first exchange
     is such a batch.  A group of one, or one already open, calls
     nothing."""
-    if pipe_rank_and_size(axis)[1] == 1:
+    if pipe_rank_and_size(axis, mesh)[1] == 1:
         return
-    mesh = mesh_lib.get_mesh()
+    mesh = mesh or mesh_lib.get_mesh()
     if axis not in mesh.p2p_opened:
         dist.all_reduce(torch.zeros(1, device=device),
                         group=mesh.group(axis))

@@ -75,7 +75,12 @@ def _standalone(model_cls, cfg, seed, device, state_dict):
         state_dict = whole.state_dict()
     _, tp, rank = tensor_parallel()
     model = model_cls(cfg, device=device)
-    model.load_state_dict(shard_state_dict(state_dict, rank, tp))
+    experts = (0, 1)
+    if getattr(cfg, "num_moe_experts", None):
+        _, n, r = tensor_parallel(cfg.moe_expert_axis)
+        experts = (r, n)
+    model.load_state_dict(shard_state_dict(state_dict, rank, tp,
+                                           experts=experts))
     return model
 
 

@@ -238,6 +238,29 @@ failure exits non-zero.
    ``apply_gradients``) at M = 8 no more than at M = 4 plus the O(M)
    buffers and 64 MiB.  Phases 24 and 26 each break one more step's
    memory down by owner and by the allocating line of the port.
+27. Context parallelism at Mistral-7B's attention widths (32 / 8 heads,
+   d 128), bf16, b 1, causal, S = 32768, at a world of one over NCCL:
+   ring attention forward and dq / dk / dv bitwise equal to
+   ``fused_attention`` (one tick), remat bitwise equal to no remat; the
+   virtual ring at cp 4 within 2^-5 of ``fused_attention`` at each
+   element of o, dq, dk and dv (of its magnitude plus the tensor's RMS),
+   with 10 launches of each flash kernel (the 6 dead chunks of 16
+   skipped), two faults planted in its merge outside 2^-4 on every
+   tensor, and within 2^-4 of the plain ring at S = 4096;
+   Ulysses bitwise equal to ``fused_attention``, with and without a
+   window of 4096; the ms of each call and the peak bytes.
+28. One MoE layer at Mixtral-8x7B's widths (4096 / 14336, 8 experts, top
+   2, SwiGLU), bf16, b 2 x s 1024, on a world-of-one NCCL mesh with the
+   experts over the tensor axis and over the data axis (the token
+   all-to-all): output, aux and every gradient bitwise equal to the
+   layer without a mesh; the ms of each.
+29. Llama-2-7B bf16 through ``PagedEngine(mesh=<Mesh>)`` and
+   ``InferenceServer(kv_cache="paged", mesh=...)`` at a world of one
+   over NCCL beside the single-chip engine: steady decode at 4 and 8
+   slots of phase 6's ~500-token contexts, 8 greedy server requests and
+   4 slots on int8 pages, tokens identical; ``health()`` reports 1 chip
+   a replica and the mesh shape; decode tokens/s, TTFT p50/p99, host and
+   device ms a step, idle share and peak bytes of both.
 
 A failed phase is also reported on standard error, last: its name, the
 lines it logged that name a failed check, and its last lines.
@@ -5510,6 +5533,378 @@ def phase_gpt_pipeline(torch, profile=False, steps=10, warmup=3, b=8,
     return ok, stats
 
 
+# ------------------------------------------------------------------ #
+# context parallelism, the expert axis, tensor-parallel serving
+# ------------------------------------------------------------------ #
+CP_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv")
+
+
+def _ms_call(torch, fn, n=3):
+    """Mean device ms of ``n`` calls of ``fn`` (CUDA events, after one
+    untimed call) and its last output."""
+    out = fn()
+    ms, outs, _ = _event_times(torch, fn, n)
+    return sum(ms) / n, outs[-1]
+
+
+def _attn_fwd_bwd(torch, fn, q, k, v, do):
+    """``fn(q, k, v)`` and the gradients of ``sum(o * do)``."""
+    xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o = fn(*xs)
+    dq, dk, dv = torch.autograd.grad(o, xs, do)
+    return o.detach(), dq, dk, dv
+
+
+def _max_err(torch, got, want):
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want))
+
+
+#: the ring's agreement bounds, |got - want| <= bound * (|want| +
+#: rms(want)) at every element of o, dq, dk and dv: the kernel ring
+#: against fused_attention's kernels, and against the plain ring, whose
+#: bf16 composition rounds in other places (PERF.md §6, PR 22: the
+#: measured readings and two planted faults between which they sit)
+BF16_AGREE = 2.0 ** -5
+PLAIN_AGREE = 2.0 ** -4
+
+
+def _agreement(torch, got, want):
+    """Per tensor, the largest ``|g - w| / (|w| + rms(w))``: each
+    element's error against its own magnitude, floored by the tensor's
+    RMS (the late rows of a long causal ``o`` average thousands of keys
+    and sit far below its largest values)."""
+    out = []
+    for g, w in zip(got, want):
+        w = w.float()
+        floor = w.pow(2).mean().sqrt()
+        out.append(float(((g.float() - w).abs() / (w.abs() + floor)).max()))
+    return out
+
+
+def _planted_fault(torch, fault, fn):
+    """``fn()`` with a fault planted in the ring's merge: ``"dropped"``
+    leaves the last rank's chunk 0 out of its merge, ``"natural"``
+    takes the flash kernels' log2 ``lse`` for a natural logarithm."""
+    import importlib
+    import math
+
+    # the module, not the function the package exports under its name
+    ra = importlib.import_module("apex_tpu_torch.parallel.ring_attention")
+    tick, merge = ra._fwd_tick, ra._merge
+
+    def dropped(q, kc, vc, rank, src, cp, state, **kw):
+        if rank == cp - 1 and src == 0:
+            return state
+        return tick(q, kc, vc, rank, src, cp, state, **kw)
+
+    def natural(o1, lse1, o2, lse2):
+        o, lse = merge(o1, lse1 / math.log(2), o2, lse2 / math.log(2))
+        return o, lse * math.log(2)
+
+    if fault == "dropped":
+        ra._fwd_tick = dropped
+    else:
+        ra._merge = natural
+    try:
+        return fn()
+    finally:
+        ra._fwd_tick, ra._merge = tick, merge
+
+
+def phase_context_parallel(torch, s=32768):
+    """Phase 27: context parallelism at Mistral-7B's attention widths (32
+    q heads, 8 kv heads, d 128), bf16, b 1, causal, S = 32768, at a
+    world of one over NCCL: ring attention (one tick) forward and
+    dq / dk / dv bitwise equal to ``fused_attention``, ``remat=True``
+    bitwise equal to ``remat=False``; the virtual ring at cp 4 (chunks of
+    8192) within ``BF16_AGREE`` (per element) of ``fused_attention`` on
+    the whole sequence, with 10 forward chunk launches of 16 (the dead
+    chunks skipped), while two faults planted in its merge (a chunk
+    dropped, the lse's domain) fall outside ``PLAIN_AGREE``; the kernel
+    ring within ``PLAIN_AGREE`` of the plain ring at S = 4096;
+    Ulysses bitwise equal to ``fused_attention``, and with a window of
+    4096.  The ms of each call, the bytes one call adds at its peak and
+    the phase's peak."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.ops.attention import fused_attention
+    from apex_tpu_torch.parallel import (
+        ring_attention,
+        ulysses_attention,
+        virtual_ring_attention,
+    )
+    from apex_tpu_torch.parallel.launch import destroy_distributed
+
+    log(f"phase 27: ring attention and Ulysses, Mistral-7B attention "
+        f"(32 / 8 heads, d 128), bf16, b=1, S={s}, causal, world of one")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(27)
+
+    def inputs(n):
+        return [torch.randn(shp, generator=g, device=dev,
+                            dtype=torch.bfloat16) for shp in (
+            (1, n, 32, 128), (1, n, 8, 128), (1, n, 8, 128),
+            (1, n, 32, 128))]
+
+    ok, st = True, {}
+    try:
+        ok &= gate("world of one over NCCL", _world_of_one(torch))
+        q, k, v, do = inputs(s)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        calls = {
+            "fused": lambda a, b, c: fused_attention(a, b, c, causal=True),
+            "ring": lambda a, b, c: ring_attention(a, b, c, causal=True),
+            "ring_remat": lambda a, b, c: ring_attention(
+                a, b, c, causal=True, remat=True),
+            "ring_virtual_cp4": lambda a, b, c: virtual_ring_attention(
+                a, b, c, 4, causal=True),
+            "ulysses": lambda a, b, c: ulysses_attention(a, b, c,
+                                                         causal=True),
+            "fused_window": lambda a, b, c: fused_attention(
+                a, b, c, causal=True, window=4096),
+            "ulysses_window": lambda a, b, c: ulysses_attention(
+                a, b, c, causal=True, window=4096),
+        }
+        out, ms, peak = {}, {}, {}
+        for name, fn in calls.items():
+            ms[name], out[name] = _ms_call(
+                torch, lambda fn=fn: _attn_fwd_bwd(torch, fn, q, k, v, do))
+            # one more call alone: the bytes its forward and backward add
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _attn_fwd_bwd(torch, fn, q, k, v, do)
+            torch.cuda.synchronize()
+            peak[name] = torch.cuda.max_memory_allocated() - base
+        st.update(ms_fwd_bwd=ms, peak_bytes_of_a_call=peak)
+
+        def bitwise(a, b):
+            return all(torch.equal(x, y) for x, y in zip(out[a], out[b]))
+        ok &= gate("ring at a world of one == fused_attention bitwise",
+                   bitwise("ring", "fused"))
+        ok &= gate("ring remat == ring bitwise",
+                   bitwise("ring_remat", "ring"))
+        ok &= gate("ulysses == fused_attention bitwise",
+                   bitwise("ulysses", "fused"))
+        ok &= gate("ulysses window 4096 == fused_attention window bitwise",
+                   bitwise("ulysses_window", "fused_window"))
+        err = _max_err(torch, out["ring_virtual_cp4"], out["fused"])
+        st["virtual_cp4_max_abs_err"] = err
+        st["virtual_cp4_max_abs_err_by_tensor"] = [
+            float((a.float() - b.float()).abs().max()) for a, b in zip(
+                out["ring_virtual_cp4"], out["fused"])]
+        st["agreement_bounds"] = [BF16_AGREE, PLAIN_AGREE]
+        agree = _agreement(torch, out["ring_virtual_cp4"], out["fused"])
+        st["virtual_cp4_agreement"] = agree
+        ok &= gate(f"virtual ring cp 4 within {BF16_AGREE} of fused per "
+                   f"element (o, dq, dk, dv: {agree})",
+                   max(agree) <= BF16_AGREE)
+        for fault in ("dropped", "natural"):
+            bad = _agreement(torch, _planted_fault(
+                torch, fault, lambda: _attn_fwd_bwd(
+                    torch, calls["ring_virtual_cp4"], q, k, v, do)),
+                out["fused"])
+            st[f"planted_{fault}_agreement"] = bad
+            ok &= gate(f"planted fault {fault!r} outside {PLAIN_AGREE} "
+                       f"on every tensor ({bad})", min(bad) > PLAIN_AGREE)
+        # the main-path run: counts set to 0, one forward and backward
+        _build.reset_launches()
+        _attn_fwd_bwd(torch, calls["ring_virtual_cp4"], q, k, v, do)
+        torch.cuda.synchronize()
+        st["launches"] = {n: _build.launches[n] for n in CP_KERNELS}
+        ok &= gate(f"virtual cp 4 launches {st['launches']}: 10 of 16 "
+                   f"chunks live", all(_build.launches[n] == 10
+                                       for n in CP_KERNELS))
+        del q, k, v, do, out
+        torch.cuda.empty_cache()
+        # the kernel ring against the plain ring at S = 4096
+        q, k, v, do = inputs(4096)
+        got = _attn_fwd_bwd(torch, calls["ring_virtual_cp4"], q, k, v, do)
+        plain = _attn_fwd_bwd(torch, lambda a, b, c: virtual_ring_attention(
+            a, b, c, 4, causal=True, implementation="torch"), q, k, v, do)
+        st["plain_ring_4096_max_abs_err"] = _max_err(torch, got, plain)
+        agree = _agreement(torch, got, plain)
+        st["plain_ring_4096_agreement"] = agree
+        ok &= gate(f"kernel ring within {PLAIN_AGREE} of the plain ring "
+                   f"per element ({agree})", max(agree) <= PLAIN_AGREE)
+        st["peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"  {json.dumps(st)}")
+    finally:
+        destroy_distributed()
+    torch.cuda.empty_cache()
+    return ok, st
+
+
+def phase_expert_axis(torch, b=2, s=1024):
+    """Phase 28: one MoE layer at Mixtral-8x7B's widths (hidden 4096, ffn
+    14336, 8 experts, top 2, SwiGLU experts, no biases), bf16, b=2 x
+    s=1024, at cf 1.25: on a world-of-one NCCL mesh with
+    ``expert_axis="tensor"`` (each rank dispatches to its experts and
+    the parts are all-reduced) and ``"data"`` (the token all-to-all to
+    the experts' owners and back), the output, aux and every gradient
+    (the gate's, the experts', the input's) bitwise equal to the same
+    layer without a mesh.  The ms of each forward and backward (the plain
+    layer's before and after the others)."""
+    from apex_tpu_torch.parallel.launch import destroy_distributed
+    from apex_tpu_torch.transformer.moe import MoEConfig, MoEMLP
+
+    log(f"phase 28: MoE expert axis at Mixtral-8x7B widths, bf16, b={b} "
+        f"s={s}, world of one")
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+
+    def config(axis):
+        return MoEConfig(num_experts=8, top_k=2, capacity_factor=1.25,
+                         hidden_size=4096, ffn_hidden_size=14336,
+                         activation="silu", gated=True, use_bias=False,
+                         expert_axis=axis, dtype=bf, param_dtype=bf)
+
+    g = torch.Generator(device=dev).manual_seed(28)
+    x = torch.randn((b, s, 4096), generator=g, device=dev, dtype=bf)
+    dy = torch.randn((b, s, 4096), generator=g, device=dev, dtype=bf)
+    plain = MoEMLP(config("tensor"), device=dev)
+    plain.init_weights(torch.Generator(device=dev).manual_seed(29))
+    sd = plain.state_dict()
+
+    def run(layer):
+        layer.zero_grad(set_to_none=True)
+        xi = x.detach().requires_grad_(True)
+        y, aux = layer(xi)
+        torch.autograd.backward([y, aux], [dy, torch.ones_like(aux)])
+        return [y.detach(), aux.detach(), xi.grad] + [
+            p.grad for _, p in layer.named_parameters()]
+
+    ok, st = True, {}
+    try:
+        want = run(plain)
+        st["plain_ms"], _ = _ms_call(torch, lambda: run(plain))
+        ok &= gate("world of one over NCCL", _world_of_one(torch))
+        for axis in ("tensor", "data"):
+            layer = MoEMLP(config(axis), device=dev)
+            layer.load_state_dict(sd)
+            got = run(layer)
+            st[f"{axis}_ms"], _ = _ms_call(torch, lambda: run(layer))
+            same = [torch.equal(a, b) for a, b in zip(got, want)]
+            st[f"{axis}_bitwise"] = same
+            ok &= gate(f"expert_axis={axis!r}: output, aux and gradients "
+                       f"bitwise ({same})", all(same) and layer.ep_active)
+            del layer, got
+        # the plain layer again: its first timing ran before the others
+        st["plain_ms_after"], _ = _ms_call(torch, lambda: run(plain))
+        st["aux"] = float(want[1])
+        st["peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"  {json.dumps(st)}")
+    finally:
+        destroy_distributed()
+    del plain, sd, want
+    torch.cuda.empty_cache()
+    return ok, st
+
+
+def _engine_decode(torch, eng, prompts):
+    """Steady decode of ``prompts`` (phase 6's): the step ms, tokens/s,
+    the tokens each slot emitted, and the profiler's device busy ms and
+    idle share over 4 more steps; the slots released after."""
+    step_ms, _, tokens = _steady_decode(eng, prompts)
+    prof = _profile_steps(torch, eng, n=4)
+    toks = [list(eng._tenants[i].gen) for i in range(len(prompts))]
+    for slot in range(len(prompts)):
+        eng.release(slot)
+    wall, busy = prof["wall_ms_per_step"], prof["device_busy_ms_per_step"]
+    return toks, dict(tokens_per_s=tokens / (sum(step_ms) / 1e3),
+                      step_ms_min=min(step_ms), wall_ms_per_step=wall,
+                      device_busy_ms_per_step=busy,
+                      host_ms_per_step=max(0.0, wall - busy),
+                      device_idle_share=prof["device_idle_share"])
+
+
+def phase_tp_serving(torch):
+    """Phase 29: Llama-2-7B (phase 3's seeded weights) at full width and
+    depth, bf16, through the tensor-parallel engine at a world of one
+    over NCCL — ``PagedEngine(mesh=<Mesh>)`` and
+    ``InferenceServer(kv_cache="paged", mesh=...)``, every collective of
+    the tensor-parallel path called — beside the single-chip engine in
+    the same call: phase 6's steady decode at 4 and 8 slots of ~500-token
+    contexts, greedy (pool 16384, pages of 16, chunks of 128), tokens
+    identical; 8 greedy requests through each server, results identical;
+    4 slots on int8 pages, identical to the single-chip int8 engine;
+    ``health()`` with ``chips_per_replica`` 1 and the mesh shape.  Decode
+    tokens/s, TTFT p50/p99, host and device ms a step, the device's idle
+    share and peak bytes of each."""
+    from apex_tpu_torch import _build
+    from apex_tpu_torch.core.mesh import get_mesh
+    from apex_tpu_torch.models import LlamaModel
+    from apex_tpu_torch.parallel.launch import destroy_distributed
+    from apex_tpu_torch.serving import InferenceServer, PagedEngine
+
+    log("phase 29: Llama-2-7B bf16 tensor-parallel paged serving at a "
+        "world of one (NCCL) beside the single-chip engine")
+    ok, st = True, {}
+    single = llama2_7b(torch)
+    prompts = serve_prompts(torch)
+    four = prompts[-4:][::-1]
+    reqs = [(p, dict(max_new_tokens=32)) for p in prompts]
+    kw = dict(max_slots=8, block_size=16, prefill_chunk=128,
+              pool_tokens=16384)
+    try:
+        ok &= gate("world of one over NCCL", _world_of_one(torch))
+        tp = LlamaModel(single.cfg, device=single.device)
+        tp.load_state_dict(single.state_dict())
+        mesh = get_mesh()
+        toks = {}
+        for tag, model, extra in (("single", single, {}),
+                                  ("tp", tp, dict(mesh=mesh))):
+            row = {}
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            eng = PagedEngine(model, **kw, **extra)
+            _build.reset_launches()
+            toks[tag + "_4"], row["decode4"] = _engine_decode(
+                torch, eng, four)
+            toks[tag + "_8"], row["decode8"] = _engine_decode(
+                torch, eng, prompts)
+            row["launches"] = dict(_build.launches)
+            row["chips_per_replica"] = eng.chips_per_replica
+            row["mesh_shape"] = eng.mesh_shape
+            ok &= eng.blocks_in_use == 0
+            del eng
+            srv = InferenceServer(model, kv_cache="paged", **kw, **extra)
+            srv.start()
+            toks[tag + "_server"], wall, _, _ = _serve_run(torch, srv, reqs)
+            row.update(srv.latency_summary(), serve_wall_s=wall)
+            row["health"] = {k: v for k, v in srv.health().items() if k in (
+                "chips_per_replica", "mesh_shape", "status")}
+            srv.shutdown()
+            ok &= srv.error is None
+            del srv
+            torch.cuda.empty_cache()
+            eng = PagedEngine(model, **kw, kv_dtype="int8", **extra)
+            toks[tag + "_int8"], row["decode4_int8"] = _engine_decode(
+                torch, eng, four)
+            del eng
+            row["peak_bytes"] = torch.cuda.max_memory_allocated()
+            st[tag] = row
+            log(f"  {tag}: {json.dumps(row)}")
+        for case in ("4", "8", "server", "int8"):
+            ok &= gate(f"tp engine tokens == single-chip ({case})",
+                       toks["tp_" + case] == toks["single_" + case])
+        ok &= gate("every step emitted", all(
+            len(t) > 0 for case in ("4", "8") for t in toks["tp_" + case]))
+        ok &= gate("health: chips_per_replica 1 and the mesh shape",
+                   st["tp"]["health"].get("chips_per_replica") == 1
+                   and st["tp"]["health"].get("mesh_shape")
+                   == {"tensor": 1})
+        ok &= all(st["tp"]["launches"][n] > 0 for n in PAGED_KERNELS)
+        st["launches"] = st["tp"]["launches"]
+    finally:
+        destroy_distributed()
+        del single
+        torch.cuda.empty_cache()
+    return ok, st
+
+
 def _vit_attention_ms(torch, b, cfg, per_step):
     """``{kernel: {route, ms, launches, ms_per_step}, "total": ms}``: the
     flash kernels at ViT-Huge's attention shape in bf16, device ms a call
@@ -5899,6 +6294,9 @@ def main(argv=None):
         ("25", lambda: phase_resnet_ddp(torch, args.profile)),
         ("26", lambda: phase_gpt_pipeline(torch, args.profile,
                                           gpt_tp=results.get("24"))),
+        ("27", lambda: phase_context_parallel(torch)),
+        ("28", lambda: phase_expert_axis(torch)),
+        ("29", lambda: phase_tp_serving(torch)),
     ]
     if only:
         phases = [(n, r) for n, r in phases if n in only]
@@ -5923,10 +6321,11 @@ def main(argv=None):
     (serve, paged, paged8, train, ident, resnet, resnet_ident, train_fp8,
      chain, fp8_ident, gn_block, block_ident, resnet_o1, resnet_o1_ident,
      train_o1, optimizers, gn_faults, remat, mistral, mixtral,
-     vit, gpt_tp, resnet_ddp, gpt_pipe) = (results.get(n) for n in (
+     vit, gpt_tp, resnet_ddp, gpt_pipe, context_par, expert_axis,
+     tp_serving) = (results.get(n) for n in (
          "3", "6", "7", "4", "5", "8", "9", "10", "11", "12", "13", "14",
          "15", "16", "17", "18", "19", "20", "21", "22", "23", "24", "25",
-         "26"))
+         "26", "27", "28", "29"))
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5946,7 +6345,8 @@ def main(argv=None):
                        group_norm_faults=gn_faults, remat=remat,
                        mistral=mistral, mixtral=mixtral, vit=vit,
                        gpt_tp=gpt_tp, resnet_ddp=resnet_ddp,
-                       gpt_pipe=gpt_pipe), f,
+                       gpt_pipe=gpt_pipe, context_parallel=context_par,
+                       expert_axis=expert_axis, tp_serving=tp_serving), f,
                   indent=1)
     if not ok:
         log("chip_smoke: FAILED")
@@ -5960,7 +6360,7 @@ def main(argv=None):
     # stage-0 bn3 (residual and ReLU) bf16 for the BatchNorm passes,
     # BERT-Large's masters for the fp8 Adam step and its scores for the
     # softmax; launches are the counts of the main-path runs (phases 3,
-    # 6, 7, 4, 8, 10, 11 and 13, the O1 runs 15 and 17, and 20-26)
+    # 6, 7, 4, 8, 10, 11 and 13, the O1 runs 15 and 17, 20-27 and 29)
     pick = {
         "layer_norm": ("layer_norm/stats", (8192, 1024), "torch.bfloat16"),
         "layer_norm_bwd": ("layer_norm_bwd", (8192, 1024),
@@ -6026,7 +6426,7 @@ def main(argv=None):
                 for st in (serve, paged, paged8, train, resnet, train_fp8,
                            chain, gn_block, resnet_o1, train_o1, remat,
                            mistral, mixtral, vit, gpt_tp, resnet_ddp,
-                           gpt_pipe))
+                           gpt_pipe, context_par, tp_serving))
         kernels.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"], launches=n,

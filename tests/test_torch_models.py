@@ -186,7 +186,7 @@ def test_slice_boundaries_raise_not_implemented(llama):
     """The boundaries that remain, each with the JAX package's message:
     an unknown remat policy, a sliding window on the paged cache, a
     ring-cache model given to either serving engine, BERT given to the
-    HF importer, and the tensor-parallel paged pool (A-5)."""
+    HF importer, and a serving mesh without a tensor axis."""
     from apex_tpu_torch.models import BertConfig, BertModel, load_torch_gpt2
     from apex_tpu_torch.serving import Engine, PagedEngine
 
@@ -213,7 +213,7 @@ def test_slice_boundaries_raise_not_implemented(llama):
     with pytest.raises(ValueError, match="post-LN"):
         load_torch_gpt2(BertModel(BertConfig.tiny(num_layers=1),
                                   device="cpu"), {})
-    with pytest.raises(NotImplementedError, match="A-5"):
+    with pytest.raises(ValueError, match="no 'tensor' axis"):
         PagedEngine(model, max_slots=1, mesh=object())
 
 

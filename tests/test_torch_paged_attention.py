@@ -252,8 +252,10 @@ class TestPagedAttention:
             P.paged_attention(q, kp, kp, tables, lens,
                               k_scales=torch.zeros(2, 5),
                               v_scales=torch.zeros(2, 5))
-        with pytest.raises(NotImplementedError, match="A-5"):
-            P.paged_attention(q, kp, kp, tables, lens, shard_axis="tensor")
+        # a tensor-parallel rank passes its heads: a q slice that does
+        # not cover whole kv groups of its pool shard is refused
+        with pytest.raises(ValueError, match="must divide num_heads"):
+            P.paged_attention(q[:, :, :3], kp, kp, tables, lens)
         with pytest.raises(ValueError, match="needs a CUDA tensor"):
             P.paged_attention(q, kp, kp, tables, lens,
                               implementation="kernel")
@@ -479,9 +481,9 @@ class TestPagedDecodeFused:
         with pytest.raises(ValueError, match="come together"):
             P.paged_decode_fused(*t, kp, vp, *tl, max_seq_len=S,
                                  cos_b=torch.zeros(5, 1, 1, 32))
-        with pytest.raises(NotImplementedError, match="A-5"):
-            P.paged_decode_fused(*t, kp, vp, *tl, max_seq_len=S,
-                                 mesh=object(), shard_axis="tensor")
+        # a rank's shard of the pool takes its own kv heads' new rows
+        with pytest.raises(ValueError, match="k_new shape"):
+            P.paged_decode_fused(*t, kp[:2], vp[:2], *tl, max_seq_len=S)
 
 
 # --------------------------------------------------------------------- #

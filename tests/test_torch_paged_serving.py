@@ -549,7 +549,7 @@ class TestQuantizedPool:
                            block_size=0).kv_dtype is None
         with pytest.raises(ValueError, match="kv_dtype"):
             PagedEngine(model, kv_dtype="int4")
-        with pytest.raises(NotImplementedError, match="A-5"):
+        with pytest.raises(ValueError, match="needs 2 devices"):
             PagedEngine(model, mesh=2)
         with pytest.raises(ValueError, match="pool"):
             PagedEngine(model, max_slots=1, block_size=8, pool_tokens=64,
@@ -589,9 +589,13 @@ class TestPagedServer:
                    dict(kv_dtype="int8")):
             with pytest.raises(ValueError, match="paged"):
                 InferenceServer(model, **kw)
-        for kw in (dict(tp=2), dict(mesh=object())):
-            with pytest.raises(NotImplementedError, match="A-5"):
+        for kw, match in ((dict(tp=2), "needs 2 devices"),
+                          (dict(mesh=object()), "no 'tensor' axis"),
+                          (dict(tp=4, mesh=2), "disagrees with mesh")):
+            with pytest.raises(ValueError, match=match):
                 InferenceServer(model, kv_cache="paged", **kw)
+        with pytest.raises(ValueError, match="require kv_cache='paged'"):
+            InferenceServer(model, tp=2)
         srv = InferenceServer(model, kv_cache="paged", prefill_chunk=0)
         assert srv.engine._chunk == 32 and srv.engine.block_size == 16
         with pytest.raises(ValueError, match="kv_cache"):

@@ -179,7 +179,7 @@ class TestSlotPool:
             eng.validate_request(4, 4, 1.0, top_p=1.5)
         with pytest.raises(ValueError, match="prompt_buckets"):
             InferenceServer(model, kv_cache="paged", prompt_buckets=BUCKETS)
-        with pytest.raises(NotImplementedError, match="A-5"):
+        with pytest.raises(ValueError, match="needs 2 devices"):
             InferenceServer(model, kv_cache="paged", tp=2)
 
 

@@ -19,7 +19,17 @@ they return against the JAX function on the 8-device CPU mesh
   sums add in another order), whose masks are bitwise equal (checked
   without processes: the dropout lanes and the hidden mask's chunk);
   a tiny BERT (key padding, masked positions, dropout) at tp = 2 with
-  sequence parallelism against the unsharded port BERT, likewise.
+  sequence parallelism against the unsharded port BERT, likewise;
+- the MoE GPT at tp = 2 with its experts over the tensor axis (with and
+  without SP), and an MoE layer at tp = 2 × dp = 2 with its experts over
+  the data axis (the token all-to-all; DDP and a ZeRO-2 step), against
+  the unsharded layer and the JAX ones (2e-5);
+- tensor-parallel paged serving at tp = 2: the sharded paged op against
+  the unsharded one (bitwise), the engine and ``InferenceServer(tp=2)``
+  against JAX ``generate()`` and the single-chip engine (tokens);
+- ring attention and Ulysses on context meshes of 2, 4 and 2 × data 2
+  against JAX (1e-5 of the largest magnitude; dropout masks bit for
+  bit).
 """
 
 import functools
@@ -317,24 +327,30 @@ def _close(got, want, tol=2e-5):
 
 
 @pytest.fixture(scope="module")
-def gpt_tp2(gpt_case, moe_case, pipe_case):
+def gpt_tp2(gpt_case, moe_case, pipe_case, serve_case, cp_case):
     """The 2-rank spawn: the tiny GPT at tp 2 with SP (dropout, BERT,
-    the MoE configs), then the pipe-2 checks on a pipe mesh."""
+    the MoE configs with the experts sharded over the tensor axis, with
+    and without SP), tensor-parallel paged serving, then the pipe-2
+    checks on a pipe mesh and ring / Ulysses on a context mesh of 2."""
     _, _, _, sd, ids, labels = gpt_case
     return run_on_ranks(W.gpt_tp_checks, 2, dict(
         sd=sd, ids=ids, labels=labels, cfg=GPT_CFG, dropout=True,
         bert=True, moe={cf: moe_case[1] for cf in MOE_CFS},
-        pipe=pipe_case[2]), 2, True)
+        moe_nosp=moe_case[1], serve=serve_case, pipe=pipe_case[2],
+        cp=cp_case), 2, True)
 
 
 @pytest.fixture(scope="module")
-def gpt_tp2_dp2(gpt_case, pipe_case):
-    """The 4-rank spawn: the tiny GPT at tp 2 x dp 2, then the pipe-4
-    schedules, the GPT closure at pipe 2 x tensor 2 and the ZeRO-2
-    step at pipe 2 x data 2."""
+def gpt_tp2_dp2(gpt_case, moe_case, pipe_case, moe_data_case, cp_case):
+    """The 4-rank spawn: the tiny GPT at tp 2 x dp 2, an MoE layer and
+    the MoE GPT at tp 2 + SP with their experts over the data axis, then
+    the pipe-4 schedules, the GPT closure at pipe 2 x tensor 2 and the
+    ZeRO-2 step at pipe 2 x data 2, and ring / Ulysses on context meshes
+    of 4 and 2 x data 2."""
     _, _, _, sd, ids, labels = gpt_case
     return run_on_ranks(W.gpt_tp_checks, 4, dict(
-        sd=sd, ids=ids, labels=labels, cfg=GPT_CFG, pipe=pipe_case[4]),
+        sd=sd, ids=ids, labels=labels, cfg=GPT_CFG, pipe=pipe_case[4],
+        moe_data=moe_data_case[0], moe_sp_data=moe_case[1], cp=cp_case),
         2, False)
 
 
@@ -392,12 +408,12 @@ def moe_case(gpt_case):
     return params, sd
 
 
-def _jax_moe_loss_grads(gpt_case, moe_case, cf):
-    """CE, aux term and gradients of the JAX MoE GPT on a tp 2 mesh with
-    sequence parallelism."""
+def _jax_moe_loss_grads(gpt_case, moe_case, cf, sp=True):
+    """CE, aux term and gradients of the JAX MoE GPT on a tp 2 mesh
+    (with sequence parallelism under ``sp``)."""
     _, _, _, _, ids, labels = gpt_case
     jcfg = JGPTConfig.tiny(**GPT_CFG, num_moe_experts=4, moe_top_k=2,
-                           moe_capacity_factor=cf, sequence_parallel=True)
+                           moe_capacity_factor=cf, sequence_parallel=sp)
     model = JGPTModel(jcfg)
 
     def loss_fn(p):
@@ -434,6 +450,158 @@ def test_moe_gpt_tp2_sequence_parallel_matches_unsharded_and_jax(
     assert any(".moe_mlp." in n for n in got)
     _close(got, whole["grads"])
     _close(got, grads)
+
+
+def test_moe_gpt_tp2_experts_over_the_tensor_axis_without_sp(
+        gpt_case, moe_case, gpt_tp2):
+    """Each tensor rank holds 2 of the 4 experts (cut on E by
+    shard_state_dict), dispatches to them and all-reduces its part: the
+    loss, aux and gathered gradients equal the unsharded port model's
+    and the JAX GPT's on its tp 2 mesh."""
+    ce, aux, grads = _jax_moe_loss_grads(gpt_case, moe_case, 4.0, sp=False)
+    ranks = [r["moe_nosp"] for r in gpt_tp2]
+    whole = ranks[0]["whole"]
+    for r in ranks:
+        for k, want in (("loss", ce), ("aux", aux)):
+            np.testing.assert_allclose(r[k], whole[k], rtol=2e-5, err_msg=k)
+            np.testing.assert_allclose(r[k], want, rtol=2e-5, err_msg=k)
+    w1 = "transformer.layers.0.moe_mlp.w1"
+    assert ranks[0]["grads"][w1].shape[0] == 2       # half the experts
+    got = _gathered(ranks, "grads", 2)
+    _close(got, whole["grads"])
+    _close(got, grads)
+
+
+def test_moe_gpt_tp2_sp_experts_over_the_data_axis(gpt_case, moe_case,
+                                                   gpt_tp2_dp2):
+    """The MoE GPT at tp 2 + SP with ``moe_expert_axis="data"`` on tp 2
+    x dp 2: each data rank holds 2 of the 4 experts (whole on its tensor
+    ranks) and its 2 batch rows; the layer gathers the sequence, runs the
+    token all-to-all over data and cuts its output back to the chunk.
+    The data mean of the loss and aux term, and the gradients averaged by
+    ``DistributedDataParallel.mean_grads`` without ``params=`` (the
+    experts found by their ``.grad`` and left out of the all-reduce),
+    equal the unsharded port model's on the whole batch and the JAX
+    GPT's on its tp 2 mesh; ``all_reduce_mean_grads`` without the
+    parameters refuses."""
+    ce, aux, grads = _jax_moe_loss_grads(gpt_case, moe_case, 1.25)
+    ranks = [r["moe_sp_data"] for r in gpt_tp2_dp2]
+    whole = ranks[0]["whole"]
+    for k, want in (("loss", ce), ("aux", aux)):
+        mean = (float(ranks[0][k]) + float(ranks[2][k])) / 2
+        np.testing.assert_allclose(mean, float(whole[k]), rtol=2e-5,
+                                   err_msg=k)
+        np.testing.assert_allclose(mean, want, rtol=2e-5, err_msg=k)
+    for r in ranks:
+        assert "sharded over ['data']" in r["refused"]
+    experts = [n for n, a in ranks[0]["axes"].items() if a == "data"]
+    assert len(experts) == 4 * 2            # w1, w2, b1, b2 of 2 layers
+    for pair in (ranks[:2], ranks[2:]):     # the tensor ranks of a data rank
+        got = _gathered(pair, "grads", 2)
+        for n in experts:
+            np.testing.assert_array_equal(pair[0]["grads"][n],
+                                          pair[1]["grads"][n])
+            got[n] = np.concatenate([ranks[0]["grads"][n],
+                                     ranks[2]["grads"][n]])
+        _close(got, whole["grads"])
+        _close(got, grads)
+
+
+# --------------------------------------------------------------------- #
+# the expert axis over data: an MoE layer at tp 2 x dp 2
+# --------------------------------------------------------------------- #
+MOE_LAYER = dict(num_experts=4, top_k=2, capacity_factor=1.25,
+                 hidden_size=16, ffn_hidden_size=32, gated=True,
+                 activation="silu")
+
+
+@pytest.fixture(scope="module")
+def moe_data_case():
+    """The layer's whole JAX parameters, a batch of 4 rows (2 a data
+    rank) and the loss weights; the JAX layer's output, aux and the
+    gradients of ``sum(y * w) / 2 + aux`` on a data 2 x tensor 2 mesh
+    with ``expert_axis="data"`` and without a mesh."""
+    from apex_tpu.transformer.moe import MoEConfig as JMoEConfig
+    from apex_tpu.transformer.moe import MoEMLP as JMoEMLP
+
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(4, 6, 16)).astype(np.float32)
+    w = rng.normal(size=(4, 6, 16)).astype(np.float32)
+    out = {}
+    for tag, axis in (("mesh", "data"), ("whole", None)):
+        layer = JMoEMLP(JMoEConfig(**MOE_LAYER, expert_axis=axis))
+        if tag == "mesh":
+            params = jax.tree.map(
+                lambda a: a.unbox() if hasattr(a, "unbox") else a,
+                layer.init(jax.random.PRNGKey(2), jnp.asarray(x))["params"],
+                is_leaf=lambda a: hasattr(a, "unbox"))
+            params = {k: np.asarray(v) * (3.0 if k == "gate" else 1.0)
+                      for k, v in params.items()}
+            params["b1"] = rng.normal(size=params["b1"].shape).astype(
+                np.float32) * 0.1
+            params["b2"] = rng.normal(size=params["b2"].shape).astype(
+                np.float32) * 0.1
+
+        def loss_fn(p, layer=layer):
+            y, aux = layer.apply({"params": p}, jnp.asarray(x))
+            return jnp.sum(y * w) / 2 + aux, (y, aux)
+        fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+        args = params
+        if tag == "mesh":
+            m = jax_mesh.initialize_mesh(tensor_model_parallel_size=2,
+                                         data_parallel_size=2,
+                                         devices=jax.devices()[:4])
+            # the experts placed on their data rank, as the layer's
+            # partitioning names them
+            args = {k: jax.device_put(v, jax.sharding.NamedSharding(
+                m, P() if k == "gate" else P("data")))
+                for k, v in params.items()}
+        try:
+            (_, (y, aux)), g = fn(args)
+        finally:
+            jax_mesh.destroy_mesh()
+        out[tag] = dict(y=np.asarray(y), aux=float(aux),
+                        grads={k: np.asarray(v) for k, v in g.items()})
+    return dict(cfg=MOE_LAYER, params=params, x=x, w=w), out
+
+
+def test_moe_layer_experts_over_the_data_axis(moe_data_case, gpt_tp2_dp2):
+    """Each data rank holds 2 of the 4 experts and its 2 batch rows; the
+    token all-to-all runs the slots on their owners.  The output, the
+    mean aux term and the mean-over-data gradients (the experts left out
+    of the DDP all-reduce) equal the unsharded layer's and the JAX
+    layer's on a mesh of the same shape."""
+    _, jax_out = moe_data_case
+    # the JAX layer on its mesh is its own unsharded result
+    for k in ("y",):
+        _near(jax_out["mesh"][k], jax_out["whole"][k])
+    np.testing.assert_allclose(jax_out["mesh"]["aux"],
+                               jax_out["whole"]["aux"], rtol=2e-5)
+    _close(jax_out["mesh"]["grads"], jax_out["whole"]["grads"])
+    ranks = [r["moe_data"] for r in gpt_tp2_dp2]
+    assert [r["ep"] for r in ranks] == [(2, 0), (2, 0), (2, 1), (2, 1)]
+    assert ranks[0]["axes"] == [None] + ["data"] * 5
+    y = np.concatenate([ranks[0]["y"], ranks[2]["y"]])
+    whole = ranks[0]["whole"]
+    np.testing.assert_allclose(y, whole["y"], rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(y, jax_out["whole"]["y"], rtol=2e-5,
+                               atol=2e-5)
+    aux = (float(ranks[0]["aux"]) + float(ranks[2]["aux"])) / 2
+    for want in (float(whole["aux"]), jax_out["whole"]["aux"]):
+        np.testing.assert_allclose(aux, want, rtol=2e-5)
+    got = {n: (g if n == "gate" else np.concatenate(
+        [g, ranks[2]["grads"][n]])) for n, g in ranks[0]["grads"].items()}
+    for r in ranks[1:]:          # the gate is replicated and equal
+        np.testing.assert_array_equal(r["grads"]["gate"], got["gate"])
+    _close(got, {k: np.asarray(v) for k, v in whole["grads"].items()})
+    _close(got, jax_out["whole"]["grads"])
+    # ZeRO-2 over data keeps the experts out of its shards: one FusedAdam
+    # step gives the unsharded layer's plain step
+    zero = {n: (p if n == "gate" else np.concatenate(
+        [p, ranks[2]["zero_params"][n]]))
+        for n, p in ranks[0]["zero_params"].items()}
+    _close(zero, {k: np.asarray(v) for k, v in whole["params"].items()},
+           tol=1e-6)
 
 
 # --------------------------------------------------------------------- #
@@ -756,3 +924,264 @@ def test_wrap_pipeline_step_zero2_matches_jax(pipe_case, gpt_tp2_dp2):
         lay = got["layout"]
         assert (lay["num_stages"], lay["num_shards"]) == (2, 2)
         assert lay["stage"] == got["stage"]
+
+
+# --------------------------------------------------------------------- #
+# context parallelism: ring attention and Ulysses on gloo context meshes
+# --------------------------------------------------------------------- #
+CP_RATE, CP_SEED = 0.1, 77
+
+
+def _jax_cp_mesh(cp, dp):
+    return jax_mesh.initialize_mesh(context_parallel_size=cp,
+                                    data_parallel_size=dp,
+                                    devices=jax.devices()[:cp * dp])
+
+
+def _jax_out_grads(fn, q, k, v, w):
+    def loss(q, k, v):
+        return jnp.sum(fn(q, k, v) * w)
+    o = fn(q, k, v)
+    return np.asarray(o), [np.asarray(g) for g in jax.grad(
+        loss, argnums=(0, 1, 2))(q, k, v)]
+
+
+@pytest.fixture(scope="module")
+def cp_case():
+    """Whole q / k / v (b 2, S 16, h 4, hk 2, d 8) and loss weights, and
+    the JAX references: ``ring_self_attention`` / ``ulysses_self_attention``
+    on ``initialize_mesh(context_parallel_size=4, data_parallel_size=2)``
+    (as tests/test_ring_attention.py builds it; every variant is exact
+    attention, whatever the ranks) and, for dropout, ``ulysses_attention``
+    inside ``shard_map`` at cp 2 and 4 with the integer seed."""
+    from apex_tpu.parallel.ring_attention import ring_self_attention as jr
+    from apex_tpu.parallel.ulysses import ulysses_attention as ju
+    from apex_tpu.parallel.ulysses import ulysses_self_attention as jus
+
+    rng = np.random.default_rng(21)
+    d = {n: rng.normal(size=shp).astype(np.float32) for n, shp in (
+        ("q", (2, 16, 4, 8)), ("k", (2, 16, 2, 8)), ("v", (2, 16, 2, 8)),
+        ("w", (2, 16, 4, 8)))}
+    q, k, v, w = (jnp.asarray(d[n]) for n in "qkvw")
+    ref = {}
+    mesh = _jax_cp_mesh(4, 2)
+    try:
+        for causal in (False, True):
+            ref[f"ring_{causal}"] = _jax_out_grads(jax.jit(
+                functools.partial(jr, mesh=mesh, causal=causal,
+                                  batch_spec="data")), q, k, v, w)
+            ref[f"uly_{causal}"] = _jax_out_grads(jax.jit(
+                functools.partial(jus, mesh=mesh, causal=causal,
+                                  batch_spec="data")), q, k, v, w)
+        ref["uly_window"] = _jax_out_grads(jax.jit(functools.partial(
+            jus, mesh=mesh, causal=True, window=5, batch_spec="data")),
+            q, k, v, w)
+        ref["ring_uneven"] = _jax_out_grads(jax.jit(functools.partial(
+            jr, mesh=mesh, causal=True, batch_spec="data")),
+            q, k[:, :8], v[:, :8], w)
+    finally:
+        jax_mesh.destroy_mesh()
+    for cp in (2, 4):
+        mesh = _jax_cp_mesh(cp, 1)
+        spec = P(None, "context", None, None)
+        try:
+            run = jax.jit(jax.shard_map(
+                lambda a, b, c: ju(a, b, c, "context", causal=True,
+                                   dropout_rate=CP_RATE,
+                                   dropout_rng=CP_SEED),
+                mesh=mesh, in_specs=(spec,) * 3, out_specs=spec))
+            ref[f"uly_dropout_{cp}"] = np.asarray(run(q, k, v))
+        finally:
+            jax_mesh.destroy_mesh()
+    return dict(d, rate=CP_RATE, seed=CP_SEED, ref=ref)
+
+
+def _cp_spawns(gpt_tp2, gpt_tp2_dp2):
+    return {2: [r["cp"] for r in gpt_tp2], 4: [r["cp"] for r in gpt_tp2_dp2]}
+
+
+def _cp_close(got, want):
+    o, grads = got
+    _near(o, want[0])
+    for g, wg in zip(grads, want[1]):
+        _near(g, wg)
+
+
+@pytest.mark.parametrize("cp", [2, 4])
+@pytest.mark.parametrize("name", ["ring_False", "ring_True", "ring_remat",
+                                  "ring_uneven", "uly_False", "uly_True",
+                                  "uly_window"])
+def test_context_parallel_matches_jax(cp_case, gpt_tp2, gpt_tp2_dp2, cp,
+                                      name):
+    """Every rank's whole output and whole input gradients (the cut's
+    backward all-gathers) against the JAX function, 1e-5 of the largest
+    magnitude: ring at cp 2 / 4 (causal and not, remat, uneven sk = sq /
+    2, GQA throughout: hk 2), Ulysses at cp 2 (kv heads split) and cp 4
+    (kv heads repeated: hk 2 < cp 4), with a window."""
+    want = cp_case["ref"][name.replace("remat", "True")]
+    for r in _cp_spawns(gpt_tp2, gpt_tp2_dp2)[cp]:
+        _cp_close(r[name], want)
+
+
+@pytest.mark.parametrize("name", ["ring", "uly"])
+def test_context_parallel_cp2_dp2_matches_jax(cp_case, gpt_tp2_dp2, name):
+    """Context 2 x data 2 (``batch_spec="data"``): each rank cuts its
+    batch rows and sequence chunk."""
+    for r in gpt_tp2_dp2:
+        _cp_close(r["cp"][f"{name}_dp"], cp_case["ref"][f"{name}_True"])
+
+
+@pytest.mark.parametrize("cp", [2, 4])
+def test_ulysses_dropout_folds_the_seed_as_jax(cp_case, gpt_tp2,
+                                               gpt_tp2_dp2, cp):
+    """Dropout on the local chunks with the same integer seed: each
+    rank's fold of the seed and its local lanes give the JAX masks bit
+    for bit, and the outputs agree to 1e-6."""
+    from apex_tpu.ops.attention import dropout_keep_mask as j_mask
+    from apex_tpu_torch.ops.attention import dropout_keep_mask
+    from apex_tpu_torch.parallel.ulysses import fold_seed
+
+    ranks = _cp_spawns(gpt_tp2, gpt_tp2_dp2)[cp]
+    s = 16 // cp
+    for r, out in enumerate(ranks):
+        want = cp_case["ref"][f"uly_dropout_{cp}"][:, r * s:(r + 1) * s]
+        np.testing.assert_allclose(out["uly_dropout"], want, rtol=0,
+                                   atol=1e-6)
+        # JAX's fold (ulysses.py): int32(uint32(seed) ^ (rank + 1) * phi)
+        jseed = (jnp.uint32(CP_SEED) ^ ((jnp.uint32(r) + jnp.uint32(1))
+                                        * jnp.uint32(0x9E3779B9))).astype(
+            jnp.int32)
+        assert fold_seed(CP_SEED, r) == int(jseed)
+        got = dropout_keep_mask(fold_seed(CP_SEED, r), 2, 4 // cp, 16, 16,
+                                CP_RATE).numpy()
+        np.testing.assert_array_equal(got, np.asarray(j_mask(
+            jseed, 2, 4 // cp, 16, 16, CP_RATE)))
+
+
+def test_ulysses_divisibility_errors_and_agreement_with_ring(gpt_tp2,
+                                                             gpt_tp2_dp2):
+    """The JAX ValueErrors (h % cp, then GQA neither way), and Ulysses
+    agrees with ring on every spawn."""
+    for cp, ranks in _cp_spawns(gpt_tp2, gpt_tp2_dp2).items():
+        for r in ranks:
+            heads, gqa = r["errors"]
+            assert "num_heads (3) divisible by the context axis size" \
+                f" ({cp})" in heads
+            assert "kv heads (3) divisible by cp" in gqa
+            _cp_close(r["uly_True"], r["ring_True"])
+
+
+# --------------------------------------------------------------------- #
+# tensor-parallel paged serving at tp 2
+# --------------------------------------------------------------------- #
+def _paged_cases(rng):
+    """The sharded-op cases: MHA (hk 4) and GQA (hk 2), chunk and
+    decode, the compute dtype and int8 pages."""
+    from apex_tpu_torch.ops.paged_attention import quantize_kv_pages
+
+    cases = {}
+    b, h, dd, nb, bs = 2, 4, 16, 7, 4
+    tables = np.array([[1, 2, 3], [4, 5, 6]], np.int32)
+    lengths = np.array([5, 9], np.int32)
+    for hk in (4, 2):
+        kp, vp = (rng.normal(size=(hk, nb, bs, dd)).astype(np.float32)
+                  for _ in range(2))
+        for quant in (None, "int8"):
+            pool = dict(k_pages=kp, v_pages=vp)
+            if quant:
+                kq, vq, ks, vs = quantize_kv_pages(
+                    torch.from_numpy(kp), torch.from_numpy(vp), quant)
+                pool = dict(k_pages=kq.numpy(), v_pages=vq.numpy(),
+                            k_scales=ks.numpy(), v_scales=vs.numpy())
+            tag = f"hk{hk}_{quant}"
+            cases["chunk_" + tag] = dict(
+                q=rng.normal(size=(b, 3, h, dd)).astype(np.float32),
+                tables=tables, lengths=lengths, **pool)
+            cases["decode_" + tag] = dict(
+                q=rng.normal(size=(b, 1, h, dd)).astype(np.float32),
+                k_new=rng.normal(size=(b, 1, hk, dd)).astype(np.float32),
+                v_new=rng.normal(size=(b, 1, hk, dd)).astype(np.float32),
+                tables=tables, lengths=lengths, max_seq_len=12, **pool,
+                **({"chunk_lens": np.ones(b, np.int32)} if quant else {}))
+    return cases
+
+
+SERVE_ENGINES = dict(
+    shared_spec=dict(max_slots=2, block_size=4, prefill_chunk=4,
+                     share_prefixes=True, spec_tokens=2),
+    int8=dict(max_slots=2, block_size=4, prefill_chunk=4, kv_dtype="int8"))
+
+
+@pytest.fixture(scope="module")
+def serve_case(gpt_case):
+    """The op cases, three greedy requests (two sharing a two-page
+    prefix) and the JAX ``generate()`` tokens of each prompt."""
+    from apex_tpu.models import generate as j_generate
+
+    jcfg, model, params, _, _, _ = gpt_case
+    rng = np.random.default_rng(13)
+    p1 = rng.integers(0, 128, 10).astype(np.int32)
+    p2 = np.concatenate([p1[:8], rng.integers(0, 128, 3)]).astype(np.int32)
+    p3 = rng.integers(0, 128, 5).astype(np.int32)
+    requests = [(p1, 6), (p2, 6), (p3, 5)]
+    want = [np.asarray(j_generate(model, {"params": params},
+                                  jnp.asarray(p[None]),
+                                  max_new_tokens=n))[0, len(p):].tolist()
+            for p, n in requests]
+    return dict(ops=_paged_cases(rng), requests=requests,
+                engines=SERVE_ENGINES, jax_tokens=want)
+
+
+def test_sharded_paged_ops_are_the_unsharded_slice_bitwise(gpt_tp2):
+    """Each rank on its kv heads of the pool and its q heads, as a
+    tensor-parallel layer calls the op: the output is the unsharded
+    op's slice of heads, and the fused decode step's written pages and
+    scales the slice of the unsharded pool, bitwise — MHA and GQA,
+    chunk and decode, float and int8 pages."""
+    for r in gpt_tp2:
+        ops = r["serve"]["ops"]
+        assert len(ops) == 8
+        for name, c in ops.items():
+            got, want = c["o"]
+            assert got.shape[2] == 2, name
+            np.testing.assert_array_equal(got, want, err_msg=name)
+            for g, w in c.get("pools", []):
+                np.testing.assert_array_equal(g, w, err_msg=name)
+            assert len(c.get("pools", [])) == (
+                0 if name.startswith("chunk") else
+                4 if name.endswith("int8") else 2)
+
+
+@pytest.mark.parametrize("engine", list(SERVE_ENGINES))
+def test_tp2_paged_engine_is_token_identical(serve_case, gpt_tp2, engine):
+    """The tiny GPT at tp 2 (each rank 2 of the 4 kv heads of every
+    page) through ``PagedEngine(mesh=tp_mesh(2))``, prefix sharing and
+    two drafts on: the same tokens on both ranks as the single-chip
+    engine and JAX ``generate()``; on int8 pages, as the single-chip
+    int8 engine."""
+    for r in gpt_tp2:
+        tp, single = r["serve"][engine], r["serve"][engine + "_single"]
+        assert tp["tokens"] == single["tokens"]
+        if engine != "int8":
+            assert tp["tokens"] == serve_case["jax_tokens"]
+        assert (tp["chips"], tp["mesh_shape"]) == (2, {"tensor": 2})
+        assert (single["chips"], single["mesh_shape"]) == (1, None)
+        assert tp["pool_heads"] == (2,) and single["pool_heads"] == (4,)
+        assert tp["blocks_in_use"] == 0
+        if engine == "shared_spec":
+            assert tp["spec_proposed"] == single["spec_proposed"] > 0
+
+
+def test_tp2_inference_server_serves_from_rank_zero(serve_case, gpt_tp2):
+    """``InferenceServer(kv_cache="paged", tp=2)``: rank 0 schedules and
+    streams the JAX tokens, rank 1 replays its records (and refuses a
+    request); both report 2 chips a replica and the mesh shape."""
+    r0, r1 = (r["serve"] for r in gpt_tp2)
+    assert r0["server"] == serve_case["jax_tokens"]
+    assert "requests enter on tensor rank 0" in r1["follower_submit"]
+    for r in (r0, r1):
+        h = r["health"]
+        assert (h["chips_per_replica"], h["mesh_shape"]) == (
+            2, {"tensor": 2})
+        assert h["blocks_in_use"] == 0 and h["error"] is None
+    assert r0["health"]["steps"] == r1["health"]["steps"] > 0

@@ -7,6 +7,8 @@ only torch, numpy and the port, so that a spawned rank stays light;
 the JAX side lives in the test files.
 """
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn as nn
@@ -198,9 +200,21 @@ def gpt_tp_checks(rank, world, d, tp, sequence_parallel):
     for cf, sd_moe in d.get("moe", {}).items():
         out[f"moe_{cf}"] = _moe_tp(ids, labels, sequence_parallel, cf,
                                    sd_moe, d["cfg"])
+    if "moe_nosp" in d:
+        out["moe_nosp"] = _moe_tp(ids, labels, False, 4.0, d["moe_nosp"],
+                                  d["cfg"])
+    if "moe_data" in d:
+        out["moe_data"] = _moe_data_axis(d["moe_data"])
+    if "moe_sp_data" in d:
+        out["moe_sp_data"] = _moe_gpt_data_axis(ids, labels,
+                                                d["moe_sp_data"], d["cfg"])
+    if "serve" in d:
+        out["serve"] = serving_checks(rank, d["serve"], d["sd"], d["cfg"])
     if d.get("pipe"):
         out["broadcast"] = _broadcast_checks(rank)
         out["pipe"] = pipeline_checks(rank, world, d["pipe"])
+    if "cp" in d:
+        out["cp"] = context_parallel_checks(rank, world, d["cp"])
     return out
 
 
@@ -609,3 +623,279 @@ def _zero_pipeline_step(d, mesh):
     return dict(losses=torch.stack(losses), stage=r,
                 params=[p.detach() for p in model.stages.parameters()],
                 layout=pl.pipeline_state_layout(state))
+
+
+# --------------------------------------------------------------------- #
+# the MoE expert axis over data, context parallelism
+# --------------------------------------------------------------------- #
+def _moe_data_axis(d):
+    """An MoE layer with ``expert_axis="data"`` on the current mesh
+    (tensor 2 x data 2): this data rank's batch rows, its block of the
+    experts; the output, the aux term and the gradients after the DDP
+    mean (the experts left out of it), the parameters after a ZeRO-2
+    FusedAdam step over data, and the same layer without a mesh on the
+    whole batch, its loss the data mean of the ranks', with a plain
+    FusedAdam step."""
+    from apex_tpu_torch.core import mesh as mesh_lib
+    from apex_tpu_torch.core.train_state import MixedPrecisionTrainState
+    from apex_tpu_torch.optim import fused_adam
+    from apex_tpu_torch.parallel.ddp import all_reduce_mean_grads
+    from apex_tpu_torch.parallel.distributed_optim import ZeroConfig
+    from apex_tpu_torch.transformer.moe import MoEConfig, MoEMLP
+
+    cfg = MoEConfig(**d["cfg"], expert_axis="data")
+    mesh = mesh_lib.get_mesh()
+    dp, r = mesh.axis_size("data"), mesh.axis_rank("data")
+    x, w = _t(d["x"]), _t(d["w"])
+
+    def run(layer, rows, n):
+        sd = {k: _t(v) for k, v in d["params"].items()}
+        if layer.ep_size > 1:
+            e = layer.w1.shape[0]
+            sd = {k: (v if k == "gate" else v[r * e:(r + 1) * e])
+                  for k, v in sd.items()}
+        layer.load_state_dict(sd)
+        y, aux = layer(x[rows])
+        ((y * w[rows]).sum() / n + aux).backward()
+        return y.detach(), aux.detach()
+
+    b = x.shape[0] // dp
+    layer = MoEMLP(cfg, device="cpu")
+    y, aux = run(layer, slice(r * b, (r + 1) * b), 1)
+    params = [p for _, p in layer.named_parameters()]
+    grads = all_reduce_mean_grads([p.grad for p in params], "data",
+                                  params=params)
+    names = [n for n, _ in layer.named_parameters()]
+    out = dict(y=y, aux=aux, grads=dict(zip(names, grads)),
+               ep=(layer.ep_size, layer.ep_rank),
+               axes=[getattr(p, "expert_axis", None) for p in params])
+    # one ZeRO-2 FusedAdam step over data: the experts stay out of the
+    # shards, updated whole from their mean gradient
+    state = MixedPrecisionTrainState.create(
+        model=layer, optimizer=fused_adam(1e-2),
+        zero=ZeroConfig(axis="data", stage=2))
+    state.apply_gradients()
+    out["zero_params"] = {n: p.detach().clone()
+                          for n, p in layer.named_parameters()}
+    with commons.without_mesh():
+        whole = MoEMLP(cfg, device="cpu")
+        wy, waux = run(whole, slice(None), dp)
+        out["whole"] = dict(y=wy, aux=waux, grads={
+            n: p.grad for n, p in whole.named_parameters()})
+        state = MixedPrecisionTrainState.create(
+            model=whole, optimizer=fused_adam(1e-2))
+        state.apply_gradients()
+        out["whole"]["params"] = {n: p.detach().clone()
+                                  for n, p in whole.named_parameters()}
+    return out
+
+
+def _moe_gpt_data_axis(ids, labels, sd, cfg):
+    """The tiny MoE GPT at tp 2 + SP with its experts over the data axis
+    (tensor 2 x data 2; the layer's whole-expert branch under SP): this
+    data rank's batch rows, the gradients averaged over data by
+    ``DistributedDataParallel.mean_grads([p.grad ...])`` as its
+    docstring calls it (no ``params=``) and the same reduction without
+    parameters refused; the unsharded model on the whole batch."""
+    from apex_tpu_torch.models import moe_aux_loss
+    from apex_tpu_torch.models.gpt import gpt_loss_fn
+    from apex_tpu_torch.parallel.ddp import (
+        DistributedDataParallel,
+        all_reduce_mean_grads,
+    )
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    kw = dict(cfg, device="cpu", state_dict={k: _t(v) for k, v in sd.items()},
+              sequence_parallel=True, num_moe_experts=4, moe_top_k=2,
+              moe_capacity_factor=1.25, moe_expert_axis="data")
+
+    def run(model, rows):
+        ce = gpt_loss_fn(model(ids[rows]).float(), labels[rows])
+        aux = moe_aux_loss(model)
+        (ce + aux).backward()
+        return dict(loss=ce.detach(), aux=aux.detach())
+
+    dp, r = ps.get_data_parallel_world_size(), ps.get_data_parallel_rank()
+    b = ids.shape[0] // dp
+    model = commons.standalone_gpt(**kw)
+    ddp = DistributedDataParallel()
+    ddp.replicate(model)
+    out = run(model, slice(r * b, (r + 1) * b))
+    names, params = zip(*model.named_parameters())
+    try:
+        all_reduce_mean_grads([p.grad for p in params], "data")
+    except ValueError as e:
+        out["refused"] = str(e)
+    out["grads"] = dict(zip(names, ddp.mean_grads([p.grad for p in params])))
+    out["axes"] = {n: getattr(p, "expert_axis", None)
+                   for n, p in zip(names, params)}
+    with commons.without_mesh():
+        whole = commons.standalone_gpt(**kw)
+        out["whole"] = run(whole, slice(None))
+        out["whole"]["grads"] = {n: p.grad
+                                 for n, p in whole.named_parameters()}
+    return out
+
+
+def _cp_run(fn, q, k, v, w, **kw):
+    """``fn(q, k, v, **kw)`` and the gradients of ``sum(o * w)``."""
+    xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = fn(*xs, **kw)
+    (o * w).sum().backward()
+    return o.detach(), [t.grad for t in xs]
+
+
+def context_parallel_checks(rank, world, d):
+    """Ring attention and Ulysses on a context mesh of ``world`` ranks
+    (and, on 4 ranks, context 2 x data 2): outputs and the whole inputs'
+    gradients of a weighted sum, causal and not, GQA, uneven lengths,
+    remat, windows, dropout on the local chunks, and the divisibility
+    errors."""
+    from apex_tpu_torch.parallel import (
+        ring_self_attention,
+        ulysses_attention,
+        ulysses_self_attention,
+    )
+
+    q, k, v, w = (_t(d[n]) for n in ("q", "k", "v", "w"))
+    mesh = _pipe_mesh(context_parallel_size=world)
+    run = functools.partial(_cp_run, q=q, k=k, v=v, w=w, mesh=mesh)
+    out = {}
+    for causal in (False, True):
+        out[f"ring_{causal}"] = run(ring_self_attention, causal=causal)
+        out[f"uly_{causal}"] = run(ulysses_self_attention, causal=causal)
+    out["ring_remat"] = run(ring_self_attention, causal=True, remat=True)
+    half = k.shape[1] // 2
+    out["ring_uneven"] = _cp_run(ring_self_attention, q, k[:, :half],
+                                 v[:, :half], w, mesh=mesh, causal=True)
+    out["uly_window"] = run(ulysses_self_attention, causal=True, window=5)
+    s = q.shape[1] // world
+    mine = slice(rank * s, (rank + 1) * s)
+    out["uly_dropout"] = ulysses_attention(
+        q[:, mine], k[:, mine], v[:, mine], "context", causal=True,
+        dropout_rate=d["rate"], dropout_seed=d["seed"], mesh=mesh)
+    errors = []
+    for qq, kk in ((q[:, :, :3], k[:, :, :1]), (q, k[:, :, :1].repeat(
+            1, 1, 3, 1))):
+        try:
+            ulysses_attention(qq[:, mine], kk[:, mine], kk[:, mine],
+                              mesh=mesh)
+        except ValueError as e:
+            errors.append(str(e))
+    out["errors"] = errors
+    if world == 4:
+        mesh = _pipe_mesh(context_parallel_size=2, data_parallel_size=2)
+        for name, fn in (("ring", ring_self_attention),
+                         ("uly", ulysses_self_attention)):
+            out[f"{name}_dp"] = _cp_run(fn, q, k, v, w, mesh=mesh,
+                                        causal=True, batch_spec="data")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# tensor-parallel paged serving (tp = world = 2)
+# --------------------------------------------------------------------- #
+def _paged_op_checks(mesh, cases):
+    """Each case through the paged op twice: on this rank's shard, as a
+    tensor-parallel layer calls it (its q heads from ``tp_head_shards``,
+    its kv heads of the pool and of the new rows), and on the whole
+    pool; returns ``(sharded, whole)`` pairs of the rank's output heads
+    and, for the fused decode step, of its written pages and scales."""
+    from apex_tpu_torch.models.jax_import import shard_paged_pool
+    from apex_tpu_torch.ops.paged_attention import (
+        paged_attention,
+        paged_decode_fused,
+        tp_head_shards,
+    )
+
+    tp, r = mesh.axis_size("tensor"), mesh.axis_rank("tensor")
+    names = dict(k_pages="key", v_pages="value", k_scales="key_scales",
+                 v_scales="value_scales")
+    out = {}
+    for name, c in cases.items():
+        c = {k: (torch.from_numpy(np.ascontiguousarray(v))
+                 if isinstance(v, np.ndarray) else v)
+             for k, v in c.items()}
+        h, hk = c["q"].shape[2], c["k_pages"].shape[0]
+        (qlo, qhi), (klo, khi) = tp_head_shards(h, hk, tp)[r]
+        # the rank's share of a one-layer pool, as an engine's cache
+        pool = shard_paged_pool({names[k]: c[k][None] for k in names
+                                 if k in c}, r, tp)
+        local = dict(c, **{k: pool[names[k]][0] for k in names if k in c})
+        local["q"] = c["q"][:, :, qlo:qhi]
+        for k in ("k_new", "v_new"):
+            if k in c:
+                local[k] = c[k][:, :, klo:khi]
+        whole = dict(c, **{k: c[k].clone() for k in names if k in c})
+        if "k_new" in c:
+            def op(a):
+                extra = {k: a[k] for k in ("k_scales", "v_scales",
+                                           "chunk_lens") if k in a}
+                return paged_decode_fused(
+                    a["q"], a["k_new"], a["v_new"], a["k_pages"],
+                    a["v_pages"], a["tables"], a["lengths"],
+                    max_seq_len=a["max_seq_len"], **extra)
+            got, want = op(local), op(whole)
+            out[name] = dict(o=(got[0], want[0][:, :, qlo:qhi]),
+                             pools=[(g, w[klo:khi])
+                                    for g, w in zip(got[1:], want[1:])])
+        else:
+            def op(a):
+                extra = {k: a[k] for k in ("k_scales", "v_scales") if k in a}
+                return paged_attention(a["q"], a["k_pages"], a["v_pages"],
+                                       a["tables"], a["lengths"], **extra)
+            out[name] = dict(o=(op(local), op(whole)[:, :, qlo:qhi]))
+    return out
+
+
+def _engine_tokens(model, requests, **kw):
+    """Greedy tokens of ``requests`` through a ``PagedEngine`` driven by
+    a scheduler to the end, and the engine's gauges."""
+    from apex_tpu_torch.serving import PagedEngine, Request, Scheduler
+
+    eng = PagedEngine(model, **kw)
+    sched = Scheduler(eng)
+    reqs = [sched.submit(Request(prompt=p, max_new_tokens=n))
+            for p, n in requests]
+    sched.drain()
+    return dict(tokens=[list(r.tokens) for r in reqs],
+                chips=eng.chips_per_replica, mesh_shape=eng.mesh_shape,
+                blocks_in_use=eng.blocks_in_use, cow_forks=eng.cow_forks,
+                spec_proposed=eng.spec_proposed,
+                pool_heads=tuple(eng.cache["key"].shape[1:2]))
+
+
+def serving_checks(rank, d, sd, cfg):
+    """The sharded paged op against the unsharded one; the tiny GPT's
+    ``PagedEngine`` at tp 2 (prefix sharing and drafts on; bf16-free,
+    int8 pages) and the single-chip engine; ``InferenceServer(tp=2)``
+    serving a few requests (rank 0 schedules, rank 1 follows)."""
+    from apex_tpu_torch.serving import InferenceServer, tp_mesh
+
+    mesh = tp_mesh(2)
+    out = {"ops": _paged_op_checks(mesh, d["ops"])}
+    sd = {k: _t(v) for k, v in sd.items()}
+    model = commons.standalone_gpt(device="cpu", state_dict=sd, **cfg)
+    with commons.without_mesh():
+        single = commons.standalone_gpt(device="cpu", state_dict=sd, **cfg)
+    reqs = [(np.asarray(p, np.int32), n) for p, n in d["requests"]]
+    for name, kw in d["engines"].items():
+        out[name] = _engine_tokens(model, reqs, mesh=mesh, **kw)
+        out[name + "_single"] = _engine_tokens(single, reqs, **kw)
+    srv = InferenceServer(model, kv_cache="paged", tp=2, max_slots=2,
+                          block_size=4, prefill_chunk=4,
+                          share_prefixes=True, spec_tokens=2)
+    srv.start()
+    if srv.tp_rank == 0:
+        handles = [srv.submit(p, max_new_tokens=n) for p, n in reqs]
+        out["server"] = [h.result(timeout=120) for h in handles]
+    else:
+        try:
+            srv.submit(reqs[0][0], max_new_tokens=1)
+        except ValueError as e:
+            out["follower_submit"] = str(e)
+    srv.shutdown()
+    out["health"] = {k: v for k, v in srv.health().items()
+                     if k in ("chips_per_replica", "mesh_shape", "status",
+                              "blocks_in_use", "steps", "error")}
+    return out
